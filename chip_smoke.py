@@ -6,17 +6,31 @@
 Phases, in order; any failure raises and the script exits nonzero:
   0. device: a CUDA card of compute capability 9.0; prints nvidia-smi's
      name and power limit;
-  1. build: compiles csrc/flash_attn_fwd.cu with nvcc for sm_90a;
-  2. kernel vs plain: the flash-attention kernel against its plain
-     PyTorch version at the slice's shapes (B=4, 32 heads of 128, bf16,
-     causal, left-padded masks with fully-masked rows), both timed with
-     CUDA events;
-  3. the slice: greedy R2R streaming evaluation (validate_streaming) of
-     the navigation model at Vicuna-7B width (bf16, random weights from a
-     seed) on a synthetic 8x8 grid world; every LLM layer of every step
+  1. build: compiles csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu
+     with nvcc for sm_90a, both at once;
+  2. kernel vs plain: the flash-attention forward kernel against its plain
+     PyTorch version at the eval slice's shapes (B=4, 32 heads of 128,
+     bf16, causal, left-padded masks with fully-masked rows), both timed
+     with CUDA events;
+  3. the eval slice: greedy R2R streaming evaluation (validate_streaming)
+     of the navigation model at Vicuna-7B width (bf16, random weights from
+     a seed) on a synthetic 8x8 grid world; every LLM layer of every step
      must go through the kernel;
   4. model-level A/B: one forward_navigation step through the kernel and
-     through the eager attention path on the same inputs.
+     through the eager attention path on the same inputs;
+  5. backward kernels vs plain: the dK/dV and dQ kernels against their
+     plain versions at the training slice's shapes (B = rows per grad
+     call, 32 heads of 128, bf16, causal, T in {640, 1024}, left-padded
+     masks with fully-masked rows), timed with CUDA events; and the
+     differentiable FlashAttention against autograd through the eager
+     path;
+  6. the training slice: R2R teacher-forcing training of the same 7B-width
+     model through train_one_epoch (stage pretrain, fused teacher, dropout
+     on, AdamW, gradient accumulation 2): a warm-up epoch, then 4 batches
+     of 8 episodes (2 optimizer steps); every LLM layer of every grad call
+     must go through the three kernels;
+  7. gradient A/B: one grad call through the kernels and through the eager
+     attention path, on the same inputs and weights with dropout off.
 The line before the last is {"kernels": [...]}, the last line is
 {"ok": true, "device": {...}}.
 """
@@ -32,9 +46,10 @@ import time
 import numpy as np
 import torch
 
-from navillm_tpu.data.loaders import Dataloader
+from navillm_tpu.data.loaders import Dataloader, MetaLoader
 from navillm_tpu.models.tokenization import NavTokenizer
 from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
 from navillm_tpu_torch.models.llama import LlamaConfig
@@ -42,20 +57,48 @@ from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
                                                 forward_navigation)
 from navillm_tpu_torch.models.pano_encoder import PanoConfig
 from navillm_tpu_torch.ops import _build
-from navillm_tpu_torch.ops.attention import (flash_attention_fwd,
-                                             flash_attention_fwd_reference)
+from navillm_tpu_torch.ops.attention import (
+    FlashAttention, attention_delta, attention_eager, flash_attention_bwd_dkv,
+    flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
+    flash_attention_bwd_dq_reference, flash_attention_fwd,
+    flash_attention_fwd_reference)
 from navillm_tpu_torch.ops.masking import NEG_INF
+from navillm_tpu_torch.training.optim import make_optimizer
+from navillm_tpu_torch.training.train_loop import (make_opt_step,
+                                                   train_one_epoch)
 
-KERNEL = {"name": "flash_attn_fwd", "route": "cuda",
-          "source": "navillm_tpu_torch/csrc/flash_attn_fwd.cu",
-          "replaces": "navillm_tpu/ops/attention.py:61"}
+KERNELS = {
+    "fwd": {"name": "flash_attn_fwd", "route": "cuda",
+            "source": "navillm_tpu_torch/csrc/flash_attn_fwd.cu",
+            "replaces": "navillm_tpu/ops/attention.py:61"},
+    "dkv": {"name": "flash_attn_bwd_dkv", "route": "cuda",
+            "source": "navillm_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": "navillm_tpu/ops/attention.py:183"},
+    "dq": {"name": "flash_attn_bwd_dq", "route": "cuda",
+           "source": "navillm_tpu_torch/csrc/flash_attn_bwd.cu",
+           "replaces": "navillm_tpu/ops/attention.py:234"},
+}
+COUNTERS = {"fwd": flash_attention_fwd, "dkv": flash_attention_bwd_dkv,
+            "dq": flash_attention_bwd_dq}
 # bf16 output of values of magnitude <= ~1: a few bf16 ulps
 O_ATOL = 3e-2
 # lse is f32 on both sides; scores differ only in summation order
 LSE_ATOL = 2e-3
+# bf16 gradients of magnitude up to ~8 (f32 sums on both sides, P and dS
+# rounded to bf16 in the same places): two bf16 ulps at the top of range
+GRAD_ATOL = 0.125
+# the 7B gradient through the kernels vs through eager attention
+MIN_GRAD_COSINE = 0.99
 N_EPISODES = 32
 N_SLOTS = 4
 MAX_ACTION_LEN = 10
+# training slice: 4 batches of 8 episodes, accumulation 2 -> 2 steps
+TRAIN_EPISODES = 32
+TRAIN_BATCH = 8
+ROWS_PER_CALL = 16
+# a batch's loss is its summed CE over steps / episodes: ~ln(#candidates)
+# per step at random init, far below this
+MAX_LOSS = 1e3
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -92,10 +135,13 @@ def phase_device() -> str:
 
 
 def phase_build():
-    built = _build.load("flash_attn_fwd")
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    print(f"[1] built {built.path.name} in {built.seconds:.2f} s; "
-          f"ptxas: {regs}")
+    t0 = time.perf_counter()
+    for built in _build.load_all(["flash_attn_fwd", "flash_attn_bwd"]):
+        regs = [ln.strip() for ln in built.log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"[1] built {built.path.name} in {built.seconds:.2f} s; "
+              f"ptxas: {regs}")
+    print(f"[1] both kernels built in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel():
@@ -158,7 +204,6 @@ def run_eval(agent, ds, args):
 
 
 def phase_slice(tok, cfg, model, tmp):
-    """Returns (kernel launches in the measured run, prompt widths)."""
     runner = NavModelRunner(cfg, model, tok, dims=RolloutDims(
         max_gmap_nodes=48, max_views=44, max_cands=12, max_hist=16))
     widths = []
@@ -206,7 +251,6 @@ def phase_slice(tok, cfg, model, tmp):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"SR {avg['sr']:.2f} SPL {avg['spl']:.2f}; kernel launches "
           f"{launches} = {steps} x {cfg.llm.num_layers}")
-    return launches, widths
 
 
 def phase_ab(cfg, model):
@@ -231,21 +275,240 @@ def phase_ab(cfg, model):
           f"argmax agreement {agree:.2f}")
 
 
+def phase_backward():
+    """Returns {T: {"dkv": (err, ms, plain_ms), "dq": (...)}}."""
+    b, nh, d = ROWS_PER_CALL, 32, 128
+    scale = 1.0 / math.sqrt(d)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for t in (640, 1024):
+        q, k, v, do = (torch.randn((b, t, nh, d), generator=gen,
+                                   device="cuda", dtype=torch.bfloat16)
+                       for _ in range(4))
+        # left padding from none to all but one key: under causal the
+        # first pads[i] rows of row i see no valid key
+        pads = torch.linspace(0, t - 1, b, device="cuda").long()
+        mask = torch.arange(t, device="cuda")[None, :] >= pads[:, None]
+        with torch.inference_mode():
+            o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
+                                         scale=scale)
+            delta = attention_delta(o, do)
+            args = (q, k, v, mask, lse, delta, do)
+            got = {"dkv": flash_attention_bwd_dkv(*args, causal=True,
+                                                  scale=scale),
+                   "dq": (flash_attention_bwd_dq(*args, causal=True,
+                                                 scale=scale),)}
+            want = {"dkv": flash_attention_bwd_dkv_reference(*args, True,
+                                                             scale),
+                    "dq": (flash_attention_bwd_dq_reference(*args, True,
+                                                            scale),)}
+            torch.cuda.synchronize()
+            res, top = {}, 0.0
+            for key, fn, ref in (
+                    ("dkv", flash_attention_bwd_dkv,
+                     flash_attention_bwd_dkv_reference),
+                    ("dq", flash_attention_bwd_dq,
+                     flash_attention_bwd_dq_reference)):
+                err = 0.0
+                for a, w in zip(got[key], want[key]):
+                    if not torch.isfinite(a).all():
+                        raise RuntimeError(f"T={t}: {key} kernel output is "
+                                           f"not finite")
+                    # causal + left padding: row i is valid iff key i is
+                    err = max(err, (a.float() - w.float()).abs()[mask]
+                              .max().item())
+                    top = max(top, w.float().abs()[mask].max().item())
+                ms = cuda_ms(lambda: fn(*args, causal=True, scale=scale))
+                plain_ms = cuda_ms(lambda: ref(*args, True, scale), iters=5)
+                res[key] = (err, ms, plain_ms)
+            rows = ~mask          # rows that see no valid key: dQ must be 0
+            if got["dq"][0][rows].float().abs().max().item() != 0.0:
+                raise RuntimeError(f"T={t}: fully-masked rows got a dQ")
+        print(f"[5] T={t}, B={b}: dK/dV max|err| {res['dkv'][0]:.3e}, dQ "
+              f"max|err| {res['dq'][0]:.3e} (tol {GRAD_ATOL}, |grad| up to "
+              f"{top:.2f}); dK/dV kernel {res['dkv'][1]:.4f} ms vs plain "
+              f"{res['dkv'][2]:.4f} ms; dQ kernel {res['dq'][1]:.4f} ms vs "
+              f"plain {res['dq'][2]:.4f} ms")
+        if max(res["dkv"][0], res["dq"][0]) > GRAD_ATOL:
+            raise RuntimeError(f"T={t}: a backward kernel disagrees with "
+                               f"its plain version")
+        out[t] = res
+    # the differentiable FlashAttention against autograd of the eager path
+    # (cotangent zero on rows that see no valid key, as in the model)
+    do = do * mask[:, :, None, None]
+    grads = []
+    for fn in (lambda *x: FlashAttention.apply(*x, mask, True, scale),
+               lambda *x: attention_eager(*x, mask, True, scale)):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*xs).backward(do)
+        grads.append([x.grad.float() for x in xs])
+    err = max((a - w).abs().max().item() for a, w in zip(*grads))
+    print(f"[5] FlashAttention vs autograd through attention_eager (T={t}): "
+          f"max|d(dq,dk,dv)| {err:.3e} (tol {GRAD_ATOL})")
+    if err > GRAD_ATOL:
+        raise RuntimeError("FlashAttention's gradient disagrees with the "
+                           "eager path's")
+    return out
+
+
+def phase_train(tok, cfg, model, tmp):
+    """Returns (kernel launches of the measured run, prompt widths, the
+    first grad call's arguments for phase 7)."""
+    # every unvisited node of the graph map is a candidate (max_cands =
+    # max_gmap_nodes - 1): a teacher target left out of the prompt would
+    # score NEG_INF and give a loss of ~1e29
+    dims = RolloutDims(max_gmap_nodes=48, max_views=44, max_cands=47,
+                       max_hist=16)
+    args = TrainArgs(stage="pretrain", image_feat_size=cfg.pano.image_feat_size,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     gradient_accumulation_step=2, seed=0)
+    runner = NavModelRunner(cfg, model, tok, dims=dims,
+                            feat_dropout=args.feat_dropout, seed=args.seed)
+    widths, losses, first_call, tokens = [], [], [], [0]
+    grad_call = runner.pano_navigation_train
+
+    def recorded_grad_call(pano_inputs, seed, batch, targets, coef):
+        widths.append(batch["input_ids"].shape[1])
+        # tokens of the rows that carry a target (not the chunk padding)
+        tokens[0] += int(batch["attention_mask"][
+            targets != args.ignoreid].sum())
+        if not first_call:
+            first_call.append((pano_inputs, seed, batch, targets, coef))
+        return grad_call(pano_inputs, seed, batch, targets, coef)
+
+    runner.pano_navigation_train = recorded_grad_call
+    config = T.train_config(MAX_ACTION_LEN)
+    tx = make_optimizer(dict(model.named_parameters()), lr=args.lr,
+                        num_warmup_steps=args.num_warmup_steps,
+                        grad_clip_norm=args.grad_clip_norm)
+    moments = sum(x.numel() * x.element_size()
+                  for st in (tx.mu, tx.nu) for x in st.values())
+
+    def epoch(root, n_episodes, seed):
+        anno = T.make_r2r_world(root, n_episodes=n_episodes, seed=seed,
+                                split="train")
+        agent, ds, loader = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+        train = agent.train
+
+        def recorded_train(*a, **kw):
+            loss = train(*a, **kw)
+            losses.append(loss)
+            return loss
+
+        agent.train = recorded_train
+        return train_one_epoch(
+            args, config, runner, tx, make_opt_step(tx),
+            MetaLoader({"R2R": (loader, 1.0)}), {"R2R": agent},
+            {"R2R": ds}, 0, None, num_batches=len(loader))
+
+    # warm-up epoch (cuBLAS handles, allocator) on its own small world
+    epoch(f"{tmp}/warm", 2 * TRAIN_BATCH, seed=1)
+    widths.clear()
+    losses.clear()
+    tokens[0] = 0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    runner.grad_calls = 0
+    t0 = time.perf_counter()
+    avg_loss, norms = epoch(f"{tmp}/main", TRAIN_EPISODES, seed=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    calls, layers = runner.grad_calls, cfg.llm.num_layers
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    n_batches = TRAIN_EPISODES // TRAIN_BATCH
+    if len(losses) != n_batches or not all(
+            math.isfinite(float(x)) and 0 < float(x) < MAX_LOSS
+            for x in losses):
+        raise RuntimeError(f"losses {[float(x) for x in losses]}: not all "
+                           f"finite and in (0, {MAX_LOSS})")
+    norms = [float(n) for n in norms]
+    if len(norms) != n_batches // args.gradient_accumulation_step or not all(
+            math.isfinite(n) and n > 0 for n in norms):
+        raise RuntimeError(f"global gradient norms {norms}")
+    if launches["dkv"] != calls * layers or launches["dq"] != calls * layers:
+        raise RuntimeError(f"backward launches {launches} != {calls} grad "
+                           f"calls x {layers} layers")
+    # remat: each grad call runs every layer's forward once, and once more
+    # when the backward recomputes the layer, so K1 launches twice per
+    # layer; the pano encoder's attention is eager and launches none
+    if launches["fwd"] != 2 * calls * layers:
+        raise RuntimeError(f"forward launches {launches['fwd']} != 2 x "
+                           f"{calls} grad calls x {layers} layers")
+    tokens = tokens[0]
+    print(f"[6] trained {TRAIN_EPISODES} episodes in {dt:.3f} s = "
+          f"{TRAIN_EPISODES / dt:.3f} episodes/s; {len(norms)} optimizer "
+          f"steps, {1e3 * dt / len(norms):.1f} ms wall per step; {calls} "
+          f"grad calls of {ROWS_PER_CALL} rows, prompt widths "
+          f"{sorted(set(widths))}; {tokens} trained tokens = "
+          f"{tokens / dt:.0f} tokens/s; peak memory {peak:.2f} GiB "
+          f"(AdamW moments {moments / 2 ** 30:.2f} GiB); losses "
+          f"{[round(float(x), 4) for x in losses]} (mean {avg_loss:.4f}); "
+          f"grad norms {[round(n, 4) for n in norms]}; launches {launches}")
+    del tx
+    return launches, widths, first_call[0]
+
+
+def phase_grad_ab(tok, cfg, model, call):
+    """One grad call through the kernels and through eager attention."""
+    last = cfg.llm.num_layers - 1
+    watch = {"llm.layers.wq[0]": lambda m: m.llm.layers.wq.grad[0],
+             f"llm.layers.wq[{last}]": lambda m: m.llm.layers.wq.grad[last],
+             "out_head.w": lambda m: m.out_head.w.grad,
+             "pano.mapper.w": lambda m: m.pano.mapper.w.grad}
+    res = {}
+    for impl in ("auto", "eager"):
+        cfg_i = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, attn_impl=impl),
+            pano=dataclasses.replace(cfg.pano, hidden_dropout_prob=0.0))
+        runner = NavModelRunner(cfg_i, model, tok, feat_dropout=0.0)
+        runner.zero_grads()
+        loss = float(runner.pano_navigation_train(*call))
+        res[impl] = (loss, {k: f(model).float().clone()
+                            for k, f in watch.items()})
+    (lk, gk), (le, ge) = res["auto"], res["eager"]
+    print(f"[7] one grad call of {ROWS_PER_CALL} rows: loss kernel {lk:.6f} "
+          f"eager {le:.6f} (diff {abs(lk - le):.3e})")
+    for name in watch:
+        a, w = gk[name].flatten(), ge[name].flatten()
+        rel = ((a - w).norm() / w.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(a, w, dim=0).item()
+        print(f"[7] {name}: rel L2 err {rel:.3e}, cosine {cos:.6f} "
+              f"(|g| {w.norm().item():.4e})")
+        if not cos >= MIN_GRAD_COSINE:
+            raise RuntimeError(f"{name}: gradient cosine {cos} < "
+                               f"{MIN_GRAD_COSINE}")
+
+
 def main():
     smi = phase_device()
     phase_build()
     kernel = phase_kernel()
     tok, cfg, model = model_7b()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, widths = phase_slice(tok, cfg, model, tmp)
+        phase_slice(tok, cfg, model, tmp)
     phase_ab(cfg, model)
-    # report the kernel's time at the phase-2 width nearest the slice's
-    # median prompt width
-    t = min(kernel, key=lambda w: abs(w - float(np.median(widths))))
-    err = max(e for e, _, _ in kernel.values())
-    print(json.dumps({"kernels": [{**KERNEL, "launches": launches,
-                                   "max_abs_err": err, "ms": kernel[t][1],
-                                   "plain_ms": kernel[t][2]}]}))
+    bwd = phase_backward()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, widths, call = phase_train(tok, cfg, model, tmp)
+    phase_grad_ab(tok, cfg, model, call)
+    # report each kernel's time at the width nearest the training slice's
+    # median prompt width (phase 2 for the forward, phase 5 for the rest)
+    med = float(np.median(widths))
+    t1 = min(kernel, key=lambda w: abs(w - med))
+    t2 = min(bwd, key=lambda w: abs(w - med))
+    rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
+             "max_abs_err": max(e for e, _, _ in kernel.values()),
+             "ms": kernel[t1][1], "plain_ms": kernel[t1][2]}]
+    for key in ("dkv", "dq"):
+        rows.append({**KERNELS[key], "launches": launches[key],
+                     "max_abs_err": max(r[key][0] for r in bwd.values()),
+                     "ms": bwd[t2][key][1], "plain_ms": bwd[t2][key][2]})
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

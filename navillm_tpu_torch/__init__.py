@@ -7,9 +7,11 @@ its host layer (sim, feature DB, metrics, loaders, tokenizer) is imported
 from navillm_tpu where that module's import chain is numpy-only.
 
 What runs today: greedy R2R streaming evaluation (agents/mp3d_agent.py
-R2RAgent.validate_streaming) through the device-memory eval step, with
-every Llama layer's attention in the hand-written CUDA kernel
-csrc/flash_attn_fwd.cu. It serves only, with no gradients.
+R2RAgent.validate_streaming) through the device-memory eval step, and R2R
+teacher-forcing training (training/train_loop.py train_one_epoch ->
+R2RAgent.train -> agents/fused_teacher.py) with AdamW. Every Llama
+layer's attention runs in hand-written CUDA kernels: the forward in
+csrc/flash_attn_fwd.cu, its gradient in csrc/flash_attn_bwd.cu.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Device-resident rollout memory and the fused eval step.
 
-Torch twin of navillm_tpu/agents/device_memory.py (uncached path). Per
+Torch twin of navillm_tpu/agents/device_memory.py (uncached path), and of
+the body of the fused trainer's scanned replay (``replay_fuse``). Per
 episode slot the device keeps
   mem_sum [B, M, H], mem_cnt [B, M] — mean-pooled node embeddings keyed
       by the episode graph's stable node index;
@@ -141,3 +142,30 @@ def eval_step(params, cfg, state: State, pano_in, batch, reset_mask, cur_ids,
     state = hist_append(state, fuse,
                         torch.where(active_mask, a_t, torch.full_like(a_t, -1)))
     return state, a_t, logits
+
+
+def replay_fuse(params, cfg, state: State, pe_grid, pm_grid, cur_ids,
+                cand_ids, slot_ids, fuse_sts, acts):
+    """Replay a trajectory batch on the device, step by step (twin of the
+    runner's scanned replay_fuse_scan_fn): memory update -> gmap/vp
+    assembly -> graph/local fusion -> history append.
+
+    pe_grid [T, B, V, H]; pm_grid [T, B, V]; cur_ids [T, B]; cand_ids
+    [T, B, V]; slot_ids [T, B, G]; fuse_sts: dict of [T, B, ...] fusion
+    inputs; acts [T, B] (-1 = no history append). Returns (gmap_seq
+    [T, B, G, H], hist_seq [T, B, Hh, H], final_state), hist_seq[t] being
+    the history before step t's append. Nothing here is differentiated:
+    graph memory and history are detached inputs of the loss pass."""
+    gmaps, hists = [], []
+    for t in range(pe_grid.shape[0]):
+        state = memory_update(state, pe_grid[t], pm_grid[t], cur_ids[t],
+                              cand_ids[t])
+        gmap, vp = assemble_from_memory(state, slot_ids[t], pe_grid[t])
+        full = {k: v[t] for k, v in fuse_sts.items()}
+        full["gmap_img_embeds"] = gmap
+        full["vp_img_embeds"] = vp
+        fuse, _ = NM.fuse_gmap_local(params, cfg, full)
+        gmaps.append(gmap)
+        hists.append(state["hist_buf"])
+        state = hist_append(state, fuse, acts[t])
+    return torch.stack(gmaps), torch.stack(hists), state

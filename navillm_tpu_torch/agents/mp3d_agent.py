@@ -1,14 +1,16 @@
-"""Eval-only R2R agent: greedy streaming evaluation on the port's runner.
+"""R2R agent: greedy streaming evaluation and teacher-forcing training.
 
-Torch twin of navillm_tpu/agents/mp3d_agent.py on the path that greedy R2R
-streaming evaluation takes: device graph memory, no prefix cache, argmax
-actions. It carries the fixed-shape input assembly of the JAX agent
-(``panorama_inputs``, ``nav_gmap_inputs``, ``nav_vp_inputs``,
-``local_match_slots``, ``cand_order_and_prompts``) and its sim step
-(``make_equiv_action``), which are host numpy code, copied because the
-JAX agent module imports jax. The rest of the JAX agent (training, the
-batched rollout, OG, generation, EQA, sampling, the prefix cache) is not
-ported: asking for it raises NotImplementedError.
+Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: greedy R2R
+streaming evaluation (device graph memory, no prefix cache, argmax
+actions) and ``train`` through the fused teacher
+(agents/fused_teacher.py). It carries the fixed-shape input assembly of
+the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
+``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``),
+its expert (``teacher_action``) and its sim step (``make_equiv_action``),
+which are host numpy code, copied because the JAX agent module imports
+jax. The rest of the JAX agent (DAgger training, the per-step and batched
+rollouts, OG, generation, EQA, sampling, the prefix cache) is not ported:
+asking for it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -40,6 +42,24 @@ class EvalArgs:
     enable_og: bool = False
     enable_summarize: bool = False
     mode: str = "train"
+
+
+@dataclasses.dataclass
+class TrainArgs(EvalArgs):
+    """The run flags teacher-forcing training reads, with the names and
+    defaults of navillm_tpu.utils.config.TrainArgs."""
+    stage: str = "multi"              # pretrain | multi
+    lr: float = 1e-5
+    feat_dropout: float = 0.4
+    num_warmup_steps: int = 0
+    gradient_accumulation_step: int = 2
+    grad_clip_norm: float = 40.0
+    ignoreid: int = -100
+    teacher_forcing_coef: float = 1.0
+    enable_fgr2r: bool = False
+    fused_teacher: bool = True
+    fused_rows_per_call: int = 48
+    rank: int = 0
 
 
 def get_results(pred_results: Dict[str, dict]) -> List[dict]:
@@ -208,6 +228,45 @@ class R2RAgent:
                 cls_token=CLS_TOKEN_TEXT))
         return order, prompts, cand_nums
 
+    def teacher_action(self, obs, vpids, ended, visited_masks=None,
+                       imitation_learning=False, t=None) -> np.ndarray:
+        """Expert action per row (twin of teacher_action): under imitation
+        learning on R2R the next ground-truth node, else the unvisited
+        node minimising d(cur, v) + d(v, goal); ignoreid for ended rows."""
+        a = np.zeros(len(obs), np.int64)
+        for i, ob in enumerate(obs):
+            if ended[i]:
+                a[i] = self.args.ignoreid
+                continue
+            if imitation_learning and "r2r" in ob["instr_id"]:
+                if ob["viewpoint"] != ob["gt_path"][t]:
+                    raise ValueError(f"{ob['instr_id']} left its ground-truth "
+                                     f"path at step {t}")
+                if t == len(ob["gt_path"]) - 1:
+                    a[i] = 0
+                else:
+                    goal = ob["gt_path"][t + 1]
+                    for j, vpid in enumerate(vpids[i]):
+                        if vpid == goal:
+                            a[i] = j
+                            break
+            elif ob["viewpoint"] == ob["gt_path"][-1]:
+                a[i] = 0
+            else:
+                dist = self.world.graph(ob["scan"]).distance
+                cur, goal = ob["viewpoint"], ob["gt_path"][-1]
+                min_idx, min_dist = self.args.ignoreid, float("inf")
+                for j, vpid in enumerate(vpids[i]):
+                    if j == 0 or vpid is None:
+                        continue
+                    if visited_masks is not None and visited_masks[i][j]:
+                        continue
+                    d = dist(vpid, goal) + dist(cur, vpid)
+                    if d < min_dist:
+                        min_dist, min_idx = d, j
+                a[i] = min_idx
+        return a
+
     def make_equiv_action(self, a_t_vpids, gmaps, obs, traj, envs):
         """Append the graph path and teleport the sim."""
         for i, ob in enumerate(obs):
@@ -224,6 +283,27 @@ class R2RAgent:
             heading = (viewidx % 12) * math.radians(30)
             elevation = (viewidx // 12 - 1) * math.radians(30)
             envs[i].new_episode(0, ob["scan"], action, heading, elevation)
+
+    # ---------------- training ------------------------------------------ #
+    def train(self, name, batch, args, config, dataset, step=0):
+        """One training batch (twin of MP3DAgent.train). The teacher half
+        runs the fused teacher; returns its loss (a device scalar) times
+        gradient_accumulation_step, as the JAX agent does."""
+        stage_cfg = config.Pretrain if args.stage == "pretrain" \
+            else config.Multi
+        loss_coef = (getattr(stage_cfg, "LOSS_COEF", None) or {}) \
+            .get(name, 1.0)
+        if not (args.stage == "pretrain" or step % 2 == 0):
+            raise NotImplementedError(
+                "DAgger (sample-feedback) training is not ported yet: run "
+                "stage='pretrain', where every step is teacher forcing")
+        if not args.fused_teacher:
+            raise NotImplementedError("only the fused teacher is ported")
+        from .fused_teacher import rollout_teacher_fused
+        loss, _ = rollout_teacher_fused(
+            self, args, name, config.Optim, batch, dataset=dataset,
+            train_ml=loss_coef * args.teacher_forcing_coef)
+        return loss * args.gradient_accumulation_step
 
     # ---------------- continuous-refill streaming evaluation ----------- #
     def validate_streaming(self, name, args, config, loader, dataset=None):

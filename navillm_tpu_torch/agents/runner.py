@@ -1,24 +1,33 @@
-"""NavModelRunner: the device entry points of the streaming evaluator.
+"""NavModelRunner: the device entry points of evaluation and training.
 
 Torch twin of the surface of navillm_tpu/agents/runner.py that greedy
-R2R streaming evaluation uses: ``cfg``, ``tok``, ``dims``,
-``device_memory``, ``memory_init``, ``eval_step``,
-``tokenize_with_positions``, ``prefix_cache_enabled`` and the
-``llm_token_units`` counter. Host arrays go up through pinned buffers
-with non-blocking copies, so uploading one slot group's step never waits
-for the other group's step running on the card.
+R2R streaming evaluation and fused teacher-forcing training use: ``cfg``,
+``tok``, ``dims``, ``device_memory``, ``memory_init``, ``eval_step``,
+``tokenize_with_positions``, ``prefix_cache_enabled``, the
+``llm_token_units`` counter, and for training ``zero_grads`` /
+``take_grads``, ``panorama_dev_dict``, ``replay_fuse_scan`` and
+``pano_navigation_train``. Host arrays go up through pinned buffers with
+non-blocking copies, so uploading one slot group's step never waits for
+the other group's step running on the card.
+
+Randomness: jax.random keys become torch.Generators. The runner draws one
+seed per dropout-bearing call from its own host generator; a call seeded
+the same way (the fused trainer's phase-2 panorama and its phase-5
+recompute) draws the same dropout masks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from navillm_tpu.models.tokenization import NavTokenizer
 
+from ..models import nav_model as NM
 from ..models.nav_model import NavModel, NavModelConfig
+from ..models.pano_encoder import dropout, forward_panorama
 from . import device_memory as DM
 
 # device graph-memory node capacity (ids beyond it are not memorized)
@@ -60,9 +69,13 @@ class HostCopy:
 
 
 class NavModelRunner:
+    PANO_KEYS = ("view_img_fts", "view_lens", "loc_fts", "nav_types")
+
     def __init__(self, cfg: NavModelConfig, model: NavModel,
                  tokenizer: NavTokenizer, dims: RolloutDims = RolloutDims(),
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 feat_dropout: float = 0.4, ignore_id: int = -100,
+                 seed: int = 0):
         self.cfg = cfg
         self.model = model
         self.tok = tokenizer
@@ -70,10 +83,19 @@ class NavModelRunner:
         self.device = torch.device(device) if device is not None \
             else next(model.parameters()).device
         self.device_memory = True
-        # UNPADDED (mask-summed) token count forwarded through the LLM
+        self.feat_dropout = feat_dropout
+        self.ignore_id = ignore_id
+        self.rng = torch.Generator().manual_seed(seed)
+        # True between zero_grads() and take_grads()
+        self.grads_open = False
+        # UNPADDED (mask-summed) token count forwarded through the LLM, in
+        # forward-equivalents (a fwd+bwd call counts 3x its tokens)
         self.llm_token_units = 0.0
         # fused eval steps dispatched (each runs every LLM layer once)
         self.eval_steps = 0
+        # navigation loss+grad calls (each runs every LLM layer forward,
+        # recomputed forward under remat, and backward)
+        self.grad_calls = 0
 
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
@@ -84,6 +106,114 @@ class NavModelRunner:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    def next_seed(self) -> int:
+        """A fresh dropout seed from the runner's generator."""
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self.rng))
+
+    def generator(self, seed: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    # ------------------------------------------------------- training --- #
+    def zero_grads(self):
+        """Open a gradient-accumulation window: every parameter trains and
+        its .grad, kept in the parameter's dtype as the JAX accumulator is,
+        starts at zero (buffers are reused from the last window)."""
+        for p in self.model.parameters():
+            p.requires_grad_(True)
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            else:
+                p.grad.zero_()
+        self.grads_open = True
+
+    def take_grads(self) -> Dict[str, torch.Tensor]:
+        """Close the window; {name: accumulated gradient} under the JAX
+        names (the .grad tensors themselves, not copies)."""
+        self.grads_open = False
+        return {n: p.grad for n, p in self.model.named_parameters()}
+
+    def _pano_dev_inputs(self, pano_inputs) -> Dict[str, torch.Tensor]:
+        return {k: (v if torch.is_tensor(v) else self.upload(v))
+                for k, v in pano_inputs.items() if k in self.PANO_KEYS}
+
+    def pano_apply(self, pano_dev, generator: Optional[torch.Generator],
+                   deterministic: bool) -> Dict[str, torch.Tensor]:
+        """Feature dropout + panorama forward (twin of pano_apply): the
+        view features are dropped at feat_dropout, then the encoder runs
+        in training mode, both drawing from ``generator``."""
+        view = pano_dev["view_img_fts"]
+        if not deterministic and self.feat_dropout > 0:
+            view = dropout(view, self.feat_dropout, generator)
+        return forward_panorama(self.model["pano"], self.cfg.pano, view,
+                                pano_dev["view_lens"],
+                                loc_fts=pano_dev["loc_fts"],
+                                nav_types=pano_dev["nav_types"],
+                                generator=generator,
+                                training=not deterministic)
+
+    def panorama_dev_dict(self, pano_inputs, deterministic: bool,
+                          seed: Optional[int] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """Panorama outputs left on the device, without a graph."""
+        seed = self.next_seed() if seed is None else seed
+        with torch.no_grad():
+            return self.pano_apply(self._pano_dev_inputs(pano_inputs),
+                                   self.generator(seed), deterministic)
+
+    def replay_fuse_scan(self, pe_chunks: Sequence[torch.Tensor], live_rows,
+                         t_pad: int, pm_grid, cur_ids, cand_ids, slot_ids,
+                         fuse_sts, acts):
+        """Scatter the fixed-width [chunk, V, H] pano chunks onto the
+        [T*B] step grid (live_rows maps each chunk row to its grid row,
+        padding rows to a trash row past the grid), then replay memory,
+        fusion and history on the device (device_memory.replay_fuse).
+        Returns (gmap_flat [T*B, G, H], hist_flat [T*B, Hh, H],
+        final_state), all on the device."""
+        t_pad, b = np.asarray(cur_ids).shape
+        chunk, v, h = pe_chunks[0].shape
+        grid = torch.zeros((t_pad * b + 1, v, h), dtype=pe_chunks[0].dtype,
+                           device=self.device)
+        for ci, pe in enumerate(pe_chunks):
+            grid[self.upload(live_rows[ci * chunk: (ci + 1) * chunk])] = pe
+        pe_grid = grid[:t_pad * b].reshape(t_pad, b, v, h)
+        with torch.no_grad():
+            gmap_seq, hist_seq, final = DM.replay_fuse(
+                self.model, self.cfg, self.memory_init(b), pe_grid,
+                self.upload(pm_grid), self.upload(cur_ids),
+                self.upload(cand_ids), self.upload(slot_ids),
+                {k: self.upload(x) for k, x in fuse_sts.items()},
+                self.upload(acts))
+        return (gmap_seq.reshape(t_pad * b, -1, h),
+                hist_seq.reshape(t_pad * b, -1, h), final)
+
+    def pano_navigation_train(self, pano_inputs, seed: int, batch, targets,
+                              coef: float) -> torch.Tensor:
+        """One navigation loss+grad call, one autograd graph: panorama
+        with dropout (seeded by ``seed``) -> forward_navigation ->
+        navigation_loss * coef -> backward into the params' .grad.
+        batch holds host arrays and device tensors (gmap_img_embeds,
+        hist_embeds); the stop row is prepended to the pano embeds here.
+        Returns the loss as a device scalar: no host sync."""
+        if not self.grads_open:
+            raise RuntimeError("call zero_grads() before a training call")
+        self.llm_token_units += 3.0 * float(
+            np.asarray(batch["attention_mask"]).sum())
+        self.grad_calls += 1
+        pano_dev = self._pano_dev_inputs(pano_inputs)
+        dev = {k: (v if torch.is_tensor(v) else self.upload(v))
+               for k, v in batch.items()}
+        with torch.enable_grad():
+            pe = self.pano_apply(pano_dev, self.generator(seed),
+                                 False)["pano_embeds"]
+            stop = pe.new_zeros((pe.shape[0], 1, pe.shape[2]))
+            dev["vp_img_embeds"] = torch.cat([stop, pe], dim=1)
+            logits = NM.forward_navigation(self.model, self.cfg,
+                                           dev)["fuse_logits"]
+            loss = NM.navigation_loss(logits, self.upload(targets),
+                                      self.ignore_id) * coef
+            loss.backward()
+        return loss.detach()
 
     def memory_init(self, batch: int, capacity: int = None):
         return DM.init_memory(batch, capacity or MEM_CAPACITY,
@@ -108,11 +238,7 @@ class NavModelRunner:
             raise NotImplementedError("sampled decoding is not ported")
         if a_t_override is None:
             a_t_override = np.full(len(cur_ids), -1, np.int32)
-        view = pano_inputs["view_img_fts"]
-        pano = {"view_img_fts": view if torch.is_tensor(view)
-                else self.upload(view),
-                **{k: self.upload(pano_inputs[k])
-                   for k in ("view_lens", "loc_fts", "nav_types")}}
+        pano = self._pano_dev_inputs(pano_inputs)
         dev = {k: self.upload(v) for k, v in batch.items()}
         self.llm_token_units += float(np.asarray(batch["attention_mask"]).sum())
         self.eval_steps += 1

@@ -5,6 +5,9 @@
   navillm_tpu's ``init_nav_params`` / ``init_pano_params`` /
   ``llama.weight_spec`` build it, and returns the same tree as torch
   tensors, so both packages compute the same function.
+- ``flatten_tree`` / ``grads_to_numpy`` name every leaf of a nested tree,
+  and every gradient of a model, by its dotted JAX path (``llm.layers.wq``),
+  so gradient trees compare leaf by leaf.
 - ``init_nav_params`` draws a fresh tree with the JAX init's shapes and
   scales straight on the target device in the config's dtypes (the 7B
   tree in bf16 on the card, never staged in f32 on the host). Torch's
@@ -35,6 +38,27 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     return {k: (params_from_jax(v, device) if isinstance(v, dict)
                 else _tensor(v, device)) for k, v in tree.items()}
+
+
+def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> {"a.b.c": leaf}, the names ParamTree's
+    named_parameters() gives the same leaves."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def grads_to_numpy(model) -> Dict[str, np.ndarray]:
+    """{dotted name: gradient as f32 numpy} for every parameter of a
+    ParamTree (zeros where a parameter has no gradient)."""
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().float().cpu().numpy()
+            for n, p in model.named_parameters()}
 
 
 class _Init:

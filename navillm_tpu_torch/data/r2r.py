@@ -1,4 +1,4 @@
-"""Eval-only R2R dataset for the port.
+"""R2R dataset for the port (evaluation and training splits).
 
 Follows navillm_tpu/data/datasets/mp3d_base.py (annotations, __getitem__,
 collate_batch, make_candidate, get_obs) and r2r.py (instruction split,
@@ -6,13 +6,16 @@ SR/SPL eval) for the R2R navigation task. It exists because the JAX
 dataset package imports navillm_tpu.utils, whose config module needs
 pyyaml; everything it builds on (the sim, the feature DBs, the metrics)
 is imported from navillm_tpu. Instead of a task config it takes the
-annotation file and a WorldModel.
+annotation file of its split and a WorldModel; ``training`` names the
+split "train", as mp3d_base does, and changes nothing else for R2R
+(otherwise the split is the file's stem).
 """
 from __future__ import annotations
 
 import copy
 import json
 from collections import defaultdict
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -26,8 +29,10 @@ class R2RDataset:
     name = "r2r"
 
     def __init__(self, anno_file, world: WorldModel,
-                 angle_feat_size: int = 4, debug: bool = False):
+                 angle_feat_size: int = 4, debug: bool = False,
+                 training: bool = False):
         self.angle_feat_size = angle_feat_size
+        self.split = "train" if training else Path(anno_file).stem
         self.alldata, self.gt_trajs = self.load_data(anno_file, debug=debug)
         self.scans = sorted({x["scan"] for x in self.alldata})
         self.world = world

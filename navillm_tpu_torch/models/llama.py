@@ -1,10 +1,12 @@
 """Llama (Vicuna backbone), dense weights, as torch functions + a module.
 
-Torch twin of navillm_tpu/models/llama.py for the serving path: the
+Torch twin of navillm_tpu/models/llama.py for serving and training: the
 stacked per-layer weights [L, ...] keep the JAX names (``weight_spec``),
 the layer scan becomes a loop, and every layer's attention goes through
-ops/attention.py:multi_head_attention (the CUDA flash kernel on the card).
+ops/attention.py:multi_head_attention (the CUDA flash kernels on the card).
 Cast order follows the JAX code so bf16 runs round in the same places.
+With ``remat`` (the JAX default) and grad enabled, each layer runs under
+activation checkpointing, as ``jax.checkpoint`` wraps the scanned layer.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
 from .params import ParamTree
@@ -33,6 +36,7 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True        # recompute each layer in the backward
     attn_impl: str = "auto"   # auto | kernel | eager (ops/attention.py)
 
     @property
@@ -52,6 +56,7 @@ class LlamaConfig:
         kw.setdefault("num_kv_heads", 4)
         kw.setdefault("max_seq_len", 512)
         kw.setdefault("dtype", torch.float32)
+        kw.setdefault("remat", False)
         return cls(vocab_size=vocab_size, **kw)
 
 
@@ -126,21 +131,56 @@ def _layer(cfg: LlamaConfig, x, lp, cos, sin, kv_mask, attn_impl):
     return _post_attn(cfg, x, lp, attn)
 
 
+class _StackSlice(torch.autograd.Function):
+    """stack[i] of a trained [L, ...] weight stack. Its backward adds the
+    slice's gradient into stack.grad[i] in place: the stock select backward
+    would build a zero-filled gradient of the whole stack for each of the L
+    layers (1 GB each for wq at 7B)."""
+
+    @staticmethod
+    def forward(ctx, stack, i: int):
+        ctx.stack, ctx.i = stack, i
+        return stack[i]
+
+    @staticmethod
+    def backward(ctx, grad):
+        stack = ctx.stack
+        if stack.grad is None:
+            stack.grad = torch.zeros_like(stack)
+        stack.grad[ctx.i] += grad
+        return None, None
+
+
+def _layer_weights(layers, i: int):
+    train = torch.is_grad_enabled()
+    return {k: (_StackSlice.apply(layers[k], i)
+                if train and layers[k].requires_grad else layers[k][i])
+            for k in LAYER_KEYS}
+
+
 def forward_hidden(params, cfg: LlamaConfig, inputs_embeds, attention_mask,
                    positions: Optional[torch.Tensor] = None):
     """Run the transformer stack; returns hidden [B, T, H].
 
     attention_mask: [B, T] validity over keys; positions default to
-    cumsum(mask)-1 clipped at 0 (correct under left padding)."""
+    cumsum(mask)-1 clipped at 0 (correct under left padding). Under grad
+    with cfg.remat, a layer keeps only its input and is recomputed in the
+    backward (the layer holds no randomness, so no RNG state is kept)."""
     if positions is None:
         positions = torch.cumsum(attention_mask.int(), -1) - 1
         positions = positions.clamp(min=0)
     cos, sin = rope_tables(cfg, positions)
     x = inputs_embeds.to(cfg.dtype)
     layers = params["layers"]
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(layers["wq"].shape[0]):
-        lp = {k: layers[k][i] for k in LAYER_KEYS}
-        x = _layer(cfg, x, lp, cos, sin, attention_mask, cfg.attn_impl)
+        lp = _layer_weights(layers, i)
+        if remat:
+            x = checkpoint(_layer, cfg, x, lp, cos, sin, attention_mask,
+                           cfg.attn_impl, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer(cfg, x, lp, cos, sin, attention_mask, cfg.attn_impl)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 

@@ -1,4 +1,4 @@
-"""NavModel: LLM + panorama encoder + navigation head (eval path).
+"""NavModel: LLM + panorama encoder + navigation head, and its loss.
 
 Torch twin of the navigation mode of navillm_tpu/models/nav_model.py.
 The JAX scatters keep their semantics: ``.at[].add`` with repeated
@@ -131,6 +131,19 @@ def forward_navigation(params, cfg: NavModelConfig, batch: Dict[str, Any]):
     logits = torch.where(cand_masks, logits,
                          torch.full((), NEG_INF, device=preds.device))
     return {"fuse_embeds": fuse, "fuse_logits": logits}
+
+
+def navigation_loss(fuse_logits, targets, ignore_id: int = -100,
+                    reduction: str = "sum"):
+    """CE over gmap slots with ignore labels (twin of navigation_loss):
+    summed over the batch by default, as the reference's criterion."""
+    valid = targets != ignore_id
+    logp = torch.log_softmax(fuse_logits, dim=-1)
+    nll = -logp.gather(-1, targets.clamp(min=0).long()[:, None])[:, 0]
+    total = torch.where(valid, nll, torch.zeros((), device=nll.device)).sum()
+    if reduction == "mean":
+        return total / valid.sum().clamp(min=1)
+    return total
 
 
 class NavModel(ParamTree):

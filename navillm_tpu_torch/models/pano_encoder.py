@@ -1,14 +1,16 @@
 """Panorama/view encoder (torch twin of navillm_tpu/models/pano_encoder.py).
 
-img linear+LN ⊕ loc linear+LN ⊕ nav-type embedding → LN → N pre-norm
-encoder layers (exact GELU) → mapper linear → masked output. Eval only:
-the forward is deterministic (no dropout). The encoder's attention is the
-plain eager path, as it is ``impl="xla"`` in JAX.
+img linear+LN ⊕ loc linear+LN ⊕ nav-type embedding → LN → dropout → N
+pre-norm encoder layers (exact GELU) → mapper linear → masked output.
+Dropout (hidden_dropout_prob) runs only with training=True, drawing from
+the given torch.Generator; the forward is deterministic otherwise or at
+rate 0. The encoder's attention is the plain eager path, as it is
+``impl="xla"`` in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +56,15 @@ def layer_norm(x, scale, bias, eps=1e-12):
     return (y * scale + bias).to(x.dtype)
 
 
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout (twin of _dropout): keep with probability 1-rate,
+    scale kept entries by 1/(1-rate)."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _encoder_stack(params, cfg: PanoConfig, x, mask):
     """Pre-norm DETR encoder over [B, T, H] with validity mask [B, T]."""
     enc = params["encoder"]
@@ -75,7 +86,9 @@ def _encoder_stack(params, cfg: PanoConfig, x, mask):
 
 
 def forward_panorama(params, cfg: PanoConfig, view_img_fts, view_lens,
-                     loc_fts=None, nav_types=None) -> Dict[str, torch.Tensor]:
+                     loc_fts=None, nav_types=None,
+                     generator: Optional[torch.Generator] = None,
+                     training: bool = False) -> Dict[str, torch.Tensor]:
     """view_img_fts: [B, V, Di]; view_lens: [B]; loc_fts: [B, V, 7];
     nav_types: [B, V] int (0 non-nav, 1 navigable). Returns pano_embeds
     [B, V, output_size] and pano_masks [B, V]. Objects are not ported."""
@@ -96,6 +109,8 @@ def forward_panorama(params, cfg: PanoConfig, view_img_fts, view_lens,
         nav_types = torch.ones((b, v), dtype=torch.long, device=dev)
     x = x + params["nav_type_emb"][nav_types.long()]
     x = layer_norm(x, params["ln"]["s"], params["ln"]["b"])
+    if training and cfg.hidden_dropout_prob > 0:
+        x = dropout(x, cfg.hidden_dropout_prob, generator)
 
     pano_masks = gen_seq_masks(view_lens, v)
     if "encoder" in params:

@@ -4,8 +4,9 @@ Each kernel under ``navillm_tpu_torch/csrc/`` is compiled on first use
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds), in ``build/navillm_tpu_torch/`` at the repository
 root. The file name carries a hash of the source and the flags, so an
-edited source is rebuilt. There is no fallback: a missing ``nvcc`` or a
-failed build raises.
+edited source is rebuilt. Each source has its own lock, so several
+kernels build at once from several threads (``load_all``). There is no
+fallback: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "navillm_tpu_torch"
@@ -36,6 +38,7 @@ class Built:
 
 
 _lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _built: Dict[str, Built] = {}
 
 
@@ -52,6 +55,8 @@ def find_nvcc() -> str:
 def load(name: str) -> Built:
     """Build (if needed) and load ``csrc/<name>.cu``."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
@@ -75,3 +80,9 @@ def load(name: str) -> Built:
         built = Built(ctypes.CDLL(str(out)), out, seconds, log)
         _built[name] = built
         return built
+
+
+def load_all(names: Sequence[str]) -> List[Built]:
+    """Build and load several kernels, one nvcc each, all started at once."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))

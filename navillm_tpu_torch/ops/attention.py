@@ -8,8 +8,16 @@ package's: q [B, T, NH, D]; k, v [B, S, NKV, D]; kv_mask [B, S] bool
 - ``flash_attention_fwd`` launches ``csrc/flash_attn_fwd.cu``, the Hopper
   port of the Pallas kernel ``_flash_kernel``; on CPU tensors it runs
   ``flash_attention_fwd_reference``, its plain version.
-- ``multi_head_attention`` dispatches: CUDA tensors go to the kernel at
-  every shape, CPU tensors to the eager path.
+- ``flash_attention_bwd`` is the twin of ``_flash_backward``: delta =
+  rowsum(O * dO) in f32, then ``flash_attention_bwd_dkv`` and
+  ``flash_attention_bwd_dq`` launch the two kernels of
+  ``csrc/flash_attn_bwd.cu`` (ports of ``_flash_bwd_dkv_kernel`` and
+  ``_flash_bwd_dq_kernel``); on CPU tensors they run their plain versions.
+- ``FlashAttention`` is the twin of ``_flash_differentiable``: the forward
+  kernel, saving (q, k, v, mask, O, lse), and the backward kernels.
+- ``multi_head_attention`` dispatches: CUDA tensors go to the kernels at
+  every shape (through ``FlashAttention`` when a gradient is needed), CPU
+  tensors to the eager path.
 """
 from __future__ import annotations
 
@@ -115,9 +123,6 @@ def _check_kernel_inputs(q, k, v, kv_mask, causal):
         raise ValueError(f"flash kernel: kv_mask must be a dense [B, S] "
                          f"bool tensor, got {kv_mask.dtype} "
                          f"{tuple(kv_mask.shape)}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("flash kernel is forward-only: call it under "
-                           "torch.no_grad() or torch.inference_mode()")
 
 
 def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None, *,
@@ -154,13 +159,200 @@ def flash_attention_fwd(q, k, v, kv_mask: Optional[torch.Tensor] = None, *,
 flash_attention_fwd.launches = 0
 
 
+# ------------------------------------------------------------- backward --- #
+def attention_delta(o, do) -> torch.Tensor:
+    """delta = rowsum(O * dO) in f32, [B, NH, T] (as _flash_backward)."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_probs(q, k, v, kv_mask, lse, delta, do, causal, scale):
+    """P [B, NH, T, S] f32, zero where lse <= NEG_INF/2 (rows that saw no
+    valid key); dS rounded to q's dtype; k GQA-expanded."""
+    k, v = _expand_gqa(q, k, v)
+    lse = lse[..., None]
+    p = torch.exp(_scores(q, k, kv_mask, causal, scale) - lse)
+    p = torch.where(lse > NEG_INF / 2, p, torch.zeros((), device=p.device))
+    dp = torch.einsum("btnd,bsnd->bnts", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    return p, ds, k
+
+
+def _sum_groups(x, nkv: int):
+    """[B, S, NH, D] per query head -> [B, S, NKV, D] per kv head."""
+    b, s, nh, d = x.shape
+    return x.reshape(b, s, nkv, nh // nkv, d).sum(3)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, kv_mask, lse, delta, do,
+                                      causal, scale):
+    """Plain version of the dK/dV kernel: dV = P^T dO, dK = dS^T Q, with
+    bf16 operands rounded where the kernel rounds them and f32 sums."""
+    p, ds, _ = _bwd_probs(q, k, v, kv_mask, lse, delta, do, causal, scale)
+    dv = torch.einsum("bnts,btnd->bsnd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bnts,btnd->bsnd", ds, q.float())
+    nkv = k.shape[2]
+    return _sum_groups(dk, nkv).to(k.dtype), _sum_groups(dv, nkv).to(v.dtype)
+
+
+def flash_attention_bwd_dq_reference(q, k, v, kv_mask, lse, delta, do,
+                                     causal, scale):
+    """Plain version of the dQ kernel: dQ = dS K."""
+    _, ds, k = _bwd_probs(q, k, v, kv_mask, lse, delta, do, causal, scale)
+    return torch.einsum("bnts,bsnd->btnd", ds, k.float()).to(q.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do, causal,
+                                  scale):
+    """Plain version of flash_attention_bwd: (dq, dk, dv)."""
+    delta = attention_delta(o, do)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, kv_mask, lse, delta,
+                                               do, causal, scale)
+    dq = flash_attention_bwd_dq_reference(q, k, v, kv_mask, lse, delta, do,
+                                          causal, scale)
+    return dq, dk, dv
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attn_bwd").lib
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn, n_out in ((lib.navillm_flash_attn_bwd_dkv, 2),
+                      (lib.navillm_flash_attn_bwd_dq, 1)):
+        if fn.argtypes is None:
+            fn.argtypes = ([ptr] * (7 + n_out) + [i32] * 6
+                           + [ctypes.POINTER(i64)] + [i64] * (3 * n_out)
+                           + [ctypes.c_float, i32, ptr])
+            fn.restype = i32
+    if lib.navillm_cuda_error_string.argtypes is None:
+        lib.navillm_cuda_error_string.argtypes = [i32]
+        lib.navillm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_launch_args(q, k, v, kv_mask, lse, delta, do, causal):
+    """Check what the backward kernels take; return the shared leading
+    arguments of both C entry points."""
+    _check_kernel_inputs(q, k, v, kv_mask, causal)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:3]) \
+            or do.data_ptr() % 16:
+        raise ValueError(f"flash backward: dO must be laid out like q, got "
+                         f"{do.dtype} {tuple(do.shape)} strides {do.stride()}")
+    b, t, nh, d = q.shape
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, nh, t) or x.dtype != torch.float32 \
+                or x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"flash backward: {name} must be a dense f32 "
+                             f"[B, NH, T] tensor, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    strides = (ctypes.c_longlong * 13)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], kv_mask.stride(0),
+        *do.stride()[:3])
+    return ([x.data_ptr() for x in (q, k, v, kv_mask, do, lse, delta)],
+            [b, t, k.shape[1], nh, k.shape[2], d], strides)
+
+
+def _raise_on_error(lib, err: int, what: str):
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.navillm_cuda_error_string(err).decode())
+
+
+def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, *,
+                            causal: bool, scale: float):
+    """(dK, dV) in k's layout and dtype. CUDA tensors launch the dK/dV
+    kernel (counted in ``flash_attention_bwd_dkv.launches``); CPU tensors
+    run flash_attention_bwd_dkv_reference."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_reference(q, k, v, kv_mask, lse, delta,
+                                                 do, causal, scale)
+    ptrs, dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, delta, do,
+                                           causal)
+    lib = _bwd_lib()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    err = lib.navillm_flash_attn_bwd_dkv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides,
+        *dk.stride()[:3], *dv.stride()[:3], float(scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, err, "flash dK/dV kernel")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, *,
+                           causal: bool, scale: float):
+    """dQ in q's layout and dtype. CUDA tensors launch the dQ kernel
+    (counted in ``flash_attention_bwd_dq.launches``); CPU tensors run
+    flash_attention_bwd_dq_reference."""
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_reference(q, k, v, kv_mask, lse, delta,
+                                                do, causal, scale)
+    ptrs, dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, delta, do,
+                                           causal)
+    lib = _bwd_lib()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = lib.navillm_flash_attn_bwd_dq(
+        *ptrs, dq.data_ptr(), *dims, strides, *dq.stride()[:3], float(scale),
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, err, "flash dQ kernel")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal: bool,
+                        scale: float):
+    """Flash-attention backward (twin of _flash_backward): (dq, dk, dv).
+
+    o and lse are the forward's outputs (lse [B, NH, T] f32). delta is
+    computed here in f32, outside the kernels, as the JAX code does."""
+    if kv_mask is None:
+        kv_mask = torch.ones(k.shape[:2], dtype=torch.bool, device=q.device)
+    delta = attention_delta(o, do)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
+                                     causal=causal, scale=scale)
+    dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
+                                causal=causal, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (twin of _flash_differentiable).
+
+    Forward: the forward kernel, saving q, k, v, the mask, O and lse only.
+    Backward: the dK/dV and dQ kernels, which recompute P tile by tile.
+    On CPU tensors both run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal: bool, scale: float):
+        o, lse = flash_attention_fwd(q, k, v, kv_mask, causal=causal,
+                                     scale=scale)
+        ctx.save_for_backward(q, k, v, kv_mask, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kv_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, o, lse,
+                                         do.contiguous(), causal=ctx.causal,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def multi_head_attention(q, k, v, *, kv_mask=None, causal=True, scale=None,
                          impl: str = "auto"):
-    """Dispatch between the flash kernel and the eager path.
+    """Dispatch between the flash kernels and the eager path.
 
-    impl: "auto" (kernel for CUDA tensors at every shape, eager for CPU
-    tensors), "kernel" (raises on CPU tensors) or "eager".
-    Returns [B, T, NH, D] in q's dtype."""
+    impl: "auto" (kernels for CUDA tensors at every shape, eager for CPU
+    tensors), "kernel" (raises on CPU tensors) or "eager". With grad
+    enabled and an input that needs a gradient, the kernel path goes
+    through FlashAttention. Returns [B, T, NH, D] in q's dtype."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "auto":
@@ -169,6 +361,12 @@ def multi_head_attention(q, k, v, *, kv_mask=None, causal=True, scale=None,
         if not q.is_cuda:
             raise ValueError("impl='kernel' needs CUDA tensors; the kernel "
                              "has no CPU version")
+        if torch.is_grad_enabled() and any(x.requires_grad
+                                           for x in (q, k, v)):
+            if kv_mask is None:
+                kv_mask = torch.ones(k.shape[:2], dtype=torch.bool,
+                                     device=q.device)
+            return FlashAttention.apply(q, k, v, kv_mask, causal, scale)
         return flash_attention_fwd(q, k, v, kv_mask, causal=causal,
                                    scale=scale)[0]
     if impl == "eager":

@@ -3,8 +3,9 @@
 ``make_grid_connectivity`` and ``synthetic_nav_batch`` follow
 navillm_tpu/testing.py (which the port cannot import: it imports the JAX
 nav model). ``make_r2r_world`` writes a grid world with R2R annotations,
-as bench.py's rollout world does, and ``r2r_eval`` wires the port's
-greedy streaming evaluation over it.
+as bench.py's rollout world does; ``r2r_eval`` wires the port's greedy
+streaming evaluation over it and ``r2r_train`` its teacher-forcing
+training.
 """
 from __future__ import annotations
 
@@ -60,10 +61,11 @@ def _instruction(rng: random.Random) -> str:
 
 
 def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
-                   scan: str = "grid0", seed: int = 0) -> Path:
-    """Write ``root/connectivity`` and R2R annotations for shortest-path
-    episodes between random distinct grid nodes; returns the annotation
-    file."""
+                   scan: str = "grid0", seed: int = 0, split: str = "val"
+                   ) -> Path:
+    """Write ``root/connectivity`` and R2R annotations (``<split>.json``)
+    for shortest-path episodes between random distinct grid nodes; returns
+    the annotation file."""
     from navillm_tpu.sim.graph import ScanGraph
 
     root = Path(root)
@@ -83,7 +85,7 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
         items.append({"distance": 1.0, "scan": scan, "path_id": pid,
                       "heading": 0.0, "instructions": [_instruction(irng)],
                       "path": path})
-    anno = root / "R2R" / "annotations" / "val.json"
+    anno = root / "R2R" / "annotations" / f"{split}.json"
     anno.parent.mkdir(parents=True, exist_ok=True)
     anno.write_text(json.dumps(items))
     return anno
@@ -111,6 +113,34 @@ def r2r_eval(anno_file, runner, n_slots: int, image_feat_size: int,
     args = EvalArgs(seed=seed, val_batch_size=n_slots,
                     image_feat_size=image_feat_size)
     return R2RAgent(args, world, runner), ds, args
+
+
+def train_config(max_action_len: int, name: str = "R2R"):
+    """The slice of the experiment config teacher-forcing training reads
+    (both stages list the one task with no loss coefficient)."""
+    stage = SimpleNamespace(SOURCE=[name], LOSS_COEF={})
+    return SimpleNamespace(
+        Optim=SimpleNamespace(train_max_action_len={name: max_action_len},
+                              val_max_action_len={name: max_action_len}),
+        Pretrain=stage, Multi=stage)
+
+
+def r2r_train(anno_file, runner, args, batch_size: int, shuffle: bool = True):
+    """(agent, dataset, loader) for teacher-forcing training over a world
+    written by make_r2r_world(split="train"), with synthetic image
+    features; ``args`` is an agents.mp3d_agent.TrainArgs."""
+    from navillm_tpu.data.feature_db import SyntheticImageFeaturesDB
+    from navillm_tpu.data.loaders import Dataloader
+    from navillm_tpu.sim import WorldModel
+
+    from .agents.mp3d_agent import R2RAgent
+    from .data.r2r import R2RDataset
+
+    world = WorldModel(str(Path(anno_file).parents[2] / "connectivity"))
+    ds = R2RDataset(anno_file, world, training=True)
+    ds.init_feat_db(SyntheticImageFeaturesDB(args.image_feat_size))
+    loader = Dataloader(ds, batch_size, shuffle=shuffle, seed=args.seed)
+    return R2RAgent(args, world, runner), ds, loader
 
 
 def synthetic_nav_batch(cfg, b: int = 2, g: int = 12, v: int = 8, c: int = 8,

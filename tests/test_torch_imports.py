@@ -1,5 +1,6 @@
 """The port stands alone: it imports no jax and none of the packages the
-card's machine lacks, and its tiny slice runs on the CPU.
+card's machine lacks, and its tiny slices (greedy evaluation, then one
+teacher-forcing optimizer step through train_one_epoch) run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -41,6 +42,24 @@ with tempfile.TemporaryDirectory() as tmp:
                                      Dataloader(ds, 2, False), dataset=ds)
     assert len(preds) == 4, preds
     print("metrics", ds.eval_metrics(preds, None, "R2R")[0])
+
+    from navillm_tpu.data.loaders import MetaLoader
+    from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
+    from navillm_tpu_torch.training.optim import make_optimizer
+    from navillm_tpu_torch.training.train_loop import (make_opt_step,
+                                                       train_one_epoch)
+    targs = TrainArgs(stage="pretrain", image_feat_size=cfg.pano.image_feat_size,
+                      fused_rows_per_call=4, gradient_accumulation_step=1)
+    anno = T.make_r2r_world(tmp + "/train", n_episodes=2, rows=3, cols=3,
+                            split="train")
+    agent, ds, loader = T.r2r_train(anno, runner, targs, batch_size=2)
+    tx = make_optimizer(dict(model.named_parameters()), lr=targs.lr)
+    loss, norms = train_one_epoch(
+        targs, T.train_config(4), runner, tx, make_opt_step(tx),
+        MetaLoader({"R2R": (loader, 1.0)}), {"R2R": agent}, {"R2R": ds}, 0,
+        None, num_batches=1)
+    assert loss > 0 and len(norms) == 1 and float(norms[0]) > 0, (loss, norms)
+    print("train loss", loss)
 print("loaded", sorted(m for m in %r if m in sys.modules))
 """ % (BANNED,)
 

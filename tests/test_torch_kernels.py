@@ -1,4 +1,6 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version.
+"""The CUDA flash-attention kernels against their plain PyTorch versions:
+the forward (csrc/flash_attn_fwd.cu) and the dK/dV and dQ backward kernels
+(csrc/flash_attn_bwd.cu).
 
 The kernel tests need a Hopper card (compute capability 9.0) and skip
 elsewhere. This file imports no jax, so on the card it runs without the
@@ -13,7 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from navillm_tpu_torch.ops.attention import (  # noqa: E402
-    flash_attention_fwd, flash_attention_fwd_reference)
+    FlashAttention, attention_eager, flash_attention_bwd,
+    flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_fwd_reference)
 
 torch.set_num_threads(1)
 
@@ -108,9 +113,14 @@ def test_flash_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError):
         flash_attention_fwd(q[..., :96], k[..., :96], v[..., :96], mask,
                             causal=True, scale=0.1)
-    with pytest.raises(RuntimeError):
-        flash_attention_fwd(q.requires_grad_(), k, v, mask, causal=True,
-                            scale=0.1)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k, v, mask.int(), causal=True, scale=0.1)
+    # the raw forward takes inputs that need a gradient, and is not itself
+    # differentiable: FlashAttention is
+    o, _ = flash_attention_fwd(q.requires_grad_(), k, v, mask, causal=True,
+                               scale=0.1)
+    assert o.grad_fn is None and not o.requires_grad
+    assert FlashAttention.apply(q, k, v, mask, True, 0.1).grad_fn is not None
 
 
 def test_flash_wrapper_runs_plain_version_on_cpu():
@@ -123,3 +133,69 @@ def test_flash_wrapper_runs_plain_version_on_cpu():
     assert flash_attention_fwd.launches == before
     torch.testing.assert_close(o, ro, rtol=0, atol=0)
     torch.testing.assert_close(lse, rlse, rtol=0, atol=0)
+
+
+# (b, t, nh, nkv, d, causal, left pads per batch row); T == S (self-attention)
+BWD_CASES = [
+    (2, 256, 8, 8, 128, True, [0, 77]),        # fully masked leading rows
+    (2, 200, 4, 2, 128, True, [0, 130]),       # ragged tile, GQA
+    (2, 136, 4, 4, 64, False, [5, 135]),       # D=64, one valid key
+    (1, 640, 8, 8, 128, True, [300]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_kernels_match_reference(case):
+    _require_sm90()
+    b, t, nh, nkv, d, causal, pads = case
+    q, k, v, mask = _inputs(b, t, t, nh, nkv, d, pads, "cuda", torch.bfloat16)
+    do = _inputs(b, t, t, nh, nkv, d, pads, "cuda", torch.bfloat16,
+                 seed=1)[0]
+    scale = d ** -0.5
+    with torch.inference_mode():
+        o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
+                                     scale=scale)
+        before = (flash_attention_bwd_dkv.launches,
+                  flash_attention_bwd_dq.launches)
+        got = flash_attention_bwd(q, k, v, mask, o, lse, do, causal=causal,
+                                  scale=scale)
+        torch.cuda.synchronize()
+        assert (flash_attention_bwd_dkv.launches,
+                flash_attention_bwd_dq.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        want = flash_attention_bwd_reference(q, k, v, mask, o, lse, do,
+                                             causal, scale)
+    ok = _valid_rows(mask, t, causal)                        # [B, T]
+    for name, a, w, x in zip("qkv", got, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all(), f"d{name} not finite"
+        # bf16 outputs of f32 sums over up to T terms of magnitude ~1:
+        # a few bf16 ulps at |grad| ~ 4-8
+        torch.testing.assert_close(a.float()[ok], w.float()[ok], rtol=2e-2,
+                                   atol=6e-2, msg=f"d{name} {case}")
+    # query rows that see no valid key contribute nothing: their dQ is 0
+    assert not got[0].float()[~ok].any()
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_matches_eager_autograd():
+    """FlashAttention on the card against autograd through the eager path,
+    with the cotangent zero on rows that see no valid key."""
+    _require_sm90()
+    b, t, nh, d = 2, 320, 4, 128
+    q, k, v, mask = _inputs(b, t, t, nh, nh, d, [0, 100], "cuda",
+                            torch.bfloat16)
+    g = _inputs(b, t, t, nh, nh, d, [0, 0], "cuda", torch.bfloat16, seed=2)[0]
+    g = g * _valid_rows(mask, t, True)[:, :, None, None]
+    grads = []
+    for fn in (lambda q, k, v: FlashAttention.apply(q, k, v, mask, True,
+                                                    d ** -0.5),
+               lambda q, k, v: attention_eager(q, k, v, mask, True,
+                                               d ** -0.5)):
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        fn(*xs).backward(g)
+        grads.append([x.grad.float() for x in xs])
+    for name, a, w in zip("qkv", *grads):
+        torch.testing.assert_close(a, w, rtol=2e-2, atol=6e-2,
+                                   msg=f"d{name}")

@@ -30,13 +30,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      of 8 episodes (2 optimizer steps); every LLM layer of every grad call
      must go through the three kernels;
   7. gradient A/B: one grad call through the kernels and through the eager
-     attention path, on the same inputs and weights with dropout off.
+     attention path, on the same inputs and weights with dropout off;
+  8. int4 matmul vs plain: the int4 dequant-matmul kernel against its plain
+     version at the 7B layer shapes (h, o) in {(4096, 4096), (4096, 11008),
+     (11008, 4096)}, m in {4096, 3584, 7}, w4 (bf16 x) and w4a8 (int8 x),
+     timed with CUDA events beside a dense bf16 torch.matmul;
+  9. the w4 slice: the trained model's LLM quantized to int4 on the card
+     (quantize_nav_params, bits=4), then phase 3's evaluation again; every
+     layer matmul of every step must go through the int4 kernel;
+ 10. the w4a8 slice: phase 9 with act_int8 (int8 activations);
+ 11. int4 model-level A/B: one forward_navigation step on the int4 tree
+     through the kernel and through its plain version, w4 and w4a8.
 The line before the last is {"kernels": [...]}, the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -52,10 +63,11 @@ from navillm_tpu_torch import testing as T
 from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
-from navillm_tpu_torch.models.llama import LlamaConfig
+from navillm_tpu_torch.models.llama import LlamaConfig, _act_q
 from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
                                                 forward_navigation)
 from navillm_tpu_torch.models.pano_encoder import PanoConfig
+from navillm_tpu_torch.models.quant import _quant_one4, quantize_nav_params
 from navillm_tpu_torch.ops import _build
 from navillm_tpu_torch.ops.attention import (
     FlashAttention, attention_delta, attention_eager, flash_attention_bwd_dkv,
@@ -63,6 +75,7 @@ from navillm_tpu_torch.ops.attention import (
     flash_attention_bwd_dq_reference, flash_attention_fwd,
     flash_attention_fwd_reference)
 from navillm_tpu_torch.ops.masking import NEG_INF
+from navillm_tpu_torch.ops.matmul_q4 import matmul_q4, matmul_q4_reference
 from navillm_tpu_torch.training.optim import make_optimizer
 from navillm_tpu_torch.training.train_loop import (make_opt_step,
                                                    train_one_epoch)
@@ -77,6 +90,9 @@ KERNELS = {
     "dq": {"name": "flash_attn_bwd_dq", "route": "cuda",
            "source": "navillm_tpu_torch/csrc/flash_attn_bwd.cu",
            "replaces": "navillm_tpu/ops/attention.py:234"},
+    "q4": {"name": "matmul_q4", "route": "cuda",
+           "source": "navillm_tpu_torch/csrc/matmul_q4.cu",
+           "replaces": "navillm_tpu/ops/matmul_q4.py:60"},
 }
 COUNTERS = {"fwd": flash_attention_fwd, "dkv": flash_attention_bwd_dkv,
             "dq": flash_attention_bwd_dq}
@@ -99,6 +115,16 @@ ROWS_PER_CALL = 16
 # a batch's loss is its summed CE over steps / episodes: ~ln(#candidates)
 # per step at random init, far below this
 MAX_LOSS = 1e3
+# int4 matmul, bf16 x: the f32 sums of kernel and plain version differ in
+# order only, so their bf16 outputs differ by at most one bf16 ulp (2**-7 of
+# the element), plus Q4_FLOOR of the largest element for values near zero;
+# int8 x: every group product is exact, so the same f32 ops give the same
+# result (Q4_A8_RTOL)
+Q4_FLOOR = 1e-4
+Q4_A8_RTOL = 1e-6
+# the 7B layer matmuls (h, o): wq/wk/wv/wo, w_gate/w_up, w_down
+Q4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
+Q4_LAYER_MATMULS = 7
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -136,12 +162,13 @@ def phase_device() -> str:
 
 def phase_build():
     t0 = time.perf_counter()
-    for built in _build.load_all(["flash_attn_fwd", "flash_attn_bwd"]):
+    for built in _build.load_all(["flash_attn_fwd", "flash_attn_bwd",
+                                  "matmul_q4"]):
         regs = [ln.strip() for ln in built.log.splitlines()
                 if "registers" in ln or "spill" in ln]
         print(f"[1] built {built.path.name} in {built.seconds:.2f} s; "
               f"ptxas: {regs}")
-    print(f"[1] both kernels built in {time.perf_counter() - t0:.2f} s")
+    print(f"[1] all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernel():
@@ -203,7 +230,10 @@ def run_eval(agent, ds, args):
             Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
 
 
-def phase_slice(tok, cfg, model, tmp):
+def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True):
+    """Greedy streaming eval of N_EPISODES episodes (after a warm-up on its
+    own world); gates every trajectory's start, SR/SPL and K1's launches.
+    Returns ({instr_id: trajectory}, eval steps)."""
     runner = NavModelRunner(cfg, model, tok, dims=RolloutDims(
         max_gmap_nodes=48, max_views=44, max_cands=12, max_hist=16))
     widths = []
@@ -215,9 +245,9 @@ def phase_slice(tok, cfg, model, tmp):
 
     runner.eval_step = eval_step
     feat = cfg.pano.image_feat_size
-    # warm-up pass (cuBLAS handles, allocator) on its own small world
-    warm = T.make_r2r_world(f"{tmp}/warm", n_episodes=2 * N_SLOTS, seed=1)
-    run_eval(*T.r2r_eval(warm, runner, N_SLOTS, feat))
+    if warm_up:   # cuBLAS handles, allocator, on its own small world
+        warm = T.make_r2r_world(f"{tmp}/warm", n_episodes=2 * N_SLOTS, seed=1)
+        run_eval(*T.r2r_eval(warm, runner, N_SLOTS, feat))
     anno = T.make_r2r_world(f"{tmp}/main", n_episodes=N_EPISODES)
     agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat)
     widths.clear()
@@ -225,6 +255,7 @@ def phase_slice(tok, cfg, model, tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0
+    matmul_q4.launches = matmul_q4.int8_launches = 0
     runner.eval_steps = 0
     t0 = time.perf_counter()
     preds = run_eval(agent, ds, args)
@@ -244,35 +275,46 @@ def phase_slice(tok, cfg, model, tmp):
     if launches != steps * cfg.llm.num_layers:
         raise RuntimeError(f"kernel launches {launches} != {steps} eval "
                            f"steps x {cfg.llm.num_layers} layers")
-    print(f"[3] {len(preds)} episodes in {dt:.3f} s = {len(preds) / dt:.3f} "
-          f"episodes/s; {steps} eval steps of {N_SLOTS} slots, "
-          f"{1e3 * dt / steps:.2f} ms wall per step; prompt widths "
-          f"{sorted(set(widths))}; peak memory "
+    print(f"[{tag}] {len(preds)} episodes in {dt:.3f} s = "
+          f"{len(preds) / dt:.3f} episodes/s; {steps} eval steps of "
+          f"{N_SLOTS} slots, {1e3 * dt / steps:.2f} ms wall per step; prompt "
+          f"widths {sorted(set(widths))}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"SR {avg['sr']:.2f} SPL {avg['spl']:.2f}; kernel launches "
+          f"SR {avg['sr']:.2f} SPL {avg['spl']:.2f}; flash kernel launches "
           f"{launches} = {steps} x {cfg.llm.num_layers}")
+    return {p["instr_id"]: p["trajectory"] for p in preds}, steps
+
+
+def ab_batch(cfg):
+    """Phase 4's inputs: 4 rows of 768 tokens, left-padded."""
+    batch = T.synthetic_nav_batch(cfg, b=4, g=48, v=45, c=12, hh=16,
+                                  tlen=768, seed=0)
+    for row, pad in enumerate((0, 64, 300, 700)):
+        batch["attention_mask"][row, :pad] = False
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def compare_logits(tag, what, model, cfg_a, cfg_b):
+    """forward_navigation through two configs on phase 4's inputs."""
+    dev = ab_batch(cfg_a)
+    with torch.inference_mode():
+        la = forward_navigation(model, cfg_a, dev)["fuse_logits"]
+        lb = forward_navigation(model, cfg_b, dev)["fuse_logits"]
+    if not (torch.isfinite(la).all() and torch.isfinite(lb).all()):
+        raise RuntimeError("logits are not finite")
+    valid = lb > NEG_INF / 2
+    diff = (la - lb).abs()[valid].max().item()
+    agree = (la.argmax(-1) == lb.argmax(-1)).float().mean().item()
+    print(f"[{tag}] forward_navigation {what}: max |dlogit| {diff:.4e} over "
+          f"{int(valid.sum())} candidate logits (range "
+          f"{lb[valid].min().item():.3f}..{lb[valid].max().item():.3f}); "
+          f"argmax agreement {agree:.2f}")
 
 
 def phase_ab(cfg, model):
-    batch = T.synthetic_nav_batch(cfg, b=4, g=48, v=45, c=12, hh=16,
-                                  tlen=768, seed=0)
-    for row, pad in enumerate((0, 64, 300, 700)):      # left padding
-        batch["attention_mask"][row, :pad] = False
-    dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     eager = dataclasses.replace(cfg, llm=dataclasses.replace(
         cfg.llm, attn_impl="eager"))
-    with torch.inference_mode():
-        lk = forward_navigation(model, cfg, dev)["fuse_logits"]
-        le = forward_navigation(model, eager, dev)["fuse_logits"]
-    if not (torch.isfinite(lk).all() and torch.isfinite(le).all()):
-        raise RuntimeError("logits are not finite")
-    valid = le > NEG_INF / 2
-    diff = (lk - le).abs()[valid].max().item()
-    agree = (lk.argmax(-1) == le.argmax(-1)).float().mean().item()
-    print(f"[4] forward_navigation kernel vs eager attention: max |dlogit| "
-          f"{diff:.4e} over {int(valid.sum())} candidate logits (range "
-          f"{le[valid].min().item():.3f}..{le[valid].max().item():.3f}); "
-          f"argmax agreement {agree:.2f}")
+    compare_logits(4, "kernel vs eager attention", model, cfg, eager)
 
 
 def phase_backward():
@@ -484,18 +526,124 @@ def phase_grad_ab(tok, cfg, model, call):
                                f"{MIN_GRAD_COSINE}")
 
 
+def phase_q4_kernel():
+    """Returns {(m, h, o, mode): (max_abs_err, ms, plain_ms)}."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for h, o in Q4_SHAPES:
+        w = torch.randn((h, o), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) * h ** -0.5
+        q4p, s = _quant_one4(w)
+        for m in (4096, 3584, 7):
+            x = torch.randn((m, h), generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            dense_ms = cuda_ms(lambda: x @ w)
+            for mode, a in (("w4", x), ("w4a8", _act_q(x)[0])):
+                y = matmul_q4(a, q4p, s)
+                ref = matmul_q4_reference(a, q4p, s)
+                torch.cuda.synchronize()
+                if not torch.isfinite(y).all():
+                    raise RuntimeError(f"{mode} m={m} h={h} o={o}: kernel "
+                                       f"output is not finite")
+                d = (y.float() - ref.float()).abs()
+                top = ref.float().abs()
+                if mode == "w4":
+                    excess = (d - (2 ** -7 * top + Q4_FLOOR * top.max())).max()
+                else:
+                    excess = (d - Q4_A8_RTOL * top).max()
+                rel = (d / top.clamp(min=Q4_FLOOR * top.max().item())).max()
+                ms = cuda_ms(lambda: matmul_q4(a, q4p, s))
+                plain_ms = cuda_ms(lambda: matmul_q4_reference(a, q4p, s),
+                                   iters=5)
+                err = d.max().item()
+                print(f"[8] {mode} m={m} h={h} o={o}: max|d|={err:.3e} "
+                      f"(max |d|/|ref| {rel.item():.3e}, |ref| up to "
+                      f"{top.max().item():.2f}); kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, dense bf16 matmul {dense_ms:.4f} "
+                      f"ms; {2 * m * h * o / ms / 1e9:.1f} TFLOP/s")
+                if excess.item() > 0:
+                    raise RuntimeError(f"{mode} m={m} h={h} o={o}: kernel "
+                                       f"disagrees with its plain version")
+                out[(m, h, o, mode)] = (err, ms, plain_ms)
+    return out
+
+
+def quantize_model(cfg, model):
+    """The model with its LLM in int4 (bits=4), quantized on the card;
+    the bf16 LLM's storage is freed by the caller dropping ``model``."""
+    for p in model.parameters():       # phase 6's gradients
+        p.grad = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = NavModel(cfg, quantize_nav_params(model, bits=4))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+
+    def nbytes(m):
+        return sum(p.numel() * p.element_size() for p in m.parameters())
+    print(f"[9] LLM quantized to int4 on the card in {dt:.2f} s: "
+          f"{nbytes(model.llm) / 1e9:.3f} GB -> {nbytes(qmodel.llm) / 1e9:.3f}"
+          f" GB (layer matmuls int4, embed and lm_head int8)")
+    return qmodel
+
+
+def phase_q4_slice(tag, tok, cfg, qmodel, tmp, dense_trajs, warm_up):
+    """Returns (the int4 kernel's launches in the measured run, the
+    trajectories)."""
+    trajs, steps = phase_slice(tag, tok, cfg, qmodel, tmp, warm_up=warm_up)
+    launches, int8 = matmul_q4.launches, matmul_q4.int8_launches
+    want = steps * cfg.llm.num_layers * Q4_LAYER_MATMULS
+    if launches != want:
+        raise RuntimeError(f"int4 kernel launches {launches} != {steps} "
+                           f"steps x {cfg.llm.num_layers} layers x "
+                           f"{Q4_LAYER_MATMULS}")
+    if int8 != (launches if cfg.llm.act_int8 else 0):
+        raise RuntimeError(f"{int8} of {launches} int4 launches had int8 "
+                           f"activations (act_int8={cfg.llm.act_int8})")
+    same = sum(trajs[k] == dense_trajs[k] for k in trajs)
+    print(f"[{tag}] int4 kernel launches {launches} = {steps} x "
+          f"{cfg.llm.num_layers} x {Q4_LAYER_MATMULS} (int8 activations: "
+          f"{int8}); trajectories equal to phase 3's (bf16, before training "
+          f"moved the weights): {same} of {len(trajs)}")
+    return launches, trajs
+
+
 def main():
     smi = phase_device()
     phase_build()
     kernel = phase_kernel()
     tok, cfg, model = model_7b()
     with tempfile.TemporaryDirectory() as tmp:
-        phase_slice(tok, cfg, model, tmp)
+        dense_trajs, _ = phase_slice(3, tok, cfg, model, tmp)
     phase_ab(cfg, model)
     bwd = phase_backward()
     with tempfile.TemporaryDirectory() as tmp:
         launches, widths, call = phase_train(tok, cfg, model, tmp)
     phase_grad_ab(tok, cfg, model, call)
+    del call
+    q4 = phase_q4_kernel()
+    qmodel = quantize_model(cfg, model)
+    # free the bf16 LLM: the phases' runners hold it in reference cycles
+    # (their wrapped methods), so it goes with a collection
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                          act_int8=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["q4"], w4 = phase_q4_slice(9, tok, cfg, qmodel, tmp,
+                                            dense_trajs, warm_up=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, w4a8 = phase_q4_slice(10, tok, a8, qmodel, tmp, dense_trajs,
+                                 warm_up=False)
+    print(f"[10] w4a8 trajectories equal to w4's (same int4 tree): "
+          f"{sum(w4a8[k] == w4[k] for k in w4)} of {len(w4)}")
+    for c in (cfg, a8):
+        plain = dataclasses.replace(c, llm=dataclasses.replace(
+            c.llm, q4_impl="plain"))
+        mode = "w4a8" if c.llm.act_int8 else "w4"
+        compare_logits(11, f"on the int4 tree ({mode}): kernel vs plain "
+                       f"version", qmodel, c, plain)
     # report each kernel's time at the width nearest the training slice's
     # median prompt width (phase 2 for the forward, phase 5 for the rest)
     med = float(np.median(widths))
@@ -508,6 +656,11 @@ def main():
         rows.append({**KERNELS[key], "launches": launches[key],
                      "max_abs_err": max(r[key][0] for r in bwd.values()),
                      "ms": bwd[t2][key][1], "plain_ms": bwd[t2][key][2]})
+    # K4 at the w_gate shape with 4 slots of 1024 tokens, w4
+    _, ms, plain_ms = q4[(4096, 4096, 11008, "w4")]
+    rows.append({**KERNELS["q4"], "launches": launches["q4"],
+                 "max_abs_err": max(e for e, _, _ in q4.values()),
+                 "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

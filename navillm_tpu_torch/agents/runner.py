@@ -28,6 +28,7 @@ from navillm_tpu.models.tokenization import NavTokenizer
 from ..models import nav_model as NM
 from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import dropout, forward_panorama
+from ..models.quant import is_quantized
 from . import device_memory as DM
 
 # device graph-memory node capacity (ids beyond it are not memorized)
@@ -76,6 +77,10 @@ class NavModelRunner:
                  device: Optional[torch.device] = None,
                  feat_dropout: float = 0.4, ignore_id: int = -100,
                  seed: int = 0):
+        if cfg.llm.act_int8 and not is_quantized(model):
+            raise ValueError("act_int8 needs a quantized LLM: int8 "
+                             "activations only run against quantized "
+                             "weights (models/llama.py:_mm)")
         self.cfg = cfg
         self.model = model
         self.tok = tokenizer
@@ -119,6 +124,9 @@ class NavModelRunner:
         """Open a gradient-accumulation window: every parameter trains and
         its .grad, kept in the parameter's dtype as the JAX accumulator is,
         starts at zero (buffers are reused from the last window)."""
+        if is_quantized(self.model):
+            raise ValueError("a quantized LLM is eval-only: int8 weights are "
+                             "not differentiable (models/quant.py)")
         for p in self.model.parameters():
             p.requires_grad_(True)
             if p.grad is None:

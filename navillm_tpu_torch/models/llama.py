@@ -7,6 +7,9 @@ ops/attention.py:multi_head_attention (the CUDA flash kernels on the card).
 Cast order follows the JAX code so bf16 runs round in the same places.
 With ``remat`` (the JAX default) and grad enabled, each layer runs under
 activation checkpointing, as ``jax.checkpoint`` wraps the scanned layer.
+The layer matmuls go through ``_mm``, which also takes the quantized
+leaves of models/quant.py: int8 weight-only, and int4 (w4, or w4a8 with
+``act_int8``) through ops/matmul_q4.py (the CUDA int4 kernel on the card).
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
+from ..ops.matmul_q4 import matmul_q4, matmul_q4_reference
 from .params import ParamTree
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
@@ -38,6 +42,11 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True        # recompute each layer in the backward
     attn_impl: str = "auto"   # auto | kernel | eager (ops/attention.py)
+    # int4 trees only: auto (matmul_q4: the kernel on CUDA tensors) or
+    # plain (matmul_q4_reference everywhere)
+    q4_impl: str = "auto"
+    # quantize activations per token to int8 (int4 trees: the w4a8 mode)
+    act_int8: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -105,22 +114,60 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def _act_q(x: torch.Tensor):
+    """Per-token int8 activations: (xq int8, sx f32 [..., 1]), x ~= xq*sx."""
+    xf = x.float()
+    sx = xf.abs().amax(-1, keepdim=True).clamp(min=1e-6) * (1.0 / 127.0)
+    return torch.round(xf / sx).clamp(-127, 127).to(torch.int8), sx
+
+
+def _mm(x: torch.Tensor, w, a8: bool = False, q4_impl: str = "auto"):
+    """x @ w for a dense weight, an int8 weight-only one (``{"q", "s"}``,
+    per output channel: ``(x @ q) * s``) or an int4 one (``{"q4p", "s"}``,
+    _mm4). a8 (cfg.act_int8) quantizes x per token; dense weights ignore
+    it, as in the JAX code."""
+    if isinstance(w, torch.Tensor):
+        return x @ w
+    if "q4p" in w:
+        return _mm4(x, w, a8, q4_impl)
+    if a8:
+        raise NotImplementedError("W8A8 on int8 weights is not ported yet")
+    return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+
+
+def _mm4(x: torch.Tensor, w, a8: bool, q4_impl: str):
+    """Group-scaled int4 matmul through matmul_q4 (q4_impl "auto") or its
+    plain version ("plain"). w4a8: int8 activations, f32 out, then the
+    row scale, as the JAX kernel path does."""
+    if q4_impl not in ("auto", "plain"):
+        raise ValueError(f"unknown q4_impl {q4_impl!r}")
+    fn = matmul_q4 if q4_impl == "auto" else matmul_q4_reference
+    if a8:
+        xq, sx = _act_q(x)
+        return (fn(xq, w["q4p"], w["s"]) * sx).to(x.dtype)
+    return fn(x, w["q4p"], w["s"], out_dtype=x.dtype)
+
+
 def _qkv(cfg: LlamaConfig, x, lp, cos, sin):
     b, t, _ = x.shape
     nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn_in = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    q = (attn_in @ lp["wq"]).reshape(b, t, nh, d)
-    k = (attn_in @ lp["wk"]).reshape(b, t, nkv, d)
-    v = (attn_in @ lp["wv"]).reshape(b, t, nkv, d)
+    a8, impl = cfg.act_int8, cfg.q4_impl
+    q = _mm(attn_in, lp["wq"], a8, impl).reshape(b, t, nh, d)
+    k = _mm(attn_in, lp["wk"], a8, impl).reshape(b, t, nkv, d)
+    v = _mm(attn_in, lp["wv"], a8, impl).reshape(b, t, nkv, d)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _post_attn(cfg: LlamaConfig, x, lp, attn):
     b, t, _ = x.shape
-    x = x + attn.reshape(b, t, cfg.num_heads * cfg.head_dim) @ lp["wo"]
+    a8, impl = cfg.act_int8, cfg.q4_impl
+    x = x + _mm(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), lp["wo"],
+                a8, impl)
     mlp_in = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    gate = F.silu(mlp_in @ lp["w_gate"])
-    return x + (gate * (mlp_in @ lp["w_up"])) @ lp["w_down"]
+    gate = F.silu(_mm(mlp_in, lp["w_gate"], a8, impl))
+    return x + _mm(gate * _mm(mlp_in, lp["w_up"], a8, impl), lp["w_down"],
+                   a8, impl)
 
 
 def _layer(cfg: LlamaConfig, x, lp, cos, sin, kv_mask, attn_impl):
@@ -152,10 +199,20 @@ class _StackSlice(torch.autograd.Function):
 
 
 def _layer_weights(layers, i: int):
+    """Layer i's weights. A quantized leaf ({"q4p" or "q", "s"} stacks) is
+    sliced leaf by leaf; it never trains, so never goes through
+    _StackSlice."""
     train = torch.is_grad_enabled()
-    return {k: (_StackSlice.apply(layers[k], i)
-                if train and layers[k].requires_grad else layers[k][i])
-            for k in LAYER_KEYS}
+    out = {}
+    for k in LAYER_KEYS:
+        w = layers[k]
+        if not isinstance(w, torch.Tensor):
+            out[k] = {n: leaf[i] for n, leaf in w.items()}
+        elif train and w.requires_grad:
+            out[k] = _StackSlice.apply(w, i)
+        else:
+            out[k] = w[i]
+    return out
 
 
 def forward_hidden(params, cfg: LlamaConfig, inputs_embeds, attention_mask,
@@ -173,7 +230,7 @@ def forward_hidden(params, cfg: LlamaConfig, inputs_embeds, attention_mask,
     x = inputs_embeds.to(cfg.dtype)
     layers = params["layers"]
     remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(layers["wq"].shape[0]):
+    for i in range(layers["attn_norm"].shape[0]):
         lp = _layer_weights(layers, i)
         if remat:
             x = checkpoint(_layer, cfg, x, lp, cos, sin, attention_mask,
@@ -188,7 +245,7 @@ def embed_with_injection(params, input_ids, special_positions=None,
                          special_embeds=None):
     """inputs_embeds = embed[ids], plus special_embeds [B, K, H] added at
     token positions special_positions [B, K] (-1 = unused slot)."""
-    x = params["embed"][input_ids.long()]
+    x = embed_rows(params["embed"], input_ids.long())
     if special_positions is not None:
         b, k = special_positions.shape
         valid = special_positions >= 0
@@ -198,6 +255,18 @@ def embed_with_injection(params, input_ids, special_positions=None,
         bidx = torch.arange(b, device=x.device)[:, None].expand(b, k)
         x = x.index_put((bidx, pos), upd, accumulate=True)
     return x
+
+
+def embed_rows(embed, ids: torch.Tensor) -> torch.Tensor:
+    """Lookup in a dense table or an int8 per-row one ({"q", "s" [V, 1]})."""
+    if isinstance(embed, torch.Tensor):
+        return embed[ids]
+    return embed["q"][ids].to(embed["s"].dtype) * embed["s"][ids]
+
+
+def lm_head_dim(params) -> int:
+    w = params["lm_head"]
+    return (w if isinstance(w, torch.Tensor) else w["q"]).shape[-1]
 
 
 class Llama(ParamTree):

@@ -5,7 +5,8 @@ them to pure functions. ``ParamTree`` holds the same nested dict as an
 ``nn.Module`` (one frozen ``nn.Parameter`` per leaf, one child module per
 sub-dict), and indexes like the dict, so the port's functions read
 ``params["layers"]["wq"]`` from either form and ``.to(device)`` /
-``state_dict()`` work on the whole tree.
+``state_dict()`` work on the whole tree. A sub-tree given as a ParamTree
+is kept as it is (shared), so a new tree can reuse another's leaves.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ class ParamTree(nn.Module):
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
         for key, val in tree.items():
-            if isinstance(val, dict):
+            if isinstance(val, ParamTree):
+                self.add_module(key, val)
+            elif isinstance(val, dict):
                 self.add_module(key, ParamTree(val))
             else:
                 self.register_parameter(
@@ -29,3 +32,7 @@ class ParamTree(nn.Module):
 
     def __contains__(self, key: str) -> bool:
         return key in self._parameters or key in self._modules
+
+    def items(self):
+        """(key, leaf or sub-tree) pairs, as dict.items()."""
+        return [*self._parameters.items(), *self._modules.items()]

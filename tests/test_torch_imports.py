@@ -1,6 +1,7 @@
 """The port stands alone: it imports no jax and none of the packages the
-card's machine lacks, and its tiny slices (greedy evaluation, then one
-teacher-forcing optimizer step through train_one_epoch) run on the CPU.
+card's machine lacks, and its tiny slices (greedy evaluation, dense and
+int4, then one teacher-forcing optimizer step through train_one_epoch) run
+on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -42,6 +43,16 @@ with tempfile.TemporaryDirectory() as tmp:
                                      Dataloader(ds, 2, False), dataset=ds)
     assert len(preds) == 4, preds
     print("metrics", ds.eval_metrics(preds, None, "R2R")[0])
+
+    from navillm_tpu_torch.models.quant import quantize_nav_params, weight_bits
+    from navillm_tpu_torch.ops.matmul_q4 import matmul_q4
+    q4 = NavModel(cfg, quantize_nav_params(model, bits=4))
+    assert weight_bits(q4) == 4
+    agent.runner = NavModelRunner(cfg, q4, tok, dims=RolloutDims.tiny())
+    preds = agent.validate_streaming("R2R", args, T.eval_config(4),
+                                     Dataloader(ds, 2, False), dataset=ds)
+    assert len(preds) == 4 and matmul_q4.launches == 0, preds
+    print("w4 metrics", ds.eval_metrics(preds, None, "R2R")[0])
 
     from navillm_tpu.data.loaders import MetaLoader
     from navillm_tpu_torch.agents.mp3d_agent import TrainArgs

@@ -1,6 +1,7 @@
-"""The CUDA flash-attention kernels against their plain PyTorch versions:
-the forward (csrc/flash_attn_fwd.cu) and the dK/dV and dQ backward kernels
-(csrc/flash_attn_bwd.cu).
+"""The CUDA kernels against their plain PyTorch versions: the
+flash-attention forward (csrc/flash_attn_fwd.cu), the dK/dV and dQ
+backward kernels (csrc/flash_attn_bwd.cu) and the int4 matmul
+(csrc/matmul_q4.cu).
 
 The kernel tests need a Hopper card (compute capability 9.0) and skip
 elsewhere. This file imports no jax, so on the card it runs without the
@@ -19,6 +20,11 @@ from navillm_tpu_torch.ops.attention import (  # noqa: E402
     flash_attention_bwd_dkv, flash_attention_bwd_dq,
     flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_fwd_reference)
+
+from navillm_tpu_torch.models.llama import _act_q  # noqa: E402
+from navillm_tpu_torch.models.quant import _quant_one4  # noqa: E402
+from navillm_tpu_torch.ops.matmul_q4 import (  # noqa: E402
+    matmul_q4, matmul_q4_reference)
 
 torch.set_num_threads(1)
 
@@ -199,3 +205,88 @@ def test_flash_attention_function_matches_eager_autograd():
     for name, a, w in zip("qkv", *grads):
         torch.testing.assert_close(a, w, rtol=2e-2, atol=6e-2,
                                    msg=f"d{name}")
+
+
+def _q4_inputs(lead, h, o, seed=0, s_dtype=torch.bfloat16):
+    """bf16 x [*lead, h], its per-token int8 form, and an int4 weight
+    quantized on the card from a bf16 one (scales in s_dtype)."""
+    r = np.random.RandomState(seed)
+    x = torch.from_numpy(r.randn(*lead, h).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    w = torch.from_numpy((r.randn(h, o) * h ** -0.5).astype(np.float32)) \
+        .to("cuda", torch.bfloat16)
+    q4p, s = _quant_one4(w)
+    return x, _act_q(x)[0], q4p, s.to(s_dtype)
+
+
+def _assert_q4_close(got, want, int8_x):
+    """int8 x: every group product is exact, so only f32 rounding of the
+    same ops in the same order remains (rtol 1e-6). bf16 x: the f32 sums
+    differ in order, so after the bf16 cast the two may differ by one bf16
+    ulp: 2**-7 of the element, plus 1e-4 of the largest element for
+    values near zero, where the f32 order error exceeds their ulp."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    g, w = got.float(), want.float()
+    if int8_x:
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=0)
+    else:
+        bound = 2 ** -7 * w.abs() + 1e-4 * w.abs().max()
+        assert ((g - w).abs() <= bound).all(), (g - w).abs().max()
+
+
+# (leading dims, h, o): tiny model dims (G = 128), G = 32 and 64, ragged m
+# and o (o/2 not a multiple of 16 bytes), leading dims, the 7B shapes
+Q4_CASES = [
+    ((7,), 128, 256), ((40,), 256, 512), ((130,), 384, 256),
+    ((33,), 96, 200), ((3, 5), 192, 96), ((300,), 4096, 4096),
+    ((257,), 4096, 11008), ((129,), 11008, 4096),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_x", [False, True], ids=["w4", "w4a8"])
+@pytest.mark.parametrize("case", Q4_CASES)
+def test_matmul_q4_kernel_matches_reference(case, int8_x):
+    _require_sm90()
+    lead, h, o = case
+    x, xq, q4p, s = _q4_inputs(lead, h, o)
+    a = xq if int8_x else x
+    before = (matmul_q4.launches, matmul_q4.int8_launches)
+    got = matmul_q4(a, q4p, s)
+    torch.cuda.synchronize()
+    assert (matmul_q4.launches, matmul_q4.int8_launches) == (
+        before[0] + 1, before[1] + int(int8_x))
+    assert got.shape == (*lead, o)
+    assert got.dtype == (torch.float32 if int8_x else torch.bfloat16)
+    _assert_q4_close(got, matmul_q4_reference(a, q4p, s), int8_x)
+
+
+@pytest.mark.cuda
+def test_matmul_q4_kernel_f32_scales_and_out_dtypes():
+    _require_sm90()
+    x, xq, q4p, s = _q4_inputs((65,), 256, 384, seed=1,
+                               s_dtype=torch.float32)
+    for a, out in ((x, torch.float32), (xq, torch.bfloat16)):
+        _assert_q4_close(matmul_q4(a, q4p, s, out_dtype=out),
+                         matmul_q4_reference(a, q4p, s, out_dtype=out),
+                         int8_x=a.dtype == torch.int8 and
+                         out == torch.float32)
+
+
+@pytest.mark.cuda
+def test_matmul_q4_kernel_rejects_what_it_does_not_take():
+    _require_sm90()
+    x, xq, q4p, s = _q4_inputs((16,), 256, 128)
+    with pytest.raises(ValueError):                  # f32 x
+        matmul_q4(x.float(), q4p, s)
+    with pytest.raises(ValueError):                  # a strided x
+        matmul_q4(torch.cat([x, x], -1)[:, 1:257], q4p, s)
+    with pytest.raises(ValueError):                  # q4p off its alignment
+        buf = torch.empty(q4p.numel() + 1, dtype=torch.uint8, device="cuda")
+        buf[1:].copy_(q4p.flatten())
+        matmul_q4(x, buf[1:].view(q4p.shape), s)
+    x48, xq48, q48, s48 = _q4_inputs((16,), 48, 64)   # G = 16
+    matmul_q4(x48, q48, s48)                          # bf16 takes G = 16
+    with pytest.raises(ValueError):                   # int8 needs G % 32
+        matmul_q4(xq48, q48, s48)

@@ -15,6 +15,7 @@ import jax  # noqa: E402
 
 from navillm_tpu.models import llama as JL  # noqa: E402
 from navillm_tpu.models import nav_model as JNM  # noqa: E402
+from navillm_tpu.models import quant as JQ  # noqa: E402
 from navillm_tpu_torch.convert import params_from_jax  # noqa: E402
 from navillm_tpu_torch.models import llama as TL  # noqa: E402
 
@@ -60,6 +61,35 @@ def test_forward_hidden_matches_jax(nkv):
     torch.testing.assert_close(
         module(torch.from_numpy(emb), torch.from_numpy(mask)), got,
         rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bits,act_int8", [(4, False), (4, True),
+                                           (8, False)])
+def test_forward_hidden_quantized_matches_jax(bits, act_int8):
+    """A JAX-quantized LLM tree converted byte for byte: int4 (w4, w4a8)
+    and int8 weight-only; f32 activations, the embedding through its int8
+    rows."""
+    jcfg, pj, _ = _llm_params(4)
+    jcfg = dataclasses.replace(jcfg, act_int8=act_int8)
+    tcfg = TL.LlamaConfig.tiny(vocab_size=VOCAB, act_int8=act_int8)
+    pq = JQ._quantize_llama_impl(pj, bits)
+    pt = params_from_jax(jax.tree.map(np.asarray, pq))
+    r = np.random.RandomState(4)
+    b, t = 2, 36
+    ids = r.randint(0, VOCAB, (b, t)).astype(np.int32)
+    mask = _left_padded_mask(b, t, [0, 11])
+    emb_j = JL.embed_with_injection(pq, ids)
+    emb_t = TL.embed_with_injection(pt, torch.from_numpy(ids))
+    np.testing.assert_allclose(emb_t.numpy(), np.asarray(emb_j), **TOL)
+    want, _ = JL.forward_hidden(pq, jcfg, emb_j, mask)
+    got = TL.forward_hidden(pt, tcfg, emb_t, torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert TL.lm_head_dim(pt) == JL.lm_head_dim(pq) == VOCAB
+    # the module holds integer leaves as frozen parameters
+    module = TL.Llama(tcfg, pt)
+    assert not any(p.requires_grad for p in module.parameters())
+    torch.testing.assert_close(module(emb_t, torch.from_numpy(mask)), got,
+                               rtol=0, atol=0)
 
 
 def test_embed_with_injection_matches_jax():

@@ -14,6 +14,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from navillm_tpu.models import nav_model as JNM  # noqa: E402
+from navillm_tpu.models import quant as JQ  # noqa: E402
 from navillm_tpu.models.pano_encoder import (  # noqa: E402
     forward_panorama as j_forward_panorama)
 from navillm_tpu.testing import synthetic_nav_batch  # noqa: E402
@@ -91,6 +92,29 @@ def test_forward_navigation_matches_jax(models):
     got = model(_torch_batch(batch))
     np.testing.assert_allclose(got["fuse_embeds"].numpy(),
                                np.asarray(want["fuse_embeds"]), **TOL)
+    np.testing.assert_allclose(got["fuse_logits"].numpy(),
+                               np.asarray(want["fuse_logits"]), **TOL)
+    np.testing.assert_array_equal(got["fuse_logits"].argmax(-1).numpy(),
+                                  np.asarray(want["fuse_logits"]).argmax(-1))
+
+
+@pytest.mark.parametrize("act_int8", [False, True])
+def test_forward_navigation_int4_matches_jax(models, act_int8):
+    """The JAX int4 tree (quantize_nav_params, bits=4) converted byte for
+    byte; w4 and w4a8 (int8 activations), f32."""
+    jcfg, pj, tcfg, _ = models
+    pq = dict(pj, llm=JQ._quantize_llama_impl(pj["llm"], 4))
+    jcfg = dataclasses.replace(jcfg, llm=dataclasses.replace(
+        jcfg.llm, act_int8=act_int8))
+    tcfg = dataclasses.replace(tcfg, llm=dataclasses.replace(
+        tcfg.llm, act_int8=act_int8))
+    batch = synthetic_nav_batch(jcfg, b=3, g=12, v=8, c=8, hh=4, tlen=48,
+                                seed=3)
+    batch["attention_mask"][2, :9] = False          # left padding
+    want = JNM.forward_navigation(pq, jcfg, batch)
+    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pq)))
+    assert model["llm"]["layers"]["w_up"]["q4p"].dtype == torch.uint8
+    got = model(_torch_batch(batch))
     np.testing.assert_allclose(got["fuse_logits"].numpy(),
                                np.asarray(want["fuse_logits"]), **TOL)
     np.testing.assert_array_equal(got["fuse_logits"].argmax(-1).numpy(),

@@ -5,6 +5,8 @@ Both run validate_streaming with device memory, no prefix cache, argmax
 actions and two slot groups, so refills and the pipeline's order are
 exercised. They must give identical trajectories and identical SR/SPL.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,6 +21,7 @@ from navillm_tpu.data.datasets import load_dataset  # noqa: E402
 from navillm_tpu.data.feature_db import SyntheticImageFeaturesDB  # noqa: E402
 from navillm_tpu.data.loaders import Dataloader  # noqa: E402
 from navillm_tpu.models import nav_model as JNM  # noqa: E402
+from navillm_tpu.models import quant as JQ  # noqa: E402
 from navillm_tpu.models.tokenization import NavTokenizer  # noqa: E402
 from navillm_tpu.sim import WorldModel  # noqa: E402
 from navillm_tpu.utils.config import ConfigDict, TrainArgs  # noqa: E402
@@ -33,18 +36,28 @@ torch.set_num_threads(1)
 STOP_BIAS = -0.8
 
 
-@pytest.fixture(scope="module")
-def runners():
+def _make_runners(bits=16, act_int8=False, stop_bias=STOP_BIAS):
     tok = NavTokenizer(max_length=2048, pad_to_multiple=128)
     jcfg = JNM.NavModelConfig.tiny(vocab_size=tok.vocab_size, use_obj=False)
     tcfg = TNM.NavModelConfig.tiny(vocab_size=tok.vocab_size, use_obj=False)
     pj = JNM.init_nav_params(jax.random.PRNGKey(0), jcfg)
     # a stop bias, so that the random policy walks a few steps (episodes
     # end at mixed lengths, and slots refill at different times)
-    pj["out_head"]["b"] = pj["out_head"]["b"].at[0].set(STOP_BIAS)
+    pj["out_head"]["b"] = pj["out_head"]["b"].at[0].set(stop_bias)
+    if bits != 16:
+        pj = dict(pj, llm=JQ._quantize_llama_impl(pj["llm"], bits))
+        jcfg = dataclasses.replace(jcfg, llm=dataclasses.replace(
+            jcfg.llm, act_int8=act_int8))
+        tcfg = dataclasses.replace(tcfg, llm=dataclasses.replace(
+            tcfg.llm, act_int8=act_int8))
     model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj)))
     return (JRunner(jcfg, pj, tok, dims=JDims.tiny()),
             NavModelRunner(tcfg, model, tok, dims=RolloutDims.tiny()))
+
+
+@pytest.fixture(scope="module")
+def runners():
+    return _make_runners()
 
 
 def _both(runners, data_root, split_file, max_action_len, n_slots):
@@ -93,6 +106,23 @@ def test_slice_matches_jax_with_refills(runners, tmp_path):
     (jt, jm), (tt, tm) = _both(runners, tmp_path, "annotations/val.json",
                                6, 2)
     assert len(tt) == 10
+    assert len({len(t) for t in tt.values()}) > 1     # mixed lengths
+    assert tt == jt
+    assert tm == jm
+    assert all(np.isfinite(tm[k]) for k in ("sr", "spl"))
+
+
+@pytest.mark.parametrize("act_int8", [False, True], ids=["w4", "w4a8"])
+def test_int4_slice_matches_jax(act_int8, tmp_path):
+    """The int4 slice: the JAX int4 tree (bits=4) in both packages, w4 and
+    w4a8, with refills. Both run the same function on the same bytes, so
+    trajectories and SR/SPL are identical (the JAX package's own int4
+    test only asks for 60% agreement with the dense policy)."""
+    T.make_r2r_world(tmp_path, n_episodes=6, rows=4, cols=4, seed=5)
+    # no stop bias: the int4 policy then stops at mixed steps
+    (jt, jm), (tt, tm) = _both(_make_runners(4, act_int8, stop_bias=0.0),
+                               tmp_path, "annotations/val.json", 5, 2)
+    assert len(tt) == 6
     assert len({len(t) for t in tt.values()}) > 1     # mixed lengths
     assert tt == jt
     assert tm == jm

@@ -6,24 +6,41 @@
 Phases, in order; any failure raises and the script exits nonzero:
   0. device: a CUDA card of compute capability 9.0; prints nvidia-smi's
      name and power limit;
-  1. build: compiles csrc/flash_attn_fwd.cu and csrc/flash_attn_bwd.cu
-     with nvcc for sm_90a, both at once;
-  2. kernel vs plain: the flash-attention forward kernel against its plain
-     PyTorch version at the eval slice's shapes (B=4, 32 heads of 128,
-     bf16, causal, left-padded masks with fully-masked rows), both timed
-     with CUDA events;
+  1. build: compiles every kernel (csrc/flash_attn_fwd.cu,
+     flash_attn_bwd.cu, flash_attn_bwd_dq.cu, matmul_q4.cu) with nvcc for
+     sm_90a, all at once, and prints ptxas's registers and spills for each;
+  2. kernel vs plain: the flash-attention forward kernel (K1) against its
+     plain PyTorch version (32 heads of 128, bf16, left-padded masks with
+     fully-masked rows): causal at B=4 with T in {65, 128, 640, 1000,
+     1024}, B=16 at T=1024 (the training shape), one GQA case, one D=64
+     case, one non-causal case with S != T and one with flat rows (q / 8);
+     O is held per element to a bound scaled by the element and its row's
+     RMS (testing.attn_excess), which the plain version with one key, or
+     one 64-key tile, hidden must fail on the rows that see 256 keys or
+     more; then K1, its plain version and one library call
+     (F.scaled_dot_product_attention with the same boolean mask, a
+     yardstick the port never calls; its own max |d| from the plain
+     version printed beside it) timed with CUDA events at the eval and
+     training shapes, on full masks and on PR 1-3's left-padded masks;
   3. the eval slice: greedy R2R streaming evaluation (validate_streaming)
      of the navigation model at Vicuna-7B width (bf16, random weights from
      a seed) on a synthetic 8x8 grid world; every LLM layer of every step
      must go through the kernel;
   4. model-level A/B: one forward_navigation step through the kernel and
      through the eager attention path on the same inputs;
-  5. backward kernels vs plain: the dK/dV and dQ kernels against their
-     plain versions at the training slice's shapes (B = rows per grad
-     call, 32 heads of 128, bf16, causal, T in {640, 1024}, left-padded
-     masks with fully-masked rows), timed with CUDA events; and the
-     differentiable FlashAttention against autograd through the eager
-     path;
+  5. backward kernels vs plain: the dK/dV (K2) and dQ (K3) kernels
+     against their plain versions at the training slice's shapes (B = rows
+     per grad call, 32 heads of 128, bf16, causal, T in {640, 1024}, and
+     T=1024 with flat rows; left-padded masks with fully-masked rows, whose
+     dQ must be exactly 0) under phase 2's per-element bound, which a
+     hidden key or key tile (dQ) and a skipped query row or query tile
+     (dK/dV) must fail; the differentiable FlashAttention against autograd
+     through the eager path; then both kernels (on full masks and on PR
+     2's left-padded ones, each with nvidia-smi's SM clock and power read
+     while they run), their plain versions and the backward of the masked
+     F.scaled_dot_product_attention call (the library yardstick for K2 +
+     K3 + delta, its max |d| from the plain versions beside it) timed with
+     CUDA events;
   6. the training slice: R2R teacher-forcing training of the same 7B-width
      model through train_one_epoch (stage pretrain, fused teacher, dropout
      on, AdamW, gradient accumulation 2): a warm-up epoch, then 4 batches
@@ -31,51 +48,60 @@ Phases, in order; any failure raises and the script exits nonzero:
      must go through the three kernels;
   7. gradient A/B: one grad call through the kernels and through the eager
      attention path, on the same inputs and weights with dropout off;
-  8. int4 matmul vs plain: the int4 dequant-matmul kernel against its plain
-     version at the 7B layer shapes (h, o) in {(4096, 4096), (4096, 11008),
-     (11008, 4096)}, m in {4096, 3584, 7}, w4 (bf16 x) and w4a8 (int8 x),
-     timed with CUDA events beside a dense bf16 torch.matmul;
+  8. int4 matmul vs plain: the int4 dequant-matmul kernel (K4) against its
+     plain version at the 7B layer shapes (h, o) in {(4096, 4096), (4096,
+     11008), (11008, 4096)}, m in {4096, 3584, 7}, w4 (bf16 x) and w4a8
+     (int8 x), timed with CUDA events beside a dense bf16 torch.matmul and,
+     for w4, torch._weight_int4pack_mm on the same weight repacked (the
+     library yardstick, its max |d| from the plain version beside it);
   9. the w4 slice: the trained model's LLM quantized to int4 on the card
      (quantize_nav_params, bits=4), then phase 3's evaluation again; every
      layer matmul of every step must go through the int4 kernel;
  10. the w4a8 slice: phase 9 with act_int8 (int8 activations);
  11. int4 model-level A/B: one forward_navigation step on the int4 tree
      through the kernel and through its plain version, w4 and w4a8.
-The line before the last is {"kernels": [...]}, the last line is
-{"ok": true, "device": {...}}.
+The kernels line lists K1-K4 with each one's time, its plain version's,
+the library call's (or why there is none) with its agreement, the worst
+gate excess of the checks and its bound: the larger of
+the bytes it must move over 3.35 TB/s and its FLOPs over 989 TFLOP/s (the
+H100 SXM's bf16 dense peak). Then nvidia-smi's name and power limit, and
+the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import tempfile
 import time
 
-import numpy as np
 import torch
+import torch.nn.functional as F
 
-from navillm_tpu.data.loaders import Dataloader, MetaLoader
-from navillm_tpu.models.tokenization import NavTokenizer
 from navillm_tpu_torch import testing as T
 from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
 from navillm_tpu_torch.models.llama import LlamaConfig, _act_q
 from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
                                                 forward_navigation)
 from navillm_tpu_torch.models.pano_encoder import PanoConfig
 from navillm_tpu_torch.models.quant import _quant_one4, quantize_nav_params
+from navillm_tpu_torch.models.tokenization import NavTokenizer
 from navillm_tpu_torch.ops import _build
 from navillm_tpu_torch.ops.attention import (
     FlashAttention, attention_delta, attention_eager, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
-    flash_attention_bwd_dq_reference, flash_attention_fwd,
-    flash_attention_fwd_reference)
+    flash_attention_bwd_dq_reference, flash_attention_bwd_reference,
+    flash_attention_fwd, flash_attention_fwd_reference)
 from navillm_tpu_torch.ops.masking import NEG_INF
-from navillm_tpu_torch.ops.matmul_q4 import matmul_q4, matmul_q4_reference
+from navillm_tpu_torch.ops.matmul_q4 import (matmul_q4, matmul_q4_reference,
+                                             unpack_q4)
 from navillm_tpu_torch.training.optim import make_optimizer
 from navillm_tpu_torch.training.train_loop import (make_opt_step,
                                                    train_one_epoch)
@@ -88,7 +114,7 @@ KERNELS = {
             "source": "navillm_tpu_torch/csrc/flash_attn_bwd.cu",
             "replaces": "navillm_tpu/ops/attention.py:183"},
     "dq": {"name": "flash_attn_bwd_dq", "route": "cuda",
-           "source": "navillm_tpu_torch/csrc/flash_attn_bwd.cu",
+           "source": "navillm_tpu_torch/csrc/flash_attn_bwd_dq.cu",
            "replaces": "navillm_tpu/ops/attention.py:234"},
     "q4": {"name": "matmul_q4", "route": "cuda",
            "source": "navillm_tpu_torch/csrc/matmul_q4.cu",
@@ -96,15 +122,39 @@ KERNELS = {
 }
 COUNTERS = {"fwd": flash_attention_fwd, "dkv": flash_attention_bwd_dkv,
             "dq": flash_attention_bwd_dq}
-# bf16 output of values of magnitude <= ~1: a few bf16 ulps
-O_ATOL = 3e-2
-# lse is f32 on both sides; scores differ only in summation order
-LSE_ATOL = 2e-3
-# bf16 gradients of magnitude up to ~8 (f32 sums on both sides, P and dS
-# rounded to bf16 in the same places): two bf16 ulps at the top of range
-GRAD_ATOL = 0.125
+SOURCES = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_dq",
+           "matmul_q4"]
+# the H100 SXM's published peaks (bf16 dense tensor cores; HBM3)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# K1's cases: (b, t, s, nh, nkv, d, causal, q scale); random q and k make
+# peaked rows, q / 8 flat ones, where a skipped key moves O the least
+FLAT_Q = 0.125
+FWD_CASES = [(4, t, t, 32, 32, 128, True, 1.0)
+             for t in (65, 128, 640, 1000, 1024)]
+FWD_CASES += [(16, 1024, 1024, 32, 32, 128, True, 1.0),  # the training shape
+              (4, 1024, 1024, 32, 8, 128, True, 1.0),    # grouped-query
+              (4, 640, 640, 32, 32, 64, True, 1.0),      # D = 64
+              (4, 640, 1000, 32, 32, 128, False, 1.0),   # cross-attention
+              (4, 1024, 1024, 32, 32, 128, True, FLAT_Q)]
+# K1 is timed at the eval slice's shapes (B = 4 slots) and the training
+# slice's (B = 16 rows per grad call); K2/K3 at the training shapes
+FWD_TIMED = ((4, 128), (4, 640), (4, 1024), (16, 1024))
+# O, dK, dV and dQ against their plain versions: T.attn_excess, per element
+# (rel T.ATTN_REL, row RMS T.ATTN_ROW, floor T.ATTN_FLOOR), on the rows that
+# see a valid key. Its power is shown on every case whose rows see 256 keys
+# or more: the plain version with one key (and one 64-key tile) hidden must
+# fail it there.
+LONG_ROW = 256
+# lse is f32 on both sides and differs in summation order only (~1e-6);
+# hiding a 64-key tile from a flat row of 1024 keys moves it by ~0.06
+LSE_ATOL = 1e-4
+# FlashAttention's three gradients against autograd through the eager path,
+# which rounds P to bf16 after normalizing and runs its backward products on
+# bf16 operands: a few bf16 ulps of gradients up to ~8
+EAGER_GRAD_ATOL = 0.125
 # the 7B gradient through the kernels vs through eager attention
-MIN_GRAD_COSINE = 0.99
+MIN_GRAD_COSINE = 0.999
 N_EPISODES = 32
 N_SLOTS = 4
 MAX_ACTION_LEN = 10
@@ -140,6 +190,24 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_clocked(fn, iters: int):
+    """cuda_ms, with nvidia-smi's SM clock and power draw read while the
+    timed launches run (``iters`` should keep the card busy ~0.5 s)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, smi
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py drives the port "
@@ -160,51 +228,202 @@ def phase_device() -> str:
     return smi
 
 
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that must move ``nbytes`` and do ``flops`` at ``peak_flops``."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attn_pairs(t: int, s: int, causal: bool) -> int:
+    """(query, key) pairs a full key mask leaves, per (batch, head)."""
+    return t * (t + 1) // 2 if causal else t * s
+
+
+def fwd_bound(b, t, s, nh, nkv, d, causal):
+    """K1: 2 products of 2 D FLOP per pair; Q, K, V and the mask read once,
+    O and lse written once."""
+    nbytes = 2 * d * (2 * b * t * nh + 2 * b * s * nkv) + 4 * b * nh * t + b * s
+    return bound(4 * d * b * nh * attn_pairs(t, s, causal), nbytes)
+
+
+def bwd_bounds(b, t, nh, d):
+    """(K2, K3), causal with T == S and NKV == NH: K2 does 4 products per
+    pair and reads Q, K, V, dO, lse, delta and the mask, writes dK and dV;
+    K3 does 3 and writes dQ."""
+    pairs = b * nh * attn_pairs(t, t, True)
+    tensor = 2 * b * t * nh * d           # one [B, T, NH, D] bf16 tensor
+    inputs = 4 * tensor + 2 * 4 * b * nh * t + b * t
+    return (bound(8 * d * pairs, inputs + 2 * tensor),
+            bound(6 * d * pairs, inputs + tensor))
+
+
+def q4_bound(m, h, o, g, int8_x: bool):
+    """K4: 2 m h o operations (int8 tensor cores at twice the bf16 rate for
+    w4a8); x, the nibbles and the bf16 scales read once, y written once
+    (bf16 for w4, f32 for w4a8)."""
+    nbytes = (m * h * (1 if int8_x else 2) + h * o // 2 + (h // g) * o * 2
+              + m * o * (4 if int8_x else 2))
+    return bound(2 * m * h * o, nbytes, 2 * PEAK_FLOPS if int8_x else PEAK_FLOPS)
+
+
+def left_padded_mask(b: int, s: int):
+    """[B, S] key masks with the first pads[i] keys of row i hidden, pads
+    from none to all but one key."""
+    pads = torch.linspace(0, s - 1, b, device="cuda").long()
+    return torch.arange(s, device="cuda")[None, :] >= pads[:, None]
+
+
+def hide_keys(mask, start: int, width: int):
+    """A copy of the [B, S] key mask with keys start..start+width-1 hidden:
+    the plain version on it is what a kernel that skipped them gives."""
+    hidden = mask.clone()
+    hidden[:, start:start + width] = False
+    return hidden
+
+
+def gate(what: str, got, want, rows, faults=(), long_rows=None) -> float:
+    """Holds ``got`` to ``want`` by T.attn_excess on ``rows``; each of
+    ``faults`` ((name, output of the plain version with the fault planted))
+    must fail the same gate on ``long_rows``. Returns the excess."""
+    excess = T.attn_excess(got, want, rows)
+    shown = []
+    for name, bad in faults:
+        r = T.attn_excess(bad, want, long_rows)
+        shown.append(f"{name} {r:.1f}")
+        if r <= 1:
+            raise RuntimeError(f"{what}: the gate passes a planted fault "
+                               f"({name}, excess {r:.3f})")
+    note = (f"; planted faults fail it: {', '.join(shown)}" if shown else "")
+    print(f"{what}: excess {excess:.3f} of the limit{note}")
+    if not excess <= 1:
+        raise RuntimeError(f"{what}: kernel disagrees with its plain version")
+    return excess
+
+
+def sdpa_call(q, k, v, mask, causal: bool, scale: float):
+    """K1's function as one F.scaled_dot_product_attention call on the
+    [B, NH, T, D] views with the same boolean mask (the library yardstick;
+    the port never calls it)."""
+    t, s = q.shape[1], k.shape[1]
+    am = mask[:, None, None, :]
+    if causal:
+        am = am & torch.ones(t, s, dtype=torch.bool,
+                             device=mask.device).tril(s - t)
+    views = [x.transpose(1, 2) for x in (q, k, v)]
+    return lambda: F.scaled_dot_product_attention(*views, attn_mask=am,
+                                                  scale=scale)
+
+
+def randn(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
 def phase_build():
     t0 = time.perf_counter()
-    for built in _build.load_all(["flash_attn_fwd", "flash_attn_bwd",
-                                  "matmul_q4"]):
-        regs = [ln.strip() for ln in built.log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"[1] built {built.path.name} in {built.seconds:.2f} s; "
-              f"ptxas: {regs}")
+    demangle = shutil.which("c++filt")
+    for built in _build.load_all(SOURCES):
+        print(f"[1] built {built.path.name} in {built.seconds:.2f} s")
+        fn = None
+        for ln in built.log.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1]
+                if demangle:
+                    fn = subprocess.run([demangle, fn], capture_output=True,
+                                        text=True).stdout.strip()
+            elif fn and ("registers" in ln or "spill" in ln):
+                print(f"[1]   {fn}: {ln.split(':', 1)[-1].strip()}")
     print(f"[1] all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
+def padded_timing_mask(b: int, t: int):
+    """The left-padded masks PRs 1-3 timed on: at B=4 the first 0, T/8,
+    T/2 and T-1 keys of the four rows hidden (phase 2's), else
+    left_padded_mask (phase 5's)."""
+    if b != 4:
+        return left_padded_mask(b, t)
+    pads = torch.tensor([0, t // 8, t // 2, t - 1], device="cuda")
+    return torch.arange(t, device="cuda")[None, :] >= pads[:, None]
+
+
 def phase_kernel():
-    """Returns {T: (max_abs_err_o, ms, plain_ms)}."""
-    b, nh, d = 4, 32, 128
+    """K1 against its plain version on FWD_CASES, then timed at FWD_TIMED
+    beside its plain version and the library call. Returns (max |dO| and
+    the worst gate excess over the cases, {(b, t): timings})."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    out = {}
-    for t in (128, 640, 1024):
-        q, k, v = (torch.randn((b, t, nh, d), generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(3))
-        pads = torch.tensor([0, t // 8, t // 2, t - 1], device="cuda")
-        mask = torch.arange(t, device="cuda")[None, :] >= pads[:, None]
-        scale = 1.0 / math.sqrt(d)
-        with torch.inference_mode():
-            o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
+    top = {"max_abs_err": 0.0, "gate_excess": 0.0}
+    with torch.inference_mode():
+        for b, t, s, nh, nkv, d, causal, qs in FWD_CASES:
+            q, k, v = randn(gen, b, t, nh, d) * qs, randn(gen, b, s, nkv, d), \
+                randn(gen, b, s, nkv, d)
+            mask = left_padded_mask(b, s)
+            scale = d ** -0.5
+            o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
                                          scale=scale)
-            ro, rlse = flash_attention_fwd_reference(q, k, v, mask, True,
+            ro, rlse = flash_attention_fwd_reference(q, k, v, mask, causal,
                                                      scale)
             torch.cuda.synchronize()
+            case = (f"B={b} T={t} S={s} NH={nh} NKV={nkv} D={d} "
+                    f"{'causal' if causal else 'non-causal'}"
+                    f"{'' if qs == 1 else f' q x {qs}'}")
             if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-                raise RuntimeError(f"T={t}: kernel output is not finite")
-            # causal + left padding: row i is valid iff key i is
-            err_o = (o.float() - ro.float()).abs()[mask].max().item()
-            err_lse = (lse - rlse).abs().transpose(1, 2)[mask].max().item()
+                raise RuntimeError(f"{case}: kernel output is not finite")
+            seen = T.visible_keys(mask, t, causal)
+            rows, long_rows = seen > 0, seen >= LONG_ROW
+            err_o = (o.float() - ro.float()).abs()[rows].max().item()
+            err_lse = (lse - rlse).abs().transpose(1, 2)[rows].max().item()
+            print(f"[2] {case}: max|dO|={err_o:.3e} (|O| up to "
+                  f"{ro.float()[rows].abs().max().item():.2f}) max|dlse|="
+                  f"{err_lse:.3e} (tol {LSE_ATOL})")
+            faults = [(name, flash_attention_fwd_reference(
+                q, k, v, hide_keys(mask, 128, w), causal, scale)[0])
+                for name, w in (("one key hidden", 1),
+                                ("one 64-key tile hidden", 64))
+                if long_rows.any()]
+            excess = gate("[2]   O", o, ro, rows, faults, long_rows)
+            if err_lse > LSE_ATOL:
+                raise RuntimeError(f"{case}: kernel's lse disagrees with its "
+                                   f"plain version")
+            top["max_abs_err"] = max(top["max_abs_err"], err_o)
+            top["gate_excess"] = max(top["gate_excess"], excess)
+            del faults
+        timed = {}
+        for b, t in FWD_TIMED:
+            nh, d = 32, 128
+            q, k, v = (randn(gen, b, t, nh, d) for _ in range(3))
+            mask = torch.ones((b, t), dtype=torch.bool, device="cuda")
+            padded = padded_timing_mask(b, t)
+            scale = d ** -0.5
             ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, mask,
                                                      causal=True, scale=scale))
+            padded_ms = cuda_ms(lambda: flash_attention_fwd(
+                q, k, v, padded, causal=True, scale=scale))
             plain_ms = cuda_ms(lambda: flash_attention_fwd_reference(
-                q, k, v, mask, True, scale))
-        print(f"[2] T={t}: max|dO|={err_o:.3e} (tol {O_ATOL}) "
-              f"max|dlse|={err_lse:.3e} (tol {LSE_ATOL}); kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if err_o > O_ATOL or err_lse > LSE_ATOL:
-            raise RuntimeError(f"T={t}: kernel disagrees with its plain "
-                               f"version")
-        out[t] = (err_o, ms, plain_ms)
-    return out
+                q, k, v, mask, True, scale), iters=5)
+            library = sdpa_call(q, k, v, mask, True, scale)
+            library_ms = cuda_ms(library)
+            # the yardstick's own agreement with the plain version, reported
+            # beside its time and not gated
+            ro = flash_attention_fwd_reference(q, k, v, mask, True, scale)[0]
+            lo = library().transpose(1, 2)
+            lib_err = (lo.float() - ro.float()).abs().max().item()
+            lib_excess = T.attn_excess(lo, ro, mask)
+            bound_ms, by = fwd_bound(b, t, t, nh, nh, d, True)
+            tflops = 4 * d * b * nh * attn_pairs(t, t, True) / ms / 1e9
+            print(f"[2] B={b} T={t} causal, full masks: kernel {ms:.4f} ms "
+                  f"({tflops:.1f} TFLOP/s; {padded_ms:.4f} ms on PR 1-3's "
+                  f"left-padded masks), plain {plain_ms:.4f} ms, masked SDPA "
+                  f"{library_ms:.4f} ms (max|d| {lib_err:.3e} from the plain "
+                  f"version, gate excess {lib_excess:.3f}), bound "
+                  f"{bound_ms:.4f} ms ({by})")
+            timed[(b, t)] = {"ms": ms, "padded_ms": padded_ms,
+                             "plain_ms": plain_ms, "library_ms": library_ms,
+                             "library_max_abs_err": lib_err,
+                             "library_gate_excess": lib_excess,
+                             "bound_ms": bound_ms, "bound_by": by}
+    return top, timed
 
 
 def model_7b():
@@ -230,10 +449,12 @@ def run_eval(agent, ds, args):
             Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
 
 
-def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True):
+def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
+                window=contextlib.nullcontext):
     """Greedy streaming eval of N_EPISODES episodes (after a warm-up on its
     own world); gates every trajectory's start, SR/SPL and K1's launches.
-    Returns ({instr_id: trajectory}, eval steps)."""
+    ``window()`` is entered around the measured run (scripts/profile_port.py
+    traces it). Returns ({instr_id: trajectory}, eval steps)."""
     runner = NavModelRunner(cfg, model, tok, dims=RolloutDims(
         max_gmap_nodes=48, max_views=44, max_cands=12, max_hist=16))
     widths = []
@@ -257,10 +478,11 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True):
     flash_attention_fwd.launches = 0
     matmul_q4.launches = matmul_q4.int8_launches = 0
     runner.eval_steps = 0
-    t0 = time.perf_counter()
-    preds = run_eval(agent, ds, args)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with window():
+        t0 = time.perf_counter()
+        preds = run_eval(agent, ds, args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches, steps = flash_attention_fwd.launches, runner.eval_steps
 
     if len(preds) != len(ds):
@@ -318,63 +540,78 @@ def phase_ab(cfg, model):
 
 
 def phase_backward():
-    """Returns {T: {"dkv": (err, ms, plain_ms), "dq": (...)}}."""
+    """K2 and K3 against their plain versions, FlashAttention against eager
+    autograd, then both kernels timed beside their plain versions and the
+    library call. Returns ({"dkv", "dq"}: max |err| and worst gate excess,
+    {T: timings})."""
     b, nh, d = ROWS_PER_CALL, 32, 128
     scale = 1.0 / math.sqrt(d)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    out = {}
-    for t in (640, 1024):
-        q, k, v, do = (torch.randn((b, t, nh, d), generator=gen,
-                                   device="cuda", dtype=torch.bfloat16)
-                       for _ in range(4))
-        # left padding from none to all but one key: under causal the
-        # first pads[i] rows of row i see no valid key
-        pads = torch.linspace(0, t - 1, b, device="cuda").long()
-        mask = torch.arange(t, device="cuda")[None, :] >= pads[:, None]
+    errs = {key: {"max_abs_err": 0.0, "gate_excess": 0.0}
+            for key in ("dkv", "dq")}
+    for t, qs in ((640, 1.0), (1024, FLAT_Q), (1024, 1.0)):
+        q = randn(gen, b, t, nh, d) * qs
+        k, v, do = (randn(gen, b, t, nh, d) for _ in range(3))
+        # under causal the first pads[i] rows of row i see no valid key
+        mask = left_padded_mask(b, t)
         with torch.inference_mode():
             o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
                                          scale=scale)
             delta = attention_delta(o, do)
             args = (q, k, v, mask, lse, delta, do)
-            got = {"dkv": flash_attention_bwd_dkv(*args, causal=True,
-                                                  scale=scale),
-                   "dq": (flash_attention_bwd_dq(*args, causal=True,
-                                                 scale=scale),)}
-            want = {"dkv": flash_attention_bwd_dkv_reference(*args, True,
-                                                             scale),
-                    "dq": (flash_attention_bwd_dq_reference(*args, True,
-                                                            scale),)}
+            dk, dv = flash_attention_bwd_dkv(*args, causal=True, scale=scale)
+            dq = flash_attention_bwd_dq(*args, causal=True, scale=scale)
+            rk, rv = flash_attention_bwd_dkv_reference(*args, True, scale)
+            rq = flash_attention_bwd_dq_reference(*args, True, scale)
             torch.cuda.synchronize()
-            res, top = {}, 0.0
-            for key, fn, ref in (
-                    ("dkv", flash_attention_bwd_dkv,
-                     flash_attention_bwd_dkv_reference),
-                    ("dq", flash_attention_bwd_dq,
-                     flash_attention_bwd_dq_reference)):
-                err = 0.0
-                for a, w in zip(got[key], want[key]):
-                    if not torch.isfinite(a).all():
-                        raise RuntimeError(f"T={t}: {key} kernel output is "
-                                           f"not finite")
-                    # causal + left padding: row i is valid iff key i is
-                    err = max(err, (a.float() - w.float()).abs()[mask]
-                              .max().item())
-                    top = max(top, w.float().abs()[mask].max().item())
-                ms = cuda_ms(lambda: fn(*args, causal=True, scale=scale))
-                plain_ms = cuda_ms(lambda: ref(*args, True, scale), iters=5)
-                res[key] = (err, ms, plain_ms)
+            for name, x in (("dK", dk), ("dV", dv), ("dQ", dq)):
+                if not torch.isfinite(x).all():
+                    raise RuntimeError(f"T={t}: {name} is not finite")
+            # causal + left padding, T == S: query row i sees a valid key
+            # iff key i is valid, and valid key j is seen by the T - j
+            # valid rows from j on
+            seen = T.visible_keys(mask, t, True)
+            long_q = seen >= LONG_ROW
+            long_k = mask & (torch.arange(t, device="cuda") <= t - LONG_ROW)
+
+            def skipped_rows(w):      # what skipping query rows gives K2
+                hidden = lse.clone()
+                hidden[:, :, 128:128 + w] = NEG_INF
+                return flash_attention_bwd_dkv_reference(
+                    q, k, v, mask, hidden, delta, do, True, scale)
+
+            dq_faults = [(name, flash_attention_bwd_dq_reference(
+                q, k, v, hide_keys(mask, 128, w), lse, delta, do, True,
+                scale)) for name, w in (("one key hidden", 1),
+                                        ("one 64-key tile hidden", 64))]
+            dkv_faults = [(name, skipped_rows(w))
+                          for name, w in (("one query row skipped", 1),
+                                          ("one 64-row query tile skipped",
+                                           64))]
+            print(f"[5] T={t}, B={b}{'' if qs == 1 else f', q x {qs}'}: "
+                  f"max|err| dK {(dk.float() - rk.float()).abs().max():.3e}"
+                  f", dV {(dv.float() - rv.float()).abs().max():.3e}, dQ "
+                  f"{(dq.float() - rq.float()).abs().max():.3e} (|grad| up "
+                  f"to {max(x.float().abs().max() for x in (rk, rv, rq)):.2f})")
+            ex = {"dkv": max(
+                gate("[5]   dK", dk, rk, mask,
+                     [(n, f[0]) for n, f in dkv_faults], long_k),
+                gate("[5]   dV", dv, rv, mask,
+                     [(n, f[1]) for n, f in dkv_faults], long_k)),
+                "dq": gate("[5]   dQ", dq, rq, mask, dq_faults, long_q)}
+            del dq_faults, dkv_faults
+            for key, got, want in (("dkv", (dk, dv), (rk, rv)),
+                                   ("dq", (dq,), (rq,))):
+                e = errs[key]
+                e["gate_excess"] = max(e["gate_excess"], ex[key])
+                for a, w in zip(got, want):
+                    e["max_abs_err"] = max(e["max_abs_err"], (
+                        a.float() - w.float()).abs()[mask].max().item())
             rows = ~mask          # rows that see no valid key: dQ must be 0
-            if got["dq"][0][rows].float().abs().max().item() != 0.0:
+            if dq[rows].float().abs().max().item() != 0.0:
                 raise RuntimeError(f"T={t}: fully-masked rows got a dQ")
-        print(f"[5] T={t}, B={b}: dK/dV max|err| {res['dkv'][0]:.3e}, dQ "
-              f"max|err| {res['dq'][0]:.3e} (tol {GRAD_ATOL}, |grad| up to "
-              f"{top:.2f}); dK/dV kernel {res['dkv'][1]:.4f} ms vs plain "
-              f"{res['dkv'][2]:.4f} ms; dQ kernel {res['dq'][1]:.4f} ms vs "
-              f"plain {res['dq'][2]:.4f} ms")
-        if max(res["dkv"][0], res["dq"][0]) > GRAD_ATOL:
-            raise RuntimeError(f"T={t}: a backward kernel disagrees with "
-                               f"its plain version")
-        out[t] = res
+        print(f"[5]   dQ exactly 0 on the {int(rows.sum())} rows that see no "
+              f"valid key")
     # the differentiable FlashAttention against autograd of the eager path
     # (cotangent zero on rows that see no valid key, as in the model)
     do = do * mask[:, :, None, None]
@@ -386,16 +623,84 @@ def phase_backward():
         grads.append([x.grad.float() for x in xs])
     err = max((a - w).abs().max().item() for a, w in zip(*grads))
     print(f"[5] FlashAttention vs autograd through attention_eager (T={t}): "
-          f"max|d(dq,dk,dv)| {err:.3e} (tol {GRAD_ATOL})")
-    if err > GRAD_ATOL:
+          f"max|d(dq,dk,dv)| {err:.3e} (tol {EAGER_GRAD_ATOL})")
+    if err > EAGER_GRAD_ATOL:
         raise RuntimeError("FlashAttention's gradient disagrees with the "
                            "eager path's")
-    return out
+    del grads, dk, dv, dq, rk, rv, rq
+    timed = {}
+    for t in (640, 1024):
+        q, k, v, do = (randn(gen, b, t, nh, d) for _ in range(4))
+        res = {"dkv": {}, "dq": {}}
+        for masks in ("full", "padded"):
+            mask = (torch.ones((b, t), dtype=torch.bool, device="cuda")
+                    if masks == "full" else left_padded_mask(b, t))
+            with torch.inference_mode():
+                o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
+                                             scale=scale)
+                args = (q, k, v, mask, lse, attention_delta(o, do), do)
+                for key, fn, ref in (
+                        ("dkv", flash_attention_bwd_dkv,
+                         flash_attention_bwd_dkv_reference),
+                        ("dq", flash_attention_bwd_dq,
+                         flash_attention_bwd_dq_reference)):
+                    call = (lambda: fn(*args, causal=True, scale=scale))
+                    # ~0.5 s of launches, so nvidia-smi reads a busy card
+                    iters = max(20, math.ceil(500 / cuda_ms(call, iters=5)))
+                    ms, clock = cuda_ms_clocked(call, iters)
+                    if masks == "full":
+                        res[key].update(ms=ms, clock=clock,
+                                        plain_ms=cuda_ms(
+                                            lambda: ref(*args, True, scale),
+                                            iters=5))
+                    else:
+                        res[key].update(padded_ms=ms, padded_clock=clock)
+                if masks == "full":
+                    delta_ms = cuda_ms(lambda: attention_delta(o, do))
+                    want = flash_attention_bwd_reference(
+                        q, k, v, mask, o, lse, do, True, scale)
+        # the library yardstick: the backward of the masked SDPA call
+        # (dQ, dK, dV and its own delta), on full masks; its agreement
+        # with the plain version is reported beside it and not gated
+        mask = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = sdpa_call(*xs, mask, True, scale)()
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, xs, dot, retain_graph=True))
+        lib = torch.autograd.grad(out, xs, dot)
+        lib_err = max((a.float() - w.float()).abs().max().item()
+                      for a, w in zip(lib, want))
+        lib_excess = max(T.attn_excess(a, w, mask) for a, w in zip(lib, want))
+        del out, xs, lib, want
+        for key, (bound_ms, by) in zip(("dkv", "dq"),
+                                       bwd_bounds(b, t, nh, d)):
+            res[key].update(library_ms=library_ms,
+                            library_max_abs_err=lib_err,
+                            library_gate_excess=lib_excess,
+                            bound_ms=bound_ms, bound_by=by)
+        timed[t] = res
+        dkv, dq = res["dkv"], res["dq"]
+        print(f"[5] T={t}, B={b} causal, full masks: dK/dV kernel "
+              f"{dkv['ms']:.4f} ms (plain {dkv['plain_ms']:.4f}, bound "
+              f"{dkv['bound_ms']:.4f}); dQ kernel {dq['ms']:.4f} ms (plain "
+              f"{dq['plain_ms']:.4f}, bound {dq['bound_ms']:.4f}); delta "
+              f"{delta_ms:.4f} ms; together "
+              f"{dkv['ms'] + dq['ms'] + delta_ms:.4f} ms against the masked "
+              f"SDPA backward's {library_ms:.4f} ms (max|d| {lib_err:.3e} "
+              f"from the plain version, gate excess {lib_excess:.3f})")
+        for key, name in (("dkv", "dK/dV"), ("dq", "dQ")):
+            r = res[key]
+            print(f"[5]   {name} on full masks {r['ms']:.4f} ms (SM clock, "
+                  f"power: {r['clock']}); on PR 2's left-padded masks "
+                  f"{r['padded_ms']:.4f} ms ({r['padded_clock']})")
+    return errs, timed
 
 
-def phase_train(tok, cfg, model, tmp):
-    """Returns (kernel launches of the measured run, prompt widths, the
-    first grad call's arguments for phase 7)."""
+def phase_train(tok, cfg, model, tmp, window=contextlib.nullcontext):
+    """``window()`` is entered around the measured epoch. Returns (kernel
+    launches of the measured run, the first grad call's arguments for
+    phase 7)."""
     # every unvisited node of the graph map is a candidate (max_cands =
     # max_gmap_nodes - 1): a teacher target left out of the prompt would
     # score NEG_INF and give a loss of ~1e29
@@ -406,7 +711,8 @@ def phase_train(tok, cfg, model, tmp):
                      gradient_accumulation_step=2, seed=0)
     runner = NavModelRunner(cfg, model, tok, dims=dims,
                             feat_dropout=args.feat_dropout, seed=args.seed)
-    widths, losses, first_call, tokens = [], [], [], [0]
+    # fill: valid keys and all keys of the grad calls' [rows, T] masks
+    widths, losses, first_call, tokens, fill = [], [], [], [0], [0, 0]
     grad_call = runner.pano_navigation_train
 
     def recorded_grad_call(pano_inputs, seed, batch, targets, coef):
@@ -414,6 +720,8 @@ def phase_train(tok, cfg, model, tmp):
         # tokens of the rows that carry a target (not the chunk padding)
         tokens[0] += int(batch["attention_mask"][
             targets != args.ignoreid].sum())
+        fill[0] += int(batch["attention_mask"].sum())
+        fill[1] += math.prod(batch["attention_mask"].shape)
         if not first_call:
             first_call.append((pano_inputs, seed, batch, targets, coef))
         return grad_call(pano_inputs, seed, batch, targets, coef)
@@ -447,17 +755,18 @@ def phase_train(tok, cfg, model, tmp):
     epoch(f"{tmp}/warm", 2 * TRAIN_BATCH, seed=1)
     widths.clear()
     losses.clear()
-    tokens[0] = 0
+    tokens[0] = fill[0] = fill[1] = 0
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in COUNTERS.values():
         fn.launches = 0
     runner.grad_calls = 0
-    t0 = time.perf_counter()
-    avg_loss, norms = epoch(f"{tmp}/main", TRAIN_EPISODES, seed=0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with window():
+        t0 = time.perf_counter()
+        avg_loss, norms = epoch(f"{tmp}/main", TRAIN_EPISODES, seed=0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in COUNTERS.items()}
     calls, layers = runner.grad_calls, cfg.llm.num_layers
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -486,13 +795,14 @@ def phase_train(tok, cfg, model, tmp):
           f"{TRAIN_EPISODES / dt:.3f} episodes/s; {len(norms)} optimizer "
           f"steps, {1e3 * dt / len(norms):.1f} ms wall per step; {calls} "
           f"grad calls of {ROWS_PER_CALL} rows, prompt widths "
-          f"{sorted(set(widths))}; {tokens} trained tokens = "
+          f"{sorted(set(widths))}, key masks {100 * fill[0] / fill[1]:.1f}%"
+          f" valid; {tokens} trained tokens = "
           f"{tokens / dt:.0f} tokens/s; peak memory {peak:.2f} GiB "
           f"(AdamW moments {moments / 2 ** 30:.2f} GiB); losses "
           f"{[round(float(x), 4) for x in losses]} (mean {avg_loss:.4f}); "
           f"grad norms {[round(n, 4) for n in norms]}; launches {launches}")
     del tx
-    return launches, widths, first_call[0]
+    return launches, first_call[0]
 
 
 def phase_grad_ab(tok, cfg, model, call):
@@ -526,14 +836,33 @@ def phase_grad_ab(tok, cfg, model, call):
                                f"{MIN_GRAD_COSINE}")
 
 
+def int4pack(q4p, s):
+    """The port's int4 weight (nibbles [h, o/2], scales [h/G, o]) in the
+    layout of torch's own int4 matmul, torch._weight_int4pack_mm: packed
+    [o, h] nibbles shifted by +8 and [h/G, o, 2] scales with zero points 0
+    (that op dequantizes (q - 8) * scale + zero)."""
+    w = (unpack_q4(q4p).to(torch.int32) + 8).t().contiguous()
+    packed = torch._convert_weight_to_int4pack(
+        (w[:, ::2] << 4 | w[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([s, torch.zeros_like(s)], -1).to(torch.bfloat16)
+    return packed, sz.contiguous()
+
+
 def phase_q4_kernel():
-    """Returns {(m, h, o, mode): (max_abs_err, ms, plain_ms)}."""
+    """Returns {(m, h, o, mode): row}, row holding max_abs_err, ms,
+    plain_ms, library_ms (w4: with the call's max |d| from the plain version
+    and how far beyond K4's tolerance; w4a8: None, with the reason in
+    ``library``), bound_ms and bound_by."""
     gen = torch.Generator(device="cuda").manual_seed(3)
+    has_lib = all(hasattr(torch, f) for f in ("_weight_int4pack_mm",
+                                             "_convert_weight_to_int4pack"))
     out = {}
     for h, o in Q4_SHAPES:
         w = torch.randn((h, o), generator=gen, device="cuda",
                         dtype=torch.bfloat16) * h ** -0.5
         q4p, s = _quant_one4(w)
+        g = h // s.shape[0]
+        packed = int4pack(q4p, s) if has_lib else None
         for m in (4096, 3584, 7):
             x = torch.randn((m, h), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
@@ -545,26 +874,54 @@ def phase_q4_kernel():
                 if not torch.isfinite(y).all():
                     raise RuntimeError(f"{mode} m={m} h={h} o={o}: kernel "
                                        f"output is not finite")
-                d = (y.float() - ref.float()).abs()
                 top = ref.float().abs()
-                if mode == "w4":
-                    excess = (d - (2 ** -7 * top + Q4_FLOOR * top.max())).max()
-                else:
-                    excess = (d - Q4_A8_RTOL * top).max()
+                tol = (2 ** -7 * top + Q4_FLOOR * top.max() if mode == "w4"
+                       else Q4_A8_RTOL * top)
+                d = (y.float() - ref.float()).abs()
                 rel = (d / top.clamp(min=Q4_FLOOR * top.max().item())).max()
                 ms = cuda_ms(lambda: matmul_q4(a, q4p, s))
                 plain_ms = cuda_ms(lambda: matmul_q4_reference(a, q4p, s),
                                    iters=5)
+                bound_ms, by = q4_bound(m, h, o, g, mode == "w4a8")
                 err = d.max().item()
+                row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": None, "bound_ms": bound_ms,
+                       "bound_by": by}
+                lib_note = ""
+                if mode == "w4a8":
+                    row["library"] = ("none: no PyTorch call multiplies int8 "
+                                      "activations by int4 weights")
+                elif not has_lib:
+                    row["library"] = ("none: this torch has no "
+                                      "_weight_int4pack_mm")
+                else:
+                    # the yardstick's agreement with the plain version is
+                    # reported beside its time and not gated (it rounds the
+                    # dequantized weight to bf16)
+                    lib = lambda: torch._weight_int4pack_mm(x, packed[0], g,
+                                                            packed[1])
+                    lib_ms = cuda_ms(lib)
+                    ld = (lib().float() - ref.float()).abs()
+                    over = (ld - tol).max().item()
+                    row.update(library_ms=lib_ms,
+                               library_max_abs_err=ld.max().item(),
+                               library_beyond_tol=max(over, 0.0),
+                               library="torch._weight_int4pack_mm on the "
+                                       "repacked weight")
+                    lib_note = (f", torch._weight_int4pack_mm {lib_ms:.4f} "
+                                f"ms (max|d| {ld.max().item():.3e} from the "
+                                f"plain version; beyond K4's tolerance by "
+                                f"{max(over, 0.0):.3e})")
                 print(f"[8] {mode} m={m} h={h} o={o}: max|d|={err:.3e} "
                       f"(max |d|/|ref| {rel.item():.3e}, |ref| up to "
                       f"{top.max().item():.2f}); kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, dense bf16 matmul {dense_ms:.4f} "
-                      f"ms; {2 * m * h * o / ms / 1e9:.1f} TFLOP/s")
-                if excess.item() > 0:
+                      f"ms{lib_note}; bound {bound_ms:.4f} ms ({by}); "
+                      f"{2 * m * h * o / ms / 1e9:.1f} TFLOP/s")
+                if (d - tol).max().item() > 0:
                     raise RuntimeError(f"{mode} m={m} h={h} o={o}: kernel "
                                        f"disagrees with its plain version")
-                out[(m, h, o, mode)] = (err, ms, plain_ms)
+                out[(m, h, o, mode)] = row
     return out
 
 
@@ -587,10 +944,12 @@ def quantize_model(cfg, model):
     return qmodel
 
 
-def phase_q4_slice(tag, tok, cfg, qmodel, tmp, dense_trajs, warm_up):
+def phase_q4_slice(tag, tok, cfg, qmodel, tmp, dense_trajs, warm_up,
+                   window=contextlib.nullcontext):
     """Returns (the int4 kernel's launches in the measured run, the
     trajectories)."""
-    trajs, steps = phase_slice(tag, tok, cfg, qmodel, tmp, warm_up=warm_up)
+    trajs, steps = phase_slice(tag, tok, cfg, qmodel, tmp, warm_up=warm_up,
+                               window=window)
     launches, int8 = matmul_q4.launches, matmul_q4.int8_launches
     want = steps * cfg.llm.num_layers * Q4_LAYER_MATMULS
     if launches != want:
@@ -611,14 +970,14 @@ def phase_q4_slice(tag, tok, cfg, qmodel, tmp, dense_trajs, warm_up):
 def main():
     smi = phase_device()
     phase_build()
-    kernel = phase_kernel()
+    fwd_err, fwd_timed = phase_kernel()
     tok, cfg, model = model_7b()
     with tempfile.TemporaryDirectory() as tmp:
         dense_trajs, _ = phase_slice(3, tok, cfg, model, tmp)
     phase_ab(cfg, model)
-    bwd = phase_backward()
+    bwd_err, bwd_timed = phase_backward()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, widths, call = phase_train(tok, cfg, model, tmp)
+        launches, call = phase_train(tok, cfg, model, tmp)
     phase_grad_ab(tok, cfg, model, call)
     del call
     q4 = phase_q4_kernel()
@@ -644,23 +1003,25 @@ def main():
         mode = "w4a8" if c.llm.act_int8 else "w4"
         compare_logits(11, f"on the int4 tree ({mode}): kernel vs plain "
                        f"version", qmodel, c, plain)
-    # report each kernel's time at the width nearest the training slice's
-    # median prompt width (phase 2 for the forward, phase 5 for the rest)
-    med = float(np.median(widths))
-    t1 = min(kernel, key=lambda w: abs(w - med))
-    t2 = min(bwd, key=lambda w: abs(w - med))
+    # K1 at the eval slice's widest prompts (B=4, T=1024), K2/K3 at the
+    # training slice's (B=16, T=1024), K4 at the w_gate shape with 4 slots
+    # of 1024 tokens (w4); launches from the measured runs of phases 6
+    # (K1-K3) and 9 (K4)
+    sdpa = ("F.scaled_dot_product_attention on the [B, NH, T, D] views with "
+            "the same boolean mask (causal AND key mask)")
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
-             "max_abs_err": max(e for e, _, _ in kernel.values()),
-             "ms": kernel[t1][1], "plain_ms": kernel[t1][2]}]
+             **fwd_err, **fwd_timed[(4, 1024)],
+             "shape": "B=4 T=S=1024 NH=32 D=128 causal", "library": sdpa}]
     for key in ("dkv", "dq"):
         rows.append({**KERNELS[key], "launches": launches[key],
-                     "max_abs_err": max(r[key][0] for r in bwd.values()),
-                     "ms": bwd[t2][key][1], "plain_ms": bwd[t2][key][2]})
-    # K4 at the w_gate shape with 4 slots of 1024 tokens, w4
-    _, ms, plain_ms = q4[(4096, 4096, 11008, "w4")]
+                     **bwd_err[key], **bwd_timed[1024][key],
+                     "shape": "B=16 T=S=1024 NH=32 D=128 causal",
+                     "library": "the backward of " + sdpa + " (dQ, dK, dV "
+                                "and delta in one call)"})
     rows.append({**KERNELS["q4"], "launches": launches["q4"],
-                 "max_abs_err": max(e for e, _, _ in q4.values()),
-                 "ms": ms, "plain_ms": plain_ms})
+                 **q4[(4096, 4096, 11008, "w4")],
+                 "max_abs_err": max(r["max_abs_err"] for r in q4.values()),
+                 "shape": "m=4096 h=4096 o=11008 w4"})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

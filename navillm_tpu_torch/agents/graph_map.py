@@ -4,14 +4,13 @@ GraphMap tracks discovered nodes, their positions, pooled embeddings,
 step ids, and incremental shortest paths. Differences from the
 reference, chosen for the TPU pipeline:
   - shortest paths come from the C++ EpisodeGraph (exact FloydGraph
-    semantics, navillm_tpu/sim/graph.py) instead of O(V^2) Python;
+    semantics, the port's sim/graph.py) instead of O(V^2) Python;
   - node embeddings are host numpy [H] accumulators (sum, count) —
     they are graph *memory*, detached from autodiff by design
     (reference detaches too, mp3d_agent.py:692-698).
 
-Copy of navillm_tpu/agents/graph_map.py, which needs no jax: the port
-cannot import it in place, because navillm_tpu/agents/__init__.py
-imports the JAX runner. Keep the code in step with that file.
+Copy of navillm_tpu/agents/graph_map.py (the port imports nothing of the
+JAX package). Keep the code in step with that file.
 """
 from __future__ import annotations
 
@@ -19,9 +18,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from navillm_tpu.sim.geometry import (MAX_DIST, MAX_STEP, angle_feature,
+from ..sim.geometry import (MAX_DIST, MAX_STEP, angle_feature,
                             position_distance, rel_heading_elevation_dist)
-from navillm_tpu.sim.graph import EpisodeGraph
+from ..sim.graph import EpisodeGraph
 
 
 class GraphMap:

@@ -23,12 +23,11 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from navillm_tpu.models.tokenization import NavTokenizer
-
 from ..models import nav_model as NM
 from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import dropout, forward_panorama
 from ..models.quant import is_quantized
+from ..models.tokenization import NavTokenizer
 from . import device_memory as DM
 
 # device graph-memory node capacity (ids beyond it are not memorized)

@@ -1,42 +1,39 @@
-// Flash-attention backward for Hopper (sm_90a): two kernels, bf16 in and
+// Flash-attention backward, dK and dV, for Hopper (sm_90a): bf16 in and
 // out, f32 accumulation.
 //
-// Replaces the two Pallas TPU kernels of the JAX package's fused backward
-// (navillm_tpu/ops/attention.py::_flash_backward):
-//   flash_bwd_dkv_kernel  <- _flash_bwd_dkv_kernel (dK and dV)
-//   flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel  (dQ)
-// Both recompute the attention probabilities tile by tile from the forward
+// Replaces navillm_tpu/ops/attention.py::_flash_bwd_dkv_kernel, the Pallas
+// TPU kernel of the JAX package's fused backward (_flash_backward) that
+// computes dK and dV; its twin for dQ is csrc/flash_attn_bwd_dq.cu. It
+// recomputes the attention probabilities tile by tile from the forward
 // kernel's log-sum-exp rows, P = exp(Q K^T * scale - lse), so the [T, S]
-// matrix never reaches device memory, and take delta = rowsum(O * dO),
-// computed beside them in f32, as the JAX code does:
-//   dV = P^T dO;  dS = P * (dO V^T - delta) * scale;  dK = dS^T Q;  dQ = dS K.
+// matrix never reaches device memory, and takes delta = rowsum(O * dO),
+// computed beside it in f32, as the JAX code does:
+//   dV = P^T dO;  dS = P * (dO V^T - delta) * scale;  dK = dS^T Q.
 //
-// Masking follows the JAX kernels' rule. P is exactly zero where the key is
+// Masking follows the JAX kernel's rule. P is exactly zero where the key is
 // hidden by kv_mask, above the diagonal under causal, past S (tile padding),
 // past T (query padding), or where the query row's lse <= NEG_INF / 2: a row
 // that saw no valid key in the forward (left padding under causal) has
-// lse ~ NEG_INF there, so it adds nothing to dK/dV and gets dQ = 0.
+// lse ~ NEG_INF there, so it adds nothing to dK/dV.
 //
-// Layout. Q/dO/dQ are read and written as [B, T, NH, D] and K/V/dK/dV as
-// [B, S, NKV, D] through their strides (dense last dimension), lse and delta
-// as dense f32 [B, NH, T]. Under grouped-query attention the dK/dV block of
-// kv head g loops over its NH / NKV query heads and sums them itself.
+// Layout. Q/dO are read as [B, T, NH, D] and K/V/dK/dV as [B, S, NKV, D]
+// through their strides (dense last dimension), lse and delta as dense f32
+// [B, NH, T]. Under grouped-query attention the block of kv head g loops
+// over its NH / NKV query heads and sums them itself.
 //
-// Blocks. dK/dV: one block per 64-key tile of one (batch, kv head); its four
-// warps own 16 keys each and loop over 64-row query tiles, starting at the
-// first tile that can see the key tile under causal. dQ: one block per
-// 64-row query tile of one (batch, head), looping over 64-key tiles up to
-// the diagonal. Every product is a 16x16x16 bf16 WMMA (mma.sync) with f32
-// accumulation; scores, dP and the dK/dV/dQ accumulators live in shared
-// memory, where the element-wise step (masks, exp, dS) is a per-row loop.
+// Blocks: one per 64-key tile of one (batch, kv head); its four warps own
+// 16 keys each and loop over 64-row query tiles, starting at the first tile
+// that can see the key tile under causal. Every product is a 16x16x16 bf16
+// WMMA (mma.sync) with f32 accumulation; scores, dP and the dK/dV
+// accumulators live in shared memory, where the element-wise step (masks,
+// exp, dS) is a per-row loop.
 //
-// What bounds it on the H100: per (query tile, key tile) the dK/dV kernel
-// does four 64x64xD products and the dQ kernel three, so at the training
-// shapes (T ~ 1024, D = 128) both are compute bound on the tensor cores.
-// This first version is plain: mma.sync rather than wgmma, synchronous tile
-// loads rather than a TMA ring, and shared-memory accumulators (~185 KB for
-// dK/dV at D = 128, one block per SM), so the launchers raise the dynamic
-// shared-memory cap.
+// What bounds it on the H100: per (query tile, key tile) it does four
+// 64x64xD products, so at the training shapes (T ~ 1024, D = 128) it is
+// compute bound on the tensor cores. This first version is plain: mma.sync
+// rather than wgmma, synchronous tile loads rather than a TMA ring, and
+// shared-memory accumulators (~185 KB at D = 128, one block per SM), so the
+// launcher raises the dynamic shared-memory cap.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +61,6 @@ struct Params {
   const bf16* dout;     // [B, T, NH, D]
   const float* lse;     // [B, NH, T]
   const float* delta;   // [B, NH, T]
-  bf16* dq;             // [B, T, NH, D]
   bf16* dk;             // [B, S, NKV, D]
   bf16* dv;             // [B, S, NKV, D]
   long long q_sb, q_st, q_sh;
@@ -72,7 +68,6 @@ struct Params {
   long long v_sb, v_st, v_sh;
   long long m_sb;
   long long do_sb, do_st, do_sh;
-  long long dq_sb, dq_st, dq_sh;
   long long dk_sb, dk_st, dk_sh;
   long long dv_sb, dv_st, dv_sh;
   int T, S, NH, NKV, group;  // group = NH / NKV
@@ -112,26 +107,6 @@ struct DkvSmem {
   static constexpr size_t dk = ds + P::tile_p;
   static constexpr size_t dv = dk + P::tile_o;
   static constexpr size_t lse = dv + P::tile_o;
-  static constexpr size_t delta = lse + P::row_f;
-  static constexpr size_t qf = delta + P::row_f;
-  static constexpr size_t kf = qf + P::row_f;
-  static constexpr size_t bytes = kf + P::row_f;
-};
-
-// dQ kernel: Q, dO, K, V tiles; S, dP; dS; dQ; lse, delta, query flags,
-// key flags.
-template <int D>
-struct DqSmem {
-  using P = Pitch<D>;
-  static constexpr size_t q = 0;
-  static constexpr size_t dout = q + P::tile_h;
-  static constexpr size_t k = dout + P::tile_h;
-  static constexpr size_t v = k + P::tile_h;
-  static constexpr size_t s = v + P::tile_h;
-  static constexpr size_t dp = s + P::tile_s;
-  static constexpr size_t ds = dp + P::tile_s;
-  static constexpr size_t dq = ds + P::tile_p;
-  static constexpr size_t lse = dq + P::tile_o;
   static constexpr size_t delta = lse + P::row_f;
   static constexpr size_t qf = delta + P::row_f;
   static constexpr size_t kf = qf + P::row_f;
@@ -343,103 +318,6 @@ flash_bwd_dkv_kernel(const Params prm) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const Params prm) {
-  using L = DqSmem<D>;
-  using PT = Pitch<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sDQ = reinterpret_cast<float*>(smem + L::dq);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
-  int* sQf = reinterpret_cast<int*>(smem + L::qf);
-  int* sKf = reinterpret_cast<int*>(smem + L::kf);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int b = blockIdx.y / prm.NH;
-  const int h = blockIdx.y % prm.NH;
-  const int kvh = h / prm.group;
-  const int q0 = blockIdx.x * BQ;
-
-  load_tile<D>(sQ, prm.q + b * prm.q_sb + h * prm.q_sh, prm.q_st, q0, prm.T);
-  load_tile<D>(sDO, prm.dout + b * prm.do_sb + h * prm.do_sh, prm.do_st, q0, prm.T);
-  const long long stat = ((long long)b * prm.NH + h) * prm.T;
-  load_row_stats(sLse, sDelta, sQf, prm.lse + stat, prm.delta + stat, q0, prm.T);
-  for (int i = tid; i < 64 * PT::O; i += THREADS) sDQ[i] = 0.f;
-  __syncthreads();
-
-  // This warp's 16 query rows (Q and dO) stay in registers.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16], doa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * PT::H + kk * 16, PT::H);
-    wmma::load_matrix_sync(doa[kk], sDO + warp * 16 * PT::H + kk * 16, PT::H);
-  }
-
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int qi = q0 + row;
-  const bool q_ok = sQf[row] != 0;
-  const float lse_r = sLse[row];
-  const float delta_r = sDelta[row];
-
-  const bf16* kg = prm.k + b * prm.k_sb + kvh * prm.k_sh;
-  const bf16* vg = prm.v + b * prm.v_sb + kvh * prm.v_sh;
-  const uint8_t* mg = prm.mask + b * prm.m_sb;
-  int n_tiles = (prm.S + BK - 1) / BK;
-  if (prm.causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K/V/key flags are consumed
-    load_tile<D>(sK, kg, prm.k_st, k0, prm.S);
-    load_tile<D>(sV, vg, prm.v_st, k0, prm.S);
-    if (tid < BK) {
-      const int key = k0 + tid;
-      sKf[tid] = key < prm.S && mg[key] != 0;
-    }
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's query rows.
-    rows_times_tile_t<D>(sS + warp * 16 * PT::S, qa, sK);
-    rows_times_tile_t<D>(sDP + warp * 16 * PT::S, doa, sV);
-    __syncwarp();
-
-    {
-      const float* srow = sS + row * PT::S;
-      const float* dprow = sDP + row * PT::S;
-      bf16* dsrow = sDS + row * PT::P;
-#pragma unroll 8
-      for (int j = 0; j < BK / 2; ++j) {
-        const int c = half * (BK / 2) + j;
-        float p = 0.f;
-        if (q_ok && sKf[c] && (!prm.causal || k0 + c <= qi))
-          p = __expf(srow[c] * prm.scale - lse_r);
-        dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r) * prm.scale);
-      }
-    }
-    __syncwarp();
-
-    // dQ += dS K for this warp's query rows.
-    accumulate_rows_times_tile<D>(sDQ + warp * 16 * PT::O, sDS + warp * 16 * PT::P, sK);
-  }
-  __syncwarp();
-
-  if (qi < prm.T)
-    store_row_half<D>(prm.dq + b * prm.dq_sb + (long long)qi * prm.dq_st +
-                          h * prm.dq_sh + half * (D / 2),
-                      sDQ + row * PT::O + half * (D / 2));
-}
-
-template <int D>
 int launch_dkv(const Params& prm, int batch, cudaStream_t stream) {
   const int bytes = static_cast<int>(DkvSmem<D>::bytes);
   cudaError_t err = cudaFuncSetAttribute(
@@ -447,17 +325,6 @@ int launch_dkv(const Params& prm, int batch, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((prm.S + BK - 1) / BK, batch * prm.NKV);
   flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(prm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_dq(const Params& prm, int batch, cudaStream_t stream) {
-  const int bytes = static_cast<int>(DqSmem<D>::bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((prm.T + BQ - 1) / BQ, batch * prm.NH);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,7 +340,6 @@ Params make_params(const void* q, const void* k, const void* v,
   prm.dout = static_cast<const bf16*>(dout);
   prm.lse = static_cast<const float*>(lse);
   prm.delta = static_cast<const float*>(delta);
-  prm.dq = nullptr;
   prm.dk = nullptr;
   prm.dv = nullptr;
   prm.q_sb = st[0]; prm.q_st = st[1]; prm.q_sh = st[2];
@@ -481,7 +347,6 @@ Params make_params(const void* q, const void* k, const void* v,
   prm.v_sb = st[6]; prm.v_st = st[7]; prm.v_sh = st[8];
   prm.m_sb = st[9];
   prm.do_sb = st[10]; prm.do_st = st[11]; prm.do_sh = st[12];
-  prm.dq_sb = prm.dq_st = prm.dq_sh = 0;
   prm.dk_sb = prm.dk_st = prm.dk_sh = 0;
   prm.dv_sb = prm.dv_st = prm.dv_sh = 0;
   prm.T = T; prm.S = S; prm.NH = NH; prm.NKV = NKV; prm.group = NH / NKV;
@@ -494,8 +359,8 @@ Params make_params(const void* q, const void* k, const void* v,
 
 // Plain C interface, bound with ctypes (navillm_tpu_torch/ops/attention.py).
 // `in_strides` holds 13 element strides: q (b, t, h), k (b, s, h),
-// v (b, s, h), mask (b), dout (b, t, h). Each function launches one kernel
-// on `stream` and returns the cudaError_t of the launch.
+// v (b, s, h), mask (b), dout (b, t, h). Launches one kernel on `stream` and
+// returns the cudaError_t of the launch.
 extern "C" int navillm_flash_attn_bwd_dkv(
     const void* q, const void* k, const void* v, const void* mask,
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
@@ -512,22 +377,6 @@ extern "C" int navillm_flash_attn_bwd_dkv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_dkv<64>(prm, B, s);
   if (D == 128) return launch_dkv<128>(prm, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int navillm_flash_attn_bwd_dq(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* dout, const void* lse, const void* delta, void* dq,
-    int B, int T, int S, int NH, int NKV, int D, const long long* in_strides,
-    long long dq_sb, long long dq_st, long long dq_sh,
-    float scale, int causal, void* stream) {
-  Params prm = make_params(q, k, v, mask, dout, lse, delta, T, S, NH, NKV,
-                           in_strides, scale, causal);
-  prm.dq = static_cast<bf16*>(dq);
-  prm.dq_sb = dq_sb; prm.dq_st = dq_st; prm.dq_sh = dq_sh;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dq<64>(prm, B, s);
-  if (D == 128) return launch_dq<128>(prm, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,56 +8,60 @@
 // matrix never reaches device memory.
 //
 // Layout. Q is read as [B, T, NH, D] and K/V as [B, S, NKV, D] through
-// their strides (the last dimension must be dense), so neither the
-// model's head split nor the GQA broadcast is ever materialised: query
-// head h reads kv head h / (NH / NKV). One block handles one 64-row query
-// tile of one (batch, head); its four warps own 16 rows each and loop over
-// 64-key tiles.
+// their strides (the last dimension must be dense), by TMA tensor maps, so
+// neither the model's head split nor the GQA broadcast is ever
+// materialised: query head h reads kv head h / (NH / NKV). D is 64 or 128.
 //
 // Masking. A key hidden by kv_mask (or above the diagonal under causal)
 // scores NEG_INF = -1e30, a finite value, exactly as in the JAX code. Keys
-// at index >= S (tile padding) are excluded outright. Prompts are left
-// padded, so under causal attention the first rows of a padded prompt see
-// no valid key: with finite NEG_INF their softmax is a uniform average of
-// the V rows they visited, which keeps them finite. Those rows are
-// don't-care for the model, but their V rows feed later layers at masked
-// keys with p = 0, and 0 * NaN would poison the real tokens.
+// at index >= S (tile padding, zero-filled by TMA) are excluded outright.
+// Prompts are left padded, so under causal attention the first rows of a
+// padded prompt see no valid key: with finite NEG_INF their softmax is a
+// uniform average of the V rows they visited, which keeps them finite.
+// Those rows are don't-care for the model, but their V rows feed later
+// layers at masked keys with p = 0, and 0 * NaN would poison the real
+// tokens. lse is written as NEG_INF where the row sum is 0.
 //
-// What bounds it on the H100. Per (query tile, key tile) the block does
-// two 64x64xD products (QK^T and PV) on bf16 WMMA fragments, so at the
-// slice's shapes (T <= 1024, D = 128) the work is compute bound. This
-// first version is plain: 16x16x16 WMMA (mma.sync) rather than wgmma, one
-// synchronous tile load per step rather than a TMA ring, and the output
-// accumulator kept in shared memory in f32 so each tile's rescale by
-// exp(m_old - m_new) is a plain per-row loop. It needs ~110 KB of shared
-// memory at D = 128, so the launcher raises the dynamic shared-memory cap.
+// Design (FlashAttention-3's forward, without the ping-pong between the two
+// consumer warpgroups). One block per (128-row query tile, batch x head),
+// heaviest causal tiles first. Three warpgroups:
+//  - a producer warpgroup, whose first warp keeps a 2-stage ring of
+//    128-key K and V tiles in flight by TMA (128-byte swizzle; a full/empty
+//    mbarrier pair per stage) and writes each tile's key-validity flags from
+//    kv_mask and S; it gives up its registers (setmaxnreg 40);
+//  - two consumer warpgroups (setmaxnreg 232), 64 query rows each. Per key
+//    tile: S = Q K^T by wgmma m64n128k16 from shared memory into registers;
+//    masks and the online softmax in registers (each thread owns two rows,
+//    reduced over the quad with shfl_xor); P packed to bf16 in registers is
+//    the A operand of O += P V (wgmma, V transposed from shared memory); O
+//    stays in registers in f32 and is rescaled there. The causal mask is
+//    applied on the diagonal tile only.
+// Epilogue: O / l to bf16, stored to the strided O; lse to its row.
+//
+// What bounds it on the H100: 4 T S D FLOP per (batch, head) (halved under
+// causal) against reading Q, K, V once and writing O; at the slice's
+// shapes (T <= 1024, D = 128) the tensor cores bound it. The scores never
+// leave registers.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block, 16 per warp
-constexpr int BK = 64;             // keys per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 8;             // bf16 per 16-byte load
+constexpr int BQ = 128;            // query rows per block, 64 per consumer
+constexpr int BK = 128;            // keys per tile
+constexpr int STAGES = 2;
+constexpr int THREADS = 384;       // two consumer warpgroups + producer
 constexpr float NEG_INF = -1e30f;  // navillm_tpu/ops/masking.py:NEG_INF
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const uint8_t* mask;  // [B, S] key validity (bool)
-  __nv_bfloat16* o;     // [B, T, NH, D]
-  float* lse;           // [B, NH, T]
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
+  CUtensorMap tq, tk, tv;  // [B, T, NH, D] / [B, S, NKV, D], boxes of BQ/BK rows
+  const uint8_t* mask;     // [B, S] key validity (bool)
+  __nv_bfloat16* o;        // [B, T, NH, D]
+  float* lse;              // [B, NH, T]
   long long m_sb;
   long long o_sb, o_st, o_sh;
   int T, S, NH, group;  // group = NH / NKV
@@ -65,206 +69,223 @@ struct Params {
   int causal;
 };
 
-// Shared-memory carve-up. Row pitches are padded (+8 bf16, +4 f32) to
-// spread the WMMA row accesses over the banks; every region size is a
-// multiple of 128 bytes, so every WMMA pointer stays 32-byte aligned.
 template <int D>
 struct Smem {
-  static constexpr int LDH = D + 8;   // Q/K/V tiles, bf16
-  static constexpr int LDS = BK + 4;  // scores, f32
-  static constexpr int LDP = BK + 8;  // probabilities, bf16
-  static constexpr int LDO = D + 4;   // output accumulator, f32
-  static constexpr size_t q = size_t(BQ) * LDH * 2;
-  static constexpr size_t k = size_t(BK) * LDH * 2;
-  static constexpr size_t v = size_t(BK) * LDH * 2;
-  static constexpr size_t s = size_t(BQ) * LDS * 4;
-  static constexpr size_t p = size_t(BQ) * LDP * 2;
-  static constexpr size_t o = size_t(BQ) * LDO * 4;
-  static constexpr size_t key = size_t(BK) * 4;
-  static constexpr size_t bytes = q + k + v + s + p + o + key;
+  static constexpr int q = 0;
+  static constexpr int k = q + BQ * D * 2;
+  static constexpr int v = k + STAGES * BK * D * 2;
+  static constexpr int flags = v + STAGES * BK * D * 2;
+  static constexpr int bars = flags + STAGES * BK;
+  static constexpr int bytes = bars + (2 * STAGES + 1) * 8;
+  static constexpr int alloc = bytes + 1024;  // room to align the base
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const Params prm) {
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ Params prm) {
   using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::q + L::k);
-  float* sS = reinterpret_cast<float*>(smem + L::q + L::k + L::v);
-  __nv_bfloat16* sP =
-      reinterpret_cast<__nv_bfloat16*>(smem + L::q + L::k + L::v + L::s);
-  float* sO = reinterpret_cast<float*>(smem + L::q + L::k + L::v + L::s + L::p);
-  int* sKey = reinterpret_cast<int*>(smem + L::q + L::k + L::v + L::s + L::p +
-                                     L::o);
+  extern __shared__ unsigned char smem_raw[];
+  // tiles start on 1024-byte boundaries (the 128-byte swizzle's period)
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int8_t* sFlags = reinterpret_cast<int8_t*>(smem + L::flags);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_bar = empty + STAGES;
 
-  constexpr int VPR = D / VEC;  // 16-byte vectors per row
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int n_q_tiles = (prm.T + BQ - 1) / BQ;
+  const int q0 = (n_q_tiles - 1 - blockIdx.x) * BQ;  // heaviest tiles first
   const int b = blockIdx.y / prm.NH;
   const int h = blockIdx.y % prm.NH;
   const int kvh = h / prm.group;
-  const int q0 = blockIdx.x * BQ;
-
-  const __nv_bfloat16* qg = prm.q + b * prm.q_sb + h * prm.q_sh;
-  const __nv_bfloat16* kg = prm.k + b * prm.k_sb + kvh * prm.k_sh;
-  const __nv_bfloat16* vg = prm.v + b * prm.v_sb + kvh * prm.v_sh;
-  const uint8_t* mg = prm.mask + b * prm.m_sb;
-
-  // Q tile (rows past T are zero) and a zeroed output accumulator.
-  for (int i = tid; i < BQ * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < prm.T)
-      val = *reinterpret_cast<const uint4*>(qg + (long long)(q0 + r) * prm.q_st + c);
-    *reinterpret_cast<uint4*>(sQ + r * L::LDH + c) = val;
-  }
-  for (int i = tid; i < BQ * L::LDO; i += THREADS) sO[i] = 0.f;
-  __syncthreads();
-
-  // This warp's 16 query rows stay in registers for the whole loop.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * L::LDH + kk * 16, L::LDH);
-
-  // Softmax bookkeeping: two lanes per row, each owning half the columns.
-  const int row = warp * 16 + lane / 2;  // row within the block's tile
-  const int half = lane % 2;
-  const int qi = q0 + row;               // absolute query index
-  float m_run = -INFINITY;
-  float l_run = 0.f;
-
   int n_tiles = (prm.S + BK - 1) / BK;
   if (prm.causal) n_tiles = min(n_tiles, (q0 + BQ + BK - 1) / BK);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's K/V/key flags are consumed
-    for (int i = tid; i < BK * VPR; i += THREADS) {
-      const int r = i / VPR, c = (i % VPR) * VEC;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < prm.S) {
-        kv = *reinterpret_cast<const uint4*>(kg + (long long)(k0 + r) * prm.k_st + c);
-        vv = *reinterpret_cast<const uint4*>(vg + (long long)(k0 + r) * prm.v_st + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * L::LDH + c) = kv;
-      *reinterpret_cast<uint4*>(sV + r * L::LDH + c) = vv;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);    // the producer warp's lanes (+ TMA bytes)
+      mbar_init(&empty[s], 256);  // every consumer thread
     }
-    if (tid < BK) {
-      const int key = k0 + tid;
-      // -1: tile padding (excluded), 0: masked (NEG_INF), 1: valid
-      sKey[tid] = key >= prm.S ? -1 : (mg[key] ? 1 : 0);
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's rows (K^T read column-major from sK).
-    {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          wmma::load_matrix_sync(kb, sK + n * 16 * L::LDH + kk * 16, L::LDH);
-          wmma::mma_sync(acc, qa[kk], kb, acc);
-        }
-        wmma::store_matrix_sync(sS + warp * 16 * L::LDS + n * 16, acc, L::LDS,
-                                wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-
-    // Online softmax over this tile, then rescale the row's accumulator.
-    {
-      const float* srow = sS + row * L::LDS;
-      float sl[BK / 2];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) {
-        const int col = half * (BK / 2) + j;
-        const int flag = sKey[col];
-        float s = srow[col] * prm.scale;
-        if (flag == 0 || (prm.causal && k0 + col > qi)) s = NEG_INF;
-        if (flag < 0) s = -INFINITY;
-        sl[j] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      // finite: column 0 of every tile is a key < S
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = m_run == -INFINITY ? 0.f : __expf(m_run - m_new);
-      float sum = 0.f;
-      __nv_bfloat16* prow = sP + row * L::LDP + half * (BK / 2);
-#pragma unroll
-      for (int j = 0; j < BK / 2; ++j) {
-        const float e = sl[j] == -INFINITY ? 0.f : __expf(sl[j] - m_new);
-        sum += e;
-        prow[j] = __float2bfloat16(e);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      float* orow = sO + row * L::LDO + half * (D / 2);
-#pragma unroll
-      for (int j = 0; j < D / 2; ++j) orow[j] *= alpha;
-    }
-    __syncwarp();
-
-    // O += P V for this warp's rows.
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-          pa[BK / 16];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wmma::load_matrix_sync(pa[kk], sP + warp * 16 * L::LDP + kk * 16, L::LDP);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        float* optr = sO + warp * 16 * L::LDO + n * 16;
-        wmma::load_matrix_sync(acc, optr, L::LDO, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          wmma::load_matrix_sync(vb, sV + kk * 16 * L::LDH + n * 16, L::LDH);
-          wmma::mma_sync(acc, pa[kk], vb, acc);
-        }
-        wmma::store_matrix_sync(optr, acc, L::LDO, wmma::mem_row_major);
-      }
-    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
   }
-  __syncwarp();
+  __syncthreads();
 
-  if (qi < prm.T) {
-    const float l_safe = l_run > 0.f ? l_run : 1.f;
-    const float* orow = sO + row * L::LDO + half * (D / 2);
-    __nv_bfloat16* og = prm.o + b * prm.o_sb + (long long)qi * prm.o_st +
-                        h * prm.o_sh + half * (D / 2);
+  if (wg == 2) {
+    // ------------------------------------------------------- producer --- //
+    regs_dec<40>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, BQ * D * 2);
 #pragma unroll
-    for (int j = 0; j < D / 2; j += VEC) {
-      union {
-        uint4 u;
-        __nv_bfloat162 h2[VEC / 2];
-      } packed;
-#pragma unroll
-      for (int e = 0; e < VEC / 2; ++e)
-        packed.h2[e] = __floats2bfloat162_rn(orow[j + 2 * e] / l_safe,
-                                             orow[j + 2 * e + 1] / l_safe);
-      *reinterpret_cast<uint4*>(og + j) = packed.u;
+      for (int cb = 0; cb < D / 64; ++cb)
+        tma_load_4d(smem + L::q + cb * BQ * 128, &prm.tq, q_bar, cb * 64, q0,
+                    h, b);
     }
-    if (half == 0)
+    const uint8_t* mg = prm.mask + b * prm.m_sb;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int stage = t % STAGES;
+      mbar_wait(&empty[stage], ((t / STAGES) & 1) ^ 1);
+      const int k0 = t * BK;
+      // -1: tile padding (excluded), 0: masked (NEG_INF), 1: valid
+#pragma unroll
+      for (int e = 0; e < BK / 32; ++e) {
+        const int key = k0 + lane * (BK / 32) + e;
+        sFlags[stage * BK + lane * (BK / 32) + e] =
+            key >= prm.S ? -1 : (mg[key] ? 1 : 0);
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * BK * D * 2);
+        unsigned char* sk = smem + L::k + stage * BK * D * 2;
+        unsigned char* sv = smem + L::v + stage * BK * D * 2;
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_4d(sk + cb * BK * 128, &prm.tk, &full[stage], cb * 64, k0,
+                      kvh, b);
+          tma_load_4d(sv + cb * BK * 128, &prm.tv, &full[stage], cb * 64, k0,
+                      kvh, b);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers --- //
+  regs_inc<232>();
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  // this thread's two rows, absolute query indices
+  const int qi0 = q0 + wg * 64 + warp * 16 + lane / 4;
+  const int qi1 = qi0 + 8;
+  const float c = prm.scale * LOG2E;  // scores in the log2 domain
+  constexpr float NEG_INF2 = NEG_INF * LOG2E;
+  // this warpgroup's 64 rows of the Q tile (128-byte rows per column block)
+  const unsigned char* sQw = smem + L::q + wg * 64 * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 domain)
+  float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sum
+
+  mbar_wait(q_bar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % STAGES;
+    const int k0 = t * BK;
+    mbar_wait(&full[stage], (t / STAGES) & 1);
+    const unsigned char* sk = smem + L::k + stage * BK * D * 2;
+    const unsigned char* sv = smem + L::v + stage * BK * D * 2;
+
+    float s[BK / 2];
+    fence_regs(s);
+    wgmma_fence();
+    gemm_ss<BK, D>(s, sQw, BQ, sk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // masks; running max over this tile
+    const int8_t* fl = sFlags + stage * BK;
+    const bool diag = prm.causal && k0 + BK > q0 + wg * 64;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const char2 f = *reinterpret_cast<const char2*>(fl + 8 * j + 2 * quad);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int flag = e ? f.y : f.x;
+        const int col = k0 + 8 * j + 2 * quad + e;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r + e;
+          float x = s[i] * c;
+          if (flag == 0 || (diag && col > (r ? qi1 : qi0))) x = NEG_INF2;
+          if (flag < 0) x = -INFINITY;
+          s[i] = x;
+          if (r)
+            mx1 = fmaxf(mx1, x);
+          else
+            mx0 = fmaxf(mx0, x);
+        }
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    // finite: key k0 < S of every visited tile scores at least NEG_INF
+    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+    const float a0 = fast_exp2(m0 - n0), a1 = fast_exp2(m1 - n1);  // 0 at first
+    m0 = n0;
+    m1 = n1;
+
+    // P = exp2(x - m), packed to bf16 as the A operand of P V
+    uint32_t pk[BK / 16][4];
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        // g = 0, 2: row 0; g = 1, 3: row 1 (i = 8 kk + 2 g + {0, 1})
+        const int i = 8 * kk + 2 * g;
+        const float mr = (g & 1) ? n1 : n0;
+        const float p0 = fast_exp2(s[i] - mr), p1 = fast_exp2(s[i + 1] - mr);
+        if (g & 1)
+          sum1 += p0 + p1;
+        else
+          sum0 += p0 + p1;
+        pk[kk][g] = pack_bf16(p0, p1);
+      }
+    }
+    l0 = l0 * a0 + sum0;
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= ((i / 2) % 2) ? a1 : a0;
+
+    fence_regs(o);
+    wgmma_fence();
+    gemm_rs<D, BK>(o, pk, sv);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[stage]);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 1.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r ? qi1 : qi0;
+    if (qi >= prm.T) continue;
+    const float inv = r ? inv1 : inv0;
+    bf16* og = prm.o + b * prm.o_sb + (long long)qi * prm.o_st + h * prm.o_sh +
+               2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(og + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (quad == 0) {
+      const float l = r ? l1 : l0;
+      const float m = r ? m1 : m0;
       prm.lse[((long long)b * prm.NH + h) * prm.T + qi] =
-          l_run > 0.f ? m_run + logf(l_safe) : NEG_INF;
+          l > 0.f ? (m + __log2f(l)) * LN2 : NEG_INF;
+    }
   }
 }
 
 template <int D>
 int launch(const Params& prm, int batch, cudaStream_t stream) {
-  const int bytes = static_cast<int>(Smem<D>::bytes);
+  const int bytes = Smem<D>::alloc;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -276,7 +297,8 @@ int launch(const Params& prm, int batch, cudaStream_t stream) {
 }  // namespace
 
 // Plain C interface, bound with ctypes (navillm_tpu_torch/ops/attention.py).
-// Strides are in elements. Returns the cudaError_t of the launch.
+// Strides are in elements. Returns a cudaError_t: of building the tensor
+// maps, or of the launch.
 extern "C" int navillm_flash_attn_fwd(
     const void* q, const void* k, const void* v, const void* mask, void* o,
     void* lse, int B, int T, int S, int NH, int NKV, int D,
@@ -285,25 +307,23 @@ extern "C" int navillm_flash_attn_fwd(
     long long v_sb, long long v_st, long long v_sh, long long m_sb,
     long long o_sb, long long o_st, long long o_sh,
     float scale, int causal, void* stream) {
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || T == 0 || NH == 0) return 0;
   Params prm;
-  prm.q = static_cast<const __nv_bfloat16*>(q);
-  prm.k = static_cast<const __nv_bfloat16*>(k);
-  prm.v = static_cast<const __nv_bfloat16*>(v);
+  int err = make_map(&prm.tq, q, B, T, NH, D, q_sb, q_st, q_sh, BQ);
+  if (!err) err = make_map(&prm.tk, k, B, S, NKV, D, k_sb, k_st, k_sh, BK);
+  if (!err) err = make_map(&prm.tv, v, B, S, NKV, D, v_sb, v_st, v_sh, BK);
+  if (err) return err;
   prm.mask = static_cast<const uint8_t*>(mask);
   prm.o = static_cast<__nv_bfloat16*>(o);
   prm.lse = static_cast<float*>(lse);
-  prm.q_sb = q_sb; prm.q_st = q_st; prm.q_sh = q_sh;
-  prm.k_sb = k_sb; prm.k_st = k_st; prm.k_sh = k_sh;
-  prm.v_sb = v_sb; prm.v_st = v_st; prm.v_sh = v_sh;
   prm.m_sb = m_sb;
   prm.o_sb = o_sb; prm.o_st = o_st; prm.o_sh = o_sh;
   prm.T = T; prm.S = S; prm.NH = NH; prm.group = NH / NKV;
   prm.scale = scale;
   prm.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(prm, B, s);
-  if (D == 128) return launch<128>(prm, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return D == 64 ? launch<64>(prm, B, s) : launch<128>(prm, B, s);
 }
 
 extern "C" const char* navillm_cuda_error_string(int err) {

@@ -2,13 +2,12 @@
 
 Follows navillm_tpu/data/datasets/mp3d_base.py (annotations, __getitem__,
 collate_batch, make_candidate, get_obs) and r2r.py (instruction split,
-SR/SPL eval) for the R2R navigation task. It exists because the JAX
-dataset package imports navillm_tpu.utils, whose config module needs
-pyyaml; everything it builds on (the sim, the feature DBs, the metrics)
-is imported from navillm_tpu. Instead of a task config it takes the
-annotation file of its split and a WorldModel; ``training`` names the
-split "train", as mp3d_base does, and changes nothing else for R2R
-(otherwise the split is the file's stem).
+SR/SPL eval) for the R2R navigation task. It builds on the port's own
+host layer (its copies of the sim, the feature DBs and the metrics).
+Instead of a task config it takes the annotation file of its split and
+a WorldModel; ``training`` names the split "train", as mp3d_base does,
+and changes nothing else for R2R (otherwise the split is the file's
+stem).
 """
 from __future__ import annotations
 
@@ -20,9 +19,9 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from navillm_tpu.data import metrics as M
-from navillm_tpu.sim.env import EpisodeBatch, WorldModel
-from navillm_tpu.sim.geometry import all_point_angle_features, angle_feature
+from ..sim.env import EpisodeBatch, WorldModel
+from ..sim.geometry import all_point_angle_features, angle_feature
+from . import metrics as M
 
 
 class R2RDataset:

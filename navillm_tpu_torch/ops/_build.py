@@ -3,9 +3,10 @@
 Each kernel under ``navillm_tpu_torch/csrc/`` is compiled on first use
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds), in ``build/navillm_tpu_torch/`` at the repository
-root. The file name carries a hash of the source and the flags, so an
-edited source is rebuilt. Each source has its own lock, so several
-kernels build at once from several threads (``load_all``). There is no
+root. The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. Each
+source has its own lock, so several kernels build at once from several
+threads (``load_all``). There is no
 fallback: a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
@@ -60,7 +61,9 @@ def load(name: str) -> Built:
         if name in _built:
             return _built[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()
+        text = b"".join(p.read_bytes()
+                        for p in [src, *sorted(CSRC.glob("*.cuh"))])
+        digest = hashlib.sha256(text
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         out = BUILD_DIR / f"lib{name}_{digest[:16]}.so"
         seconds, log = 0.0, ""

@@ -9,9 +9,9 @@ package's: q [B, T, NH, D]; k, v [B, S, NKV, D]; kv_mask [B, S] bool
   port of the Pallas kernel ``_flash_kernel``; on CPU tensors it runs
   ``flash_attention_fwd_reference``, its plain version.
 - ``flash_attention_bwd`` is the twin of ``_flash_backward``: delta =
-  rowsum(O * dO) in f32, then ``flash_attention_bwd_dkv`` and
-  ``flash_attention_bwd_dq`` launch the two kernels of
-  ``csrc/flash_attn_bwd.cu`` (ports of ``_flash_bwd_dkv_kernel`` and
+  rowsum(O * dO) in f32, then ``flash_attention_bwd_dkv`` launches
+  ``csrc/flash_attn_bwd.cu`` (the port of ``_flash_bwd_dkv_kernel``) and
+  ``flash_attention_bwd_dq`` ``csrc/flash_attn_bwd_dq.cu`` (the port of
   ``_flash_bwd_dq_kernel``); on CPU tensors they run their plain versions.
 - ``FlashAttention`` is the twin of ``_flash_differentiable``: the forward
   kernel, saving (q, k, v, mask, O, lse), and the backward kernels.
@@ -212,17 +212,17 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do, causal,
     return dq, dk, dv
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn_bwd").lib
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn, n_out in ((lib.navillm_flash_attn_bwd_dkv, 2),
-                      (lib.navillm_flash_attn_bwd_dq, 1)):
-        if fn.argtypes is None:
-            fn.argtypes = ([ptr] * (7 + n_out) + [i32] * 6
-                           + [ctypes.POINTER(i64)] + [i64] * (3 * n_out)
-                           + [ctypes.c_float, i32, ptr])
-            fn.restype = i32
-    if lib.navillm_cuda_error_string.argtypes is None:
+def _bwd_lib(source: str, entry: str, n_out: int) -> ctypes.CDLL:
+    """csrc/<source>.cu, whose C entry point ``entry`` writes n_out
+    gradients."""
+    lib = _build.load(source).lib
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([ptr] * (7 + n_out) + [i32] * 6
+                       + [ctypes.POINTER(i64)] + [i64] * (3 * n_out)
+                       + [ctypes.c_float, i32, ptr])
+        fn.restype = i32
         lib.navillm_cuda_error_string.argtypes = [i32]
         lib.navillm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -267,7 +267,7 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, *,
                                                  do, causal, scale)
     ptrs, dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, delta, do,
                                            causal)
-    lib = _bwd_lib()
+    lib = _bwd_lib("flash_attn_bwd", "navillm_flash_attn_bwd_dkv", 2)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = lib.navillm_flash_attn_bwd_dkv(
@@ -292,7 +292,7 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, *,
                                                 do, causal, scale)
     ptrs, dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, delta, do,
                                            causal)
-    lib = _bwd_lib()
+    lib = _bwd_lib("flash_attn_bwd_dq", "navillm_flash_attn_bwd_dq", 1)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = lib.navillm_flash_attn_bwd_dq(
         *ptrs, dq.data_ptr(), *dims, strides, *dq.stride()[:3], float(scale),

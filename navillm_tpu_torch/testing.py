@@ -1,9 +1,9 @@
 """Synthetic worlds and batches for the port's tests and chip_smoke.py.
 
 ``make_grid_connectivity`` and ``synthetic_nav_batch`` follow
-navillm_tpu/testing.py (which the port cannot import: it imports the JAX
-nav model). ``make_r2r_world`` writes a grid world with R2R annotations,
-as bench.py's rollout world does; ``r2r_eval`` wires the port's greedy
+navillm_tpu/testing.py (the port imports nothing of the JAX package).
+``make_r2r_world`` writes a grid world with R2R annotations, as
+bench.py's rollout world does; ``r2r_eval`` wires the port's greedy
 streaming evaluation over it and ``r2r_train`` its teacher-forcing
 training.
 """
@@ -16,6 +16,10 @@ from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
+
+from .data.feature_db import SyntheticImageFeaturesDB
+from .data.loaders import Dataloader
+from .sim import ScanGraph, WorldModel
 
 _VERBS = "walk turn go continue head move proceed pass".split()
 _DIRS = "left right straight forward around back".split()
@@ -66,8 +70,6 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
     """Write ``root/connectivity`` and R2R annotations (``<split>.json``)
     for shortest-path episodes between random distinct grid nodes; returns
     the annotation file."""
-    from navillm_tpu.sim.graph import ScanGraph
-
     root = Path(root)
     make_grid_connectivity(root / "connectivity", scan=scan, rows=rows,
                            cols=cols)
@@ -101,9 +103,6 @@ def r2r_eval(anno_file, runner, n_slots: int, image_feat_size: int,
              seed: int = 0):
     """(agent, dataset, args) for greedy R2R streaming evaluation over a
     world written by make_r2r_world, with synthetic image features."""
-    from navillm_tpu.data.feature_db import SyntheticImageFeaturesDB
-    from navillm_tpu.sim import WorldModel
-
     from .agents.mp3d_agent import EvalArgs, R2RAgent
     from .data.r2r import R2RDataset
 
@@ -129,10 +128,6 @@ def r2r_train(anno_file, runner, args, batch_size: int, shuffle: bool = True):
     """(agent, dataset, loader) for teacher-forcing training over a world
     written by make_r2r_world(split="train"), with synthetic image
     features; ``args`` is an agents.mp3d_agent.TrainArgs."""
-    from navillm_tpu.data.feature_db import SyntheticImageFeaturesDB
-    from navillm_tpu.data.loaders import Dataloader
-    from navillm_tpu.sim import WorldModel
-
     from .agents.mp3d_agent import R2RAgent
     from .data.r2r import R2RDataset
 
@@ -141,6 +136,42 @@ def r2r_train(anno_file, runner, args, batch_size: int, shuffle: bool = True):
     ds.init_feat_db(SyntheticImageFeaturesDB(args.image_feat_size))
     loader = Dataloader(ds, batch_size, shuffle=shuffle, seed=args.seed)
     return R2RAgent(args, world, runner), ds, loader
+
+
+# The attention kernels (forward O, dK/dV, dQ) against their plain versions,
+# element by element: tol = ATTN_REL * |ref| + ATTN_ROW * rms(ref's row of
+# D) + ATTN_FLOOR. Both sides round their output to bf16 once (up to one
+# bf16 ulp apart, at most 2**-7 of the element) and round P or dS to bf16
+# before a product, which adds noise of ~2**-9 of the row's scale. The
+# absolute floor is for outputs the plain version makes exactly 0 (a row
+# that sees one key has dS = 0), where the kernel's f32 dP - delta leaves
+# ~1e-7. A kernel that skips one key of a row that sees 256 keys or more
+# moves that row by several times ATTN_ROW of its RMS.
+ATTN_REL = 2 ** -6
+ATTN_ROW = 2 ** -5
+ATTN_FLOOR = 1e-5
+
+
+def visible_keys(mask, t: int, causal: bool):
+    """[B, T]: how many valid keys each query row sees under a [B, S] key
+    mask (and, under causal, the diagonal)."""
+    s = mask.shape[1]
+    keys = mask[:, None, :].expand(-1, t, -1)
+    if causal:
+        keys = keys & mask.new_ones((t, s)).tril(s - t)
+    return keys.sum(-1)
+
+
+def attn_excess(got, want, rows) -> float:
+    """The worst |got - want| / tol (ATTN_* above) over ``rows`` ([B, L]
+    bool) of two [B, L, H, D] tensors: at most 1 passes."""
+    w = want.float()[rows]
+    d = (got.float()[rows] - w).abs()
+    if not w.numel():
+        return 0.0
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    tol = ATTN_REL * w.abs() + ATTN_ROW * rms + ATTN_FLOOR
+    return (d / tol).max().item()
 
 
 def synthetic_nav_batch(cfg, b: int = 2, g: int = 12, v: int = 8, c: int = 8,

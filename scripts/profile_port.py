@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the card's time goes in the PyTorch/CUDA port's 7B-width cells.
+
+    python3 scripts/profile_port.py      # on an H100, from the repository root
+
+Runs chip_smoke.py's eval slice (bf16), training slice and int4 eval
+slices (w4, then w4a8) with the same model, seeds and worlds, each after
+its warm-up, and traces each measured run with torch.profiler. For each
+cell it prints the wall time of the run, the summed device time of its
+kernels and copies, the card's busy share (the union of their spans over
+the wall time), the device time and launches by kernel group, largest
+first, and the SM clock and power draw nvidia-smi read every 200 ms
+during the run. The profiler adds host work per launch, so the wall
+times here are a little above chip_smoke.py's.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as C  # noqa: E402
+
+# kernel-name substrings -> group, first match wins
+GROUPS = (
+    ("K1 flash forward", ("flash_fwd_kernel",)),
+    ("K2 flash dK/dV", ("flash_bwd_dkv_kernel",)),
+    ("K3 flash dQ", ("flash_bwd_dq_kernel",)),
+    ("K4 int4 matmul", ("matmul_q4_kernel",)),
+    ("cuBLAS GEMMs", ("nvjet", "gemm", "cutlass", "xmma", "cublas")),
+    ("reductions", ("reduce",)),
+    ("elementwise and copies", ("elementwise", "vectorized", "copy",
+                                "Memcpy", "Memset", "cat", "index",
+                                "scatter", "gather", "fill")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other"
+
+
+@contextlib.contextmanager
+def clocks_read(cell: str):
+    """nvidia-smi's SM clock (MHz) and power draw (W), read every 200 ms
+    while the body runs."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "--loop-ms=200"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        yield
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    reads = [[float(x) for x in ln.split(",")]
+             for ln in out.splitlines() if ln.count(",") == 1]
+    if not reads:
+        raise RuntimeError(f"{cell}: nvidia-smi read no clock")
+    clock, power = zip(*reads)
+    print(f"[profile] {cell}: SM clock {statistics.mean(clock):.0f} MHz "
+          f"(min {min(clock):.0f}, max {max(clock):.0f}), power "
+          f"{statistics.mean(power):.1f} W (max {max(power):.1f}) over "
+          f"{len(reads)} reads")
+
+
+@contextlib.contextmanager
+def traced(cell: str):
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with clocks_read(cell), torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device-side events only (kernels, copies, memsets); the CPU ops
+    # above them carry the same time again
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise RuntimeError(f"{cell}: the trace holds no device time")
+    by_group, count, total, busy, reach = {}, {}, 0.0, 0.0, spans[0][0]
+    for start, end, name in spans:
+        group = group_of(name)
+        by_group[group] = by_group.get(group, 0.0) + end - start
+        count[group] = count.get(group, 0) + 1
+        total += end - start
+        busy += max(0, end - max(start, reach))   # union of the spans
+        reach = max(reach, end)
+    print(f"[profile] {cell}: wall {wall:.3f} s, device {total / 1e6:.3f} s "
+          f"in {len(spans)} device events, busy {100 * busy / 1e6 / wall:.1f}%"
+          f" of the wall time")
+    for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {group}: {us / 1e6:.3f} s "
+              f"({100 * us / total:.1f}%) in {count[group]} events, "
+              f"{us / 1e3 / count[group]:.4f} ms each")
+
+
+def main():
+    smi = C.phase_device()
+    C.phase_build()
+    tok, cfg, model = C.model_7b()
+    with tempfile.TemporaryDirectory() as tmp:
+        C.phase_slice(3, tok, cfg, model, tmp,
+                      window=lambda: traced("r2r_stream_7b (bf16 eval)"))
+    with tempfile.TemporaryDirectory() as tmp:
+        C.phase_train(tok, cfg, model, tmp,
+                      window=lambda: traced("r2r_train_7b (training)"))
+    qmodel = C.quantize_model(cfg, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        C.phase_slice(9, tok, cfg, qmodel, tmp,
+                      window=lambda: traced("r2r_stream_7b_w4 (int4 eval)"))
+    a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                          act_int8=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        C.phase_slice(10, tok, a8, qmodel, tmp, warm_up=False,
+                      window=lambda: traced("r2r_stream_7b_w4a8 "
+                                            "(int4 eval, int8 activations)"))
+    print(smi)
+
+
+if __name__ == "__main__":
+    main()

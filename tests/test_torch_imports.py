@@ -1,7 +1,7 @@
-"""The port stands alone: it imports no jax and none of the packages the
-card's machine lacks, and its tiny slices (greedy evaluation, dense and
-int4, then one teacher-forcing optimizer step through train_one_epoch) run
-on the CPU.
+"""The port stands alone: it imports nothing of navillm_tpu, no jax and
+none of the packages the card's machine lacks, and its tiny slices (greedy
+evaluation, dense and int4, then one teacher-forcing optimizer step through
+train_one_epoch) run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -24,12 +24,12 @@ SLICE = """
 import sys, tempfile
 import torch
 import navillm_tpu_torch
-from navillm_tpu.data.loaders import Dataloader
-from navillm_tpu.models.tokenization import NavTokenizer
 from navillm_tpu_torch import testing as T
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.loaders import Dataloader
 from navillm_tpu_torch.models.nav_model import NavModel, NavModelConfig
+from navillm_tpu_torch.models.tokenization import NavTokenizer
 
 torch.set_num_threads(1)
 tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
@@ -54,7 +54,7 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(preds) == 4 and matmul_q4.launches == 0, preds
     print("w4 metrics", ds.eval_metrics(preds, None, "R2R")[0])
 
-    from navillm_tpu.data.loaders import MetaLoader
+    from navillm_tpu_torch.data.loaders import MetaLoader
     from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
     from navillm_tpu_torch.training.optim import make_optimizer
     from navillm_tpu_torch.training.train_loop import (make_opt_step,
@@ -71,7 +71,8 @@ with tempfile.TemporaryDirectory() as tmp:
         None, num_batches=1)
     assert loss > 0 and len(norms) == 1 and float(norms[0]) > 0, (loss, norms)
     print("train loss", loss)
-print("loaded", sorted(m for m in %r if m in sys.modules))
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
 """ % (BANNED,)
 
 
@@ -85,10 +86,24 @@ def test_port_runs_its_slice_without_jax():
     assert "loaded []" in proc.stdout, proc.stdout
 
 
-def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
+def _port_sources():
     files = [*(ROOT / "navillm_tpu_torch").rglob("*.py"),
              ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    hits = [str(f) for f in files if pat.search(f.read_text())]
+    return files
+
+
+def test_port_sources_never_import_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
+    hits = [str(f) for f in _port_sources() if pat.search(f.read_text())]
     assert not hits, hits
+
+
+def test_port_sources_never_import_navillm_tpu():
+    """Not even a numpy-only module: the port keeps its own copies."""
+    pat = re.compile(r"^\s*(import|from)\s+navillm_tpu(\.|\s|$)", re.M)
+    hits = [str(f) for f in _port_sources() if pat.search(f.read_text())]
+    assert not hits, hits
+    assert pat.search("from navillm_tpu.sim import WorldModel") \
+        and pat.search("import navillm_tpu\n") \
+        and not pat.search("from navillm_tpu_torch.sim import WorldModel")

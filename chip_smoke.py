@@ -28,19 +28,23 @@ Phases, in order; any failure raises and the script exits nonzero:
      must go through the kernel;
   4. model-level A/B: one forward_navigation step through the kernel and
      through the eager attention path on the same inputs;
-  5. backward kernels vs plain: the dK/dV (K2) and dQ (K3) kernels
-     against their plain versions at the training slice's shapes (B = rows
-     per grad call, 32 heads of 128, bf16, causal, T in {640, 1024}, and
-     T=1024 with flat rows; left-padded masks with fully-masked rows, whose
-     dQ must be exactly 0) under phase 2's per-element bound, which a
-     hidden key or key tile (dQ) and a skipped query row or query tile
-     (dK/dV) must fail; the differentiable FlashAttention against autograd
-     through the eager path; then both kernels (on full masks and on PR
-     2's left-padded ones, each with nvidia-smi's SM clock and power read
-     while they run), their plain versions and the backward of the masked
-     F.scaled_dot_product_attention call (the library yardstick for K2 +
-     K3 + delta, its max |d| from the plain versions beside it) timed with
-     CUDA events;
+  5. backward kernels vs plain: the dQ kernel (K3), which also writes
+     delta = rowsum(O * dO), and then the dK/dV kernel (K2) on that delta,
+     against their plain versions (on the same delta; delta itself against
+     attention_delta to DELTA_RTOL of each row's sum of |O * dO|) on
+     BWD_CASES: a GQA case, a D=64 case and a non-causal case with S != T
+     at B=4, then the training slice's shapes (B = rows per grad call, 32
+     heads of 128, bf16, causal, T in {640, 1024}, and T=1024 with flat
+     rows), all on left-padded masks with fully-masked rows, whose dQ must
+     be exactly 0 (and hidden keys' dK and dV), under phase 2's
+     per-element bound, which a hidden key or key tile (dQ) and a skipped
+     query row or 64-row query tile (dK/dV) must fail; the differentiable
+     FlashAttention against autograd through the eager path; then both
+     kernels (on full masks and on PR 2's left-padded ones, each with
+     nvidia-smi's SM clock and power read while they run), their plain
+     versions and the backward of the masked F.scaled_dot_product_attention
+     call (the library yardstick for K2 + K3, its max |d| from the plain
+     versions beside it) timed with CUDA events;
   6. the training slice: R2R teacher-forcing training of the same 7B-width
      model through train_one_epoch (stage pretrain, fused teacher, dropout
      on, AdamW, gradient accumulation 2): a warm-up epoch, then 4 batches
@@ -62,7 +66,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      through the kernel and through its plain version, w4 and w4a8.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
-gate excess of the checks and its bound: the larger of
+gate excess of the checks (K3: and of its delta) and its bound: the
+larger of
 the bytes it must move over 3.35 TB/s and its FLOPs over 989 TFLOP/s (the
 H100 SXM's bf16 dense peak). Then nvidia-smi's name and power limit, and
 the last line is {"ok": true, "device": {...}}.
@@ -137,6 +142,20 @@ FWD_CASES += [(16, 1024, 1024, 32, 32, 128, True, 1.0),  # the training shape
               (4, 640, 640, 32, 32, 64, True, 1.0),      # D = 64
               (4, 640, 1000, 32, 32, 128, False, 1.0),   # cross-attention
               (4, 1024, 1024, 32, 32, 128, True, FLAT_Q)]
+# K2/K3's cases: (b, t, s, nh, nkv, d, causal, q scale): grouped-query,
+# D = 64 and non-causal S != T at B = 4, then the training slice's shapes
+# (B = rows per grad call; the last is the FlashAttention check's)
+BWD_CASES = [(4, 1024, 1024, 32, 8, 128, True, 1.0),
+             (4, 640, 640, 32, 32, 64, True, 1.0),
+             (4, 640, 1000, 32, 32, 128, False, 1.0),
+             (16, 640, 640, 32, 32, 128, True, 1.0),
+             (16, 1024, 1024, 32, 32, 128, True, FLAT_Q),
+             (16, 1024, 1024, 32, 32, 128, True, 1.0)]
+# K3's delta against attention_delta: each product of two bf16 values is
+# exact in f32, so the two differ only in the order of the D-term f32 sum,
+# by at most ~D * 2**-24 of the row's sum of |O * dO| on each side (2**-17
+# at D = 128); the limit leaves 4x of that
+DELTA_RTOL = 2 ** -15
 # K1 is timed at the eval slice's shapes (B = 4 slots) and the training
 # slice's (B = 16 rows per grad call); K2/K3 at the training shapes
 FWD_TIMED = ((4, 128), (4, 640), (4, 1024), (16, 1024))
@@ -249,14 +268,16 @@ def fwd_bound(b, t, s, nh, nkv, d, causal):
 
 
 def bwd_bounds(b, t, nh, d):
-    """(K2, K3), causal with T == S and NKV == NH: K2 does 4 products per
-    pair and reads Q, K, V, dO, lse, delta and the mask, writes dK and dV;
-    K3 does 3 and writes dQ."""
+    """(K2, K3), causal with T == S and NKV == NH. K2 does 4 products per
+    pair, reads Q, K, V, dO, lse, delta and the mask and writes dK and dV;
+    K3 does 3 products per pair and the 2 D FLOP per row of delta, reads
+    Q, K, V, dO, O, lse and the mask and writes dQ and delta."""
     pairs = b * nh * attn_pairs(t, t, True)
     tensor = 2 * b * t * nh * d           # one [B, T, NH, D] bf16 tensor
-    inputs = 4 * tensor + 2 * 4 * b * nh * t + b * t
-    return (bound(8 * d * pairs, inputs + 2 * tensor),
-            bound(6 * d * pairs, inputs + tensor))
+    rows = 4 * b * nh * t                 # one [B, NH, T] f32 tensor
+    return (bound(8 * d * pairs, 6 * tensor + 2 * rows + b * t),
+            bound(6 * d * pairs + 2 * d * b * nh * t,
+                  6 * tensor + 2 * rows + b * t))
 
 
 def q4_bound(m, h, o, g, int8_x: bool):
@@ -268,10 +289,10 @@ def q4_bound(m, h, o, g, int8_x: bool):
     return bound(2 * m * h * o, nbytes, 2 * PEAK_FLOPS if int8_x else PEAK_FLOPS)
 
 
-def left_padded_mask(b: int, s: int):
+def left_padded_mask(b: int, s: int, min_keys: int = 1):
     """[B, S] key masks with the first pads[i] keys of row i hidden, pads
-    from none to all but one key."""
-    pads = torch.linspace(0, s - 1, b, device="cuda").long()
+    from none to all but ``min_keys`` keys."""
+    pads = torch.linspace(0, s - min_keys, b, device="cuda").long()
     return torch.arange(s, device="cuda")[None, :] >= pads[:, None]
 
 
@@ -434,7 +455,7 @@ def model_7b():
                                                   dtype=torch.bfloat16))
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model = NavModel(cfg, init_nav_params(cfg, gen, torch.device("cuda")))
+    model = NavModel(cfg, init_nav_params(cfg, gen))  # on the card
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
     print(f"[3] Vicuna-7B-width nav model: {n / 1e9:.3f} B params (bf16), "
@@ -539,58 +560,89 @@ def phase_ab(cfg, model):
     compare_logits(4, "kernel vs eager attention", model, cfg, eager)
 
 
+def keys_seen_by(mask, t: int, causal: bool):
+    """[B, S]: how many query rows see each valid key (0 for hidden keys)."""
+    s = mask.shape[1]
+    keys = mask[:, None, :].expand(-1, t, -1)
+    if causal:
+        keys = keys & mask.new_ones((t, s)).tril(s - t)
+    return keys.sum(1)
+
+
 def phase_backward():
-    """K2 and K3 against their plain versions, FlashAttention against eager
-    autograd, then both kernels timed beside their plain versions and the
-    library call. Returns ({"dkv", "dq"}: max |err| and worst gate excess,
-    {T: timings})."""
-    b, nh, d = ROWS_PER_CALL, 32, 128
-    scale = 1.0 / math.sqrt(d)
+    """K3 (with its delta) and K2 against their plain versions on
+    BWD_CASES, FlashAttention against eager autograd, then both kernels
+    timed beside their plain versions and the library call. Returns
+    ({"dkv", "dq"}: max |err| and worst gate excess, {T: timings})."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    errs = {key: {"max_abs_err": 0.0, "gate_excess": 0.0}
-            for key in ("dkv", "dq")}
-    for t, qs in ((640, 1.0), (1024, FLAT_Q), (1024, 1.0)):
+    errs = {"dkv": {"max_abs_err": 0.0, "gate_excess": 0.0},
+            "dq": {"max_abs_err": 0.0, "gate_excess": 0.0,
+                   "delta_excess": 0.0}}
+    for b, t, s, nh, nkv, d, causal, qs in BWD_CASES:
+        scale = 1.0 / math.sqrt(d)
         q = randn(gen, b, t, nh, d) * qs
-        k, v, do = (randn(gen, b, t, nh, d) for _ in range(3))
-        # under causal the first pads[i] rows of row i see no valid key
-        mask = left_padded_mask(b, t)
+        k, v = randn(gen, b, s, nkv, d), randn(gen, b, s, nkv, d)
+        do = randn(gen, b, t, nh, d)
+        # left padding: under causal the first pads[i] rows of row i see no
+        # valid key. Without causal every row of a batch row sees all of its
+        # keys, so each keeps two: where every row sees one key alone, P = 1
+        # and dS = P (dP - delta) is zero but for rounding, and dK there is
+        # a sum of rounding noise on both sides, not a check of the kernel
+        mask = left_padded_mask(b, s, 1 if causal else 2)
+        case = (f"B={b} T={t} S={s} NH={nh} NKV={nkv} D={d} "
+                f"{'causal' if causal else 'non-causal'}"
+                f"{'' if qs == 1 else f' q x {qs}'}")
         with torch.inference_mode():
-            o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
+            o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
                                          scale=scale)
+            dq, kdelta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                                causal=causal, scale=scale)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, kdelta, do,
+                                             causal=causal, scale=scale)
             delta = attention_delta(o, do)
-            args = (q, k, v, mask, lse, delta, do)
-            dk, dv = flash_attention_bwd_dkv(*args, causal=True, scale=scale)
-            dq = flash_attention_bwd_dq(*args, causal=True, scale=scale)
-            rk, rv = flash_attention_bwd_dkv_reference(*args, True, scale)
-            rq = flash_attention_bwd_dq_reference(*args, True, scale)
+            # the plain versions on the delta K3 computed, which is held to
+            # attention_delta on its own: where a key is the only one a row
+            # sees, dK (and the row's dQ) is a cancellation to rounding
+            # noise that moves with delta's last bits
+            args = (q, k, v, mask, lse, kdelta, do)
+            rk, rv = flash_attention_bwd_dkv_reference(*args, causal, scale)
+            rq = flash_attention_bwd_dq_reference(*args, causal, scale)
             torch.cuda.synchronize()
-            for name, x in (("dK", dk), ("dV", dv), ("dQ", dq)):
+            for name, x in (("dK", dk), ("dV", dv), ("dQ", dq),
+                            ("delta", kdelta)):
                 if not torch.isfinite(x).all():
-                    raise RuntimeError(f"T={t}: {name} is not finite")
-            # causal + left padding, T == S: query row i sees a valid key
-            # iff key i is valid, and valid key j is seen by the T - j
-            # valid rows from j on
-            seen = T.visible_keys(mask, t, True)
-            long_q = seen >= LONG_ROW
-            long_k = mask & (torch.arange(t, device="cuda") <= t - LONG_ROW)
+                    raise RuntimeError(f"{case}: {name} is not finite")
+            # K3's delta against attention_delta, to DELTA_RTOL of each
+            # row's sum of |O * dO|
+            size = (o.float() * do.float()).abs().sum(-1).transpose(1, 2)
+            d_ex = ((kdelta - delta).abs() / (DELTA_RTOL * size)).max().item()
+            print(f"[5] {case}: delta max|d| "
+                  f"{(kdelta - delta).abs().max().item():.3e}, "
+                  f"{d_ex:.3f} of its limit")
+            if not d_ex <= 1:
+                raise RuntimeError(f"{case}: the dQ kernel's delta disagrees "
+                                   f"with attention_delta")
+            seen = T.visible_keys(mask, t, causal)
+            rows_q, long_q = seen > 0, seen >= LONG_ROW
+            long_k = keys_seen_by(mask, t, causal) >= LONG_ROW
 
             def skipped_rows(w):      # what skipping query rows gives K2
                 hidden = lse.clone()
                 hidden[:, :, 128:128 + w] = NEG_INF
                 return flash_attention_bwd_dkv_reference(
-                    q, k, v, mask, hidden, delta, do, True, scale)
+                    q, k, v, mask, hidden, kdelta, do, causal, scale)
 
             dq_faults = [(name, flash_attention_bwd_dq_reference(
-                q, k, v, hide_keys(mask, 128, w), lse, delta, do, True,
+                q, k, v, hide_keys(mask, 128, w), lse, kdelta, do, causal,
                 scale)) for name, w in (("one key hidden", 1),
                                         ("one 64-key tile hidden", 64))]
             dkv_faults = [(name, skipped_rows(w))
                           for name, w in (("one query row skipped", 1),
                                           ("one 64-row query tile skipped",
                                            64))]
-            print(f"[5] T={t}, B={b}{'' if qs == 1 else f', q x {qs}'}: "
-                  f"max|err| dK {(dk.float() - rk.float()).abs().max():.3e}"
-                  f", dV {(dv.float() - rv.float()).abs().max():.3e}, dQ "
+            print(f"[5] {case}: max|err| dK "
+                  f"{(dk.float() - rk.float()).abs().max():.3e}, dV "
+                  f"{(dv.float() - rv.float()).abs().max():.3e}, dQ "
                   f"{(dq.float() - rq.float()).abs().max():.3e} (|grad| up "
                   f"to {max(x.float().abs().max() for x in (rk, rv, rq)):.2f})")
             ex = {"dkv": max(
@@ -598,20 +650,29 @@ def phase_backward():
                      [(n, f[0]) for n, f in dkv_faults], long_k),
                 gate("[5]   dV", dv, rv, mask,
                      [(n, f[1]) for n, f in dkv_faults], long_k)),
-                "dq": gate("[5]   dQ", dq, rq, mask, dq_faults, long_q)}
+                "dq": gate("[5]   dQ", dq, rq, rows_q, dq_faults, long_q)}
             del dq_faults, dkv_faults
-            for key, got, want in (("dkv", (dk, dv), (rk, rv)),
-                                   ("dq", (dq,), (rq,))):
+            errs["dq"]["delta_excess"] = max(errs["dq"]["delta_excess"], d_ex)
+            for key, got, want, rows in (("dkv", (dk, dv), (rk, rv), mask),
+                                         ("dq", (dq,), (rq,), rows_q)):
                 e = errs[key]
                 e["gate_excess"] = max(e["gate_excess"], ex[key])
                 for a, w in zip(got, want):
                     e["max_abs_err"] = max(e["max_abs_err"], (
-                        a.float() - w.float()).abs()[mask].max().item())
-            rows = ~mask          # rows that see no valid key: dQ must be 0
-            if dq[rows].float().abs().max().item() != 0.0:
-                raise RuntimeError(f"T={t}: fully-masked rows got a dQ")
-        print(f"[5]   dQ exactly 0 on the {int(rows.sum())} rows that see no "
-              f"valid key")
+                        a.float() - w.float()).abs()[rows].max().item())
+            # rows that see no valid key: dQ exactly 0; hidden keys: dK and
+            # dV exactly 0
+            dead = ~rows_q
+            if dq[dead].float().abs().sum().item() != 0.0:
+                raise RuntimeError(f"{case}: fully-masked rows got a dQ")
+            if (dk[~mask].float().abs().sum().item() != 0.0
+                    or dv[~mask].float().abs().sum().item() != 0.0):
+                raise RuntimeError(f"{case}: hidden keys got a dK or dV")
+        print(f"[5]   dQ exactly 0 on the {int(dead.sum())} rows that see no "
+              f"valid key; dK and dV exactly 0 on the {int((~mask).sum())} "
+              f"hidden keys")
+    b, nh, d = ROWS_PER_CALL, 32, 128
+    scale = 1.0 / math.sqrt(d)
     # the differentiable FlashAttention against autograd of the eager path
     # (cotangent zero on rows that see no valid key, as in the model)
     do = do * mask[:, :, None, None]
@@ -638,21 +699,28 @@ def phase_backward():
             with torch.inference_mode():
                 o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
                                              scale=scale)
-                args = (q, k, v, mask, lse, attention_delta(o, do), do)
-                for key, fn, ref in (
-                        ("dkv", flash_attention_bwd_dkv,
-                         flash_attention_bwd_dkv_reference),
-                        ("dq", flash_attention_bwd_dq,
-                         flash_attention_bwd_dq_reference)):
-                    call = (lambda: fn(*args, causal=True, scale=scale))
+                delta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                               causal=True, scale=scale)[1]
+                # K3 computes dQ and delta; its plain version is the two
+                # plain passes
+                for key, call, ref in (
+                        ("dkv", lambda: flash_attention_bwd_dkv(
+                            q, k, v, mask, lse, delta, do, causal=True,
+                            scale=scale),
+                         lambda: flash_attention_bwd_dkv_reference(
+                             q, k, v, mask, lse, delta, do, True, scale)),
+                        ("dq", lambda: flash_attention_bwd_dq(
+                            q, k, v, mask, lse, o, do, causal=True,
+                            scale=scale),
+                         lambda: flash_attention_bwd_dq_reference(
+                             q, k, v, mask, lse, attention_delta(o, do), do,
+                             True, scale))):
                     # ~0.5 s of launches, so nvidia-smi reads a busy card
                     iters = max(20, math.ceil(500 / cuda_ms(call, iters=5)))
                     ms, clock = cuda_ms_clocked(call, iters)
                     if masks == "full":
                         res[key].update(ms=ms, clock=clock,
-                                        plain_ms=cuda_ms(
-                                            lambda: ref(*args, True, scale),
-                                            iters=5))
+                                        plain_ms=cuda_ms(ref, iters=5))
                     else:
                         res[key].update(padded_ms=ms, padded_clock=clock)
                 if masks == "full":
@@ -683,12 +751,13 @@ def phase_backward():
         dkv, dq = res["dkv"], res["dq"]
         print(f"[5] T={t}, B={b} causal, full masks: dK/dV kernel "
               f"{dkv['ms']:.4f} ms (plain {dkv['plain_ms']:.4f}, bound "
-              f"{dkv['bound_ms']:.4f}); dQ kernel {dq['ms']:.4f} ms (plain "
-              f"{dq['plain_ms']:.4f}, bound {dq['bound_ms']:.4f}); delta "
-              f"{delta_ms:.4f} ms; together "
-              f"{dkv['ms'] + dq['ms'] + delta_ms:.4f} ms against the masked "
-              f"SDPA backward's {library_ms:.4f} ms (max|d| {lib_err:.3e} "
-              f"from the plain version, gate excess {lib_excess:.3f})")
+              f"{dkv['bound_ms']:.4f}); dQ kernel with delta {dq['ms']:.4f} "
+              f"ms (plain dQ + attention_delta {dq['plain_ms']:.4f}, bound "
+              f"{dq['bound_ms']:.4f}); together {dkv['ms'] + dq['ms']:.4f} "
+              f"ms against the masked SDPA backward's {library_ms:.4f} ms "
+              f"(max|d| {lib_err:.3e} from the plain version, gate excess "
+              f"{lib_excess:.3f}); the plain attention_delta pass, no longer "
+              f"on the path, takes {delta_ms:.4f} ms")
         for key, name in (("dkv", "dK/dV"), ("dq", "dQ")):
             r = res[key]
             print(f"[5]   {name} on full masks {r['ms']:.4f} ms (SM clock, "

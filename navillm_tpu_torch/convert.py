@@ -5,6 +5,10 @@
   navillm_tpu's ``init_nav_params`` / ``init_pano_params`` /
   ``llama.weight_spec`` build it, and returns the same tree as torch
   tensors, so both packages compute the same function.
+- Both builders put their tensors on the card unless the caller names
+  another device (``device="cpu"``, as the CPU tests do); with no CUDA
+  device and none named they raise, rather than build a model that would
+  run the eager CPU path with no kernel.
 - ``flatten_tree`` / ``grads_to_numpy`` name every leaf of a nested tree,
   and every gradient of a model, by its dotted JAX path (``llm.layers.wq``),
   so gradient trees compare leaf by leaf.
@@ -26,16 +30,29 @@ from .models.nav_model import MAX_ACTION_STEPS, NUM_CAND_SLOTS, NavModelConfig
 from .models.pano_encoder import PanoConfig
 
 
+def target_device(device=None) -> torch.device:
+    """``device``, or the card when it is None; raises when it is None and
+    there is no CUDA device."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port's models are built on "
+                           "the card; pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def _tensor(a, device) -> torch.Tensor:
     a = np.array(a)            # a writable copy (JAX hands out read-only)
     if a.dtype.name == "bfloat16":     # ml_dtypes arrays from a bf16 tree
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device) if device is not None else t
+    return t.to(device)
 
 
 def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX tree as torch tensors on ``device`` (default: the card)."""
+    device = target_device(device)
     return {k: (params_from_jax(v, device) if isinstance(v, dict)
                 else _tensor(v, device)) for k, v in tree.items()}
 
@@ -84,8 +101,8 @@ class _Init:
         return {"s": self.const((d,), 1.0), "b": self.const((d,), 0.0)}
 
 
-def init_llama_params(cfg: L.LlamaConfig, generator, device):
-    init = _Init(generator, device, cfg.dtype)
+def init_llama_params(cfg: L.LlamaConfig, generator, device=None):
+    init = _Init(generator, target_device(device), cfg.dtype)
     spec = L.weight_spec(cfg)
     layers = {k: init.dense(*v) for k, v in spec["layers"].items()}
     layers["attn_norm"] = init.const((cfg.num_layers, cfg.hidden_size), 1.0)
@@ -95,8 +112,8 @@ def init_llama_params(cfg: L.LlamaConfig, generator, device):
             "lm_head": init.dense(*spec["lm_head"])}
 
 
-def init_pano_params(cfg: PanoConfig, generator, device):
-    init = _Init(generator, device, cfg.dtype)
+def init_pano_params(cfg: PanoConfig, generator, device=None):
+    init = _Init(generator, target_device(device), cfg.dtype)
     h, i, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_pano_layers
     p = {"img_linear": init.linear(cfg.image_feat_size, h),
          "img_ln": init.ln(h),
@@ -122,8 +139,9 @@ def init_pano_params(cfg: PanoConfig, generator, device):
 
 def init_nav_params(cfg: NavModelConfig, generator: torch.Generator,
                     device: Optional[torch.device] = None) -> Dict[str, Any]:
-    """Random navigation parameters on ``device`` (generator must live on
-    the same device)."""
+    """Random navigation parameters on ``device`` (default: the card; the
+    generator must live on the same device)."""
+    device = target_device(device)
     h, a = cfg.hidden_size, cfg.angle_feat_size
     init = _Init(generator, device, cfg.llm.dtype)
 

@@ -3,71 +3,77 @@
 //
 // Replaces navillm_tpu/ops/attention.py::_flash_bwd_dkv_kernel, the Pallas
 // TPU kernel of the JAX package's fused backward (_flash_backward) that
-// computes dK and dV; its twin for dQ is csrc/flash_attn_bwd_dq.cu. It
-// recomputes the attention probabilities tile by tile from the forward
-// kernel's log-sum-exp rows, P = exp(Q K^T * scale - lse), so the [T, S]
-// matrix never reaches device memory, and takes delta = rowsum(O * dO),
-// computed beside it in f32, as the JAX code does:
+// computes dK and dV; its twin for dQ is csrc/flash_attn_bwd_dq.cu, which
+// runs first on the same stream and writes delta = rowsum(O * dO) (f32)
+// that this kernel reads. It recomputes the attention probabilities tile by
+// tile from the forward kernel's log-sum-exp rows, P = exp(Q K^T * scale -
+// lse), so the [T, S] matrix never reaches device memory:
 //   dV = P^T dO;  dS = P * (dO V^T - delta) * scale;  dK = dS^T Q.
 //
 // Masking follows the JAX kernel's rule. P is exactly zero where the key is
 // hidden by kv_mask, above the diagonal under causal, past S (tile padding),
 // past T (query padding), or where the query row's lse <= NEG_INF / 2: a row
 // that saw no valid key in the forward (left padding under causal) has
-// lse ~ NEG_INF there, so it adds nothing to dK/dV.
+// lse ~ NEG_INF there, so it adds exactly nothing to dK/dV.
 //
 // Layout. Q/dO are read as [B, T, NH, D] and K/V/dK/dV as [B, S, NKV, D]
-// through their strides (dense last dimension), lse and delta as dense f32
-// [B, NH, T]. Under grouped-query attention the block of kv head g loops
-// over its NH / NKV query heads and sums them itself.
+// through their strides (dense last dimension; Q, dO, K and V by TMA tensor
+// maps), lse and delta as dense f32 [B, NH, T]. D is 64 or 128.
 //
-// Blocks: one per 64-key tile of one (batch, kv head); its four warps own
-// 16 keys each and loop over 64-row query tiles, starting at the first tile
-// that can see the key tile under causal. Every product is a 16x16x16 bf16
-// WMMA (mma.sync) with f32 accumulation; scores, dP and the dK/dV
-// accumulators live in shared memory, where the element-wise step (masks,
-// exp, dS) is a per-row loop.
+// Design: key-stationary, on the pipeline of the forward and dQ kernels
+// (csrc/hopper.cuh). One block per (64-key tile, batch x kv head). A
+// producer warpgroup (setmaxnreg 40) loads the K and V tiles once by TMA
+// and keeps a 3-stage ring of 64-row Q and dO tiles in flight, writing
+// beside each stage its rows' lse (log2 domain; +inf for a row that takes
+// no part: past T or lse <= NEG_INF / 2) and delta. Under grouped-query
+// attention the ring walks the group's query heads one after the other, so
+// one block sums them all; under causal it starts at the diagonal tile.
+// The two consumer warpgroups split the products, not the keys: at D = 128
+// one thread cannot hold both dK and dV (64 f32 each) beside S^T and dP^T
+// in the 168 registers that ptxas allots a thread of a 384-thread block.
+// Per query tile, with the queries as the accumulator's columns (each
+// thread reads lse and delta for its 16 columns from the stage):
+//   warpgroup 0: S^T = K Q^T (wgmma m64n64k16 from shared memory, both
+//   operands K-major); P^T in registers (key flags per row, query rows per
+//   column, causal kj <= qi), stored in f32 to a shared buffer (named
+//   barrier) and packed to bf16 as the register A operand of dV += P^T dO
+//   (dO MN-major: imm-trans-b);
+//   warpgroup 1: dP^T = V dO^T, then, once P^T is in the buffer,
+//   dS^T = P^T (dP^T - delta) scale in registers, packed to bf16 for
+//   dK += dS^T Q.
+// Both accumulators have the same register layout, so thread t of one
+// warpgroup writes exactly the P^T elements thread t of the other reads.
+// The buffer of a ring stage is rewritten only after warpgroup 1 has
+// released that stage, so the ring's barriers also order its reuse. dK and
+// dV stay in f32 registers until their one bf16 store; a key tile's sums
+// are complete within its block, so there are no atomics.
 //
-// What bounds it on the H100: per (query tile, key tile) it does four
-// 64x64xD products, so at the training shapes (T ~ 1024, D = 128) it is
-// compute bound on the tensor cores. This first version is plain: mma.sync
-// rather than wgmma, synchronous tile loads rather than a TMA ring, and
-// shared-memory accumulators (~185 KB at D = 128, one block per SM), so the
-// launcher raises the dynamic shared-memory cap.
+// What bounds it on the H100: four products of 2 T S D FLOP each per
+// (batch, head) (halved under causal) against reading Q, K, V, dO, lse and
+// delta once and writing dK and dV: at the training shapes (T ~ 1024,
+// D = 128) the tensor cores bound it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
-using namespace nvcuda;
+using namespace hopper;
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per tile
-constexpr int BK = 64;             // keys per tile
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 8;             // bf16 per 16-byte load
+constexpr int BK = 64;             // keys per block
+constexpr int BQ = 64;             // query rows per ring stage
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;       // two consumer warpgroups + producer
 constexpr float NEG_INF = -1e30f;  // navillm_tpu/ops/masking.py:NEG_INF
-
-typedef __nv_bfloat16 bf16;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  CUtensorMap tq, tdo, tk, tv;
   const uint8_t* mask;  // [B, S] key validity (bool)
-  const bf16* dout;     // [B, T, NH, D]
   const float* lse;     // [B, NH, T]
   const float* delta;   // [B, NH, T]
   bf16* dk;             // [B, S, NKV, D]
   bf16* dv;             // [B, S, NKV, D]
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
   long long m_sb;
-  long long do_sb, do_st, do_sh;
   long long dk_sb, dk_st, dk_sh;
   long long dv_sb, dv_st, dv_sh;
   int T, S, NH, NKV, group;  // group = NH / NKV
@@ -75,309 +81,267 @@ struct Params {
   int causal;
 };
 
-// Row pitches are padded (+8 bf16, +4 f32) to spread WMMA row accesses over
-// the banks; every region is a multiple of 128 bytes, so every WMMA pointer
-// stays 32-byte aligned.
 template <int D>
-struct Pitch {
-  static constexpr int H = D + 8;   // [64, D] bf16 tiles
-  static constexpr int S = 64 + 4;  // [64, 64] f32 scores / dP
-  static constexpr int P = 64 + 8;  // [64, 64] bf16 P / dS
-  static constexpr int O = D + 4;   // [64, D] f32 accumulators
-  static constexpr size_t tile_h = size_t(64) * H * 2;
-  static constexpr size_t tile_s = size_t(64) * S * 4;
-  static constexpr size_t tile_p = size_t(64) * P * 2;
-  static constexpr size_t tile_o = size_t(64) * O * 4;
-  static constexpr size_t row_f = size_t(64) * 4;  // 64 floats or ints
+struct Smem {
+  static constexpr int k = 0;
+  static constexpr int v = k + BK * D * 2;
+  static constexpr int q = v + BK * D * 2;
+  static constexpr int dout = q + STAGES * BQ * D * 2;
+  static constexpr int lse = dout + STAGES * BQ * D * 2;  // f32 [STAGES][BQ]
+  static constexpr int delta = lse + STAGES * BQ * 4;
+  static constexpr int p = delta + STAGES * BQ * 4;  // f32 P^T per stage
+  static constexpr int kflags = p + STAGES * BK * BQ * 4;
+  static constexpr int bars = kflags + BK;
+  static constexpr int bytes = bars + (2 * STAGES + 1) * 8;
+  static constexpr int alloc = bytes + 1024;  // room to align the base
 };
 
-// dK/dV kernel: K, V, Q, dO tiles; S^T, dP^T; P^T, dS^T; dK, dV; lse,
-// delta, query flags, key flags.
 template <int D>
-struct DkvSmem {
-  using P = Pitch<D>;
-  static constexpr size_t k = 0;
-  static constexpr size_t v = k + P::tile_h;
-  static constexpr size_t q = v + P::tile_h;
-  static constexpr size_t dout = q + P::tile_h;
-  static constexpr size_t s = dout + P::tile_h;
-  static constexpr size_t dp = s + P::tile_s;
-  static constexpr size_t p = dp + P::tile_s;
-  static constexpr size_t ds = p + P::tile_p;
-  static constexpr size_t dk = ds + P::tile_p;
-  static constexpr size_t dv = dk + P::tile_o;
-  static constexpr size_t lse = dv + P::tile_o;
-  static constexpr size_t delta = lse + P::row_f;
-  static constexpr size_t qf = delta + P::row_f;
-  static constexpr size_t kf = qf + P::row_f;
-  static constexpr size_t bytes = kf + P::row_f;
-};
-
-// Copy rows [r0, r0 + 64) of a strided [rows, D] bf16 matrix into a padded
-// shared tile; rows at or past n_rows are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int r0,
-                                          int n_rows) {
-  constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * VEC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Pitch<D>::H + c) = val;
-  }
-}
-
-// Store this thread's half of one accumulator row (f32, shared) as bf16.
-template <int D>
-__device__ __forceinline__ void store_row_half(bf16* dst, const float* row) {
-#pragma unroll
-  for (int j = 0; j < D / 2; j += VEC) {
-    union {
-      uint4 u;
-      __nv_bfloat162 h2[VEC / 2];
-    } packed;
-#pragma unroll
-    for (int e = 0; e < VEC / 2; ++e)
-      packed.h2[e] = __floats2bfloat162_rn(row[j + 2 * e], row[j + 2 * e + 1]);
-    *reinterpret_cast<uint4*>(dst + j) = packed.u;
-  }
-}
-
-// acc[16, 64] (shared, f32, pitch Pitch::S) = A[16, D] . B^T where A is
-// held in fragments and B is 64 rows of a padded bf16 tile (read as a
-// column-major [D, 64] matrix).
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(
-    float* out,
-    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> (&a)[D / 16],
-    const bf16* tile) {
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) {
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(bt, tile + n * 16 * Pitch<D>::H + kk * 16, Pitch<D>::H);
-      wmma::mma_sync(acc, a[kk], bt, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, Pitch<D>::S, wmma::mem_row_major);
-  }
-}
-
-// acc[16, D] (shared, f32, pitch Pitch::O) += A[16, 64] . B[64, D] where A
-// is 16 rows of a bf16 [.., 64] shared matrix (pitch Pitch::P) and B a
-// padded bf16 tile read row-major.
-template <int D>
-__device__ __forceinline__ void accumulate_rows_times_tile(
-    float* acc_rows, const bf16* a_rows, const bf16* tile) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[64 / 16];
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk)
-    wmma::load_matrix_sync(a[kk], a_rows + kk * 16, Pitch<D>::P);
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    float* ptr = acc_rows + n * 16;
-    wmma::load_matrix_sync(acc, ptr, Pitch<D>::O, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < 64 / 16; ++kk) {
-      wmma::load_matrix_sync(b, tile + kk * 16 * Pitch<D>::H + n * 16, Pitch<D>::H);
-      wmma::mma_sync(acc, a[kk], b, acc);
-    }
-    wmma::store_matrix_sync(ptr, acc, Pitch<D>::O, wmma::mem_row_major);
-  }
-}
-
-// Per-query-row statistics of one 64-row tile: lse, delta, and whether the
-// row takes part (inside T and saw a valid key in the forward).
-__device__ __forceinline__ void load_row_stats(float* s_lse, float* s_delta,
-                                               int* s_qf, const float* lse,
-                                               const float* delta, int q0,
-                                               int T) {
-  if (threadIdx.x < 64) {
-    const int qi = q0 + threadIdx.x;
-    const bool in = qi < T;
-    const float l = in ? lse[qi] : 0.f;
-    s_lse[threadIdx.x] = l;
-    s_delta[threadIdx.x] = in ? delta[qi] : 0.f;
-    s_qf[threadIdx.x] = in && l > NEG_INF / 2;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const Params prm) {
-  using L = DkvSmem<D>;
-  using PT = Pitch<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::dout);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  float* sDP = reinterpret_cast<float*>(smem + L::dp);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::ds);
-  float* sDK = reinterpret_cast<float*>(smem + L::dk);
-  float* sDV = reinterpret_cast<float*>(smem + L::dv);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ Params prm) {
+  using L = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // tiles start on 1024-byte boundaries (the 128-byte swizzle's period)
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* sLse = reinterpret_cast<float*>(smem + L::lse);
   float* sDelta = reinterpret_cast<float*>(smem + L::delta);
-  int* sQf = reinterpret_cast<int*>(smem + L::qf);
-  int* sKf = reinterpret_cast<int*>(smem + L::kf);
+  float* sP = reinterpret_cast<float*>(smem + L::p);
+  int8_t* sKf = reinterpret_cast<int8_t*>(smem + L::kflags);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_bar = empty + STAGES;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int k0 = blockIdx.x * BK;
   const int b = blockIdx.y / prm.NKV;
   const int kvh = blockIdx.y % prm.NKV;
-  const int k0 = blockIdx.x * BK;
+  const int first = prm.causal ? k0 / BQ : 0;  // the diagonal query tile
+  const int n_q_tiles = (prm.T + BQ - 1) / BQ;
+  const int per_head = max(n_q_tiles - first, 0);
+  const int n_iters = prm.group * per_head;
 
-  load_tile<D>(sK, prm.k + b * prm.k_sb + kvh * prm.k_sh, prm.k_st, k0, prm.S);
-  load_tile<D>(sV, prm.v + b * prm.v_sb + kvh * prm.v_sh, prm.v_st, k0, prm.S);
-  if (tid < BK) {
-    const int key = k0 + tid;
-    sKf[tid] = key < prm.S && prm.mask[b * prm.m_sb + key] != 0;
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  if (threadIdx.x < BK) {
+    const int key = k0 + threadIdx.x;
+    sKf[threadIdx.x] = key < prm.S && prm.mask[b * prm.m_sb + key];
   }
-  for (int i = tid; i < 64 * PT::O; i += THREADS) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);    // the producer warp's lanes (+ TMA bytes)
+      mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    mbar_init(kv_bar, 1);
+    mbar_init_fence();
   }
   __syncthreads();
 
-  // This warp's 16 keys (K and V rows) stay in registers.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ka[D / 16], va[D / 16];
+  if (wg == 2) {
+    // ------------------------------------------------------- producer --- //
+    regs_dec<40>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_bar, 2 * BK * D * 2);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(ka[kk], sK + warp * 16 * PT::H + kk * 16, PT::H);
-    wmma::load_matrix_sync(va[kk], sV + warp * 16 * PT::H + kk * 16, PT::H);
+      for (int cb = 0; cb < D / 64; ++cb) {
+        tma_load_4d(smem + L::k + cb * BK * 128, &prm.tk, kv_bar, cb * 64, k0,
+                    kvh, b);
+        tma_load_4d(smem + L::v + cb * BK * 128, &prm.tv, kv_bar, cb * 64, k0,
+                    kvh, b);
+      }
+    }
+    for (int it = 0; it < n_iters; ++it) {
+      const int stage = it % STAGES;
+      const int h = kvh * prm.group + it / per_head;
+      const int q0 = (first + it % per_head) * BQ;
+      mbar_wait(&empty[stage], ((it / STAGES) & 1) ^ 1);
+      const long long stat = ((long long)b * prm.NH + h) * prm.T;
+#pragma unroll
+      for (int e = 0; e < BQ / 32; ++e) {
+        const int r = lane + 32 * e;
+        const int qi = q0 + r;
+        float l2 = INFINITY, dl = 0.f;
+        if (qi < prm.T) {
+          const float l = prm.lse[stat + qi];
+          if (l > NEG_INF / 2) l2 = l * LOG2E;
+          dl = prm.delta[stat + qi];
+        }
+        sLse[stage * BQ + r] = l2;
+        sDelta[stage * BQ + r] = dl;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[stage], 2 * BQ * D * 2);
+        unsigned char* sq = smem + L::q + stage * BQ * D * 2;
+        unsigned char* sdo = smem + L::dout + stage * BQ * D * 2;
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_4d(sq + cb * BQ * 128, &prm.tq, &full[stage], cb * 64, q0,
+                      h, b);
+          tma_load_4d(sdo + cb * BQ * 128, &prm.tdo, &full[stage], cb * 64,
+                      q0, h, b);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+    return;
   }
 
-  // Element-wise step: two lanes per key row, each owning half the columns.
-  const int row = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const int key = k0 + row;
-  const bool key_ok = sKf[row] != 0;
-  const int first = prm.causal ? k0 / BQ : 0;
-  const int n_q_tiles = (prm.T + BQ - 1) / BQ;
+  // --------------------------------------------------------- consumers --- //
+  regs_inc<232>();
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int quad = lane % 4;
+  // this thread's two rows (keys) and whether each is valid
+  const int kr0 = warp * 16 + lane / 4;
+  const int kj0 = k0 + kr0, kj1 = kj0 + 8;
+  const bool kok0 = sKf[kr0] != 0, kok1 = sKf[kr0 + 8] != 0;
+  const float c = prm.scale * LOG2E;
+  const bool dv_side = wg == 0;  // warpgroup 0: P^T and dV; 1: dS^T and dK
 
-  for (int g = 0; g < prm.group; ++g) {
-    const int h = kvh * prm.group + g;
-    const bf16* qg = prm.q + b * prm.q_sb + h * prm.q_sh;
-    const bf16* dog = prm.dout + b * prm.do_sb + h * prm.do_sh;
-    const float* lse = prm.lse + ((long long)b * prm.NH + h) * prm.T;
-    const float* delta = prm.delta + ((long long)b * prm.NH + h) * prm.T;
-    for (int qt = first; qt < n_q_tiles; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile's Q/dO/row stats are consumed
-      load_tile<D>(sQ, qg, prm.q_st, q0, prm.T);
-      load_tile<D>(sDO, dog, prm.do_st, q0, prm.T);
-      load_row_stats(sLse, sDelta, sQf, lse, delta, q0, prm.T);
-      __syncthreads();
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
-      // S^T = K Q^T and dP^T = V dO^T for this warp's keys.
-      rows_times_tile_t<D>(sS + warp * 16 * PT::S, ka, sQ);
-      rows_times_tile_t<D>(sDP + warp * 16 * PT::S, va, sDO);
-      __syncwarp();
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    const int stage = it % STAGES;
+    const int q0 = (first + it % per_head) * BQ;
+    mbar_wait(&full[stage], (it / STAGES) & 1);
+    const unsigned char* sq = smem + L::q + stage * BQ * D * 2;
+    const unsigned char* sdo = smem + L::dout + stage * BQ * D * 2;
+    float* sPs = sP + stage * BK * BQ + tid;  // this thread's P^T elements
 
-      {
-        const float* srow = sS + row * PT::S;
-        const float* dprow = sDP + row * PT::S;
-        bf16* prow = sP + row * PT::P;
-        bf16* dsrow = sDS + row * PT::P;
-#pragma unroll 8
-        for (int j = 0; j < BQ / 2; ++j) {
-          const int c = half * (BQ / 2) + j;
-          float p = 0.f;
-          if (key_ok && sQf[c] && (!prm.causal || key <= q0 + c))
-            p = __expf(srow[c] * prm.scale - sLse[c]);
-          prow[c] = __float2bfloat16(p);
-          dsrow[c] = __float2bfloat16(p * (dprow[c] - sDelta[c]) * prm.scale);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    float s[BQ / 2];
+    fence_regs(s);
+    wgmma_fence();
+    gemm_ss<BQ, D>(s, smem + (dv_side ? L::k : L::v), BK, dv_side ? sq : sdo);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // accumulator column = query row q0 + 8 j + 2 quad + e
+    const float* lse2 = sLse + stage * BQ;
+    const float* dlt = sDelta + stage * BQ;
+    const bool diag = prm.causal && q0 < k0 + BK;
+    uint32_t a[BQ / 16][4];  // P^T or dS^T, bf16, as the A operand
+    if (dv_side) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const int col = 8 * j + 2 * quad;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * r + e;
+            const bool keep = (r ? kok1 : kok0) &&
+                              !(diag && (r ? kj1 : kj0) > q0 + col + e);
+            s[i] = keep ? fast_exp2(s[i] * c - (e ? l2.y : l2.x)) : 0.f;
+            sPs[i * 128] = s[i];
+          }
         }
       }
-      __syncwarp();
-
-      // dV += P^T dO and dK += dS^T Q for this warp's keys.
-      accumulate_rows_times_tile<D>(sDV + warp * 16 * PT::O, sP + warp * 16 * PT::P, sDO);
-      accumulate_rows_times_tile<D>(sDK + warp * 16 * PT::O, sDS + warp * 16 * PT::P, sQ);
+      __threadfence_block();
+      named_bar_arrive(2 + stage, 256);
+    } else {
+      named_bar_sync(2 + stage, 256);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 dl =
+            *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * quad);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = 4 * j + k;
+          s[i] = sPs[i * 128] * (s[i] - ((k & 1) ? dl.y : dl.x)) * prm.scale;
+        }
+      }
     }
-  }
-  __syncwarp();
+    // n8 block j is half of the 16-deep slice j / 2: registers
+    // (row 0, row 1) for its first (j even) or second 8 columns
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      a[j / 2][2 * (j % 2)] = pack_bf16(s[4 * j], s[4 * j + 1]);
+      a[j / 2][2 * (j % 2) + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+    }
 
-  if (key < prm.S) {
-    store_row_half<D>(prm.dk + b * prm.dk_sb + (long long)key * prm.dk_st +
-                          kvh * prm.dk_sh + half * (D / 2),
-                      sDK + row * PT::O + half * (D / 2));
-    store_row_half<D>(prm.dv + b * prm.dv_sb + (long long)key * prm.dv_st +
-                          kvh * prm.dv_sh + half * (D / 2),
-                      sDV + row * PT::O + half * (D / 2));
+    // dV += P^T dO or dK += dS^T Q
+    fence_regs(acc);
+    wgmma_fence();
+    gemm_rs<D, BQ>(acc, a, dv_side ? sdo : sq);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[stage]);
+  }
+
+  bf16* out = dv_side ? prm.dv : prm.dk;
+  const long long o_sb = dv_side ? prm.dv_sb : prm.dk_sb;
+  const long long o_st = dv_side ? prm.dv_st : prm.dk_st;
+  const long long o_sh = dv_side ? prm.dv_sh : prm.dk_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = r ? kj1 : kj0;
+    if (kj >= prm.S) continue;
+    bf16* g = out + b * o_sb + (long long)kj * o_st + kvh * o_sh + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(g + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
   }
 }
 
 template <int D>
-int launch_dkv(const Params& prm, int batch, cudaStream_t stream) {
-  const int bytes = static_cast<int>(DkvSmem<D>::bytes);
+int launch(const Params& prm, int batch, cudaStream_t stream) {
+  const int bytes = Smem<D>::alloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((prm.S + BK - 1) / BK, batch * prm.NKV);
   flash_bwd_dkv_kernel<D><<<grid, THREADS, bytes, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
 }
 
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* mask, const void* dout, const void* lse,
-                   const void* delta, int T, int S, int NH, int NKV,
-                   const long long* st, float scale, int causal) {
-  Params prm;
-  prm.q = static_cast<const bf16*>(q);
-  prm.k = static_cast<const bf16*>(k);
-  prm.v = static_cast<const bf16*>(v);
-  prm.mask = static_cast<const uint8_t*>(mask);
-  prm.dout = static_cast<const bf16*>(dout);
-  prm.lse = static_cast<const float*>(lse);
-  prm.delta = static_cast<const float*>(delta);
-  prm.dk = nullptr;
-  prm.dv = nullptr;
-  prm.q_sb = st[0]; prm.q_st = st[1]; prm.q_sh = st[2];
-  prm.k_sb = st[3]; prm.k_st = st[4]; prm.k_sh = st[5];
-  prm.v_sb = st[6]; prm.v_st = st[7]; prm.v_sh = st[8];
-  prm.m_sb = st[9];
-  prm.do_sb = st[10]; prm.do_st = st[11]; prm.do_sh = st[12];
-  prm.dk_sb = prm.dk_st = prm.dk_sh = 0;
-  prm.dv_sb = prm.dv_st = prm.dv_sh = 0;
-  prm.T = T; prm.S = S; prm.NH = NH; prm.NKV = NKV; prm.group = NH / NKV;
-  prm.scale = scale;
-  prm.causal = causal;
-  return prm;
-}
-
 }  // namespace
 
 // Plain C interface, bound with ctypes (navillm_tpu_torch/ops/attention.py).
 // `in_strides` holds 13 element strides: q (b, t, h), k (b, s, h),
-// v (b, s, h), mask (b), dout (b, t, h). Launches one kernel on `stream` and
-// returns the cudaError_t of the launch.
+// v (b, s, h), mask (b), dout (b, t, h). delta is the dQ kernel's. Launches
+// one kernel on `stream` and returns a cudaError_t: of building the tensor
+// maps, or of the launch.
 extern "C" int navillm_flash_attn_bwd_dkv(
     const void* q, const void* k, const void* v, const void* mask,
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-    int B, int T, int S, int NH, int NKV, int D, const long long* in_strides,
+    int B, int T, int S, int NH, int NKV, int D, const long long* st,
     long long dk_sb, long long dk_st, long long dk_sh,
     long long dv_sb, long long dv_st, long long dv_sh,
     float scale, int causal, void* stream) {
-  Params prm = make_params(q, k, v, mask, dout, lse, delta, T, S, NH, NKV,
-                           in_strides, scale, causal);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0 || NKV == 0) return 0;
+  Params prm;
+  int err = bind_context();
+  if (!err) err = make_map(&prm.tq, q, B, T, NH, D, st[0], st[1], st[2], BQ);
+  if (!err) err = make_map(&prm.tk, k, B, S, NKV, D, st[3], st[4], st[5], BK);
+  if (!err) err = make_map(&prm.tv, v, B, S, NKV, D, st[6], st[7], st[8], BK);
+  if (!err)
+    err = make_map(&prm.tdo, dout, B, T, NH, D, st[10], st[11], st[12], BQ);
+  if (err) return err;
+  prm.mask = static_cast<const uint8_t*>(mask);
+  prm.lse = static_cast<const float*>(lse);
+  prm.delta = static_cast<const float*>(delta);
   prm.dk = static_cast<bf16*>(dk);
   prm.dv = static_cast<bf16*>(dv);
+  prm.m_sb = st[9];
   prm.dk_sb = dk_sb; prm.dk_st = dk_st; prm.dk_sh = dk_sh;
   prm.dv_sb = dv_sb; prm.dv_st = dv_st; prm.dv_sh = dv_sh;
+  prm.T = T; prm.S = S; prm.NH = NH; prm.NKV = NKV; prm.group = NH / NKV;
+  prm.scale = scale;
+  prm.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dkv<64>(prm, B, s);
-  if (D == 128) return launch_dkv<128>(prm, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return D == 64 ? launch<64>(prm, B, s) : launch<128>(prm, B, s);
 }
 
 extern "C" const char* navillm_cuda_error_string(int err) {

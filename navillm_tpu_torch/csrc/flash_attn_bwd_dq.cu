@@ -3,12 +3,15 @@
 //
 // Replaces navillm_tpu/ops/attention.py::_flash_bwd_dq_kernel, the Pallas
 // TPU kernel of the JAX package's fused backward (_flash_backward) that
-// computes dQ; its twin for dK/dV is csrc/flash_attn_bwd.cu. It recomputes
-// the probabilities tile by tile from the forward kernel's log-sum-exp rows,
-// P = exp(Q K^T * scale - lse), so the [T, S] matrix never reaches device
-// memory, and takes delta = rowsum(O * dO), computed beside it in f32, as
-// the JAX code does:
-//   dS = P * (dO V^T - delta) * scale;  dQ = dS K.
+// computes dQ; its twin for dK/dV is csrc/flash_attn_bwd.cu, which runs
+// after it on the same stream. It recomputes the probabilities tile by tile
+// from the forward kernel's log-sum-exp rows, P = exp(Q K^T * scale - lse),
+// so the [T, S] matrix never reaches device memory:
+//   delta = rowsum(O * dO);  dS = P * (dO V^T - delta) * scale;  dQ = dS K.
+// delta (f32, as in the JAX code) is computed here, in the prologue, from
+// the O and dO tiles the block holds anyway, and written to a dense
+// [B, NH, T] buffer for the dK/dV kernel, which would read O S / 128 times
+// over if it computed delta itself.
 //
 // Masking follows the JAX kernel's rule. P is exactly zero where the key is
 // hidden by kv_mask, above the diagonal under causal, past S (tile padding),
@@ -16,15 +19,17 @@
 // that saw no valid key in the forward (left padding under causal) has
 // lse ~ NEG_INF there, so it gets dQ = 0 exactly.
 //
-// Layout. Q, dO and dQ are [B, T, NH, D] and K, V [B, S, NKV, D], read and
-// written through their strides (dense last dimension; Q, dO, K and V by
-// TMA tensor maps); lse and delta dense f32 [B, NH, T]. D is 64 or 128.
+// Layout. Q, O, dO and dQ are [B, T, NH, D] and K, V [B, S, NKV, D], read
+// and written through their strides (dense last dimension; Q, O, dO, K and
+// V by TMA tensor maps); lse and delta dense f32 [B, NH, T]. D is 64 or 128.
 //
 // Design: the forward kernel's pipeline (csrc/flash_attn_fwd.cu). One block
 // per (128-row query tile, batch x head). A producer warpgroup (setmaxnreg
-// 40) loads the Q and dO tiles once and keeps a 2-stage TMA ring of 64-key
-// K and V tiles in flight, with each tile's key-validity flags. Two
-// consumer warpgroups (setmaxnreg 232) of 64 rows each, per key tile:
+// 40) loads the Q, O and dO tiles once and keeps a 2-stage TMA ring of
+// 64-key K and V tiles in flight, with each tile's key-validity flags. Two
+// consumer warpgroups (setmaxnreg 232) of 64 rows each first reduce their
+// rows of O * dO over the quad that holds them (shfl_xor) into delta, then,
+// per key tile:
 // S = Q K^T and dP = dO V^T as two wgmma m64n64k16 chains from shared
 // memory into registers; P and dS in registers from the thread's rows' lse
 // and delta; dQ += dS K with dS packed to bf16 as the register A operand
@@ -33,9 +38,10 @@
 // complete within its block.
 //
 // What bounds it on the H100: three products of 2 T S D FLOP each per
-// (batch, head) (halved under causal) against reading Q, K, V, dO, lse and
-// delta once and writing dQ: at the training shapes (T ~ 1024, D = 128) the
-// tensor cores bound it.
+// (batch, head) (halved under causal) against reading Q, K, V, dO, O and
+// lse once and writing dQ and delta: at the training shapes (T ~ 1024,
+// D = 128) the two bounds are within ~15% of each other, the bytes ahead
+// since the kernel reads O for delta.
 
 #include "hopper.cuh"
 
@@ -51,10 +57,10 @@ constexpr float NEG_INF = -1e30f;  // navillm_tpu/ops/masking.py:NEG_INF
 constexpr float LOG2E = 1.4426950408889634f;
 
 struct Params {
-  CUtensorMap tq, tdo, tk, tv;
+  CUtensorMap tq, tdo, to, tk, tv;
   const uint8_t* mask;  // [B, S] key validity (bool)
   const float* lse;     // [B, NH, T]
-  const float* delta;   // [B, NH, T]
+  float* delta;         // [B, NH, T], written here
   bf16* dq;             // [B, T, NH, D]
   long long m_sb;
   long long dq_sb, dq_st, dq_sh;
@@ -67,7 +73,8 @@ template <int D>
 struct Smem {
   static constexpr int q = 0;
   static constexpr int dout = q + BQ * D * 2;
-  static constexpr int k = dout + BQ * D * 2;
+  static constexpr int o = dout + BQ * D * 2;
+  static constexpr int k = o + BQ * D * 2;
   static constexpr int v = k + STAGES * BK * D * 2;
   static constexpr int flags = v + STAGES * BK * D * 2;
   static constexpr int bars = flags + STAGES * BK;
@@ -114,13 +121,15 @@ flash_bwd_dq_kernel(const __grid_constant__ Params prm) {
     if (tid >= 32) return;
     const int lane = tid;
     if (lane == 0) {
-      mbar_arrive_expect_tx(q_bar, 2 * BQ * D * 2);
+      mbar_arrive_expect_tx(q_bar, 3 * BQ * D * 2);
 #pragma unroll
       for (int cb = 0; cb < D / 64; ++cb) {
         tma_load_4d(smem + L::q + cb * BQ * 128, &prm.tq, q_bar, cb * 64, q0,
                     h, b);
         tma_load_4d(smem + L::dout + cb * BQ * 128, &prm.tdo, q_bar, cb * 64,
                     q0, h, b);
+        tma_load_4d(smem + L::o + cb * BQ * 128, &prm.to, q_bar, cb * 64, q0,
+                    h, b);
       }
     }
     const uint8_t* mg = prm.mask + b * prm.m_sb;
@@ -158,8 +167,8 @@ flash_bwd_dq_kernel(const __grid_constant__ Params prm) {
   const int quad = lane % 4;
   const int qi0 = q0 + wg * 64 + warp * 16 + lane / 4;
   const int qi1 = qi0 + 8;
-  // per row: lse in the log2 domain, delta, and whether the row takes part
-  // (inside T and saw a valid key in the forward)
+  // per row: lse in the log2 domain and whether the row takes part (inside
+  // T and saw a valid key in the forward)
   const long long stat = ((long long)b * prm.NH + h) * prm.T;
   float lse2[2], dlt[2];
   bool ok[2];
@@ -169,7 +178,6 @@ flash_bwd_dq_kernel(const __grid_constant__ Params prm) {
     const float l = qi < prm.T ? prm.lse[stat + qi] : NEG_INF;
     ok[r] = qi < prm.T && l > NEG_INF / 2;
     lse2[r] = l * LOG2E;
-    dlt[r] = qi < prm.T ? prm.delta[stat + qi] : 0.f;
   }
   const float c = prm.scale * LOG2E;
   const unsigned char* sQw = smem + L::q + wg * 64 * 128;
@@ -180,6 +188,22 @@ flash_bwd_dq_kernel(const __grid_constant__ Params prm) {
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
   mbar_wait(q_bar, 0);
+  // delta = rowsum(O * dO): the quad's four lanes take every fourth
+  // 16-byte chunk of the thread's two rows (rows past T are zero-filled)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wg * 64 + warp * 16 + lane / 4 + 8 * r;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i)
+      sum = dot_chunk(tile_chunk(smem + L::o, row, quad + 4 * i, BQ),
+                      tile_chunk(smem + L::dout, row, quad + 4 * i, BQ), sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dlt[r] = sum;
+    const int qi = r ? qi1 : qi0;
+    if (quad == 0 && qi < prm.T) prm.delta[stat + qi] = sum;
+  }
   for (int t = 0; t < n_tiles; ++t) {
     const int stage = t % STAGES;
     const int k0 = t * BK;
@@ -261,27 +285,31 @@ int launch(const Params& prm, int batch, cudaStream_t stream) {
 }  // namespace
 
 // Plain C interface, bound with ctypes (navillm_tpu_torch/ops/attention.py).
-// `in_strides` holds 13 element strides: q (b, t, h), k (b, s, h),
-// v (b, s, h), mask (b), dout (b, t, h). Launches one kernel on `stream` and
-// returns a cudaError_t: of building the tensor maps, or of the launch.
+// `st` holds 16 element strides: q (b, t, h), k (b, s, h), v (b, s, h),
+// mask (b), dout (b, t, h), o (b, t, h). Writes dq and delta. Launches one
+// kernel on `stream` and returns a cudaError_t: of building the tensor
+// maps, or of the launch.
 extern "C" int navillm_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* mask,
-    const void* dout, const void* lse, const void* delta, void* dq,
+    const void* dout, const void* lse, const void* o, void* delta, void* dq,
     int B, int T, int S, int NH, int NKV, int D, const long long* st,
     long long dq_sb, long long dq_st, long long dq_sh,
     float scale, int causal, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T == 0 || NH == 0) return 0;
   Params prm;
-  int err = make_map(&prm.tq, q, B, T, NH, D, st[0], st[1], st[2], BQ);
+  int err = bind_context();
+  if (!err) err = make_map(&prm.tq, q, B, T, NH, D, st[0], st[1], st[2], BQ);
   if (!err) err = make_map(&prm.tk, k, B, S, NKV, D, st[3], st[4], st[5], BK);
   if (!err) err = make_map(&prm.tv, v, B, S, NKV, D, st[6], st[7], st[8], BK);
   if (!err)
     err = make_map(&prm.tdo, dout, B, T, NH, D, st[10], st[11], st[12], BQ);
+  if (!err)
+    err = make_map(&prm.to, o, B, T, NH, D, st[13], st[14], st[15], BQ);
   if (err) return err;
   prm.mask = static_cast<const uint8_t*>(mask);
   prm.lse = static_cast<const float*>(lse);
-  prm.delta = static_cast<const float*>(delta);
+  prm.delta = static_cast<float*>(delta);
   prm.dq = static_cast<bf16*>(dq);
   prm.m_sb = st[9];
   prm.dq_sb = dq_sb; prm.dq_st = dq_st; prm.dq_sh = dq_sh;

@@ -310,7 +310,8 @@ extern "C" int navillm_flash_attn_fwd(
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T == 0 || NH == 0) return 0;
   Params prm;
-  int err = make_map(&prm.tq, q, B, T, NH, D, q_sb, q_st, q_sh, BQ);
+  int err = bind_context();
+  if (!err) err = make_map(&prm.tq, q, B, T, NH, D, q_sb, q_st, q_sh, BQ);
   if (!err) err = make_map(&prm.tk, k, B, S, NKV, D, k_sb, k_st, k_sh, BK);
   if (!err) err = make_map(&prm.tv, v, B, S, NKV, D, v_sb, v_st, v_sh, BK);
   if (err) return err;

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tensor loads, tensor maps, wgmma and its shared-memory
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// named barriers, TMA tensor loads, tensor maps, wgmma and its shared-memory
 // descriptors, register reallocation.
 //
 // Shared-memory tiles. Every bf16 tile is loaded by TMA with 128-byte
@@ -104,6 +104,36 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box of a 2-d tensor map into shared memory (coordinates innermost
+// first).
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// ------------------------------------------------------ named barriers --- //
+// Barrier `id` (1-15; 0 is __syncthreads) over `n` threads, whole warps.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Arrive at barrier `id` without waiting (a producer's half of a handoff
+// whose consumers bar.sync on it).
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Make this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma reading a tile the threads wrote); a barrier must follow.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------ register reallocation --- //
 template <int N>
 __device__ __forceinline__ void regs_dec() {
@@ -158,6 +188,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 #define HOPPER_D8(i)                                                   \
@@ -250,6 +285,35 @@ __device__ __forceinline__ void wgmma_rs_n128_t(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define HOPPER_R8(i)                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),           \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// D[64, 128] (+)= A[64, 32] B[32, 128] in int8 with s32 sums, A and B from
+// shared memory, both K-major (8-bit wgmma takes no other layout).
+__device__ __forceinline__ void wgmma_ss_n128_s8(int (&d)[64], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : HOPPER_R8(0), HOPPER_R8(8), HOPPER_R8(16), HOPPER_R8(24),
+        HOPPER_R8(32), HOPPER_R8(40), HOPPER_R8(48), HOPPER_R8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef HOPPER_R8
 #undef HOPPER_D8
 
 // S (+)= A B^T over a K-major A tile (64 rows from `a`) and a K-major B tile
@@ -282,6 +346,31 @@ __device__ __forceinline__ void gemm_rs(float (&d)[N / 2],
     else
       wgmma_rs_n128_t(d, a[kk], db);
   }
+}
+
+// The 16-byte chunk c (bf16 columns 8c .. 8c + 7) of row r of a tile of
+// `rows` rows stored as above.
+__device__ __forceinline__ uint4 tile_chunk(const void* tile, int r, int c,
+                                            int rows) {
+  return *reinterpret_cast<const uint4*>(
+      static_cast<const char*>(tile) + (c / 8) * rows * 128 + r * 128 +
+      (((c % 8) ^ (r % 8)) * 16));
+}
+
+// sum of the eight products of two chunks of bf16 values, in f32 (each
+// product is exact in f32)
+__device__ __forceinline__ float dot_chunk(uint4 a, uint4 b, float acc) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+    const float2 y = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -318,6 +407,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Make the runtime's current device's context current in this thread for
+// the driver calls below (tensor-map encoding): a thread whose first CUDA
+// call this is (autograd's backward thread) has none yet, and the encoder
+// then fails. Returns a cudaError_t.
+inline int bind_context() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  return static_cast<int>(e);
+}
+
 // Tensor map over a strided bf16 [n3, n1, n2, n0] tensor read as [B, L, H,
 // D] (element strides s_b, s_l, s_h; the last dimension dense): boxes of
 // min(64, D) columns by `rows` rows of one (b, h), 128-byte swizzle, zeros
@@ -341,6 +441,26 @@ inline int make_map(CUtensorMap* map, const void* ptr, int B, int L, int H,
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(ptr), dims, strides, box, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Tensor map over a dense 2-d matrix of `rows` rows of `cols` elements of
+// `type` (`row_bytes` apart, a multiple of 16): boxes of box_cols x
+// box_rows, zeros past the ends. Returns a cudaError_t.
+inline int make_map_2d(CUtensorMap* map, const void* ptr,
+                       CUtensorMapDataType type, long long cols,
+                       long long rows, long long row_bytes, int box_cols,
+                       int box_rows, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -8,11 +8,13 @@ package's: q [B, T, NH, D]; k, v [B, S, NKV, D]; kv_mask [B, S] bool
 - ``flash_attention_fwd`` launches ``csrc/flash_attn_fwd.cu``, the Hopper
   port of the Pallas kernel ``_flash_kernel``; on CPU tensors it runs
   ``flash_attention_fwd_reference``, its plain version.
-- ``flash_attention_bwd`` is the twin of ``_flash_backward``: delta =
+- ``flash_attention_bwd`` is the twin of ``_flash_backward``:
+  ``flash_attention_bwd_dq`` launches ``csrc/flash_attn_bwd_dq.cu`` (the
+  port of ``_flash_bwd_dq_kernel``), which also writes delta =
   rowsum(O * dO) in f32, then ``flash_attention_bwd_dkv`` launches
-  ``csrc/flash_attn_bwd.cu`` (the port of ``_flash_bwd_dkv_kernel``) and
-  ``flash_attention_bwd_dq`` ``csrc/flash_attn_bwd_dq.cu`` (the port of
-  ``_flash_bwd_dq_kernel``); on CPU tensors they run their plain versions.
+  ``csrc/flash_attn_bwd.cu`` (the port of ``_flash_bwd_dkv_kernel``) on
+  that delta; on CPU tensors they run their plain versions
+  (``attention_delta`` for delta).
 - ``FlashAttention`` is the twin of ``_flash_differentiable``: the forward
   kernel, saving (q, k, v, mask, O, lse), and the backward kernels.
 - ``multi_head_attention`` dispatches: CUDA tensors go to the kernels at
@@ -212,43 +214,60 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do, causal,
     return dq, dk, dv
 
 
-def _bwd_lib(source: str, entry: str, n_out: int) -> ctypes.CDLL:
-    """csrc/<source>.cu, whose C entry point ``entry`` writes n_out
-    gradients."""
+def _bwd_lib(source: str, entry: str, argtypes) -> ctypes.CDLL:
+    """csrc/<source>.cu, with its C entry point ``entry`` bound."""
     lib = _build.load(source).lib
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([ptr] * (7 + n_out) + [i32] * 6
-                       + [ctypes.POINTER(i64)] + [i64] * (3 * n_out)
-                       + [ctypes.c_float, i32, ptr])
-        fn.restype = i32
-        lib.navillm_cuda_error_string.argtypes = [i32]
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.navillm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.navillm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _bwd_launch_args(q, k, v, kv_mask, lse, delta, do, causal):
-    """Check what the backward kernels take; return the shared leading
-    arguments of both C entry points."""
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# nine pointers (dK/dV: q k v mask dout lse delta dk dv; dQ: q k v mask
+# dout lse o delta dq), B T S NH NKV D, the input strides, the strided
+# outputs' strides, scale, causal, stream
+_DKV_ARGS = ([_PTR] * 9 + [_I32] * 6 + [ctypes.POINTER(_I64)] + [_I64] * 6
+             + [ctypes.c_float, _I32, _PTR])
+_DQ_ARGS = ([_PTR] * 9 + [_I32] * 6 + [ctypes.POINTER(_I64)] + [_I64] * 3
+            + [ctypes.c_float, _I32, _PTR])
+
+
+def _check_like_q(q, name, x):
+    if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device \
+            or x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:3]) \
+            or x.data_ptr() % 16:
+        raise ValueError(f"flash backward: {name} must be laid out like q, "
+                         f"got {x.dtype} {tuple(x.shape)} strides "
+                         f"{x.stride()}")
+
+
+def _check_rows_f32(q, name, x):
+    b, t, nh, _ = q.shape
+    if x.shape != (b, nh, t) or x.dtype != torch.float32 \
+            or x.device != q.device or not x.is_contiguous():
+        raise ValueError(f"flash backward: {name} must be a dense f32 "
+                         f"[B, NH, T] tensor, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+
+
+def _bwd_launch_args(q, k, v, kv_mask, lse, do, causal, o=None):
+    """Check what the backward kernels take; return the shared dimensions
+    and the element strides of q, k, v, mask, do (and o)."""
     _check_kernel_inputs(q, k, v, kv_mask, causal)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
-            or do.stride(-1) != 1 or any(st % 8 for st in do.stride()[:3]) \
-            or do.data_ptr() % 16:
-        raise ValueError(f"flash backward: dO must be laid out like q, got "
-                         f"{do.dtype} {tuple(do.shape)} strides {do.stride()}")
+    _check_like_q(q, "dO", do)
+    _check_rows_f32(q, "lse", lse)
     b, t, nh, d = q.shape
-    for name, x in (("lse", lse), ("delta", delta)):
-        if x.shape != (b, nh, t) or x.dtype != torch.float32 \
-                or x.device != q.device or not x.is_contiguous():
-            raise ValueError(f"flash backward: {name} must be a dense f32 "
-                             f"[B, NH, T] tensor, got {x.dtype} "
-                             f"{tuple(x.shape)}")
-    strides = (ctypes.c_longlong * 13)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], kv_mask.stride(0),
-        *do.stride()[:3])
-    return ([x.data_ptr() for x in (q, k, v, kv_mask, do, lse, delta)],
-            [b, t, k.shape[1], nh, k.shape[2], d], strides)
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               kv_mask.stride(0), *do.stride()[:3]]
+    if o is not None:
+        _check_like_q(q, "O", o)
+        strides += o.stride()[:3]
+    return ([b, t, k.shape[1], nh, k.shape[2], d],
+            (ctypes.c_longlong * len(strides))(*strides))
 
 
 def _raise_on_error(lib, err: int, what: str):
@@ -259,21 +278,22 @@ def _raise_on_error(lib, err: int, what: str):
 
 def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, *,
                             causal: bool, scale: float):
-    """(dK, dV) in k's layout and dtype. CUDA tensors launch the dK/dV
-    kernel (counted in ``flash_attention_bwd_dkv.launches``); CPU tensors
-    run flash_attention_bwd_dkv_reference."""
+    """(dK, dV) in k's layout and dtype. delta is rowsum(O * dO) [B, NH, T]
+    f32, as flash_attention_bwd_dq returns it. CUDA tensors launch the
+    dK/dV kernel (counted in ``flash_attention_bwd_dkv.launches``); CPU
+    tensors run flash_attention_bwd_dkv_reference."""
     if not q.is_cuda:
         return flash_attention_bwd_dkv_reference(q, k, v, kv_mask, lse, delta,
                                                  do, causal, scale)
-    ptrs, dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, delta, do,
-                                           causal)
-    lib = _bwd_lib("flash_attn_bwd", "navillm_flash_attn_bwd_dkv", 2)
+    dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, do, causal)
+    _check_rows_f32(q, "delta", delta)
+    lib = _bwd_lib("flash_attn_bwd", "navillm_flash_attn_bwd_dkv", _DKV_ARGS)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = lib.navillm_flash_attn_bwd_dkv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, strides,
-        *dk.stride()[:3], *dv.stride()[:3], float(scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *(x.data_ptr() for x in (q, k, v, kv_mask, do, lse, delta, dk, dv)),
+        *dims, strides, *dk.stride()[:3], *dv.stride()[:3], float(scale),
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(lib, err, "flash dK/dV kernel")
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -282,24 +302,27 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, *,
 flash_attention_bwd_dkv.launches = 0
 
 
-def flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do, *,
-                           causal: bool, scale: float):
-    """dQ in q's layout and dtype. CUDA tensors launch the dQ kernel
+def flash_attention_bwd_dq(q, k, v, kv_mask, lse, o, do, *, causal: bool,
+                           scale: float):
+    """(dQ in q's layout and dtype, delta = rowsum(O * dO) [B, NH, T] f32).
+    CUDA tensors launch the dQ kernel, which computes delta in its prologue
     (counted in ``flash_attention_bwd_dq.launches``); CPU tensors run
-    flash_attention_bwd_dq_reference."""
+    attention_delta and flash_attention_bwd_dq_reference."""
     if not q.is_cuda:
-        return flash_attention_bwd_dq_reference(q, k, v, kv_mask, lse, delta,
-                                                do, causal, scale)
-    ptrs, dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, delta, do,
-                                           causal)
-    lib = _bwd_lib("flash_attn_bwd_dq", "navillm_flash_attn_bwd_dq", 1)
+        delta = attention_delta(o, do)
+        return flash_attention_bwd_dq_reference(
+            q, k, v, kv_mask, lse, delta, do, causal, scale), delta
+    dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, do, causal, o)
+    lib = _bwd_lib("flash_attn_bwd_dq", "navillm_flash_attn_bwd_dq", _DQ_ARGS)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     err = lib.navillm_flash_attn_bwd_dq(
-        *ptrs, dq.data_ptr(), *dims, strides, *dq.stride()[:3], float(scale),
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+        *(x.data_ptr() for x in (q, k, v, kv_mask, do, lse, o, delta, dq)),
+        *dims, strides, *dq.stride()[:3], float(scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on_error(lib, err, "flash dQ kernel")
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
@@ -309,15 +332,15 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal: bool,
                         scale: float):
     """Flash-attention backward (twin of _flash_backward): (dq, dk, dv).
 
-    o and lse are the forward's outputs (lse [B, NH, T] f32). delta is
-    computed here in f32, outside the kernels, as the JAX code does."""
+    o and lse are the forward's outputs (lse [B, NH, T] f32). The dQ
+    kernel runs first and also returns delta = rowsum(O * dO) in f32, as
+    the JAX code computes it; the dK/dV kernel reads it."""
     if kv_mask is None:
         kv_mask = torch.ones(k.shape[:2], dtype=torch.bool, device=q.device)
-    delta = attention_delta(o, do)
+    dq, delta = flash_attention_bwd_dq(q, k, v, kv_mask, lse, o, do,
+                                       causal=causal, scale=scale)
     dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
                                      causal=causal, scale=scale)
-    dq = flash_attention_bwd_dq(q, k, v, kv_mask, lse, delta, do,
-                                causal=causal, scale=scale)
     return dq, dk, dv
 
 

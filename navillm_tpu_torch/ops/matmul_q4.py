@@ -25,9 +25,9 @@ import torch
 
 from . import _build
 
-# the kernel's group limits: a multiple of one mma step's depth (16 bf16 or
-# 32 int8 values) and at most 128 (one unpack pass per group)
-_KERNEL_MAX_GROUP = 128
+# the kernel's group limits: a multiple of one wgmma step's depth (16 bf16
+# or 32 int8 values) that divides its 128-deep k tile
+_KERNEL_K_TILE = 128
 
 
 def unpack_q4(p: torch.Tensor) -> torch.Tensor:
@@ -99,10 +99,10 @@ def _check_kernel_inputs(xf, q4p, s, out_dtype, g):
         raise ValueError("matmul_q4 kernel: x, q4p and s must be on one "
                          "device")
     step = 32 if xf.dtype == torch.int8 else 16
-    if g % step or g > _KERNEL_MAX_GROUP:
+    if g % step or _KERNEL_K_TILE % g:
         raise ValueError(f"matmul_q4 kernel: group size {g} must be a "
-                         f"multiple of {step} and at most "
-                         f"{_KERNEL_MAX_GROUP} for {xf.dtype} x")
+                         f"multiple of {step} that divides "
+                         f"{_KERNEL_K_TILE} for {xf.dtype} x")
     for name, t, align in (("x", xf, 16), ("q4p", q4p, 16),
                            ("s", s, 8 if s.dtype == torch.float32 else 4)):
         if not t.is_contiguous() or t.data_ptr() % align:

@@ -52,7 +52,8 @@ def test_eval_step_matches_jax():
     jcfg = JNM.NavModelConfig.tiny(vocab_size=300, use_obj=False)
     tcfg = TNM.NavModelConfig.tiny(vocab_size=300, use_obj=False)
     pj = JNM.init_nav_params(jax.random.PRNGKey(0), jcfg)
-    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj)))
+    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj),
+                                                   device="cpu"))
 
     def pano_apply(params, rng, pano_in, deterministic):
         return forward_panorama(params["pano"], jcfg.pano,

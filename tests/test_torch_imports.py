@@ -34,7 +34,8 @@ from navillm_tpu_torch.models.tokenization import NavTokenizer
 torch.set_num_threads(1)
 tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
 cfg = NavModelConfig.tiny(vocab_size=tok.vocab_size, use_obj=False)
-model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0)))
+model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
 runner = NavModelRunner(cfg, model, tok, dims=RolloutDims.tiny())
 with tempfile.TemporaryDirectory() as tmp:
     anno = T.make_r2r_world(tmp, n_episodes=4, rows=3, cols=3)

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions: the
 flash-attention forward (csrc/flash_attn_fwd.cu), the dK/dV backward
-kernel (csrc/flash_attn_bwd.cu), the dQ backward kernel
+kernel (csrc/flash_attn_bwd.cu), the dQ backward kernel with its delta
 (csrc/flash_attn_bwd_dq.cu) and the int4 matmul (csrc/matmul_q4.cu).
 
 The kernel tests need a Hopper card (compute capability 9.0) and skip
@@ -34,6 +34,11 @@ torch.set_num_threads(1)
 # order only (~1e-6); hiding a 64-key tile of a flat row of 1024 keys moves
 # it by ~0.06
 LSE_ATOL = 1e-4
+# delta = rowsum(O * dO) from the dQ kernel against attention_delta: every
+# product of two bf16 values is exact in f32, so the two differ only in the
+# order of the D-term f32 sum, by at most ~D * 2**-24 of the row's sum of
+# |O * dO| on each side (2**-17 at D = 128); the bound leaves 4x of that
+DELTA_RTOL = 2 ** -15
 
 
 def _require_sm90():
@@ -270,12 +275,13 @@ def test_flash_dq_kernel_ragged_gqa_d64_cross(case):
     with torch.inference_mode():
         o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
                                      scale=d ** -0.5)
-        delta = attention_delta(o, do)
         before = flash_attention_bwd_dq.launches
-        dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
-                                    causal=causal, scale=d ** -0.5)
+        dq, delta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                           causal=causal, scale=d ** -0.5)
         torch.cuda.synchronize()
         assert flash_attention_bwd_dq.launches == before + 1
+        # the plain version on the delta the kernel computed (held to
+        # attention_delta on its own below)
         want = flash_attention_bwd_dq_reference(q, k, v, mask, lse, delta,
                                                 do, causal, d ** -0.5)
     assert dq.shape == q.shape and dq.dtype == torch.bfloat16
@@ -283,6 +289,96 @@ def test_flash_dq_kernel_ragged_gqa_d64_cross(case):
     ok = _valid_rows(mask, t, causal)
     assert attn_excess(dq, want, ok) <= 1
     assert not dq.float()[~ok].any()
+
+
+# K2's cases: RAGGED_CASES, with two valid keys in the short cross-attention
+# row: where every query row sees one key alone, P = 1 and dS = P (dP -
+# delta) is zero but for rounding, so dK there is a sum of rounding noise
+# on both sides, not a check of the kernel
+DKV_CASES = [c if c[:7] != (2, 1000, 65, 8, 4, 128, False) else
+             c[:7] + ([0, 63],) for c in RAGGED_CASES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DKV_CASES, ids=_ids(DKV_CASES))
+def test_flash_dkv_kernel_ragged_gqa_d64_cross(case):
+    """K2 (64-key blocks, a 64-row ring of Q and dO) at ragged lengths,
+    GQA, D=64 and cross-attention, on the dQ kernel's delta, which the
+    plain version takes too."""
+    _require_sm90()
+    b, t, s, nh, nkv, d, causal, pads = case
+    q, k, v, mask = _inputs(b, t, s, nh, nkv, d, pads, "cuda", torch.bfloat16)
+    do = _inputs(b, t, s, nh, nkv, d, pads, "cuda", torch.bfloat16,
+                 seed=1)[0]
+    with torch.inference_mode():
+        o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
+                                     scale=d ** -0.5)
+        _, delta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                          causal=causal, scale=d ** -0.5)
+        before = flash_attention_bwd_dkv.launches
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                         causal=causal, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd_dkv.launches == before + 1
+        want_dk, want_dv = flash_attention_bwd_dkv_reference(
+            q, k, v, mask, lse, delta, do, causal, d ** -0.5)
+    for got, want, x in ((dk, want_dk, k), (dv, want_dv, v)):
+        assert got.shape == x.shape and got.dtype == torch.bfloat16
+        assert torch.isfinite(got).all()
+        assert attn_excess(got, want, mask) <= 1
+    # keys hidden by the mask get no gradient at all
+    assert not dk.float()[~mask].any() and not dv.float()[~mask].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=_ids(RAGGED_CASES))
+def test_flash_dq_kernel_delta_matches_attention_delta(case):
+    """The delta that the dQ kernel writes against attention_delta, to
+    DELTA_RTOL of each row's sum of |O * dO|."""
+    _require_sm90()
+    b, t, s, nh, nkv, d, causal, pads = case
+    q, k, v, mask = _inputs(b, t, s, nh, nkv, d, pads, "cuda", torch.bfloat16)
+    do = _inputs(b, t, s, nh, nkv, d, pads, "cuda", torch.bfloat16,
+                 seed=1)[0]
+    with torch.inference_mode():
+        o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
+                                     scale=d ** -0.5)
+        _, delta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                          causal=causal, scale=d ** -0.5)
+        want = attention_delta(o, do)
+        size = (o.float() * do.float()).abs().sum(-1).transpose(1, 2)
+    assert delta.shape == (b, nh, t) and delta.dtype == torch.float32
+    assert ((delta - want).abs() <= DELTA_RTOL * size).all()
+
+
+@pytest.mark.cuda
+def test_flash_dkv_kernel_ignores_rows_that_see_no_valid_key():
+    """Query rows that see no valid key (left padding under causal) add
+    exactly nothing to dK and dV: new Q and dO on those rows leave both
+    bit for bit as they were."""
+    _require_sm90()
+    b, t, nh, d = 2, 320, 4, 128
+    q, k, v, mask = _inputs(b, t, t, nh, nh, d, [0, 200], "cuda",
+                            torch.bfloat16)
+    do = _inputs(b, t, t, nh, nh, d, [0, 0], "cuda", torch.bfloat16,
+                 seed=1)[0]
+    dead = ~_valid_rows(mask, t, True)                       # [B, T]
+    assert dead.any()
+    noise = _inputs(b, t, t, nh, nh, d, [0, 0], "cuda", torch.bfloat16,
+                    seed=2)[0] * 8
+    with torch.inference_mode():
+        o, lse = flash_attention_fwd(q, k, v, mask, causal=True,
+                                     scale=d ** -0.5)
+        got = []
+        for qq, dd in ((q, do), (torch.where(dead[:, :, None, None], noise, q),
+                                 torch.where(dead[:, :, None, None], noise,
+                                             do))):
+            _, delta = flash_attention_bwd_dq(qq, k, v, mask, lse, o, dd,
+                                              causal=True, scale=d ** -0.5)
+            got.append(flash_attention_bwd_dkv(qq, k, v, mask, lse, delta, dd,
+                                               causal=True, scale=d ** -0.5))
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1],
+                                                             got[1][1])
 
 
 @pytest.mark.cuda
@@ -305,11 +401,14 @@ def test_flash_kernels_read_views_of_one_fused_projection(t, d):
     with torch.inference_mode():
         o, lse = flash_attention_fwd(q, k, v, mask, causal=True, scale=scale)
         ro, rlse = flash_attention_fwd_reference(q, k, v, mask, True, scale)
-        delta = attention_delta(o, do)
-        dq = flash_attention_bwd_dq(q, k, v, mask, lse, delta, do,
-                                    causal=True, scale=scale)
+        dq, delta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                           causal=True, scale=scale)
         want = flash_attention_bwd_dq_reference(q, k, v, mask, lse, delta,
                                                 do, True, scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                         causal=True, scale=scale)
+        want_dk, want_dv = flash_attention_bwd_dkv_reference(
+            q, k, v, mask, lse, delta, do, True, scale)
     ok = _valid_rows(mask, t, True)
     assert attn_excess(o, ro, ok) <= 1
     torch.testing.assert_close(lse.transpose(1, 2)[ok],
@@ -317,6 +416,8 @@ def test_flash_kernels_read_views_of_one_fused_projection(t, d):
                                atol=LSE_ATOL)
     assert attn_excess(dq, want, ok) <= 1
     assert not dq.float()[~ok].any()
+    assert attn_excess(dk, want_dk, mask) <= 1
+    assert attn_excess(dv, want_dv, mask) <= 1
 
 
 def _flat_rows(t, device, seed=5):
@@ -339,9 +440,11 @@ def test_flash_kernels_on_flat_rows():
     with torch.inference_mode():
         o, lse = flash_attention_fwd(q, k, v, mask, causal=True, scale=scale)
         ro, _ = flash_attention_fwd_reference(q, k, v, mask, True, scale)
-        args = (q, k, v, mask, lse, attention_delta(o, do), do)
-        dq = flash_attention_bwd_dq(*args, causal=True, scale=scale)
-        dk, dv = flash_attention_bwd_dkv(*args, causal=True, scale=scale)
+        dq, delta = flash_attention_bwd_dq(q, k, v, mask, lse, o, do,
+                                           causal=True, scale=scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do,
+                                         causal=True, scale=scale)
+        args = (q, k, v, mask, lse, delta, do)
         want_dq = flash_attention_bwd_dq_reference(*args, True, scale)
         want_dk, want_dv = flash_attention_bwd_reference(
             q, k, v, mask, o, lse, do, True, scale)[1:]
@@ -455,6 +558,21 @@ def test_matmul_q4_kernel_f32_scales_and_out_dtypes():
                          matmul_q4_reference(a, q4p, s, out_dtype=out),
                          int8_x=a.dtype == torch.int8 and
                          out == torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_x", [False, True], ids=["w4", "w4a8"])
+@pytest.mark.parametrize("case", [((1000,), 4096, 11008),
+                                  ((77,), 11008, 4096)])
+def test_matmul_q4_kernel_ragged_m_f32_scales(case, int8_x):
+    """m not a multiple of the kernel's 128-row tile, f32 scales, at 7B
+    layer shapes."""
+    _require_sm90()
+    lead, h, o = case
+    x, xq, q4p, s = _q4_inputs(lead, h, o, seed=2, s_dtype=torch.float32)
+    a = xq if int8_x else x
+    _assert_q4_close(matmul_q4(a, q4p, s), matmul_q4_reference(a, q4p, s),
+                     int8_x)
 
 
 @pytest.mark.cuda

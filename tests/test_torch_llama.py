@@ -31,7 +31,8 @@ def _llm_params(nkv):
     cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
         cfg.llm, num_kv_heads=nkv))
     pj = JNM.init_nav_params(jax.random.PRNGKey(0), cfg)["llm"]
-    return cfg.llm, pj, params_from_jax(jax.tree.map(np.asarray, pj))
+    return cfg.llm, pj, params_from_jax(jax.tree.map(np.asarray, pj),
+                                          device="cpu")
 
 
 def _left_padded_mask(b, t, pads):
@@ -73,7 +74,7 @@ def test_forward_hidden_quantized_matches_jax(bits, act_int8):
     jcfg = dataclasses.replace(jcfg, act_int8=act_int8)
     tcfg = TL.LlamaConfig.tiny(vocab_size=VOCAB, act_int8=act_int8)
     pq = JQ._quantize_llama_impl(pj, bits)
-    pt = params_from_jax(jax.tree.map(np.asarray, pq))
+    pt = params_from_jax(jax.tree.map(np.asarray, pq), device="cpu")
     r = np.random.RandomState(4)
     b, t = 2, 36
     ids = r.randint(0, VOCAB, (b, t)).astype(np.int32)

@@ -41,7 +41,7 @@ def _make(h, o, seed=0):
 
 
 def _t(a):
-    return params_from_jax({"a": np.asarray(a)})["a"]
+    return params_from_jax({"a": np.asarray(a)}, device="cpu")["a"]
 
 
 @pytest.mark.parametrize("m,h,o", SHAPES)

@@ -32,7 +32,7 @@ def models():
     jcfg = JNM.NavModelConfig.tiny(vocab_size=300, use_obj=False)
     tcfg = TNM.NavModelConfig.tiny(vocab_size=300, use_obj=False)
     pj = JNM.init_nav_params(jax.random.PRNGKey(0), jcfg)
-    pt = params_from_jax(jax.tree.map(np.asarray, pj))
+    pt = params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
     return jcfg, pj, tcfg, pt
 
 
@@ -53,7 +53,8 @@ def test_forward_panorama_matches_jax(models, bf16):
             tcfg.pano, dtype=torch.bfloat16))
         pj = {"pano": jax.tree.map(lambda x: x.astype(jnp.bfloat16),
                                    pj["pano"])}
-        pt = {"pano": params_from_jax(jax.tree.map(np.asarray, pj["pano"]))}
+        pt = {"pano": params_from_jax(
+            jax.tree.map(np.asarray, pj["pano"]), device="cpu")}
         tol = dict(rtol=2e-2, atol=5e-2)
     r = np.random.RandomState(0)
     b, v = 3, 9
@@ -112,7 +113,8 @@ def test_forward_navigation_int4_matches_jax(models, act_int8):
                                 seed=3)
     batch["attention_mask"][2, :9] = False          # left padding
     want = JNM.forward_navigation(pq, jcfg, batch)
-    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pq)))
+    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pq),
+                                               device="cpu"))
     assert model["llm"]["layers"]["w_up"]["q4p"].dtype == torch.uint8
     got = model(_torch_batch(batch))
     np.testing.assert_allclose(got["fuse_logits"].numpy(),
@@ -126,7 +128,8 @@ def test_init_nav_params_has_the_jax_tree(models):
     shapes and dtypes, with norms at one and biases at zero."""
     from navillm_tpu_torch.convert import init_nav_params
     _, pj, tcfg, pt = models
-    fresh = init_nav_params(tcfg, torch.Generator().manual_seed(0))
+    fresh = init_nav_params(tcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
 
     def shapes(tree):
         return {k: (shapes(v) if isinstance(v, dict)

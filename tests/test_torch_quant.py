@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 
 
 def _to_torch(a):
-    return params_from_jax({"a": np.asarray(a)})["a"]
+    return params_from_jax({"a": np.asarray(a)}, device="cpu")["a"]
 
 
 def _grid(a):
@@ -90,7 +90,7 @@ def test_quant_weight8_and_embed_match_jax(shape, dtype):
 def nav_tree():
     cfg = JNM.NavModelConfig.tiny(vocab_size=300, use_obj=False)
     pj = JNM.init_nav_params(jax.random.PRNGKey(0), cfg)
-    return pj, params_from_jax(jax.tree.map(np.asarray, pj))
+    return pj, params_from_jax(jax.tree.map(np.asarray, pj), device="cpu")
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -127,7 +127,7 @@ def test_params_from_jax_carries_a_quantized_tree_byte_for_byte(nav_tree):
     pj, _ = nav_tree
     q = jax.tree.map(np.asarray, JQ._quantize_llama_impl(
         jax.tree.map(lambda a: a.astype(jnp.bfloat16), pj["llm"]), 4))
-    got = flatten_tree(params_from_jax(q))
+    got = flatten_tree(params_from_jax(q, device="cpu"))
     for name, want in flatten_tree(q).items():
         assert str(got[name].dtype).split(".")[-1] == want.dtype.name, name
         np.testing.assert_array_equal(

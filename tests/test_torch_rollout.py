@@ -50,7 +50,8 @@ def _make_runners(bits=16, act_int8=False, stop_bias=STOP_BIAS):
             jcfg.llm, act_int8=act_int8))
         tcfg = dataclasses.replace(tcfg, llm=dataclasses.replace(
             tcfg.llm, act_int8=act_int8))
-    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj)))
+    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj),
+                                                   device="cpu"))
     return (JRunner(jcfg, pj, tok, dims=JDims.tiny()),
             NavModelRunner(tcfg, model, tok, dims=RolloutDims.tiny()))
 

@@ -95,7 +95,8 @@ def _jax_side(models, data_dir, task_config, train_args):
 
 def _port_side(models, data_dir, **kw):
     _, pj, tcfg, tok = models
-    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj)))
+    model = TNM.NavModel(tcfg, params_from_jax(
+        jax.tree.map(np.asarray, pj), device="cpu"))
     runner = NavModelRunner(tcfg, model, tok, dims=RolloutDims.tiny(),
                             feat_dropout=0.0)
     args = TrainArgs(seed=0, image_feat_size=tcfg.pano.image_feat_size,
@@ -221,8 +222,8 @@ def test_remat_gives_the_same_gradients(models):
     for remat in (False, True):
         cfg = dataclasses.replace(tcfg, llm=dataclasses.replace(
             tcfg.llm, remat=remat))
-        model = TNM.NavModel(cfg, params_from_jax(jax.tree.map(np.asarray,
-                                                               pj)))
+        model = TNM.NavModel(cfg, params_from_jax(
+            jax.tree.map(np.asarray, pj), device="cpu"))
         runner = NavModelRunner(cfg, model, tok, dims=RolloutDims.tiny())
         runner.zero_grads()
         loss = runner.pano_navigation_train(pano, 7, batch, targets, 0.5)
@@ -250,7 +251,8 @@ def test_pano_dropout_is_seeded_and_off_at_rate_zero(models):
     and its phase-5 recompute rely on it), another seed other masks; at
     rate 0, or deterministic, it is the eval forward."""
     _, pj, tcfg, tok = models
-    model = TNM.NavModel(tcfg, params_from_jax(jax.tree.map(np.asarray, pj)))
+    model = TNM.NavModel(tcfg, params_from_jax(
+        jax.tree.map(np.asarray, pj), device="cpu"))
     pano = {"view_img_fts": np.random.RandomState(1).randn(
         3, 6, tcfg.pano.image_feat_size).astype(np.float32),
         "view_lens": np.array([6, 3, 5], np.int32),

@@ -64,6 +64,30 @@ Phases, in order; any failure raises and the script exits nonzero:
  10. the w4a8 slice: phase 9 with act_int8 (int8 activations);
  11. int4 model-level A/B: one forward_navigation step on the int4 tree
      through the kernel and through its plain version, w4 and w4a8.
+Phase 2 also checks K1 on the prefill's right-padded masks (B=8, T in
+{192, 1024}, the last row all false, whose O must be finite) and times it
+at B=8, T=192. The subword slices run between phases 4 and 5 (bf16) and
+after phase 10 (int4):
+ 12. the BPE check: the port's NavTokenizer.bpe (plain Python) gives the
+     golden ids of tests/fixtures/bpe_nav_golden.json (made by the JAX
+     package's tokenizer; a CPU test keeps it equal), decode(encode(x)) ==
+     x, and the mean prompt width of phase 3's prompts, byte against BPE;
+ 13. phase 3 on BPE prompts (NavTokenizer.bpe(max_length=1024,
+     pad_to_multiple=64), RolloutDims(48, 44, 12, 16, max_prefix=192)),
+     uncached: 32 K1 launches per step;
+ 14. the same run with args.prefix_cache: it must take the cached step
+     only (prefills and eval_step_cached, no whole-prompt step); K1
+     launches once per layer of every prefill call and never in a cached
+     step (the window's attention is the eager path); printed beside
+     phase 13: tokens and wall ms per step, episodes/s, the window widths,
+     cache bytes, peak memory and the trajectories both share;
+ 15. cached-step A/B: one snapshotted step with history through
+     eval_step_cached and through eval_step on the same state and prompts,
+     candidate logits gated per element (CACHED_LOGIT_*); the step with
+     the last cached token hidden must fail the gate;
+ 16. phase 14 on the int4 tree (w4): K4 launches 7 times per layer of
+     every prefill call and cached step;
+ 17. phase 16 with act_int8 (w4a8): every K4 launch in int8 mode.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -83,6 +107,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -142,6 +167,11 @@ FWD_CASES += [(16, 1024, 1024, 32, 32, 128, True, 1.0),  # the training shape
               (4, 640, 640, 32, 32, 64, True, 1.0),      # D = 64
               (4, 640, 1000, 32, 32, 128, False, 1.0),   # cross-attention
               (4, 1024, 1024, 32, 32, 128, True, FLAT_Q)]
+# the prefill's layout: right-padded prefixes at the prefill's batch (<= 8
+# rows) and the BPE prefix bucket, and at T=1024; the last row's mask is
+# all false (a padding entry of prefill_rows)
+FWD_RIGHT_CASES = [(8, 192, 192, 32, 32, 128, True, 1.0),
+                   (8, 1024, 1024, 32, 32, 128, True, 1.0)]
 # K2/K3's cases: (b, t, s, nh, nkv, d, causal, q scale): grouped-query,
 # D = 64 and non-causal S != T at B = 4, then the training slice's shapes
 # (B = rows per grad call; the last is the FlashAttention check's)
@@ -177,6 +207,29 @@ MIN_GRAD_COSINE = 0.999
 N_EPISODES = 32
 N_SLOTS = 4
 MAX_ACTION_LEN = 10
+MAX_PREFIX = 192
+# the cached step's candidate logits against the uncached step's on the
+# same state and prompts (phase 15), per element: tol = CACHED_LOGIT_REL *
+# |ref| + CACHED_LOGIT_ROW * rms(ref's valid logits of the row). The two
+# paths run the same bf16 ops in other groupings (the window's eager
+# attention against K1, the prefix K/V from a prefill at another width, so
+# other GEMM tilings), and once an input differs by an ulp every later
+# rounding may too: each layer rounds its residual stream's inputs about
+# six times (q/k/v and attention out, wo, the adds, the norms, the MLP), so
+# independent errors of <= 2**-8 relative over 2 sides x 32 layers x 6
+# reach ~sqrt(384) * 2**-8 ~ 2**-3.7 of the hidden's scale, and the logit,
+# a dot of the hidden with one out_head column, moves by that share of the
+# row's logit scale; the limit leaves ~1.6x. The logit is rounded to bf16
+# once on each side (2**-7 of itself). Hiding one cached token moves the
+# logits by several times this.
+CACHED_LOGIT_REL = 2 ** -7
+CACHED_LOGIT_ROW = 2 ** -3
+# phase 15 snapshots the 3rd step with every slot appending history, from
+# a run whose stop logit is lowered by 30 (far below the others, so no
+# episode stops early)
+AB_SNAPSHOT = 3
+AB_STOP_SHIFT = 30.0
+BPE_GOLDEN = "tests/fixtures/bpe_nav_golden.json"
 # training slice: 4 batches of 8 episodes, accumulation 2 -> 2 steps
 TRAIN_EPISODES = 32
 TRAIN_BATCH = 8
@@ -296,6 +349,14 @@ def left_padded_mask(b: int, s: int, min_keys: int = 1):
     return torch.arange(s, device="cuda")[None, :] >= pads[:, None]
 
 
+def right_padded_mask(b: int, s: int):
+    """[B, S] key masks of right-padded prefixes: row i keeps its first
+    lens[i] keys, lens from S down to 1, and the last row none."""
+    lens = torch.cat([torch.linspace(s, 1, b - 1, device="cuda").long(),
+                      torch.zeros(1, dtype=torch.long, device="cuda")])
+    return torch.arange(s, device="cuda")[None, :] < lens[:, None]
+
+
 def hide_keys(mask, start: int, width: int):
     """A copy of the [B, S] key mask with keys start..start+width-1 hidden:
     the plain version on it is what a kernel that skipped them gives."""
@@ -375,11 +436,14 @@ def phase_kernel():
     the worst gate excess over the cases, {(b, t): timings})."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     top = {"max_abs_err": 0.0, "gate_excess": 0.0}
+    cases = [(c, "left") for c in FWD_CASES] \
+        + [(c, "right") for c in FWD_RIGHT_CASES]
     with torch.inference_mode():
-        for b, t, s, nh, nkv, d, causal, qs in FWD_CASES:
+        for (b, t, s, nh, nkv, d, causal, qs), padding in cases:
             q, k, v = randn(gen, b, t, nh, d) * qs, randn(gen, b, s, nkv, d), \
                 randn(gen, b, s, nkv, d)
-            mask = left_padded_mask(b, s)
+            mask = (left_padded_mask(b, s) if padding == "left"
+                    else right_padded_mask(b, s))
             scale = d ** -0.5
             o, lse = flash_attention_fwd(q, k, v, mask, causal=causal,
                                          scale=scale)
@@ -388,9 +452,12 @@ def phase_kernel():
             torch.cuda.synchronize()
             case = (f"B={b} T={t} S={s} NH={nh} NKV={nkv} D={d} "
                     f"{'causal' if causal else 'non-causal'}"
-                    f"{'' if qs == 1 else f' q x {qs}'}")
+                    f"{'' if qs == 1 else f' q x {qs}'}, {padding}-padded")
             if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
                 raise RuntimeError(f"{case}: kernel output is not finite")
+            if padding == "right":
+                print(f"[2] {case}: the all-false row's O is finite "
+                      f"(max |O| {o[-1].float().abs().max().item():.3f})")
             seen = T.visible_keys(mask, t, causal)
             rows, long_rows = seen > 0, seen >= LONG_ROW
             err_o = (o.float() - ro.float()).abs()[rows].max().item()
@@ -444,6 +511,23 @@ def phase_kernel():
                              "library_max_abs_err": lib_err,
                              "library_gate_excess": lib_excess,
                              "bound_ms": bound_ms, "bound_by": by}
+        # the prefill's call: 8 right-padded BPE prefixes of <= 192 tokens
+        b, t, nh, d = 8, MAX_PREFIX, 32, 128
+        q, k, v = (randn(gen, b, t, nh, d) for _ in range(3))
+        mask = right_padded_mask(b, t)
+        scale = d ** -0.5
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, mask, causal=True,
+                                                 scale=scale))
+        plain_ms = cuda_ms(lambda: flash_attention_fwd_reference(
+            q, k, v, mask, True, scale), iters=5)
+        library_ms = cuda_ms(sdpa_call(q, k, v, mask, True, scale))
+        bound_ms, by = fwd_bound(b, t, t, nh, nh, d, True)
+        print(f"[2] B={b} T={t} causal, right-padded masks (the prefill's "
+              f"call): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, masked "
+              f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        timed[("prefill", b, t)] = {"ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": library_ms,
+                                    "bound_ms": bound_ms, "bound_by": by}
     return top, timed
 
 
@@ -470,41 +554,72 @@ def run_eval(agent, ds, args):
             Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
 
 
+def slice_dims():
+    """The eval slices' padded sizes (bench.py's; max_prefix 192 holds the
+    BPE prompts' instruction and history prefixes)."""
+    return RolloutDims(max_gmap_nodes=48, max_views=44, max_cands=12,
+                       max_hist=16, max_prefix=MAX_PREFIX)
+
+
 def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
-                window=contextlib.nullcontext):
+                window=contextlib.nullcontext, prefix_cache: bool = False,
+                prompts=None):
     """Greedy streaming eval of N_EPISODES episodes (after a warm-up on its
-    own world); gates every trajectory's start, SR/SPL and K1's launches.
-    ``window()`` is entered around the measured run (scripts/profile_port.py
-    traces it). Returns ({instr_id: trajectory}, eval steps)."""
-    runner = NavModelRunner(cfg, model, tok, dims=RolloutDims(
-        max_gmap_nodes=48, max_views=44, max_cands=12, max_hist=16))
+    own world); gates every trajectory's start, SR/SPL and K1's launches:
+    one per layer of every uncached step, or with ``prefix_cache`` one per
+    layer of every prefill call, where the run must have taken the cached
+    step only (no whole-prompt step). ``window()`` is entered around the
+    measured run (scripts/profile_port.py traces it); ``prompts``, a list,
+    receives the uncached steps' prompt texts. Returns ({instr_id:
+    trajectory}, the run's counts and measures)."""
+    runner = NavModelRunner(cfg, model, tok, dims=slice_dims())
     widths = []
-    step = runner.eval_step
+    step, cached_step = runner.eval_step, runner.eval_step_cached
+    tokenize = runner.tokenize_with_positions
 
     def eval_step(state, pano_inputs, batch, *a, **kw):
         widths.append(batch["input_ids"].shape[1])
         return step(state, pano_inputs, batch, *a, **kw)
 
-    runner.eval_step = eval_step
+    def eval_step_cached(state, cache, pano_inputs, batch, *a, **kw):
+        widths.append((batch["app_ids"].shape[1], batch["suf_ids"].shape[1]))
+        return cached_step(state, cache, pano_inputs, batch, *a, **kw)
+
+    def tokenize_with_positions(texts, *a, **kw):
+        if prompts is not None:
+            prompts.extend(texts)
+        return tokenize(texts, *a, **kw)
+
+    runner.eval_step, runner.eval_step_cached = eval_step, eval_step_cached
+    runner.tokenize_with_positions = tokenize_with_positions
     feat = cfg.pano.image_feat_size
     if warm_up:   # cuBLAS handles, allocator, on its own small world
         warm = T.make_r2r_world(f"{tmp}/warm", n_episodes=2 * N_SLOTS, seed=1)
-        run_eval(*T.r2r_eval(warm, runner, N_SLOTS, feat))
+        run_eval(*T.r2r_eval(warm, runner, N_SLOTS, feat,
+                             prefix_cache=prefix_cache))
     anno = T.make_r2r_world(f"{tmp}/main", n_episodes=N_EPISODES)
-    agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat)
+    agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat,
+                                 prefix_cache=prefix_cache)
     widths.clear()
+    if prompts is not None:
+        prompts.clear()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0
     matmul_q4.launches = matmul_q4.int8_launches = 0
-    runner.eval_steps = 0
+    runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
+    runner.llm_token_units = 0.0
     with window():
         t0 = time.perf_counter()
         preds = run_eval(agent, ds, args)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    launches, steps = flash_attention_fwd.launches, runner.eval_steps
+    launches, layers = flash_attention_fwd.launches, cfg.llm.num_layers
+    counts = {"eval_steps": runner.eval_steps,
+              "cached_steps": runner.cached_steps,
+              "prefill_calls": runner.prefill_calls}
+    steps = counts["eval_steps"] + counts["cached_steps"]
 
     if len(preds) != len(ds):
         raise RuntimeError(f"{len(preds)} trajectories for {len(ds)} episodes")
@@ -515,17 +630,33 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
     avg, _ = ds.eval_metrics(preds, None, "R2R")
     if not all(math.isfinite(avg[k]) for k in ("sr", "spl")):
         raise RuntimeError(f"SR/SPL not finite: {avg}")
-    if launches != steps * cfg.llm.num_layers:
-        raise RuntimeError(f"kernel launches {launches} != {steps} eval "
-                           f"steps x {cfg.llm.num_layers} layers")
+    if prefix_cache:
+        # the memory policy must have agreed: no quiet uncached fallback
+        if counts["eval_steps"] or not counts["cached_steps"] \
+                or not counts["prefill_calls"]:
+            raise RuntimeError(f"the cached run did not take the cached "
+                               f"path: {counts}")
+        want, per = counts["prefill_calls"] * layers, "prefill calls"
+    else:
+        want, per = counts["eval_steps"] * layers, "eval steps"
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != "
+                           f"{want // layers} {per} x {layers} layers")
+    stats = {**counts, "steps": steps, "seconds": dt,
+             "episodes_per_s": len(preds) / dt, "ms_per_step": 1e3 * dt / steps,
+             "token_units": runner.llm_token_units,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    kind = "cached" if prefix_cache else "eval"
+    widths_note = (f"[append | suffix] window widths {sorted(set(widths))}"
+                   if prefix_cache else f"prompt widths {sorted(set(widths))}")
     print(f"[{tag}] {len(preds)} episodes in {dt:.3f} s = "
-          f"{len(preds) / dt:.3f} episodes/s; {steps} eval steps of "
-          f"{N_SLOTS} slots, {1e3 * dt / steps:.2f} ms wall per step; prompt "
-          f"widths {sorted(set(widths))}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"SR {avg['sr']:.2f} SPL {avg['spl']:.2f}; flash kernel launches "
-          f"{launches} = {steps} x {cfg.llm.num_layers}")
-    return {p["instr_id"]: p["trajectory"] for p in preds}, steps
+          f"{stats['episodes_per_s']:.3f} episodes/s; {steps} {kind} steps "
+          f"of {N_SLOTS} slots, {stats['ms_per_step']:.2f} ms wall per step; "
+          f"{widths_note}; {stats['token_units'] / steps:.1f} LLM tokens per "
+          f"step; peak memory {stats['peak_gib']:.2f} GiB; SR "
+          f"{avg['sr']:.2f} SPL {avg['spl']:.2f}; flash kernel launches "
+          f"{launches} = {want // layers} {per} x {layers}")
+    return {p["instr_id"]: p["trajectory"] for p in preds}, stats
 
 
 def ab_batch(cfg):
@@ -1014,26 +1145,193 @@ def quantize_model(cfg, model):
 
 
 def phase_q4_slice(tag, tok, cfg, qmodel, tmp, dense_trajs, warm_up,
-                   window=contextlib.nullcontext):
-    """Returns (the int4 kernel's launches in the measured run, the
-    trajectories)."""
-    trajs, steps = phase_slice(tag, tok, cfg, qmodel, tmp, warm_up=warm_up,
-                               window=window)
+                   window=contextlib.nullcontext, prefix_cache: bool = False,
+                   dense_tag: int = 3):
+    """K4 launches once per layer matmul of every LLM pass: each uncached
+    step, or each prefill call and cached step. Returns (the int4 kernel's
+    launches in the measured run, the trajectories, phase_slice's
+    stats)."""
+    trajs, stats = phase_slice(tag, tok, cfg, qmodel, tmp, warm_up=warm_up,
+                               window=window, prefix_cache=prefix_cache)
     launches, int8 = matmul_q4.launches, matmul_q4.int8_launches
-    want = steps * cfg.llm.num_layers * Q4_LAYER_MATMULS
+    passes = stats["steps"] + stats["prefill_calls"]
+    want = passes * cfg.llm.num_layers * Q4_LAYER_MATMULS
     if launches != want:
-        raise RuntimeError(f"int4 kernel launches {launches} != {steps} "
-                           f"steps x {cfg.llm.num_layers} layers x "
+        raise RuntimeError(f"int4 kernel launches {launches} != {passes} "
+                           f"LLM passes x {cfg.llm.num_layers} layers x "
                            f"{Q4_LAYER_MATMULS}")
     if int8 != (launches if cfg.llm.act_int8 else 0):
         raise RuntimeError(f"{int8} of {launches} int4 launches had int8 "
                            f"activations (act_int8={cfg.llm.act_int8})")
     same = sum(trajs[k] == dense_trajs[k] for k in trajs)
-    print(f"[{tag}] int4 kernel launches {launches} = {steps} x "
+    what = (f"({stats['prefill_calls']} prefill calls + {stats['steps']} "
+            f"cached steps)" if prefix_cache else f"{passes} steps")
+    print(f"[{tag}] int4 kernel launches {launches} = {what} x "
           f"{cfg.llm.num_layers} x {Q4_LAYER_MATMULS} (int8 activations: "
-          f"{int8}); trajectories equal to phase 3's (bf16, before training "
-          f"moved the weights): {same} of {len(trajs)}")
-    return launches, trajs
+          f"{int8}); trajectories equal to phase {dense_tag}'s (bf16, before "
+          f"training moved the weights): {same} of {len(trajs)}")
+    return launches, trajs, stats
+
+
+def phase_bpe_check(byte_tok, bpe, prompts):
+    """The port's BPE (plain Python; the card's machine has no
+    `tokenizers`) against the ids the JAX package's tokenizer gave on the
+    CPU (tests/fixtures/bpe_nav_golden.json, which a CPU test holds equal
+    to JAX's output); decode(encode(x)) == x; the prompt width, byte
+    against BPE, on phase 3's prompts."""
+    golden = json.loads((Path(__file__).resolve().parent
+                         / BPE_GOLDEN).read_text())
+    bad = [t for t, ids in zip(golden["texts"], golden["ids"])
+           if bpe.encode(t) != ids]
+    if bad or not golden["texts"]:
+        raise RuntimeError(f"BPE ids differ from the golden ids on "
+                           f"{len(bad)} of {len(golden['texts'])} texts: "
+                           f"{bad[:2]!r}")
+    texts = sorted(set(prompts)) + golden["texts"]
+    be = bpe.backend
+    lost = [t for t in texts if be.decode(be.encode(t), False) != t]
+    if lost or not prompts:
+        raise RuntimeError(f"decode(encode(x)) != x on {len(lost)} texts: "
+                           f"{lost[:2]!r}")
+    nb = sum(len(byte_tok.encode(p)) for p in prompts) / len(prompts)
+    nt = sum(len(bpe.encode(p)) for p in prompts) / len(prompts)
+    print(f"[12] BPE ids equal the golden ids on all {len(golden['texts'])} "
+          f"texts; decode(encode(x)) == x on {len(texts)} texts; phase 3's "
+          f"{len(prompts)} prompts: {nb:.1f} byte tokens against {nt:.1f} "
+          f"BPE tokens on average ({nb / nt:.2f}x)")
+
+
+WINDOW_KEYS = ("app_ids", "app_mask", "app_hist_pos", "suf_ids", "suf_mask",
+               "cand_positions", "cls_pos")
+
+
+def logit_excess(got, want) -> float:
+    """The worst |got - want| / tol over want's valid logits (the
+    CACHED_LOGIT_* bound); both must mask the same logits."""
+    valid = want > NEG_INF / 2
+    if not torch.equal(got > NEG_INF / 2, valid):
+        return math.inf
+    w = torch.where(valid, want, torch.zeros((), device=want.device))
+    rms = (w.square().sum(-1, keepdim=True)
+           / valid.sum(-1, keepdim=True).clamp(min=1)).sqrt()
+    tol = CACHED_LOGIT_REL * want.abs() + CACHED_LOGIT_ROW * rms
+    return ((got - want).abs() / tol)[valid].max().item()
+
+
+def phase_cached_ab(bpe, cfg, model, tmp):
+    """One slot group's cached step against the uncached step on the same
+    state and prompts. A cached run on its own small world, its stop logit
+    lowered by AB_STOP_SHIFT so that the episodes run on, snapshots its
+    AB_SNAPSHOT-th step on which every slot is active and appends history
+    (the cache built by a prefill and several appends); with the stop
+    logit restored, that step is replayed through eval_step_cached and
+    through eval_step on the same prompts. The candidate logits are gated
+    per element (CACHED_LOGIT_*); the same cached step with the last cached
+    token hidden from the prefix (plen - 1) must fail the gate."""
+    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+    feat = cfg.pano.image_feat_size
+    anno = T.make_r2r_world(f"{tmp}/ab", n_episodes=2 * N_SLOTS, seed=2)
+    agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat,
+                                 prefix_cache=True)
+    snap, seen, found = {}, [], [0]
+    step, windows = runner.eval_step_cached, agent._cached_prompt_windows
+
+    def clone(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    def eval_step_cached(state, cache, pano, batch, reset, cur, cand, active,
+                         *a, **kw):
+        if active.all() and batch["app_mask"].any(1).all():
+            found[0] += 1
+        if not snap and found[0] == AB_SNAPSHOT:
+            snap.update(state=clone(state), cache=clone(cache), pano=pano,
+                        batch=batch, args=(reset.copy(), cur.copy(),
+                                           cand.copy(), active.copy()),
+                        prompts=list(seen[-1]))
+        return step(state, cache, pano, batch, reset, cur, cand, active,
+                    *a, **kw)
+
+    def cached_prompt_windows(slots, prompts, *a):
+        seen.append(list(prompts))
+        return windows(slots, prompts, *a)
+
+    runner.eval_step_cached = eval_step_cached
+    agent._cached_prompt_windows = cached_prompt_windows
+    stop_b = model.out_head.b
+    with torch.no_grad():
+        stop_b0 = stop_b[0].clone()
+        stop_b[0] -= AB_STOP_SHIFT
+        try:
+            run_eval(agent, ds, args)
+        finally:
+            stop_b[0] = stop_b0
+    if not snap:
+        raise RuntimeError("no cached step with history to compare")
+
+    with torch.inference_mode():
+        def cached(hide: int):
+            cache = clone(snap["cache"])
+            cache["plen"] -= hide
+            return step(clone(snap["state"]), cache, snap["pano"],
+                        snap["batch"], *snap["args"])[3]
+
+        got, fault = cached(0), cached(1)
+        toks, cand_pos, hist_pos, cls_pos = runner.tokenize_with_positions(
+            snap["prompts"])
+        batch = {k: v for k, v in snap["batch"].items()
+                 if k not in WINDOW_KEYS}
+        batch.update(input_ids=toks.input_ids,
+                     attention_mask=toks.attention_mask,
+                     cand_positions=cand_pos, hist_positions=hist_pos,
+                     cls_pos=cls_pos)
+        want = runner.eval_step(clone(snap["state"]), snap["pano"], batch,
+                                *snap["args"])[2]
+        torch.cuda.synchronize()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise RuntimeError("cached-step A/B: logits are not finite")
+    valid = want > NEG_INF / 2
+    excess, f_excess = logit_excess(got, want), logit_excess(fault, want)
+    n_hist = int(snap["batch"]["app_mask"].sum(1).min())
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"[15] cached step vs uncached step ({N_SLOTS} slots, each "
+          f"appending >= {n_hist} history tokens, at the slots' step "
+          f"{AB_SNAPSHOT} or later; prompts of {toks.input_ids.shape[1]} "
+          f"tokens, "
+          f"windows {snap['batch']['app_ids'].shape[1]} | "
+          f"{snap['batch']['suf_ids'].shape[1]}): max |dlogit| "
+          f"{(got - want).abs()[valid].max().item():.4e} over "
+          f"{int(valid.sum())} candidate logits (range "
+          f"{want[valid].min().item():.3f}..{want[valid].max().item():.3f}), "
+          f"excess {excess:.3f} of the limit; argmax agreement {agree:.2f}; "
+          f"planted fault (last cached token hidden) fails it: excess "
+          f"{f_excess:.1f}")
+    if f_excess <= 1:
+        raise RuntimeError(f"cached-step A/B: the gate passes a planted "
+                           f"fault (excess {f_excess:.3f})")
+    if not excess <= 1:
+        raise RuntimeError("cached-step A/B: the cached step disagrees with "
+                           "the uncached step")
+    return excess
+
+
+def report_cached(tag, cfg, trajs, stats, ref_trajs, ref_stats, ref_tag):
+    """The cached run beside the uncached one on the same tokenizer."""
+    c = cfg.llm
+    cache_bytes = (2 * c.num_layers * N_SLOTS * MAX_PREFIX * c.num_kv_heads
+                   * c.head_dim * c.dtype.itemsize)
+    same = sum(trajs[k] == ref_trajs[k] for k in trajs)
+    tok_c = stats["token_units"] / stats["steps"]
+    tok_u = ref_stats["token_units"] / ref_stats["steps"]
+    print(f"[{tag}] against phase {ref_tag} (uncached): {tok_c:.1f} against "
+          f"{tok_u:.1f} LLM tokens per step ({tok_u / tok_c:.2f}x fewer, "
+          f"prefills included); {stats['ms_per_step']:.2f} against "
+          f"{ref_stats['ms_per_step']:.2f} ms wall per step; "
+          f"{stats['episodes_per_s']:.3f} against "
+          f"{ref_stats['episodes_per_s']:.3f} episodes/s; peak memory "
+          f"{stats['peak_gib']:.2f} against {ref_stats['peak_gib']:.2f} GiB; "
+          f"cache {cache_bytes} bytes ({cache_bytes / 2 ** 30:.3f} GiB) per "
+          f"stream of {N_SLOTS} slots x {MAX_PREFIX} tokens; trajectories "
+          f"equal to phase {ref_tag}'s: {same} of {len(trajs)}")
 
 
 def main():
@@ -1041,9 +1339,22 @@ def main():
     phase_build()
     fwd_err, fwd_timed = phase_kernel()
     tok, cfg, model = model_7b()
+    prompts = []
     with tempfile.TemporaryDirectory() as tmp:
-        dense_trajs, _ = phase_slice(3, tok, cfg, model, tmp)
+        dense_trajs, _ = phase_slice(3, tok, cfg, model, tmp, prompts=prompts)
     phase_ab(cfg, model)
+    # the BPE slices at 7B width, bf16, before training moves the weights
+    bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+    phase_bpe_check(tok, bpe, prompts)
+    with tempfile.TemporaryDirectory() as tmp:
+        bpe_trajs, bpe_stats = phase_slice(13, bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        cached_trajs, cached_stats = phase_slice(14, bpe, cfg, model, tmp,
+                                                 prefix_cache=True)
+    report_cached(14, cfg, cached_trajs, cached_stats, bpe_trajs, bpe_stats,
+                  13)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cached_ab(bpe, cfg, model, tmp)
     bwd_err, bwd_timed = phase_backward()
     with tempfile.TemporaryDirectory() as tmp:
         launches, call = phase_train(tok, cfg, model, tmp)
@@ -1059,13 +1370,25 @@ def main():
     a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
                                                           act_int8=True))
     with tempfile.TemporaryDirectory() as tmp:
-        launches["q4"], w4 = phase_q4_slice(9, tok, cfg, qmodel, tmp,
-                                            dense_trajs, warm_up=True)
+        launches["q4"], w4, w4_stats = phase_q4_slice(
+            9, tok, cfg, qmodel, tmp, dense_trajs, warm_up=True)
     with tempfile.TemporaryDirectory() as tmp:
-        _, w4a8 = phase_q4_slice(10, tok, a8, qmodel, tmp, dense_trajs,
-                                 warm_up=False)
+        _, w4a8, w4a8_stats = phase_q4_slice(10, tok, a8, qmodel, tmp,
+                                             dense_trajs, warm_up=False)
     print(f"[10] w4a8 trajectories equal to w4's (same int4 tree): "
           f"{sum(w4a8[k] == w4[k] for k in w4)} of {len(w4)}")
+    # the cached BPE slices on the int4 tree: prefills and cached steps
+    # through K4
+    for tag, c, warm, ref, ref_tag in ((16, cfg, True, w4_stats, 9),
+                                       (17, a8, False, w4a8_stats, 10)):
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, st = phase_q4_slice(tag, bpe, c, qmodel, tmp, bpe_trajs,
+                                      warm_up=warm, prefix_cache=True,
+                                      dense_tag=13)
+        print(f"[{tag}] {st['ms_per_step']:.2f} ms wall per cached BPE step "
+              f"and peak memory {st['peak_gib']:.2f} GiB, beside phase "
+              f"{ref_tag}'s byte-prompt uncached {ref['ms_per_step']:.2f} ms "
+              f"and {ref['peak_gib']:.2f} GiB")
     for c in (cfg, a8):
         plain = dataclasses.replace(c, llm=dataclasses.replace(
             c.llm, q4_impl="plain"))

@@ -1,16 +1,17 @@
 """R2R agent: greedy streaming evaluation and teacher-forcing training.
 
 Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: greedy R2R
-streaming evaluation (device graph memory, no prefix cache, argmax
-actions) and ``train`` through the fused teacher
+streaming evaluation (device graph memory, argmax actions, uncached or
+with the prompt-prefix KV cache) and ``train`` through the fused teacher
 (agents/fused_teacher.py). It carries the fixed-shape input assembly of
 the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
-``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``),
-its expert (``teacher_action``) and its sim step (``make_equiv_action``),
-which are host numpy code, copied because the JAX agent module imports
-jax. The rest of the JAX agent (DAgger training, the per-step and batched
-rollouts, OG, generation, EQA, sampling, the prefix cache) is not ported:
-asking for it raises NotImplementedError.
+``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``,
+and for the cache ``_cached_prompt_windows``, ``_window_arrays`` and
+``prefill_rows``), its expert (``teacher_action``) and its sim step
+(``make_equiv_action``), which are host numpy code, copied because the JAX
+agent module imports jax. The rest of the JAX agent (DAgger training, the
+per-step and batched rollouts, OG, generation, EQA, sampling, the int8
+prefix cache) is not ported: asking for it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ class EvalArgs:
     eval_streams: int = 2
     do_sample: bool = False
     prefix_cache: bool = False
+    kv_int8: bool = False
     enable_og: bool = False
     enable_summarize: bool = False
     mode: str = "train"
@@ -228,6 +230,134 @@ class R2RAgent:
                 cls_token=CLS_TOKEN_TEXT))
         return order, prompts, cand_nums
 
+    def _cached_prompt_windows(self, slots, prompts, probe_fn, max_prefix):
+        """Split each slot's navigation prompt into (append window, suffix
+        window) relative to its cached prefix.
+
+        The cacheable boundary: history items insert right after the last
+        `<hist>` token (an atomic special token), so with history it is
+        last-<hist>+1. At refill (no history yet) it is the longest common
+        prefix of the prompt's ids and a PROBE prompt's (the same prompt
+        with one more history item): the insertion point, with no
+        assumption about how the tokenizer splices. Rows needing a
+        (re)prefill get their prefix queued; inactive rows emit empty
+        windows and keep their cache untouched. Returns (app_list,
+        suf_list, prefill items [(row, prefix ids)])."""
+        tok = self.runner.tok
+        hist_id = tok.hist_id
+        app_list, suf_list, prefill = [], [], []
+        empty = np.zeros(0, np.int32)
+        for i, sl in enumerate(slots):
+            if not sl.active:
+                app_list.append(empty)
+                suf_list.append(empty)
+                continue
+            ids = np.asarray(tok.encode(prompts[i], add_bos=True), np.int32)
+            if len(ids) > tok.max_length:
+                # the uncached path would LEFT-truncate here, which an
+                # append-only prefix cache cannot reproduce
+                raise RuntimeError(
+                    f"navigation prompt ({len(ids)} tokens) exceeds "
+                    f"max_length={tok.max_length}; prefix caching cannot "
+                    f"reproduce left truncation — disable "
+                    f"args.prefix_cache for this dataset")
+            hp = np.nonzero(ids == hist_id)[0]
+            if len(hp):
+                lcp = int(hp[-1]) + 1
+            else:
+                pids = np.asarray(tok.encode(probe_fn(i), add_bos=True),
+                                  np.int32)
+                m = min(len(ids), len(pids))
+                ne = ids[:m] != pids[:m]
+                lcp = int(np.argmax(ne)) if ne.any() else m
+            if sl.needs_prefill or sl.cache_ids is None:
+                sl.cache_ids = ids[:lcp]
+                sl.needs_prefill = False
+                prefill.append((i, sl.cache_ids))
+                app_list.append(empty)
+            else:
+                n = len(sl.cache_ids)
+                if n > lcp or not np.array_equal(ids[:n], sl.cache_ids):
+                    raise RuntimeError(
+                        "prefix-cache token mismatch: this step's prompt "
+                        "does not extend the cached prefix (tokenizer "
+                        "splice instability?) — disable with "
+                        "args.prefix_cache=False")
+                app_list.append(ids[n:lcp])
+                sl.cache_ids = ids[:lcp]
+            if len(sl.cache_ids) > max_prefix:
+                raise RuntimeError(
+                    f"prompt prefix ({len(sl.cache_ids)} tokens) exceeds "
+                    f"RolloutDims.max_prefix={max_prefix}; raise it or "
+                    f"disable args.prefix_cache")
+            suf_list.append(ids[lcp:])
+        return app_list, suf_list, prefill
+
+    @staticmethod
+    def _window_arrays(app_list, suf_list, cand_id, hist_id, cls_id, C,
+                       min_a_w=8, min_s_w=64):
+        """Pack ragged windows into bucketed arrays (append width a multiple
+        of 8, suffix width of 64) and suffix-relative injection positions
+        (the k-th <cand> token <-> cand_order[:, k], the pairing of
+        tokenize_with_positions)."""
+        n = len(app_list)
+        a_w = max(min_a_w,
+                  -(-max((len(a) for a in app_list), default=1) // 8) * 8)
+        s_w = max(min_s_w,
+                  -(-max((len(s) for s in suf_list), default=1) // 64) * 64)
+        app_ids = np.zeros((n, a_w), np.int32)
+        app_mask = np.zeros((n, a_w), bool)
+        app_hist_pos = np.full(n, -1, np.int32)
+        suf_ids = np.zeros((n, s_w), np.int32)
+        suf_mask = np.zeros((n, s_w), bool)
+        cand_pos = np.full((n, C), -1, np.int32)
+        cls_pos = np.zeros(n, np.int32)
+        for i, (a, s) in enumerate(zip(app_list, suf_list)):
+            app_ids[i, : len(a)] = a
+            app_mask[i, : len(a)] = True
+            hp = np.nonzero(a == hist_id)[0]
+            if len(hp):
+                app_hist_pos[i] = hp[-1]
+            suf_ids[i, : len(s)] = s
+            suf_mask[i, : len(s)] = True
+            cp = np.nonzero(s == cand_id)[0][:C]
+            cand_pos[i, : len(cp)] = cp
+            cl = np.nonzero(s == cls_id)[0]
+            if len(cl):
+                cls_pos[i] = cl[0]
+        return {"app_ids": app_ids, "app_mask": app_mask,
+                "app_hist_pos": app_hist_pos, "suf_ids": suf_ids,
+                "suf_mask": suf_mask, "cand_positions": cand_pos,
+                "cls_pos": cls_pos}
+
+    def prefill_rows(self, cache, items, width):
+        """Dispatch bucketed prompt-prefix prefills into ``cache``.
+
+        items: [(row, prefix ids)]; width: the cache's batch rows. Calls
+        run in fixed-width chunks (bp <= 8) at 64-bucketed prefix widths;
+        padding entries point at distinct rows NOT being prefilled, with
+        valid False (they write that row's old content back). Returns the
+        cache."""
+        bp = min(8, width)
+        for c0 in range(0, len(items), bp):
+            chunk = items[c0: c0 + bp]
+            taken = {i for i, _ in chunk}
+            spare = [r for r in range(width) if r not in taken]
+            p_w = max(64, -(-max(len(p) for _, p in chunk) // 64) * 64)
+            ids = np.zeros((bp, p_w), np.int32)
+            mask = np.zeros((bp, p_w), bool)
+            rows = np.zeros(bp, np.int32)
+            valid = np.zeros(bp, bool)
+            for j, (r, pref) in enumerate(chunk):
+                ids[j, : len(pref)] = pref
+                mask[j, : len(pref)] = True
+                rows[j] = r
+                valid[j] = True
+            for j in range(len(chunk), bp):
+                rows[j] = spare[j - len(chunk)]
+            cache = self.runner.prefill(cache, ids, mask, rows, valid)
+        return cache
+
     def teacher_action(self, obs, vpids, ended, visited_masks=None,
                        imitation_learning=False, t=None) -> np.ndarray:
         """Expert action per row (twin of teacher_action): under imitation
@@ -312,12 +442,22 @@ class R2RAgent:
         Slot groups pipeline the work: while the card runs group A's fused
         step, the host retires group B's previous actions (env step,
         get_obs, refill) and assembles and dispatches B's next step; only
-        a_t ([B] int32) comes back, through a pinned non-blocking copy."""
-        if name == "EQA" or args.do_sample or args.prefix_cache \
-                or args.enable_og or (args.enable_summarize
-                                      and args.mode == "test"):
+        a_t ([B] int32) comes back, through a pinned non-blocking copy.
+
+        With args.prefix_cache (and the runner's memory policy agreeing),
+        each slot group owns a prompt-prefix KV cache: a refilled slot's
+        instruction prefix is prefilled once, and each step forwards only
+        the new history tokens and the candidates section
+        (runner.eval_step_cached); queued prefills are flushed before the
+        group's step is dispatched."""
+        if name == "EQA" or args.do_sample or args.enable_og \
+                or (args.enable_summarize and args.mode == "test"):
             raise NotImplementedError(
-                "only greedy, uncached R2R navigation is ported")
+                "only greedy R2R navigation is ported")
+        kv_int8 = getattr(args, "kv_int8", False)
+        if args.prefix_cache and kv_int8:
+            raise NotImplementedError("the int8 prefix cache (kv_int8) is "
+                                      "not ported yet (ROADMAP A9)")
         max_action_len = config.Optim.val_max_action_len[name]
         assert max_action_len <= self.dims.max_hist, (
             f"max_action_len {max_action_len} exceeds history capacity "
@@ -336,7 +476,8 @@ class R2RAgent:
 
         class Slot:
             __slots__ = ("ob", "env", "item", "data_type", "gmap", "traj",
-                         "history", "t", "active", "instruction")
+                         "history", "t", "active", "instruction",
+                         "cache_ids", "needs_prefill")
 
         def fill(slot) -> bool:
             try:
@@ -359,15 +500,20 @@ class R2RAgent:
             slot.t = 0
             slot.active = True
             slot.instruction = slot.ob["instruction"]
+            slot.cache_ids = None
+            slot.needs_prefill = True
             self.update_scanvp_cands([slot.ob])
             return True
 
         n_streams = max(1, int(getattr(args, "eval_streams", 0) or 2))
+        use_cache = args.prefix_cache and self.runner.prefix_cache_enabled(
+            num_slots, self.dims.max_prefix, n_caches=n_streams)
 
         class Stream:
             __slots__ = ("slots", "mem_state", "reset_rows", "pending",
                          "pano_inputs", "gmap_in", "nav_batch", "cur_ids",
-                         "cand_ids", "real_mask", "a_t")
+                         "cand_ids", "real_mask", "a_t", "cache",
+                         "prefill_items")
 
         streams: List[Stream] = []
         for _ in range(n_streams):
@@ -380,6 +526,10 @@ class R2RAgent:
             if not st.slots:
                 break
             st.mem_state = self.runner.memory_init(len(st.slots))
+            st.cache = (self.runner.prefix_cache_init(len(st.slots),
+                                                      self.dims.max_prefix)
+                        if use_cache else None)
+            st.prefill_items = []
             st.reset_rows = np.zeros(len(st.slots), bool)
             st.pending = False
             streams.append(st)
@@ -425,11 +575,32 @@ class R2RAgent:
             match = self.local_match_slots(
                 gmap_in["gmap_vpids"], vp_in["vp_cand_vpids"], gmaps,
                 width=host_pano_masks.shape[1] + 1)
-            order, prompts, _ = self.cand_order_and_prompts(
+            order, prompts, cand_nums = self.cand_order_and_prompts(
                 gmap_in, [sl.instruction for sl in active],
                 [sl.history for sl in active])
-            tok_batch, cand_pos, hist_pos, cls_pos = \
-                self.runner.tokenize_with_positions(prompts)
+            if use_cache:
+                C = self.dims.max_cands
+
+                def probe_fn(i):
+                    return self.get_prompt(
+                        "navigation", instruction=active[i].instruction,
+                        hist_num=len(active[i].history) + 1,
+                        cand_num=min(cand_nums[i], C + 1),
+                        cls_token=CLS_TOKEN_TEXT)
+
+                app_l, suf_l, st.prefill_items = self._cached_prompt_windows(
+                    active, prompts, probe_fn, self.dims.max_prefix)
+                tok = self.runner.tok
+                text = self._window_arrays(app_l, suf_l, tok.cand_id,
+                                           tok.hist_id, tok.cls_ids[0], C)
+            else:
+                tok_batch, cand_pos, hist_pos, cls_pos = \
+                    self.runner.tokenize_with_positions(prompts)
+                text = {"cand_positions": cand_pos,
+                        "hist_positions": hist_pos,
+                        "input_ids": tok_batch.input_ids,
+                        "attention_mask": tok_batch.attention_mask,
+                        "cls_pos": cls_pos}
             slot_ids = np.full(gmap_in["gmap_masks"].shape, -1, np.int32)
             for i, sl in enumerate(active):
                 gidx = sl.gmap.graph.index
@@ -447,11 +618,7 @@ class R2RAgent:
                 "pano_masks": vp_in["pano_masks"],
                 "local_match_slot": match,
                 "cand_order": order,
-                "cand_positions": cand_pos,
-                "hist_positions": hist_pos,
-                "input_ids": tok_batch.input_ids,
-                "attention_mask": tok_batch.attention_mask,
-                "cls_pos": cls_pos,
+                **text,
                 "slot_ids": slot_ids,
             }
             st.pano_inputs = pano_inputs
@@ -460,10 +627,23 @@ class R2RAgent:
 
         def _dispatch(st: Stream):
             # ONE device call: reset refills -> pano -> mem update -> nav
-            # forward -> argmax -> hist append; a_t's download starts now
-            st.mem_state, a_t, _ = self.runner.eval_step(
-                st.mem_state, st.pano_inputs, st.nav_batch, st.reset_rows,
-                st.cur_ids, st.cand_ids, st.real_mask, sync=False)
+            # forward -> argmax -> hist append; a_t's download starts now.
+            # On the cached path the queued prefills go first (the card
+            # runs them in dispatch order, so the step sees fresh K/V).
+            if use_cache:
+                items, st.prefill_items = st.prefill_items, []
+                if items:
+                    st.cache = self.prefill_rows(st.cache, items,
+                                                 len(st.slots))
+                st.mem_state, st.cache, a_t, _ = self.runner.eval_step_cached(
+                    st.mem_state, st.cache, st.pano_inputs, st.nav_batch,
+                    st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
+                    sync=False)
+            else:
+                st.mem_state, a_t, _ = self.runner.eval_step(
+                    st.mem_state, st.pano_inputs, st.nav_batch,
+                    st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
+                    sync=False)
             st.a_t = HostCopy(a_t)
             st.pending = True
 

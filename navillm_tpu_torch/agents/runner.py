@@ -3,7 +3,8 @@
 Torch twin of the surface of navillm_tpu/agents/runner.py that greedy
 R2R streaming evaluation and fused teacher-forcing training use: ``cfg``,
 ``tok``, ``dims``, ``device_memory``, ``memory_init``, ``eval_step``,
-``tokenize_with_positions``, ``prefix_cache_enabled``, the
+``tokenize_with_positions``, the prefix cache (``prefix_cache_enabled``,
+``prefix_cache_init``, ``prefill``, ``eval_step_cached``), the
 ``llm_token_units`` counter, and for training ``zero_grads`` /
 ``take_grads``, ``panorama_dev_dict``, ``replay_fuse_scan`` and
 ``pano_navigation_train``. Host arrays go up through pinned buffers with
@@ -41,10 +42,14 @@ class RolloutDims:
     max_views: int = 44
     max_cands: int = 99
     max_hist: int = 32
+    # prompt-prefix KV cache capacity per slot (instruction + history
+    # tokens; the cached streaming eval raises if a prefix outgrows it)
+    max_prefix: int = 768
 
     @classmethod
     def tiny(cls) -> "RolloutDims":
-        return cls(max_gmap_nodes=16, max_views=40, max_cands=8, max_hist=8)
+        return cls(max_gmap_nodes=16, max_views=40, max_cands=8, max_hist=8,
+                   max_prefix=448)
 
 
 class HostCopy:
@@ -95,8 +100,14 @@ class NavModelRunner:
         # UNPADDED (mask-summed) token count forwarded through the LLM, in
         # forward-equivalents (a fwd+bwd call counts 3x its tokens)
         self.llm_token_units = 0.0
-        # fused eval steps dispatched (each runs every LLM layer once)
+        # fused eval steps dispatched (each runs every LLM layer once over
+        # the whole prompt)
         self.eval_steps = 0
+        # prefix-cached eval steps (every layer over the [append | suffix]
+        # window only) and prefix prefill calls (every layer over <= 8
+        # prefixes)
+        self.cached_steps = 0
+        self.prefill_calls = 0
         # navigation loss+grad calls (each runs every LLM layer forward,
         # recomputed forward under remat, and backward)
         self.grad_calls = 0
@@ -227,10 +238,75 @@ class NavModelRunner:
                               self.dims.max_hist, self.cfg.hidden_size,
                               torch.float32, self.device)
 
+    def prefix_cache_init(self, batch: int, max_prefix: int,
+                          kv_int8: bool = False):
+        return DM.init_prefix_cache(self.cfg.llm, batch, max_prefix,
+                                    kv_int8=kv_int8, device=self.device)
+
     def prefix_cache_enabled(self, batch: int, max_prefix: int,
                              n_caches: int = 1, kv_int8: bool = False) -> bool:
-        """The prefix-cached step is not ported yet."""
-        return False
+        """The JAX auto policy: cache the prompt prefix when the K/V caches
+        (n_caches: one per slot group) fit next to the weights, counted
+        from the actual leaves (so a quantized tree widens the budget;
+        kv_int8 counts 1 + 4/head_dim bytes per element).
+
+        The ceiling: JAX's 12e9 bytes was 0.75 of a 16 GB chip, leaving the
+        rest for activations and the runtime. On the card it is 0.75 of the
+        card's total memory (torch.cuda.get_device_properties), 60 GB on an
+        80 GB H100: under 12e9 a bf16 7B tree (13.5 GB) would never cache
+        there. On the CPU it stays 12e9, so CPU runs make JAX's decision."""
+        c = self.cfg.llm
+        itemsize = (1 + 4 / c.head_dim) if kv_int8 else c.dtype.itemsize
+        bytes_needed = n_caches * int(2 * c.num_layers * batch * max_prefix
+                                      * c.num_kv_heads * c.head_dim
+                                      * itemsize)
+        params_bytes = sum(p.numel() * p.element_size()
+                           for p in self.model.parameters())
+        ceiling = (0.75 * torch.cuda.get_device_properties(
+            self.device).total_memory if self.device.type == "cuda"
+            else 12e9)
+        return self.device_memory and bytes_needed + params_bytes < ceiling
+
+    def prefill(self, cache, ids, mask, rows, valid):
+        """Prefill refilled rows' prefixes into ``cache`` (in place;
+        device_memory.prefill_prefix). rows must be distinct: padding
+        entries point at rows not being prefilled, with valid False.
+        Counts the valid rows' prefix tokens in llm_token_units."""
+        v = np.asarray(valid)
+        self.llm_token_units += float((np.asarray(mask) * v[:, None]).sum())
+        self.prefill_calls += 1
+        with torch.inference_mode():
+            return DM.prefill_prefix(
+                self.model, self.cfg.llm, cache, self.upload(ids),
+                self.upload(mask), self.upload(np.asarray(rows, np.int32)),
+                self.upload(v))
+
+    def eval_step_cached(self, state, cache, pano_inputs: Dict, batch: Dict,
+                         reset_mask, cur_ids, cand_ids, active_mask,
+                         a_t_override=None, do_sample: bool = False,
+                         sync: bool = True):
+        """Prefix-cached fused eval step (device_memory.eval_step_cached):
+        eval_step's contract plus the cache, which is updated in place.
+        Counts the active rows' window tokens in llm_token_units. Returns
+        (state', cache, a_t, logits)."""
+        if do_sample:
+            raise NotImplementedError("sampled decoding is not ported")
+        if a_t_override is None:
+            a_t_override = np.full(len(cur_ids), -1, np.int32)
+        pano = self._pano_dev_inputs(pano_inputs)
+        dev = {k: self.upload(v) for k, v in batch.items()}
+        act = np.asarray(active_mask)[:, None]
+        self.llm_token_units += float(
+            (np.asarray(batch["app_mask"]) * act).sum()
+            + (np.asarray(batch["suf_mask"]) * act).sum())
+        self.cached_steps += 1
+        with torch.inference_mode():
+            state, cache, a_t, logits = DM.eval_step_cached(
+                self.model, self.cfg, state, cache, pano, dev,
+                self.upload(reset_mask), self.upload(cur_ids),
+                self.upload(cand_ids), self.upload(active_mask),
+                self.upload(np.asarray(a_t_override, np.int32)))
+        return state, cache, (HostCopy(a_t).result() if sync else a_t), logits
 
     def eval_step(self, state, pano_inputs: Dict, batch: Dict, reset_mask,
                   cur_ids, cand_ids, active_mask, a_t_override=None,

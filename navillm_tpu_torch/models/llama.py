@@ -170,9 +170,15 @@ def _post_attn(cfg: LlamaConfig, x, lp, attn):
                    a8, impl)
 
 
-def _layer(cfg: LlamaConfig, x, lp, cos, sin, kv_mask, attn_impl):
-    """One transformer block (causal self-attention over x)."""
+def _layer(cfg: LlamaConfig, x, lp, cos, sin, kv_mask, attn_impl,
+           kv_out=None):
+    """One transformer block (causal self-attention over x). kv_out: an
+    optional (k, v) pair of [B, T, NKV, D] buffers that receive the
+    post-rope K/V."""
     q, k, v = _qkv(cfg, x, lp, cos, sin)
+    if kv_out is not None:
+        kv_out[0].copy_(k)
+        kv_out[1].copy_(v)
     attn = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=True,
                                 impl=attn_impl)
     return _post_attn(cfg, x, lp, attn)
@@ -216,29 +222,113 @@ def _layer_weights(layers, i: int):
 
 
 def forward_hidden(params, cfg: LlamaConfig, inputs_embeds, attention_mask,
-                   positions: Optional[torch.Tensor] = None):
-    """Run the transformer stack; returns hidden [B, T, H].
+                   positions: Optional[torch.Tensor] = None,
+                   return_kv: bool = False):
+    """Run the transformer stack; returns hidden [B, T, H], or with
+    return_kv (hidden, {"k", "v"}): the per-layer post-rope K/V stacked
+    [L, B, T, NKV, D] in cfg.dtype (the prompt prefill of the prefix cache;
+    inference only, so remat is off, as in the JAX code).
 
     attention_mask: [B, T] validity over keys; positions default to
-    cumsum(mask)-1 clipped at 0 (correct under left padding). Under grad
-    with cfg.remat, a layer keeps only its input and is recomputed in the
-    backward (the layer holds no randomness, so no RNG state is kept)."""
+    cumsum(mask)-1 clipped at 0 (correct under left padding, and under
+    right padding for the valid tokens). Attention is cfg.attn_impl (the
+    flash kernel on the card) either way. Under grad with cfg.remat, a
+    layer keeps only its input and is recomputed in the backward (the
+    layer holds no randomness, so no RNG state is kept)."""
     if positions is None:
         positions = torch.cumsum(attention_mask.int(), -1) - 1
         positions = positions.clamp(min=0)
     cos, sin = rope_tables(cfg, positions)
     x = inputs_embeds.to(cfg.dtype)
     layers = params["layers"]
-    remat = cfg.remat and torch.is_grad_enabled()
-    for i in range(layers["attn_norm"].shape[0]):
+    n_layers = layers["attn_norm"].shape[0]
+    kv = None
+    if return_kv:
+        b, t, _ = x.shape
+        shape = (n_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
+        kv = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
+    remat = cfg.remat and torch.is_grad_enabled() and not return_kv
+    for i in range(n_layers):
         lp = _layer_weights(layers, i)
         if remat:
             x = checkpoint(_layer, cfg, x, lp, cos, sin, attention_mask,
                            cfg.attn_impl, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _layer(cfg, x, lp, cos, sin, attention_mask, cfg.attn_impl)
-    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+            x = _layer(cfg, x, lp, cos, sin, attention_mask, cfg.attn_impl,
+                       (kv["k"][i], kv["v"][i]) if return_kv else None)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return (x, kv) if return_kv else x
+
+
+def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
+                         prefix_mask, suffix_mask, positions,
+                         write_offsets=None, write_mask=None):
+    """Forward an S-token window against a per-row ragged prefix KV cache
+    (twin of the JAX chunk_forward_cached, on a bf16/f32 cache).
+
+    inputs_embeds [B, S, H]; prefix_kv {"k", "v"} [L, B, P, NKV, D]
+    (post-rope, rows at positions 0..len-1); prefix_mask [B, P] validity;
+    suffix_mask [B, S] validity (right-padded); positions [B, S] absolute
+    rope positions. Each window token sees the row's valid prefix and the
+    window tokens up to itself: a [B, S, P+S] mask, so attention runs the
+    eager path (the flash kernel takes [B, S] key masks only), as JAX runs
+    impl="xla" here.
+
+    write_offsets [B] (optional): also write the window's post-rope K/V
+    into the cache at write_offsets[b] + j for the tokens of write_mask
+    [B, S] (default suffix_mask; a per-row prefix of the valid columns).
+    Writes that land at or beyond P are dropped, never clamped. The cache
+    is updated IN PLACE (each slot group owns its cache, and the card runs
+    one stream in order), before the layer's attention, which still reads
+    the written slots as window tokens only (they are not in prefix_mask
+    yet). Returns (hidden [B, S, H], prefix_kv).
+    """
+    if "ks" in prefix_kv:
+        raise NotImplementedError("the int8 prefix cache (kv_int8) is not "
+                                  "ported yet (ROADMAP A9)")
+    b, s, _ = inputs_embeds.shape
+    p = prefix_kv["k"].shape[2]
+    dev = inputs_embeds.device
+    cos, sin = rope_tables(cfg, positions)
+    qi = torch.arange(s, device=dev)[:, None]
+    sm = (qi >= qi.T)[None] & suffix_mask[:, None, :]
+    kv_mask = torch.cat([prefix_mask[:, None, :].expand(b, s, p), sm], dim=-1)
+
+    x = inputs_embeds.to(cfg.dtype)
+    if write_offsets is not None:
+        # only the first min(S, P) columns can land below P. Their slots
+        # (off + j) mod P are distinct within a row, and equal off + j
+        # wherever the write is kept; a dropped entry rewrites its slot's
+        # old content. So no two entries collide and nothing waits on the
+        # card for a data-dependent index.
+        w = min(s, p)
+        j = torch.arange(w, device=dev)[None, :]
+        off = write_offsets.long()[:, None]
+        wm = (suffix_mask if write_mask is None else write_mask)[:, :w]
+        keep = (wm & (off + j < p))[..., None, None]
+        widx = (off + j) % p
+        bgrid = torch.arange(b, device=dev)[:, None].expand(b, w)
+
+        def scatter(buf, new):
+            old = buf[bgrid, widx]
+            buf[bgrid, widx] = torch.where(keep, new[:, :w].to(buf.dtype),
+                                           old)
+
+    layers = params["layers"]
+    for i in range(layers["attn_norm"].shape[0]):
+        lp = _layer_weights(layers, i)
+        pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        if write_offsets is not None:
+            scatter(pk, k)
+            scatter(pv, v)
+        keys = torch.cat([pk.to(k.dtype), k], dim=1)
+        vals = torch.cat([pv.to(v.dtype), v], dim=1)
+        attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
+                                    causal=False, impl="eager")
+        x = _post_attn(cfg, x, lp, attn)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), prefix_kv
 
 
 def embed_with_injection(params, input_ids, special_positions=None,

@@ -100,9 +100,12 @@ def eval_config(max_action_len: int, name: str = "R2R"):
 
 
 def r2r_eval(anno_file, runner, n_slots: int, image_feat_size: int,
-             seed: int = 0):
+             seed: int = 0, prefix_cache: bool = False):
     """(agent, dataset, args) for greedy R2R streaming evaluation over a
-    world written by make_r2r_world, with synthetic image features."""
+    world written by make_r2r_world, with synthetic image features. The
+    prompts go through the runner's tokenizer (``NavTokenizer()`` for
+    bytes, ``NavTokenizer.bpe()`` for subwords); ``prefix_cache`` asks for
+    the prefix-cached eval step."""
     from .agents.mp3d_agent import EvalArgs, R2RAgent
     from .data.r2r import R2RDataset
 
@@ -110,7 +113,8 @@ def r2r_eval(anno_file, runner, n_slots: int, image_feat_size: int,
     ds = R2RDataset(anno_file, world)
     ds.init_feat_db(SyntheticImageFeaturesDB(image_feat_size))
     args = EvalArgs(seed=seed, val_batch_size=n_slots,
-                    image_feat_size=image_feat_size)
+                    image_feat_size=image_feat_size,
+                    prefix_cache=prefix_cache)
     return R2RAgent(args, world, runner), ds, args
 
 

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Where the card's time goes in the PyTorch/CUDA port's 7B-width cells.
 
-    python3 scripts/profile_port.py      # on an H100, from the repository root
+    python3 scripts/profile_port.py [--tokenizer byte|bpe]
+        # on an H100, from the repository root
 
 Runs chip_smoke.py's eval slice (bf16), training slice and int4 eval
 slices (w4, then w4a8) with the same model, seeds and worlds, each after
-its warm-up, and traces each measured run with torch.profiler. For each
-cell it prints the wall time of the run, the summed device time of its
-kernels and copies, the card's busy share (the union of their spans over
-the wall time), the device time and launches by kernel group, largest
-first, and the SM clock and power draw nvidia-smi read every 200 ms
-during the run. The profiler adds host work per launch, so the wall
-times here are a little above chip_smoke.py's.
+its warm-up, on the byte tokenizer (NavTokenizer(max_length=1024,
+pad_to_multiple=128), the default) or the BPE one
+(NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)); then the
+prefix-cached BPE eval cells (bf16 after the eval slice, w4 and w4a8 after
+theirs), as chip_smoke.py's phases 14, 16 and 17 run them. Each measured
+run is traced with torch.profiler. For each cell it prints the wall time
+of the run, the summed device time of its kernels and copies, the card's
+busy share (the union of their spans over the wall time), the device time
+and launches by kernel group, largest first, and the SM clock and power
+draw nvidia-smi read every 200 ms during the run. The cached step's window
+attention (the eager path: einsums, mask and softmax) is a group of its
+own: its kernels are the ones launched inside the "eager window attention"
+range this script wraps around each eager attention call. The profiler
+adds host work per launch, so the wall times here are a little above
+chip_smoke.py's.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
@@ -30,6 +40,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as C  # noqa: E402
+from navillm_tpu_torch.models import llama as L  # noqa: E402
+from navillm_tpu_torch.models.tokenization import NavTokenizer  # noqa: E402
+
+WINDOW = "eager window attention"
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
@@ -43,6 +57,28 @@ GROUPS = (
                                 "Memcpy", "Memset", "cat", "index",
                                 "scatter", "gather", "fill")),
 )
+
+
+def annotate_window_attention():
+    """Wrap every eager attention call of the LLM (the cached step's
+    window) in a profiler range named WINDOW."""
+    mha = L.multi_head_attention
+
+    def wrapped(q, k, v, *, impl="auto", **kw):
+        if impl != "eager":
+            return mha(q, k, v, impl=impl, **kw)
+        with torch.profiler.record_function(WINDOW):
+            return mha(q, k, v, impl=impl, **kw)
+
+    L.multi_head_attention = wrapped
+
+
+def launched_under(event):
+    """(name, device us) of every kernel launched inside a CPU event."""
+    out = [(k.name, k.duration) for k in event.kernels]
+    for child in event.cpu_children:
+        out += launched_under(child)
+    return out
 
 
 def group_of(name: str) -> str:
@@ -88,9 +124,12 @@ def traced(cell: str):
         wall = time.perf_counter() - t0
     # the device-side events only (kernels, copies, memsets); the CPU ops
     # above them carry the same time again
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   for e in events if e.device_type == cuda
+                   and e.name != WINDOW
+                   and not getattr(e, "is_user_annotation", False))
     if not spans:
         raise RuntimeError(f"{cell}: the trace holds no device time")
     by_group, count, total, busy, reach = {}, {}, 0.0, 0.0, spans[0][0]
@@ -101,38 +140,74 @@ def traced(cell: str):
         total += end - start
         busy += max(0, end - max(start, reach))   # union of the spans
         reach = max(reach, end)
+    # the window attention's kernels move from their groups to their own
+    ranges = [e for e in events if e.name == WINDOW and e.device_type != cuda]
+    for name, us in (k for e in ranges for k in launched_under(e)):
+        group = group_of(name)
+        by_group[group] -= us
+        count[group] -= 1
+        by_group[WINDOW] = by_group.get(WINDOW, 0.0) + us
+        count[WINDOW] = count.get(WINDOW, 0) + 1
+    if ranges and WINDOW not in by_group:
+        print(f"[profile] {cell}: {len(ranges)} {WINDOW} ranges, but the "
+              f"trace links no kernel to them: their time is not measured")
     print(f"[profile] {cell}: wall {wall:.3f} s, device {total / 1e6:.3f} s "
           f"in {len(spans)} device events, busy {100 * busy / 1e6 / wall:.1f}%"
           f" of the wall time")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        if not count[group]:
+            continue
         print(f"[profile]   {group}: {us / 1e6:.3f} s "
               f"({100 * us / total:.1f}%) in {count[group]} events, "
               f"{us / 1e3 / count[group]:.4f} ms each")
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tokenizer", choices=("byte", "bpe"), default="byte")
+    opts = ap.parse_args()
     smi = C.phase_device()
     C.phase_build()
+    annotate_window_attention()
     tok, cfg, model = C.model_7b()
+    bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+    if opts.tokenizer == "bpe":
+        tok = bpe
+    sfx = "_bpe" if opts.tokenizer == "bpe" else ""
+
+    def cell(name, what):
+        return lambda: traced(f"r2r_{name}{sfx} ({what}, {opts.tokenizer} "
+                              f"prompts)")
+
+    def cached_cell(name, what):
+        return lambda: traced(f"r2r_{name}_bpe_cached ({what}, BPE prompts, "
+                              f"prefix cache)")
+
     with tempfile.TemporaryDirectory() as tmp:
         C.phase_slice(3, tok, cfg, model, tmp,
-                      window=lambda: traced("r2r_stream_7b (bf16 eval)"))
+                      window=cell("stream_7b", "bf16 eval"))
+    with tempfile.TemporaryDirectory() as tmp:
+        C.phase_slice(14, bpe, cfg, model, tmp, prefix_cache=True,
+                      window=cached_cell("stream_7b", "bf16 eval"))
     with tempfile.TemporaryDirectory() as tmp:
         C.phase_train(tok, cfg, model, tmp,
-                      window=lambda: traced("r2r_train_7b (training)"))
+                      window=cell("train_7b", "training"))
     qmodel = C.quantize_model(cfg, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        C.phase_slice(9, tok, cfg, qmodel, tmp,
-                      window=lambda: traced("r2r_stream_7b_w4 (int4 eval)"))
     a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
                                                           act_int8=True))
-    with tempfile.TemporaryDirectory() as tmp:
-        C.phase_slice(10, tok, a8, qmodel, tmp, warm_up=False,
-                      window=lambda: traced("r2r_stream_7b_w4a8 "
-                                            "(int4 eval, int8 activations)"))
+    for tag, c, warm, name, what in (
+            (9, cfg, True, "stream_7b_w4", "int4 eval"),
+            (10, a8, False, "stream_7b_w4a8",
+             "int4 eval, int8 activations")):
+        with tempfile.TemporaryDirectory() as tmp:
+            C.phase_slice(tag, tok, c, qmodel, tmp, warm_up=warm,
+                          window=cell(name, what))
+        with tempfile.TemporaryDirectory() as tmp:
+            C.phase_slice(tag + 7, bpe, c, qmodel, tmp, warm_up=warm,
+                          prefix_cache=True, window=cached_cell(name, what))
     print(smi)
 
 

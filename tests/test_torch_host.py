@@ -216,10 +216,11 @@ def test_tokenizer_matches(max_length, multiple):
 
 
 def test_tokenizer_subword_backends_raise():
-    with pytest.raises(NotImplementedError, match="byte tokenizer"):
-        PT.NavTokenizer.bpe()
+    """The HF backend still raises (no transformers on the card); the
+    vendored BPE is the port's own (tests/test_torch_tokenizer.py)."""
     with pytest.raises(NotImplementedError, match="byte tokenizer"):
         PT.NavTokenizer.from_pretrained("vicuna")
+    assert isinstance(PT.NavTokenizer.bpe().backend, PT.BPETokenizer)
 
 
 class _Items:

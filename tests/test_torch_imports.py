@@ -1,6 +1,7 @@
 """The port stands alone: it imports nothing of navillm_tpu, no jax and
-none of the packages the card's machine lacks, and its tiny slices (greedy
-evaluation, dense and int4, then one teacher-forcing optimizer step through
+none of the packages the card's machine lacks (tokenizers among them), and
+its tiny slices (greedy evaluation on bytes, on BPE uncached and
+prefix-cached, on int4, then one teacher-forcing optimizer step through
 train_one_epoch) run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
@@ -33,7 +34,9 @@ from navillm_tpu_torch.models.tokenization import NavTokenizer
 
 torch.set_num_threads(1)
 tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
-cfg = NavModelConfig.tiny(vocab_size=tok.vocab_size, use_obj=False)
+bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+cfg = NavModelConfig.tiny(vocab_size=max(tok.vocab_size, bpe.vocab_size),
+                          use_obj=False)
 model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
                                       device="cpu"))
 runner = NavModelRunner(cfg, model, tok, dims=RolloutDims.tiny())
@@ -44,6 +47,22 @@ with tempfile.TemporaryDirectory() as tmp:
                                      Dataloader(ds, 2, False), dataset=ds)
     assert len(preds) == 4, preds
     print("metrics", ds.eval_metrics(preds, None, "R2R")[0])
+
+    # the BPE slice, uncached and prefix-cached
+    trajs = []
+    for cached in (False, True):
+        brunner = NavModelRunner(cfg, model, bpe, dims=RolloutDims.tiny())
+        bagent, bds, bargs = T.r2r_eval(anno, brunner, 2,
+                                        cfg.pano.image_feat_size,
+                                        prefix_cache=cached)
+        bpreds = bagent.validate_streaming(
+            "R2R", bargs, T.eval_config(4), Dataloader(bds, 2, False),
+            dataset=bds)
+        trajs.append({p["instr_id"]: p["trajectory"] for p in bpreds})
+    assert brunner.eval_steps == 0 and brunner.cached_steps > 0 \
+        and brunner.prefill_calls > 0
+    assert len(trajs[1]) == 4 and trajs[0] == trajs[1], trajs
+    print("bpe cached metrics", bds.eval_metrics(bpreds, None, "R2R")[0])
 
     from navillm_tpu_torch.models.quant import quantize_nav_params, weight_bits
     from navillm_tpu_torch.ops.matmul_q4 import matmul_q4

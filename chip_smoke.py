@@ -84,10 +84,44 @@ after phase 10 (int4):
  15. cached-step A/B: one snapshotted step with history through
      eval_step_cached and through eval_step on the same state and prompts,
      candidate logits gated per element (CACHED_LOGIT_*); the step with
-     the last cached token hidden must fail the gate;
+     the last cached token hidden must fail the gate. Then one DAgger batch
+     sampled through uncached and through cached sampling on the same
+     noise per (slot group, step) (sampling_probe): per step the candidate
+     logits within that gate and the same draw wherever the Gumbel-max
+     margin exceeds what the gate can move (sampled_ab), which the cached
+     run with the last cached token of every row hidden must fail;
  16. phase 14 on the int4 tree (w4): K4 launches 7 times per layer of
      every prefill call and cached step;
  17. phase 16 with act_int8 (w4a8): every K4 launch in int8 mode.
+The DAgger half and the training driver run after phase 7, while the bf16
+model is live; phases 18-20 on it, on BPE prompts and RolloutDims(48, 44,
+47, 16, max_prefix=192):
+ 18. train_one_epoch at stage multi with the JAX defaults (fused_dagger,
+     dagger_streams=2, dagger_prefix_cache=True): a warm-up epoch, then 4
+     batches of 8 (2 teacher, 2 DAgger, 2 optimizer steps); every DAgger
+     batch samples through the prefix-cached step (no uncached step, no
+     mid-batch bailout), every draw is a valid candidate of its row, K1 =
+     32 x (prefill calls + uncached steps) + 64 x grad calls and K2 = K3 =
+     32 x grad calls; prints ms per teacher and per DAgger batch (sampling
+     and loss pass apart), LLM tokens per sampling step, cache bytes and
+     peak memory;
+ 19. the sampler on the card (Gumbel-max: frequencies within 5 sigma of
+     softmax(logits/T) at T in (1, 0.5), no masked candidate, T -> 0 gives
+     the argmax, the override wins, a seed repeats), then one DAgger batch
+     sampled and replayed with its actions forced through cached and
+     uncached sampling: the same trajectories, losses within
+     DAGGER_AB_LOSS_REL and gradients within phase 7's cosine;
+ 20. run_training at stage multi (injected runner) from a YAML text the
+     port's own reader parses: 1 epoch of 4 batches, streaming validation
+     of 16 episodes, max_saved_checkpoints=1, so epoch_0 is written in the
+     torch backend (bf16 kept), then restored into a freshly drawn model and
+     compared bit for bit; prints its bytes, write and read seconds and the
+     free disk;
+ 21. the entry point's main() (python -m navillm_tpu_torch.train) on its
+     defaults, the card and stage multi, with build_runner's model (2
+     layers, 4 heads of 64, bf16): 1 epoch of 4 batches of 4, validation,
+     an npz checkpoint; its kernel launches as the path implies (K1 once
+     per layer of every grad call: this model does not remat).
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -109,13 +143,18 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from navillm_tpu_torch import testing as T
+from navillm_tpu_torch import train as TRAIN
+from navillm_tpu_torch.agents import device_memory as DM
+from navillm_tpu_torch.agents import fused_teacher as FT
 from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
 from navillm_tpu_torch.models.llama import LlamaConfig, _act_q
 from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
@@ -132,9 +171,12 @@ from navillm_tpu_torch.ops.attention import (
 from navillm_tpu_torch.ops.masking import NEG_INF
 from navillm_tpu_torch.ops.matmul_q4 import (matmul_q4, matmul_q4_reference,
                                              unpack_q4)
+from navillm_tpu_torch.training import train_loop as TTL
+from navillm_tpu_torch.training.checkpoints import load_checkpoint
 from navillm_tpu_torch.training.optim import make_optimizer
 from navillm_tpu_torch.training.train_loop import (make_opt_step,
                                                    train_one_epoch)
+from navillm_tpu_torch.utils.config import load_yaml_text
 
 KERNELS = {
     "fwd": {"name": "flash_attn_fwd", "route": "cuda",
@@ -247,6 +289,46 @@ Q4_A8_RTOL = 1e-6
 # the 7B layer matmuls (h, o): wq/wk/wv/wo, w_gate/w_up, w_down
 Q4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 Q4_LAYER_MATMULS = 7
+# the DAgger and driver phases (18-20): BPE prompts, every unvisited node a
+# candidate (max_cands = max_gmap_nodes - 1, ROADMAP C5), the eval slices'
+# prefix capacity
+DAGGER_DIMS = RolloutDims(max_gmap_nodes=48, max_views=44, max_cands=47,
+                          max_hist=16, max_prefix=MAX_PREFIX)
+# phase 19's sampler checks: N_DRAWS draws of one row, every bin within 5
+# sigma of N p
+N_DRAWS = 20000
+# phase 19: the same forced DAgger batch through cached and uncached
+# sampling gives the same loss pass inputs, so the losses agree to a bf16
+# ulp and the gradients to phase 7's cosine
+DAGGER_AB_LOSS_REL = 2 ** -7
+# phase 20: run_training's validation split
+RUN_VAL_EPISODES = 16
+# phase 21: the CLI on its defaults (the card, stage multi, build_runner's
+# model): 4 batches of 4, validation of CLI_VAL_EPISODES episodes
+CLI_BATCH = 4
+CLI_VAL_EPISODES = 8
+RUN_YAML = """
+Feature: %(feature)s
+Dataset:
+  R2R:
+    DIR: "R2R"
+    SPLIT: {
+      "train": "annotations/train.json",
+      "val_unseen": "annotations/val.json",
+    }
+Multi:
+  SOURCE: ['R2R']
+  Ratio: [1]
+  LOSS_COEF: {}
+Model: {num_pano_layers: 2, enc_full_graph: True, expert_policy: "spl"}
+Optim:
+  train_max_action_len: {"R2R": %(len)d}
+  val_max_action_len: {"R2R": %(len)d}
+"""
+
+
+def run_yaml(feature: str) -> str:
+    return RUN_YAML % {"feature": feature, "len": MAX_ACTION_LEN}
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
@@ -1205,16 +1287,23 @@ WINDOW_KEYS = ("app_ids", "app_mask", "app_hist_pos", "suf_ids", "suf_mask",
                "cand_positions", "cls_pos")
 
 
-def logit_excess(got, want) -> float:
-    """The worst |got - want| / tol over want's valid logits (the
-    CACHED_LOGIT_* bound); both must mask the same logits."""
+def logit_tol(want):
+    """(tol, valid): the CACHED_LOGIT_* bound per element of want's valid
+    logits, 0 on the masked ones."""
     valid = want > NEG_INF / 2
-    if not torch.equal(got > NEG_INF / 2, valid):
-        return math.inf
     w = torch.where(valid, want, torch.zeros((), device=want.device))
     rms = (w.square().sum(-1, keepdim=True)
            / valid.sum(-1, keepdim=True).clamp(min=1)).sqrt()
-    tol = CACHED_LOGIT_REL * want.abs() + CACHED_LOGIT_ROW * rms
+    tol = CACHED_LOGIT_REL * w.abs() + CACHED_LOGIT_ROW * rms
+    return torch.where(valid, tol, torch.zeros((), device=want.device)), valid
+
+
+def logit_excess(got, want) -> float:
+    """The worst |got - want| / tol over want's valid logits (the
+    CACHED_LOGIT_* bound); both must mask the same logits."""
+    tol, valid = logit_tol(want)
+    if not torch.equal(got > NEG_INF / 2, valid):
+        return math.inf
     return ((got - want).abs() / tol)[valid].max().item()
 
 
@@ -1334,6 +1423,719 @@ def report_cached(tag, cfg, trajs, stats, ref_trajs, ref_stats, ref_tag):
           f"equal to phase {ref_tag}'s: {same} of {len(trajs)}")
 
 
+def cuda_timed(fn, sink):
+    """fn, with each call's wall seconds (card synchronized on both
+    sides) appended to ``sink``."""
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+    return wrapped
+
+
+def zero_counters(runner):
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
+    runner.grad_calls = 0
+    runner.llm_token_units = 0.0
+
+
+def check_launches(tag, runner, layers):
+    """K1 once per layer of every prefill and uncached step and of every
+    grad call's forward, and once more under remat (the recomputed
+    forward); K2 and K3 once per layer of every grad call. Returns the
+    launches."""
+    launches = {k: fn.launches for k, fn in COUNTERS.items()}
+    passes = runner.prefill_calls + runner.eval_steps
+    calls = runner.grad_calls
+    fwd_per_call = 2 if runner.cfg.llm.remat else 1
+    want = {"fwd": layers * (passes + fwd_per_call * calls),
+            "dkv": layers * calls, "dq": layers * calls}
+    if launches != want:
+        raise RuntimeError(f"[{tag}] kernel launches {launches} != {want} "
+                           f"({runner.prefill_calls} prefills + "
+                           f"{runner.eval_steps} uncached steps, {calls} "
+                           f"grad calls, {layers} layers)")
+    return launches
+
+
+def dagger_setup(tok, cfg, model):
+    """The JAX defaults of the DAgger half (fused_dagger, dagger_streams=2,
+    dagger_prefix_cache=True) at stage multi."""
+    args = TrainArgs(stage="multi", image_feat_size=cfg.pano.image_feat_size,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     gradient_accumulation_step=2, seed=0)
+    runner = NavModelRunner(cfg, model, tok, dims=DAGGER_DIMS,
+                            feat_dropout=args.feat_dropout, seed=args.seed)
+    return args, runner
+
+
+def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
+    """Phase 18: train_one_epoch at stage multi (teacher, then the fused
+    DAgger: sampling on the card through the prefix-cached step, then the
+    fused loss pass), a warm-up epoch, then 4 batches of 8. Returns the
+    measured run's kernel launches."""
+    args, runner = dagger_setup(bpe, cfg, model)
+    layers = cfg.llm.num_layers
+    rec = {"draws": [], "sample_tokens": 0.0, "teacher_s": [],
+           "dagger_s": [], "dagger_lp": [],
+           "loss_pass": {"teacher": [], "sample": []}, "losses": []}
+    cached, plain, prefill = (runner.eval_step_cached, runner.eval_step,
+                              runner.prefill)
+
+    def counted(fn, step):
+        def wrapped(*a, **kw):
+            before = runner.llm_token_units
+            out = fn(*a, **kw)
+            rec["sample_tokens"] += runner.llm_token_units - before
+            if step:          # (a_t, logits) of the step, active rows
+                rec["draws"].append((out[-2], out[-1], kw["active_mask"]))
+            return out
+        return wrapped
+
+    runner.eval_step_cached = counted(cached, True)
+    runner.eval_step = counted(plain, True)
+    runner.prefill = counted(prefill, False)
+    loss_pass = FT._fused_trajectory_train
+
+    def timed_loss_pass(*a, **kw):
+        return cuda_timed(loss_pass, rec["loss_pass"][
+            kw.get("feedback", "teacher")])(*a, **kw)
+
+    config = T.train_config(MAX_ACTION_LEN)
+    tx = make_optimizer(dict(model.named_parameters()), lr=args.lr,
+                        num_warmup_steps=args.num_warmup_steps,
+                        grad_clip_norm=args.grad_clip_norm)
+    agents = []
+
+    def epoch(root, n_episodes, seed):
+        anno = T.make_r2r_world(root, n_episodes=n_episodes, seed=seed,
+                                split="train")
+        agent, ds, loader = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+        agents.append(agent)
+        train = agent.train
+
+        def recorded_train(name, batch, a, config, dataset, step=0, **kw):
+            sink = rec["dagger_s"] if step % 2 else rec["teacher_s"]
+            n_lp = len(rec["loss_pass"]["sample"])
+            loss = cuda_timed(train, sink)(name, batch, a, config, dataset,
+                                           step=step, **kw)
+            if step % 2:       # the batch's loss passes, one per slot group
+                rec["dagger_lp"].append(sum(rec["loss_pass"]["sample"][n_lp:]))
+            rec["losses"].append(loss)
+            return loss
+
+        agent.train = recorded_train
+        return train_one_epoch(
+            args, config, runner, tx, make_opt_step(tx),
+            MetaLoader({"R2R": (loader, 1.0)}), {"R2R": agent},
+            {"R2R": ds}, 0, None, num_batches=len(loader))
+
+    FT._fused_trajectory_train = timed_loss_pass
+    try:
+        epoch(f"{tmp}/warm", 2 * TRAIN_BATCH, seed=1)
+        agents.clear()              # and the warm-up agent's caches
+        for v in (rec["draws"], rec["teacher_s"], rec["dagger_s"],
+                  rec["dagger_lp"], rec["loss_pass"]["teacher"],
+                  rec["loss_pass"]["sample"], rec["losses"]):
+            v.clear()
+        rec["sample_tokens"] = 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(runner)
+        with window():
+            t0 = time.perf_counter()
+            avg_loss, norms = epoch(f"{tmp}/main", TRAIN_EPISODES, seed=0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = check_launches(18, runner, layers)
+    finally:
+        FT._fused_trajectory_train = loss_pass
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    agent = agents[-1]
+    n_batches = TRAIN_EPISODES // TRAIN_BATCH
+    losses = [float(x) for x in rec["losses"]]
+    if len(losses) != n_batches or not all(
+            math.isfinite(x) and 0 < x < MAX_LOSS for x in losses):
+        raise RuntimeError(f"[18] losses {losses}: not all finite and in "
+                           f"(0, {MAX_LOSS})")
+    norms = [float(n) for n in norms]
+    if len(norms) != n_batches // args.gradient_accumulation_step or not all(
+            math.isfinite(n) and n > 0 for n in norms):
+        raise RuntimeError(f"[18] global gradient norms {norms}")
+    # the sampling pass took the cached step throughout: no uncached step,
+    # no mid-batch bailout
+    if runner.eval_steps or not runner.cached_steps \
+            or not runner.prefill_calls or agent.dagger_bailouts:
+        raise RuntimeError(f"[18] the DAgger batches did not take the cached "
+                           f"sampling step: {runner.eval_steps} uncached, "
+                           f"{runner.cached_steps} cached steps, "
+                           f"{runner.prefill_calls} prefills, "
+                           f"{agent.dagger_bailouts} bailouts")
+    bad = n_draws = 0
+    for a_t, logits, active in rec["draws"]:
+        act = torch.from_numpy(np.asarray(active)).to(logits.device)
+        chosen = logits.gather(1, a_t.long()[:, None])[:, 0]
+        bad += int(((chosen <= NEG_INF / 2) & act).sum())
+        n_draws += int(act.sum())
+    if bad:
+        raise RuntimeError(f"[18] {bad} sampled actions are not a valid "
+                           f"candidate of their row")
+    groups = len({id(c[2]) for c in agent._dagger_cache_pool})
+    cache_bytes = sum(runner.prefix_cache_bytes(b, p)
+                      for b, p, _ in agent._dagger_cache_pool)
+    steps = runner.cached_steps
+    lp = rec["dagger_lp"]
+    sample_s = [d - l for d, l in zip(rec["dagger_s"], lp)]
+    print(f"[18] stage multi, {TRAIN_EPISODES} episodes in {dt:.3f} s = "
+          f"{TRAIN_EPISODES / dt:.3f} episodes/s, {len(norms)} optimizer "
+          f"steps; teacher batch "
+          f"{[round(1e3 * x, 1) for x in rec['teacher_s']]} ms; DAgger "
+          f"batch {[round(1e3 * x, 1) for x in rec['dagger_s']]} ms = "
+          f"sampling {[round(1e3 * x, 1) for x in sample_s]} + loss pass "
+          f"{[round(1e3 * x, 1) for x in lp]} ms; {steps} cached sampling "
+          f"steps and {runner.prefill_calls} prefills in {groups} slot "
+          f"groups, {rec['sample_tokens'] / steps:.1f} LLM tokens per "
+          f"sampling step (prefills included), {n_draws} draws of active "
+          f"rows, all valid; cache {cache_bytes} bytes "
+          f"({cache_bytes / 2 ** 30:.3f} GiB); {runner.grad_calls} grad "
+          f"calls; peak memory {peak:.2f} GiB; losses "
+          f"{[round(x, 4) for x in losses]} (mean {avg_loss:.4f}); grad "
+          f"norms {[round(n, 4) for n in norms]}; launches {launches}")
+    del tx
+    return launches
+
+
+def phase_sampler(bpe, cfg, model, tmp):
+    """Phase 19: the sampler on the card (frequencies, masks, argmax at
+    T -> 0, the override, the seed), then one DAgger batch with forced
+    actions through cached and uncached sampling."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
+    row = torch.tensor([[0.3, -1.2, 1.5, 0.0, 2.1, -0.4, NEG_INF, NEG_INF]],
+                       device=dev)
+    worst = 0.0
+    for temperature in (1.0, 0.5):
+        gen.manual_seed(7)
+        draws = DM.sample_actions(row.expand(N_DRAWS, -1).contiguous(),
+                                  temperature, gen)
+        counts = torch.bincount(draws.long(), minlength=row.shape[1]).cpu()
+        p = torch.softmax(row[0].cpu() / temperature, -1).double()
+        sigma = (N_DRAWS * p * (1 - p)).sqrt()
+        z = ((counts - N_DRAWS * p).abs()[:6] / sigma[:6]).max().item()
+        worst = max(worst, z)
+        if counts[6:].sum() or z > 5:
+            raise RuntimeError(f"[19] T={temperature}: counts "
+                               f"{counts.tolist()} against "
+                               f"{(N_DRAWS * p).tolist()}")
+    g2 = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.randn((N_DRAWS, 12), generator=g2, device=dev)
+    logits[:, 5:] = NEG_INF
+    for temperature in (1.0, 1e-6, 100.0):
+        gen.manual_seed(2)
+        if int(DM.sample_actions(logits, temperature, gen).max()) >= 5:
+            raise RuntimeError(f"[19] T={temperature}: a masked candidate "
+                               f"was drawn")
+    gen.manual_seed(1)
+    if not torch.equal(DM.sample_actions(logits, 1e-6, gen),
+                       logits.argmax(-1).int()):
+        raise RuntimeError("[19] T=1e-6 is not the argmax")
+    override = torch.full((N_DRAWS,), -1, dtype=torch.int32, device=dev)
+    override[::3] = 4
+    a = DM.select_actions(logits, override, True, 1.0,
+                          gen.manual_seed(11))
+    b = DM.select_actions(logits, override, True, 1.0,
+                          torch.Generator(device=dev).manual_seed(11))
+    if not torch.equal(a, b) or not torch.equal(a[::3], override[::3]):
+        raise RuntimeError("[19] the override or the seed does not hold")
+    print(f"[19] sampler on the card: {N_DRAWS} draws at T in (1, 0.5) "
+          f"within {worst:.2f} sigma of softmax(logits/T) per bin, no "
+          f"masked candidate at T in (1, 1e-6, 100), T=1e-6 gives the "
+          f"argmax, the override wins, a seed repeats its draws")
+
+    # one DAgger batch sampled (cached), then its actions forced through
+    # cached and uncached sampling: the same trajectories, permutations and
+    # dropout, so the same loss pass inputs
+    args, runner = dagger_setup(bpe, cfg, model)
+    _, _, rollout = dagger_batch(tmp, args, runner)
+    last = cfg.llm.num_layers - 1
+    watch = {"llm.layers.wq[0]": lambda m: m.llm.layers.wq.grad[0],
+             f"llm.layers.wq[{last}]": lambda m: m.llm.layers.wq.grad[last],
+             "out_head.w": lambda m: m.out_head.w.grad,
+             "pano.mapper.w": lambda m: m.pano.mapper.w.grad}
+    groups, loss_pass = [], FT._fused_trajectory_train
+
+    def capture(*a, **kw):
+        groups.append(kw["steps"])
+        return loss_pass(*a, **kw)
+
+    def run(prefix_cache, forced=None):
+        runner.rng.manual_seed(7)
+        runner.zero_grads()
+        lp = []
+        FT._fused_trajectory_train = cuda_timed(capture, lp)
+        try:
+            loss, paths, t, counts = rollout(prefix_cache, forced)
+        finally:
+            FT._fused_trajectory_train = loss_pass
+        grads = {k: f(model).float().clone() for k, f in watch.items()}
+        return float(loss), paths, grads, t - sum(lp), sum(lp), counts
+
+    sampled = run(True)
+    n_steps = max(len(st) for st in groups)
+    forced = [np.concatenate([st[t]["actions"] if t < len(st)
+                              else np.zeros(len(st[0]["actions"]), np.int64)
+                              for st in groups]) for t in range(n_steps)]
+    with_cache = run(True, forced)
+    without = run(False, forced)
+    runner.take_grads()
+    if not (sampled[1] == with_cache[1] == without[1]):
+        raise RuntimeError("[19] the forced trajectories differ between "
+                           "cached and uncached sampling")
+    if with_cache[5][1] or not with_cache[5][0] or without[5][0] \
+            or not without[5][1]:
+        raise RuntimeError(f"[19] sampling steps (cached, uncached, "
+                           f"prefills): {with_cache[5]} and {without[5]}")
+    rel = abs(with_cache[0] - without[0]) / abs(without[0])
+    cos = {k: torch.nn.functional.cosine_similarity(
+        with_cache[2][k].flatten(), without[2][k].flatten(), dim=0).item()
+        for k in watch}
+    print(f"[19] one DAgger batch of {TRAIN_BATCH}, forced to the sampled "
+          f"run's actions: trajectories equal ({n_steps} steps); loss "
+          f"cached {with_cache[0]:.6f} uncached {without[0]:.6f} (rel "
+          f"{rel:.3e}, limit {DAGGER_AB_LOSS_REL:.3e}); gradient cosine "
+          f"{ {k: round(v, 6) for k, v in cos.items()} }; sampling "
+          f"{1e3 * with_cache[3]:.1f} ms cached ({with_cache[5][0]} steps, "
+          f"{with_cache[5][2]} prefills) against {1e3 * without[3]:.1f} ms "
+          f"uncached ({without[5][1]} steps); loss pass "
+          f"{1e3 * with_cache[4]:.1f} and {1e3 * without[4]:.1f} ms")
+    if not rel <= DAGGER_AB_LOSS_REL or min(cos.values()) < MIN_GRAD_COSINE:
+        raise RuntimeError("[19] the forced batch's loss pass differs "
+                           "between cached and uncached sampling")
+
+
+def dagger_batch(tmp, args, runner):
+    """One DAgger batch of TRAIN_BATCH on its own world, with candidates in
+    graph order. Returns (agent, dataset, rollout): rollout(prefix_cache,
+    forced=None) runs it through rollout_dagger_fused and returns (loss,
+    paths, wall s, (cached steps, uncached steps, prefills))."""
+    anno = T.make_r2r_world(f"{tmp}/ab", n_episodes=TRAIN_BATCH, seed=3,
+                            split="train")
+    agent, ds, _ = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+    optim = T.train_config(MAX_ACTION_LEN).Optim
+
+    def rollout(prefix_cache, forced=None):
+        a2 = dataclasses.replace(args, dagger_prefix_cache=prefix_cache)
+        batch = next(iter(Dataloader(ds, TRAIN_BATCH, shuffle=False)))
+        zero_counters(runner)
+        t = []
+        loss, traj = cuda_timed(FT.rollout_dagger_fused, t)(
+            agent, a2, "R2R", optim, batch, dataset=ds, train_ml=1.0,
+            forced_actions=forced, np_rng=IdentityPermutation())
+        return (loss, [x["path"] for x in traj], t[0],
+                (runner.cached_steps, runner.eval_steps, runner.prefill_calls))
+    return agent, ds, rollout
+
+
+def phase_sampled_ab(bpe, cfg, model, tmp):
+    """Phase 15, continued: one DAgger batch sampled through uncached and
+    through cached sampling on the same noise per (slot group, step)
+    (sampling_probe), its per-step logits and draws held against each
+    other (sampled_ab), on the weights phase 15's snapshot sees; the cached
+    run with the last cached token of every row hidden must fail."""
+    args, runner = dagger_setup(bpe, cfg, model)
+    agent, _, rollout = dagger_batch(tmp, args, runner)
+    temperature = max(float(args.temperature), 1e-6)
+    with sampling_probe(runner) as probe:
+        ref = probe.run(lambda: rollout(False))
+        got = probe.run(lambda: rollout(True))
+    if ref["out"][3][0] or not ref["out"][3][1] or got["out"][3][1] \
+            or not got["out"][3][0] or agent.dagger_bailouts:
+        raise RuntimeError(f"[15] sampling steps (cached, uncached, "
+                           f"prefills): {ref['out'][3]} and {got['out'][3]}, "
+                           f"{agent.dagger_bailouts} bailouts")
+    fails, st = sampled_ab(ref, got, temperature)
+    f_fails, f_st = sampled_ab(ref, got["fault"], temperature)
+    print(f"[15] one DAgger batch of {TRAIN_BATCH} sampled (T="
+          f"{temperature:g}) through uncached and cached sampling on the "
+          f"same noise per (slot group, step): {st['rows']} of "
+          f"{st['ref_rows']} active draws compared over {st['steps']} "
+          f"steps, {st['decisive']} with a Gumbel-max margin above the "
+          f"logit limit; {st['diverged']} rows parted on a draw within the "
+          f"limit; logits within {st['worst']:.3f} of the per-element "
+          f"limit; {len(fails)} steps fail. The cached run with the last "
+          f"cached token of every row hidden: {len(f_fails)} of "
+          f"{f_st['steps']} steps fail (worst finite excess "
+          f"{f_st['worst']:.3f}; {f_fails[:3]})")
+    if not f_fails:
+        raise RuntimeError("[15] the sampled A/B passes a planted fault (the "
+                           "last cached token hidden)")
+    if fails or st["rows"] * 2 < st["ref_rows"] or not st["decisive"]:
+        raise RuntimeError(f"[15] cached sampling differs from uncached: "
+                           f"{fails[:4] or st}")
+
+
+class IdentityPermutation:
+    """np_rng for the DAgger A/B: candidates in graph order, so that a
+    row's prompt does not depend on how many draws the other rows took."""
+
+    def permutation(self, x):
+        return np.asarray(x)
+
+
+class sampling_probe(contextlib.AbstractContextManager):
+    """Runs the fused DAgger with every draw keyed by (slot group, step)
+    instead of the call order: the group's generator is driven through a
+    wrapper that sets the key before each step, and the step's generator
+    is seeded from it. Two runs then draw the same noise for the same step
+    of the same group, even where a row's diverging trajectory changes how
+    the groups interleave. Records per key the f32 logits, the Gumbel noise
+    (replayed from the same seed), the draws and the active rows; a cached
+    step is also run on copies with the last cached token of every row
+    hidden, recorded apart as the planted fault."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.key = None
+
+    def seed(self):
+        return 1_000_003 * (self.key[0] + 1) + self.key[1]
+
+    def __enter__(self):
+        r = self.runner
+        self.saved = (FT._dagger_sample_group, DM.sample_actions,
+                      FT._fused_trajectory_train, r.eval_step,
+                      r.eval_step_cached)
+        group, sample, _, step, cached = self.saved
+        probe = self
+
+        def labelled(*a, **kw):
+            g = probe.groups
+            probe.groups += 1
+            return drive(group(*a, **kw), g)
+
+        def drive(inner, g):
+            k = 0
+            while True:
+                probe.key = (g, k)
+                try:
+                    next(inner)
+                except StopIteration:
+                    return
+                k += 1
+                yield
+
+        def sampling(do_sample, temperature):
+            gen = torch.Generator(device=r.device).manual_seed(
+                probe.seed()) if do_sample else None
+            return {"do_sample": do_sample,
+                    "temperature": float(temperature), "generator": gen}
+
+        def recording_sample(logits, temperature, generator):
+            a_t = sample(logits, temperature, generator)
+            replay = torch.Generator(device=logits.device).manual_seed(
+                probe.seed())
+            u = torch.rand(logits.shape, generator=replay,
+                           device=logits.device, dtype=torch.float32)
+            u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+            probe.rec[probe.key] = {"logits": logits.float().clone(),
+                                    "noise": -torch.log(-torch.log(u)),
+                                    "draws": a_t.long().clone()}
+            return a_t
+
+        def no_loss_pass(agent, args, **kw):
+            probe.steps.append(kw["steps"])
+            return torch.zeros((), device=r.device), kw["traj"]
+
+        def uncached_step(*a, **kw):
+            probe.active[probe.key] = np.asarray(kw["active_mask"]).copy()
+            return step(*a, **kw)
+
+        def cached_step(state, cache, *a, **kw):
+            probe.active[probe.key] = np.asarray(kw["active_mask"]).copy()
+            hidden = {k: v.clone() for k, v in cache.items()}
+            hidden["plen"] = (hidden["plen"] - 1).clamp_(min=0)
+            probe.rec = probe.out_fault
+            cached({k: v.clone() for k, v in state.items()}, hidden, *a,
+                   **kw)
+            probe.rec = probe.out_good
+            return cached(state, cache, *a, **kw)
+
+        FT._dagger_sample_group = labelled
+        DM.sample_actions = recording_sample
+        FT._fused_trajectory_train = no_loss_pass
+        r._sampling = sampling
+        r.eval_step = uncached_step
+        r.eval_step_cached = cached_step
+        return self
+
+    def run(self, fn):
+        """fn() under the probe: {"out": fn's result, "rec" and "active":
+        this run's records, "steps": the slot groups' step snapshots,
+        "fault": the planted fault's records (cached steps only)}."""
+        self.groups = 0
+        self.active, self.out_good, self.out_fault, self.steps = {}, {}, {}, []
+        self.rec = self.out_good
+        out = fn()
+        return {"out": out, "rec": self.out_good, "active": self.active,
+                "steps": self.steps,
+                "fault": {"rec": self.out_fault, "active": self.active}}
+
+    def __exit__(self, *exc):
+        r = self.runner
+        (FT._dagger_sample_group, DM.sample_actions,
+         FT._fused_trajectory_train, r.eval_step, r.eval_step_cached) = \
+            self.saved
+        del r._sampling
+        return False
+
+
+def sampled_ab(ref, got, temperature):
+    """Holds one sampled DAgger run (got) against another on the same noise
+    (ref), key by key (slot group, step), over the rows active in both
+    whose trajectories have not parted: the candidate logits per element
+    within phase 15's limit (logit_tol), and the same draw wherever ref's
+    Gumbel-max margin exceeds what that limit lets move it (the winner's
+    score minus its tolerance above every other's plus theirs). A row that
+    draws otherwise within its margin has parted and leaves the comparison.
+    Returns (one line per step that breaks this, counts)."""
+    parted, fails = set(), []
+    st = {"steps": 0, "rows": 0, "decisive": 0, "diverged": 0, "worst": 0.0,
+          "ref_rows": sum(int(a.sum()) for a in ref["active"].values())}
+    for key in sorted(set(ref["active"]) | set(got["active"])):
+        g = key[0]
+        a_ref, a_got = ref["active"].get(key), got["active"].get(key)
+        if a_ref is None or a_got is None:
+            only = a_ref if a_got is None else a_got
+            if any((g, i) not in parted for i in np.nonzero(only)[0]):
+                fails.append(f"step {key} ran in one run only")
+            continue
+        live = [i for i in range(len(a_ref))
+                if (g, i) not in parted and (a_ref[i] or a_got[i])]
+        if any(a_ref[i] != a_got[i] for i in live):
+            fails.append(f"step {key}: rows ended apart")
+            continue
+        if not live:
+            continue
+        st["steps"] += 1
+        r, o = ref["rec"].get(key), got["rec"].get(key)
+        if r is None or o is None:
+            fails.append(f"step {key}: no draw in one run")
+            continue
+        if not torch.equal(r["noise"], o["noise"]):
+            fails.append(f"step {key}: the noise differs")
+            continue
+        idx = torch.tensor(live, device=r["logits"].device)
+        want, have = r["logits"][idx], o["logits"][idx]
+        if not torch.isfinite(have).all():
+            fails.append(f"step {key}: logits not finite")
+            continue
+        excess = logit_excess(have, want)
+        if math.isfinite(excess):
+            st["worst"] = max(st["worst"], excess)
+        if not excess <= 1:
+            fails.append(f"step {key}: logits at {excess:.3f} of the limit")
+            continue
+        score = want / temperature + r["noise"][idx]
+        top = score.argmax(-1)
+        if not torch.equal(top, r["draws"][idx]):
+            fails.append(f"step {key}: the replayed noise misses the draw")
+            continue
+        slack = logit_tol(want)[0] / temperature
+        hi = (score - slack).gather(1, top[:, None])[:, 0]
+        rest = (score + slack).scatter(1, top[:, None], -math.inf)
+        decisive = (hi > rest.max(-1).values).tolist()
+        same = (r["draws"][idx] == o["draws"][idx]).tolist()
+        for j, i in enumerate(live):
+            st["rows"] += 1
+            st["decisive"] += decisive[j]
+            if decisive[j] and not same[j]:
+                fails.append(f"step {key} row {i}: a decisive draw differs")
+            elif not same[j]:
+                parted.add((g, i))
+                st["diverged"] += 1
+    return fails, st
+
+
+def phase_run_training(bpe, cfg, model, tmp):
+    """Phase 20: run_training at stage multi on the 7B-width runner from a
+    YAML text the port's reader parses: one epoch of 4 batches of 8 (2
+    teacher, 2 DAgger), streaming validation of RUN_VAL_EPISODES episodes,
+    max_saved_checkpoints=1, so epoch_0 is written in the torch backend;
+    then restored into a freshly drawn model and compared bit for bit.
+    Returns the run's kernel launches."""
+    root = f"{tmp}/run"
+    T.make_r2r_world(root, n_episodes=TRAIN_EPISODES, seed=4, split="train")
+    T.make_r2r_world(root, n_episodes=RUN_VAL_EPISODES, seed=5, split="val")
+    ycfg = load_yaml_text(run_yaml("{image_feat_size: 1024, "
+                                   "angle_feat_size: 4}"))
+    args = TrainArgs(data_dir=root, output_dir=f"{root}/out", stage="multi",
+                     num_epochs=1, num_steps_per_epoch=4,
+                     batch_size=TRAIN_BATCH, val_batch_size=N_SLOTS,
+                     gradient_accumulation_step=2,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     max_saved_checkpoints=1, seed=0)
+    args.sync_from_config(ycfg)
+    runner = NavModelRunner(cfg, model, bpe, dims=DAGGER_DIMS,
+                            feat_dropout=args.feat_dropout, seed=args.seed)
+    saves = []
+    orig_save = TTL.save_checkpoint
+    free_before = shutil.disk_usage(tmp).free
+    TTL.save_checkpoint = cuda_timed(orig_save, saves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    try:
+        t0 = time.perf_counter()
+        res = TTL.run_training(args, ycfg, feat_dbs={
+            "mp3d": SyntheticImageFeaturesDB(cfg.pano.image_feat_size)},
+            runner=runner)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        TTL.save_checkpoint = orig_save
+    launches = check_launches(20, runner, cfg.llm.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r2r = res["R2R"]
+    if not all(math.isfinite(r2r[k]) for k in ("sr", "spl")):
+        raise RuntimeError(f"[20] SR/SPL not finite: {r2r}")
+    ck = Path(args.output_dir) / "epoch_0"
+    header = json.loads(ck.with_suffix(".json").read_text())
+    if header.get("backend") != "torch" or len(saves) != 1 \
+            or not ck.with_suffix(".pt").exists():
+        raise RuntimeError(f"[20] expected one torch-backend checkpoint: "
+                           f"{header}, {len(saves)} saves")
+    nbytes = ck.with_suffix(".pt").stat().st_size
+    free_after = shutil.disk_usage(tmp).free
+    # restore into a model drawn from another seed, on the card
+    for p in model.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = next(model.parameters()).device
+    fresh = NavModel(cfg, init_nav_params(
+        cfg, torch.Generator(device=dev).manual_seed(1), device=dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    load_checkpoint(ck, fresh)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t1
+    differ = [n for (n, a), b in zip(model.named_parameters(),
+                                     fresh.parameters())
+              if a.dtype != b.dtype or not torch.equal(a, b)]
+    del fresh
+    ck.with_suffix(".pt").unlink()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if differ:
+        raise RuntimeError(f"[20] the restored checkpoint differs from the "
+                           f"model in {len(differ)} tensors: {differ[:4]}")
+    print(f"[20] run_training (stage multi, 1 epoch of 4 batches of "
+          f"{TRAIN_BATCH}, validation of {RUN_VAL_EPISODES} episodes) in "
+          f"{dt:.3f} s: R2R {({k: round(float(v), 2) for k, v in r2r.items()})}"
+          f"; {runner.grad_calls} grad calls, {runner.cached_steps} cached "
+          f"sampling steps, {runner.prefill_calls} prefills, "
+          f"{runner.eval_steps} uncached (validation) steps; peak memory "
+          f"{peak:.2f} GiB; launches {launches}; checkpoint epoch_0 "
+          f"(torch backend, bf16 kept): {nbytes} bytes "
+          f"({nbytes / 2 ** 30:.3f} GiB) written in {saves[0]:.2f} s, read "
+          f"into a fresh model in {read_s:.2f} s, every tensor bit for bit "
+          f"equal; free disk {free_before / 2 ** 30:.1f} GiB before, "
+          f"{free_after / 2 ** 30:.1f} GiB with the checkpoint")
+    return launches
+
+
+def phase_cli(tmp):
+    """Phase 21: the entry point's main() (python -m navillm_tpu_torch.train)
+    on its defaults: the card, stage multi, the JAX DAgger defaults, no
+    pretrained path, so build_runner's model (2 layers, hidden 256 over 4
+    heads of 64, bf16: what the attention kernels take) with random
+    weights from --seed. 1 epoch of 4 batches of CLI_BATCH (2 teacher, 2
+    DAgger), streaming validation, max_saved_checkpoints=1 (an npz
+    checkpoint). The card's machine has no h5py, so the YAML's
+    feature_database resolves to SyntheticImageFeaturesDB where
+    run_training builds it. Returns the run's kernel launches."""
+    root = f"{tmp}/cli"
+    T.make_r2r_world(root, n_episodes=4 * CLI_BATCH, seed=6, split="train")
+    T.make_r2r_world(root, n_episodes=CLI_VAL_EPISODES, seed=7, split="val")
+    yaml_path = Path(root) / "r2r.yaml"
+    yaml_path.write_text(run_yaml('{image_feat_size: 32, angle_feat_size: '
+                                  '4, feature_database: {"mp3d": '
+                                  '"features.hdf5"}}'))
+    out = Path(root) / "out"
+    built, epochs = [], []
+    saved = (TTL.build_runner, TTL.create_feature_db, TTL.train_one_epoch)
+
+    def build_runner(*a, **kw):
+        built.append(saved[0](*a, **kw))
+        return built[-1]
+
+    def feature_dbs(config, image_feat_size, data_dir):
+        return {src: SyntheticImageFeaturesDB(image_feat_size)
+                for src in config}
+
+    def train_one_epoch(*a, **kw):
+        epochs.append(saved[2](*a, **kw))
+        return epochs[-1]
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    TTL.build_runner, TTL.create_feature_db, TTL.train_one_epoch = \
+        build_runner, feature_dbs, train_one_epoch
+    try:
+        t0 = time.perf_counter()
+        res = TRAIN.main(["--cfg_file", str(yaml_path), "--data_dir", root,
+                          "--output_dir", str(out), "--num_epochs", "1",
+                          "--num_steps_per_epoch", "4", "--batch_size",
+                          str(CLI_BATCH), "--val_batch_size", str(N_SLOTS),
+                          "--max_saved_checkpoints", "1"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        TTL.build_runner, TTL.create_feature_db, TTL.train_one_epoch = saved
+    runner = built[0]
+    llm = runner.cfg.llm
+    if runner.device.type != "cuda" or llm.dtype != torch.bfloat16 \
+            or llm.head_dim not in (64, 128):
+        raise RuntimeError(f"[21] build_runner built {llm} on "
+                           f"{runner.device}")
+    launches = check_launches(21, runner, llm.num_layers)
+    if not (runner.grad_calls and runner.cached_steps and runner.eval_steps):
+        raise RuntimeError(f"[21] {runner.grad_calls} grad calls, "
+                           f"{runner.cached_steps} cached sampling steps, "
+                           f"{runner.eval_steps} validation steps")
+    avg_loss, norms = epochs[0]
+    norms = [float(n) for n in norms]
+    if not (math.isfinite(avg_loss) and 0 < avg_loss < MAX_LOSS) or \
+            len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                       for n in norms):
+        raise RuntimeError(f"[21] loss {avg_loss}, gradient norms {norms}")
+    r2r = res["R2R"]
+    if not all(math.isfinite(r2r[k]) for k in ("sr", "spl")):
+        raise RuntimeError(f"[21] SR/SPL not finite: {r2r}")
+    header = json.loads((out / "epoch_0.json").read_text())
+    if header.get("backend") != "npz" or not (out / "epoch_0.npz").exists() \
+            or not (out / "train.log").exists():
+        raise RuntimeError(f"[21] expected epoch_0.npz and train.log in "
+                           f"{sorted(p.name for p in out.iterdir())}")
+    n = sum(p.numel() for p in runner.model.parameters())
+    print(f"[21] python -m navillm_tpu_torch.train's main() on its defaults "
+          f"(the card, stage multi): {n / 1e6:.2f} M params ({llm.num_layers}"
+          f" layers, {llm.num_heads} heads of {llm.head_dim}, bf16) in "
+          f"{dt:.3f} s: loss {avg_loss:.4f}, grad norms "
+          f"{[round(x, 4) for x in norms]}; R2R "
+          f"{({k: round(float(v), 2) for k, v in r2r.items()})}; "
+          f"{runner.grad_calls} grad calls, {runner.cached_steps} cached "
+          f"sampling steps, {runner.prefill_calls} prefills, "
+          f"{runner.eval_steps} validation steps; launches {launches}; "
+          f"epoch_0.npz {(out / 'epoch_0.npz').stat().st_size} bytes")
+    return launches
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -1355,11 +2157,23 @@ def main():
                   13)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cached_ab(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sampled_ab(bpe, cfg, model, tmp)
     bwd_err, bwd_timed = phase_backward()
     with tempfile.TemporaryDirectory() as tmp:
         launches, call = phase_train(tok, cfg, model, tmp)
     phase_grad_ab(tok, cfg, model, call)
     del call
+    # the DAgger half and the training driver, at 7B width on BPE prompts,
+    # before the int4 phases free the bf16 LLM
+    with tempfile.TemporaryDirectory() as tmp:
+        dagger_launches = phase_dagger(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sampler(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_launches = phase_run_training(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_cli(tmp)
     q4 = phase_q4_kernel()
     qmodel = quantize_model(cfg, model)
     # free the bf16 LLM: the phases' runners hold it in reference cycles
@@ -1398,14 +2212,20 @@ def main():
     # K1 at the eval slice's widest prompts (B=4, T=1024), K2/K3 at the
     # training slice's (B=16, T=1024), K4 at the w_gate shape with 4 slots
     # of 1024 tokens (w4); launches from the measured runs of phases 6
-    # (K1-K3) and 9 (K4)
+    # (K1-K3) and 9 (K4), and per phase of the training paths (6, 18, 20,
+    # 21)
     sdpa = ("F.scaled_dot_product_attention on the [B, NH, T, D] views with "
             "the same boolean mask (causal AND key mask)")
+    def by_phase(key):
+        return {"6": launches[key], "18": dagger_launches[key],
+                "20": run_launches[key], "21": cli_launches[key]}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
+             "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],
              "shape": "B=4 T=S=1024 NH=32 D=128 causal", "library": sdpa}]
     for key in ("dkv", "dq"):
         rows.append({**KERNELS[key], "launches": launches[key],
+                     "launches_by_phase": by_phase(key),
                      **bwd_err[key], **bwd_timed[1024][key],
                      "shape": "B=16 T=S=1024 NH=32 D=128 causal",
                      "library": "the backward of " + sdpa + " (dQ, dK, dV "

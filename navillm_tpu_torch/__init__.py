@@ -8,8 +8,11 @@ navsim.cpp, data/metrics, loaders and feature_db, models/tokenization).
 
 What runs today: greedy R2R streaming evaluation (agents/mp3d_agent.py
 R2RAgent.validate_streaming) through the device-memory eval step, and R2R
-teacher-forcing training (training/train_loop.py train_one_epoch ->
-R2RAgent.train -> agents/fused_teacher.py) with AdamW. Every Llama
+training (training/train_loop.py train_one_epoch -> R2RAgent.train ->
+agents/fused_teacher.py: teacher forcing, and the fused DAgger half with
+actions drawn on the card) with AdamW, driven from the command line by
+``python -m navillm_tpu_torch.train`` (YAML config, validation, model
+selection, checkpoints, resume). Every Llama
 layer's attention runs in hand-written CUDA kernels: the forward in
 csrc/flash_attn_fwd.cu, its gradient in csrc/flash_attn_bwd.cu (dK, dV)
 and csrc/flash_attn_bwd_dq.cu (dQ). With the LLM in int4, its layer

@@ -1,8 +1,8 @@
 """Device-resident rollout memory, the fused eval steps and the prefix cache.
 
-Torch twin of navillm_tpu/agents/device_memory.py (the greedy eval step,
-uncached and prefix-cached), and of the body of the fused trainer's
-scanned replay (``replay_fuse``). Per episode slot the device keeps
+Torch twin of navillm_tpu/agents/device_memory.py (the eval step, uncached
+and prefix-cached, greedy or sampled), and of the body of the fused
+trainer's scanned replay (``replay_fuse``). Per episode slot the device keeps
   mem_sum [B, M, H], mem_cnt [B, M] — mean-pooled node embeddings keyed
       by the episode graph's stable node index;
   hist_buf [B, Hh, H], hist_cnt [B]  — history (chosen fuse embeds);
@@ -128,10 +128,39 @@ def nav_step_from_memory(params, cfg, state: State, batch, pano_embeds):
     return out["fuse_logits"], out["fuse_embeds"]
 
 
+def sample_actions(logits, temperature: float, generator) -> torch.Tensor:
+    """One draw per row from softmax(logits / max(temperature, 1e-6)), by
+    Gumbel-max: argmax(logits / T + G) with G = -log(-log(U)), U uniform
+    from ``generator`` (on the logits' device). It stays on the device:
+    no host sync, unlike a host-side draw. JAX draws
+    jax.random.categorical on the same distribution from its own key, so
+    the two packages draw other actions. The draw is in f32: a masked
+    logit (NEG_INF = -1e30) over 1e-6 is -1e36, still finite, and never
+    wins against a real candidate. Returns int32 [B]."""
+    z = logits.float() / max(float(temperature), 1e-6)
+    u = torch.rand(z.shape, generator=generator, device=z.device,
+                   dtype=torch.float32)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return (z - torch.log(-torch.log(u))).argmax(-1).int()
+
+
+def select_actions(logits, a_t_override, do_sample: bool, temperature,
+                   generator) -> torch.Tensor:
+    """argmax (first maximum, as jnp.argmax) or a draw (sample_actions);
+    a_t_override >= 0 wins after either, as in JAX."""
+    if do_sample:
+        a_t = sample_actions(logits, temperature, generator)
+    else:
+        a_t = logits.argmax(-1).int()
+    return torch.where(a_t_override >= 0, a_t_override.int(), a_t)
+
+
 def eval_step(params, cfg, state: State, pano_in, batch, reset_mask, cur_ids,
-              cand_ids, active_mask, a_t_override):
-    """ONE fused greedy evaluation step: reset refilled slots -> panorama ->
-    memory update -> navigation forward -> argmax -> history append.
+              cand_ids, active_mask, a_t_override, do_sample: bool = False,
+              temperature: float = 1.0, generator=None):
+    """ONE fused evaluation step: reset refilled slots -> panorama ->
+    memory update -> navigation forward -> action select (argmax, or with
+    do_sample a draw from ``generator``, select_actions) -> history append.
     a_t_override [B]: force the action for rows >= 0.
     Returns (new_state, a_t [B] int32, logits [B, G] f32)."""
     state = reset_slots(state, reset_mask)
@@ -142,8 +171,8 @@ def eval_step(params, cfg, state: State, pano_in, batch, reset_mask, cur_ids,
     state = memory_update(state, pano_embeds, pano_masks, cur_ids, cand_ids)
     logits, fuse = nav_step_from_memory(params, cfg, state, batch,
                                         pano_embeds)
-    a_t = logits.argmax(-1).int()        # first maximum, as jnp.argmax
-    a_t = torch.where(a_t_override >= 0, a_t_override.int(), a_t)
+    a_t = select_actions(logits, a_t_override, do_sample, temperature,
+                         generator)
     state = hist_append(state, fuse,
                         torch.where(active_mask, a_t, torch.full_like(a_t, -1)))
     return state, a_t, logits
@@ -211,9 +240,10 @@ def prefill_prefix(params, llm_cfg, cache, ids, mask, rows, valid):
 
 def eval_step_cached(params, cfg, state: State, cache, pano_in, batch,
                      reset_mask, cur_ids, cand_ids, active_mask,
-                     a_t_override):
+                     a_t_override, do_sample: bool = False,
+                     temperature: float = 1.0, generator=None):
     """Prefix-cached variant of eval_step (twin of the JAX
-    eval_step_cached, greedy): instead of forwarding the whole prompt, one
+    eval_step_cached; the action as eval_step selects it): instead of forwarding the whole prompt, one
     merged window [history-append | candidates-suffix] runs against the
     row's cached prefix. The append columns carry this step's new history
     tokens, with hist_buf[b, hist_cnt-1] injected at their <hist> token, at
@@ -300,8 +330,8 @@ def eval_step_cached(params, cfg, state: State, cache, pano_in, batch,
                                    include_self=True)
     logits = torch.where(cand_masks, logits, neg)
 
-    a_t = logits.argmax(-1).int()        # first maximum, as jnp.argmax
-    a_t = torch.where(a_t_override >= 0, a_t_override.int(), a_t)
+    a_t = select_actions(logits, a_t_override, do_sample, temperature,
+                         generator)
     state = hist_append(state, fuse,
                         torch.where(active_mask, a_t, torch.full_like(a_t, -1)))
     return state, _cache_from_kv(pkv, plen), a_t, logits

@@ -1,29 +1,43 @@
-"""Fused whole-trajectory teacher forcing: one grad chain per trajectory batch.
+"""Fused whole-trajectory training: one grad chain per trajectory batch.
 
 Torch twin of navillm_tpu/agents/fused_teacher.py on its device-memory
-path (``use_dev=True``) for the teacher half. Under teacher forcing the
-whole trajectory is known before any model call, and the history
-embeddings fed to the LLM are the pre-LLM graph-fusion embeddings, so:
+path (``use_dev=True``), both halves:
 
-  1. host: simulate every step of the expert trajectory, recording
-     per-step snapshots (nothing in them depends on a model output);
+TEACHER (``rollout_teacher_fused``): under teacher forcing the whole
+trajectory is known before any model call, and the history embeddings fed
+to the LLM are the pre-LLM graph-fusion embeddings, so phase 1 is a host
+simulation of the expert trajectory.
+
+DAGGER (``rollout_dagger_fused``): phase 1 is a no-grad sampling rollout
+through the device-memory eval step (runner.eval_step, or with the
+prompt-prefix cache runner.eval_step_cached), the action drawn on the
+card; the batch's episodes split into slot groups driven round-robin as
+generators, so one group's host work runs while another's step is on the
+card, and only a_t comes back (HostCopy). The loss pass then trains on the
+expert action at each visited state (teacher_action, imitation_learning
+False), reusing the sampling pass's candidate permutations and prompts.
+
+The shared loss pass (``_fused_trajectory_train``):
   2. device: panorama over the live (episode, step) rows in fixed-width
      chunks, each chunk with its own dropout seed;
   3. host: the index arrays (current node, candidate nodes, gmap slots)
      that drive the replay;
-  4. device: memory replay + fusion + history (runner.replay_fuse_scan);
+  4. device: memory replay + fusion + history (runner.replay_fuse_scan),
+     the history following the taken actions (targets or samples);
   5. host prompts + device grad calls in chunks of fused_rows_per_call
      rows, each recomputing its chunk's panorama with the same seed, so
      the replayed embeddings and the differentiated ones agree.
 
 Rows of episodes that already ended are dropped (row compaction): their
-targets are ignoreid, so they add nothing to the loss or the gradient.
-The losses stay device scalars; train_loop reads them one step later.
+targets are ignoreid, so they add nothing to the loss or the gradient
+(R2R runs no final-step head that would read them). The losses stay
+device scalars; train_loop reads them one step later.
 
-Not ported here: the DAgger half (``rollout_dagger_fused``), the host-
-memory path, the sub-task heads (object grounding, FGR2R, summarization),
-and the G_eff high-water mark of the JAX code: the gmap width keeps the
-bucket of 16 (its extra columns are masked).
+Not ported here: the host-memory path (``device_memory=False``, ROADMAP
+A8), the W8A8 sampling policy (A9), the sub-task heads (object grounding,
+FGR2R, summarization), and the shape high-water marks of the JAX code:
+the gmap width keeps the bucket of 16 and the sampling windows
+``_window_arrays``' own buckets (their extra columns are masked).
 """
 from __future__ import annotations
 
@@ -34,22 +48,19 @@ import torch
 
 from .graph_map import GraphMap
 from .mp3d_agent import CLS_TOKEN_TEXT
-from .runner import MEM_CAPACITY
+from .runner import MEM_CAPACITY, HostCopy
 
 
 def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
-                          train_ml):
-    """Teacher-forcing rollout + fused loss pass over one batch. Returns
-    (loss as a device scalar, trajectories)."""
+                          train_ml, **kwargs):
+    """Teacher-forcing rollout + fused loss pass over one batch (extra
+    keyword arguments are accepted and unused, as in JAX). Returns (loss
+    as a device scalar, trajectories)."""
     obs = list(batch_dict["observations"])
     envs = batch_dict["env"]
     items = batch_dict["item"]
     data_type = batch_dict["data_type"]
-    if args.enable_og or args.enable_summarize or args.enable_fgr2r \
-            or any(d != "r2r" for d in data_type):
-        raise NotImplementedError(
-            "the fused trainer's sub-task heads (object grounding, FGR2R, "
-            "summarization) and non-R2R tasks are not ported")
+    _check_r2r_only(args, data_type)
     B = len(obs)
     max_action_len = optim_cfg.train_max_action_len[name]
 
@@ -107,9 +118,307 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
         t_pad=max_action_len)
 
 
+def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
+                         train_ml, forced_actions=None, loss_denom=None,
+                         np_rng=None, **kwargs):
+    """Sample-feedback rollout + fused loss pass over one batch (twin of
+    rollout_dagger_fused). forced_actions ([T][B] ints) replaces the draw
+    at each step (do_sample is off then); np_rng replaces the agent's
+    RandomState for the candidate permutations. Returns (loss as a device
+    scalar, trajectories)."""
+    if not getattr(agent.runner, "device_memory", True):
+        raise NotImplementedError(
+            "the fused DAgger's host-memory path (device_memory=False) is "
+            "not ported yet (ROADMAP A8)")
+    if getattr(args, "dagger_sample_quant", False):
+        raise NotImplementedError(
+            "the W8A8 sampling policy (dagger_sample_quant) is not ported "
+            "yet (ROADMAP A9)")
+    _check_r2r_only(args, batch_dict["data_type"])
+    obs_all = list(batch_dict["observations"])
+    B = len(obs_all)
+    loss_den = loss_denom if loss_denom is not None else B
+    rng_local = np_rng if np_rng is not None else agent.np_rng
+    max_action_len = optim_cfg.train_max_action_len[name]
+    runner = agent.runner
+
+    agent.update_scanvp_cands(obs_all)
+    n_groups = int(getattr(args, "dagger_streams", 0) or 2)
+    while n_groups > 1 and (B % n_groups != 0 or B // n_groups < 2):
+        n_groups -= 1
+
+    # the cache budget at the batch level: the groups' caches coexist with
+    # the params, the gradients and both AdamW moments (4 x the params
+    # bytes, JAX's stand-in) under the runner's memory ceiling
+    use_cache = bool(getattr(args, "dagger_prefix_cache", True))
+    if use_cache:
+        use_cache = (runner.prefix_cache_bytes(B, agent.dims.max_prefix)
+                     + 4 * runner.params_bytes() < runner.memory_ceiling())
+
+    Bg = B // n_groups
+    groups = []
+    for g in range(n_groups):
+        sl = slice(g * Bg, (g + 1) * Bg)
+        obs = obs_all[sl]
+        gmaps = [GraphMap(ob["viewpoint"]) for ob in obs]
+        for i, ob in enumerate(obs):
+            gmaps[i].update_graph(ob)
+        groups.append({
+            "obs": obs,
+            "envs": batch_dict["env"][sl],
+            "items": batch_dict["item"][sl],
+            "data_type": batch_dict["data_type"][sl],
+            "gmaps": gmaps,
+            "traj": [{"instr_id": ob["instr_id"],
+                      "path": [[ob["viewpoint"]]], "details": {}}
+                     for ob in obs],
+            "instructions": [ob["instruction"] for ob in obs],
+            "steps": [],
+            "forced": ([np.asarray(fa)[sl] for fa in forced_actions]
+                       if forced_actions is not None else None),
+        })
+
+    # round robin: each generator yields between dispatching its step and
+    # reading its a_t, so the others' host work overlaps the card. The
+    # groups draw their permutations from rng_local in this order.
+    live = [_dagger_sample_group(agent, args, grp, dataset, rng_local,
+                                 max_action_len, use_cache)
+            for grp in groups]
+    while live:
+        for gen in list(live):
+            try:
+                next(gen)
+            except StopIteration:
+                live.remove(gen)
+
+    # the loss pass per group, over the batch's denominator: the sum over
+    # groups is the one-group loss
+    ml_loss = 0.0
+    traj = []
+    for grp in groups:
+        loss_g, traj_g = _fused_trajectory_train(
+            agent, args, steps=grp["steps"], gmaps=grp["gmaps"],
+            traj=grp["traj"], instructions=grp["instructions"],
+            B=len(grp["obs"]), train_ml=train_ml, loss_den=loss_den,
+            t_pad=max_action_len, feedback="sample")
+        ml_loss = ml_loss + loss_g
+        traj.extend(traj_g)
+    return ml_loss, traj
+
+
+class _Row:
+    """A sampling row's prefix-cache state (what _cached_prompt_windows
+    reads and updates)."""
+    __slots__ = ("active", "cache_ids", "needs_prefill")
+
+    def __init__(self):
+        self.active, self.cache_ids, self.needs_prefill = True, None, True
+
+
+def _dagger_sample_group(agent, args, grp, dataset, rng_local,
+                         max_action_len, use_cache):
+    """Phase 1 of the DAgger half for one slot group, as a generator that
+    yields once per step, between dispatching the step (sync=False) and
+    reading its a_t. Fills grp["steps"] (the snapshots of the teacher's
+    phase 1 plus the taken "actions", the candidate "order", the
+    "prompts", and the value-free "vp_in" / "match" of this step), and
+    moves grp["traj"] and grp["gmaps"] along the sampled trajectory.
+
+    With use_cache the step is the prefix-cached one, on a [B, P] cache
+    taken from the agent's pool (re-prefilled each batch: K/V beyond a
+    row's plen stays invisible behind the prefix mask) and handed back
+    at the end. If a prompt outgrows the cache (_cached_prompt_windows
+    raises RuntimeError), the buffer goes back to the pool at once and
+    the rest of the group takes the full-prompt step: the graph memory
+    does not depend on the cache."""
+    runner = agent.runner
+    obs, envs, items = grp["obs"], grp["envs"], grp["items"]
+    data_type, gmaps, traj = grp["data_type"], grp["gmaps"], grp["traj"]
+    instructions, forced_actions = grp["instructions"], grp["forced"]
+    B = len(obs)
+    C = agent.dims.max_cands
+    history: List[List[str]] = [[] for _ in range(B)]
+    mem_state = runner.memory_init(B)
+    M = mem_state["mem_sum"].shape[1]
+    temperature = max(float(args.temperature), 1e-6)
+
+    cache = None
+    cache_P = agent.dims.max_prefix
+    rows_state = None
+    if use_cache:
+        pool = agent._dagger_cache_pool
+        for pi, (bb, pp, _) in enumerate(pool):
+            if bb == B and pp == cache_P:
+                cache = pool.pop(pi)[2]        # this group owns it now
+                break
+        if cache is None:
+            cache = runner.prefix_cache_init(B, cache_P)
+        rows_state = [_Row() for _ in range(B)]
+
+    steps: List[Dict[str, Any]] = grp["steps"]
+    ended = np.zeros(B, bool)
+    t = 0
+    while t < max_action_len:
+        flag = bool(ended.all() or t == max_action_len - 1)
+        for i, gmap in enumerate(gmaps):
+            if not ended[i]:
+                gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
+        pano_inputs = agent.panorama_inputs(obs)
+        V = pano_inputs["view_img_fts"].shape[1]
+        pano_masks = (np.arange(V)[None, :]
+                      < pano_inputs["view_lens"][:, None])
+        cur_ids = np.full(B, -1, np.int32)
+        cand_ids = np.full((B, V), -1, np.int32)
+        for i, gmap in enumerate(gmaps):
+            if ended[i]:
+                continue
+            gidx = gmap.graph.index
+            cid = gidx.get(obs[i]["viewpoint"], -1)
+            cur_ids[i] = cid if cid < M else -1
+            for j, cvp in enumerate(pano_inputs["cand_vpids"][i]):
+                if not gmap.visited(cvp):
+                    nid = gidx.get(cvp, -1)
+                    if 0 <= nid < M:
+                        cand_ids[i, j] = nid
+
+        gmap_in = agent.nav_gmap_inputs(obs, gmaps)
+        vp_in = agent.nav_vp_inputs(obs, gmaps, pano_masks,
+                                    pano_inputs["cand_vpids"])
+        match = agent.local_match_slots(
+            gmap_in["gmap_vpids"], vp_in["vp_cand_vpids"], gmaps,
+            width=V + 1)
+        order, prompts, cand_nums = agent.cand_order_and_prompts(
+            gmap_in, instructions, history, rng=rng_local)
+        win = prefill_items = None
+        if use_cache:
+            for i in range(B):
+                rows_state[i].active = not ended[i]
+
+            def probe_fn(i):
+                return agent.get_prompt(
+                    "navigation", instruction=instructions[i],
+                    hist_num=len(history[i]) + 1,
+                    cand_num=min(cand_nums[i], C + 1),
+                    cls_token=CLS_TOKEN_TEXT)
+
+            try:
+                app_l, suf_l, prefill_items = agent._cached_prompt_windows(
+                    rows_state, prompts, probe_fn, cache_P)
+            except RuntimeError:
+                use_cache = False
+                agent._dagger_cache_pool.append((B, cache_P, cache))
+                cache = None
+                agent.dagger_bailouts += 1
+            else:
+                tok = runner.tok
+                win = agent._window_arrays(app_l, suf_l, tok.cand_id,
+                                           tok.hist_id, tok.cls_ids[0], C)
+        nav_batch = {
+            "gmap_step_ids": gmap_in["gmap_step_ids"],
+            "gmap_pos_fts": gmap_in["gmap_pos_fts"],
+            "gmap_masks": gmap_in["gmap_masks"],
+            "gmap_visited_masks": gmap_in["gmap_visited_masks"],
+            "vp_pos_fts": vp_in["vp_pos_fts"],
+            "pano_masks": vp_in["pano_masks"],
+            "local_match_slot": match,
+            "cand_order": order,
+        }
+        if use_cache:
+            nav_batch.update(win)
+        else:
+            tok_batch, cand_pos, hist_pos, cls_pos = \
+                runner.tokenize_with_positions(prompts)
+            nav_batch.update({"cand_positions": cand_pos,
+                              "hist_positions": hist_pos,
+                              "input_ids": tok_batch.input_ids,
+                              "attention_mask": tok_batch.attention_mask,
+                              "cls_pos": cls_pos})
+        nav_targets = agent.teacher_action(
+            obs, gmap_in["gmap_vpids"], ended,
+            visited_masks=gmap_in["gmap_visited_masks"],
+            imitation_learning=False, t=t)
+
+        slot_ids = np.full(gmap_in["gmap_masks"].shape, -1, np.int32)
+        for i, gmap in enumerate(gmaps):
+            gidx = gmap.graph.index
+            for k, vp in enumerate(gmap_in["gmap_vpids"][i]):
+                if k > 0 and vp is not None:
+                    nid = gidx.get(vp, -1)
+                    if 0 <= nid < M:
+                        slot_ids[i, k] = nid
+        nav_batch["slot_ids"] = slot_ids
+        override = np.full(B, -1, np.int32)
+        if forced_actions is not None:
+            override = np.asarray(forced_actions[t], np.int32)
+        step_args = dict(reset_mask=np.zeros(B, bool), cur_ids=cur_ids,
+                         cand_ids=cand_ids, active_mask=~ended,
+                         a_t_override=override,
+                         do_sample=forced_actions is None,
+                         temperature=temperature, sync=False)
+        if use_cache:
+            if prefill_items:
+                cache = agent.prefill_rows(cache, prefill_items, B)
+            mem_state, cache, a_t, _ = runner.eval_step_cached(
+                mem_state, cache, pano_inputs, nav_batch, **step_args)
+        else:
+            mem_state, a_t, _ = runner.eval_step(mem_state, pano_inputs,
+                                                 nav_batch, **step_args)
+        a_t = HostCopy(a_t)
+        yield
+        a_t = a_t.result().astype(np.int64)
+
+        steps.append({
+            "t": t, "flag": flag, "obs": list(obs), "ended": ended.copy(),
+            "pano_inputs": pano_inputs, "gmap_in": gmap_in,
+            "targets": nav_targets, "gmap_vpids": gmap_in["gmap_vpids"],
+            "actions": a_t.copy(), "order": order, "prompts": prompts,
+            "vp_in": vp_in, "match": match,
+        })
+        # history follows every row whose action is not ignoreid, ended or
+        # not (the per-step path's rule; a draw never is)
+        for i in range(B):
+            if a_t[i] != args.ignoreid:
+                history[i].append("<hist>")
+
+        a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1] for ob in obs]
+        cpu_a_t: List[Optional[str]] = []
+        for i in range(B):
+            if a_t_stop[i] or ended[i] or gmap_in["no_vp_left"][i] \
+                    or t == max_action_len - 1:
+                cpu_a_t.append(None)
+            else:
+                cpu_a_t.append(gmap_in["gmap_vpids"][i][a_t[i]])
+        agent.make_equiv_action(cpu_a_t, gmaps, obs, traj, envs)
+        obs = [dataset.get_obs(items=[items[i]], env=envs[i],
+                               data_type=data_type[i])[0] for i in range(B)]
+        agent.update_scanvp_cands(obs)
+        for i, ob in enumerate(obs):
+            if not ended[i]:
+                gmaps[i].update_graph(ob)
+        ended = np.logical_or(ended, np.array([x is None for x in cpu_a_t]))
+        t += 1
+        if flag:
+            break
+
+    if cache is not None:
+        agent._dagger_cache_pool.append((B, cache_P, cache))
+
+
+def _check_r2r_only(args, data_type):
+    if args.enable_og or args.enable_summarize or args.enable_fgr2r \
+            or any(d != "r2r" for d in data_type):
+        raise NotImplementedError(
+            "the fused trainer's sub-task heads (object grounding, FGR2R, "
+            "summarization) and non-R2R tasks are not ported")
+
+
 def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
-                            B, train_ml, loss_den, t_pad=None):
-    """Phases 2-5 of the fused loss pass on the device-memory path."""
+                            B, train_ml, loss_den, t_pad=None,
+                            feedback="teacher"):
+    """Phases 2-5 of the fused loss pass on the device-memory path. Under
+    feedback="sample" each step also holds the taken "actions" (the
+    history follows them), and the "order", "prompts", "vp_in" and
+    "match" of the sampling pass, which are reused, not redrawn."""
     runner = agent.runner
     T = len(steps)
 
@@ -170,6 +479,7 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
     for st_idx, step in enumerate(steps):
         sobs = step["obs"]
         visited = step["gmap_in"]["gmap_visited_masks"]
+        reuse = step.get("vp_in") is not None
         for i in range(B):
             gidx = gmaps[i].graph.index
             vps = step["gmap_vpids"][i]
@@ -188,6 +498,10 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
                     nid = gidx.get(vp, -1)
                     if 0 <= nid < MEM_CAPACITY:
                         slot_ids_g[st_idx, i, k] = nid
+        if reuse:
+            # the sampling pass's vp_in and match, taken against this
+            # step's visited state
+            continue
         vp_in = agent.nav_vp_inputs(sobs, gmaps, pano_masks_all[st_idx],
                                     step["pano_inputs"]["cand_vpids"])
         # local matches against the snapshot's visited state (the graph
@@ -225,8 +539,9 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
     cnt = np.zeros(B, np.int32)
     for st_idx, step in enumerate(steps):
         hist_counts[st_idx] = cnt
+        acts = step["actions"] if feedback == "sample" else step["targets"]
         for i in range(B):
-            a = int(step["targets"][i])
+            a = int(acts[i])
             if a != args.ignoreid and compact_of[st_idx * B + i] >= 0:
                 acts_g[st_idx, i] = a
                 cnt[i] += 1
@@ -252,6 +567,10 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
         visited = step["gmap_in"]["gmap_visited_masks"]
         for i in range(B):
             if compact_of[st_idx * B + i] < 0:
+                continue
+            if feedback == "sample":
+                orders.append(np.asarray(step["order"][i], np.int32))
+                prompts.append(step["prompts"][i])
                 continue
             slots = [k for k, vp in enumerate(step["gmap_vpids"][i])
                      if k > 0 and vp is not None and not visited[i][k]]

@@ -1,67 +1,38 @@
-"""R2R agent: greedy streaming evaluation and teacher-forcing training.
+"""R2R agent: streaming evaluation and fused training (teacher and DAgger).
 
-Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: greedy R2R
-streaming evaluation (device graph memory, argmax actions, uncached or
-with the prompt-prefix KV cache) and ``train`` through the fused teacher
-(agents/fused_teacher.py). It carries the fixed-shape input assembly of
+Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: R2R streaming
+evaluation (device graph memory, argmax actions, uncached or with the
+prompt-prefix KV cache) and ``train`` through the fused trainer
+(agents/fused_teacher.py): teacher forcing, and on the odd steps of stage
+multi the fused DAgger half. It carries the fixed-shape input assembly of
 the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
 ``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``,
 and for the cache ``_cached_prompt_windows``, ``_window_arrays`` and
 ``prefill_rows``), its expert (``teacher_action``) and its sim step
 (``make_equiv_action``), which are host numpy code, copied because the JAX
-agent module imports jax. The rest of the JAX agent (DAgger training, the
-per-step and batched rollouts, OG, generation, EQA, sampling, the int8
-prefix cache) is not ported: asking for it raises NotImplementedError.
+agent module imports jax. The rest of the JAX agent (the per-step and
+batched rollouts and the interleaved DAgger pipeline, OG, generation,
+EQA, sampled evaluation, the int8 prefix cache) is not ported: asking for
+it raises NotImplementedError.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..utils.config import TrainArgs
+from ..utils.registry import AGENTS
 from . import prompts as P
 from .graph_map import GraphMap
 from .runner import HostCopy, NavModelRunner, RolloutDims
 
 CLS_TOKEN_TEXT = "<cls_1>"
 
-
-@dataclasses.dataclass
-class EvalArgs:
-    """The run flags greedy R2R evaluation reads (their names and defaults
-    are navillm_tpu.utils.config.TrainArgs', which needs pyyaml)."""
-    seed: int = 0
-    val_batch_size: int = 2
-    image_feat_size: int = 1024
-    angle_feat_size: int = 4
-    enc_full_graph: bool = True
-    eval_streams: int = 2
-    do_sample: bool = False
-    prefix_cache: bool = False
-    kv_int8: bool = False
-    enable_og: bool = False
-    enable_summarize: bool = False
-    mode: str = "train"
-
-
-@dataclasses.dataclass
-class TrainArgs(EvalArgs):
-    """The run flags teacher-forcing training reads, with the names and
-    defaults of navillm_tpu.utils.config.TrainArgs."""
-    stage: str = "multi"              # pretrain | multi
-    lr: float = 1e-5
-    feat_dropout: float = 0.4
-    num_warmup_steps: int = 0
-    gradient_accumulation_step: int = 2
-    grad_clip_norm: float = 40.0
-    ignoreid: int = -100
-    teacher_forcing_coef: float = 1.0
-    enable_fgr2r: bool = False
-    fused_teacher: bool = True
-    fused_rows_per_call: int = 48
-    rank: int = 0
+# one set of run flags (utils.config.TrainArgs, the JAX package's names and
+# defaults) serves evaluation and training
+EvalArgs = TrainArgs
 
 
 def get_results(pred_results: Dict[str, dict]) -> List[dict]:
@@ -69,6 +40,7 @@ def get_results(pred_results: Dict[str, dict]) -> List[dict]:
             for k, v in pred_results.items()]
 
 
+@AGENTS.register("r2r")
 class R2RAgent:
     name = "r2r"
 
@@ -83,6 +55,10 @@ class R2RAgent:
         # the pano encoder's first op casts features to its dtype, so
         # casting at upload is numerically the same and halves the bytes
         self._feat_dtype = runner.cfg.pano.dtype
+        # the fused DAgger's prefix caches, kept across batches keyed
+        # (batch rows, max_prefix), and its mid-batch fallbacks
+        self._dagger_cache_pool: List[Any] = []
+        self.dagger_bailouts = 0
 
     def get_prompt(self, task, *a, **kw):
         if task != "navigation":
@@ -415,24 +391,34 @@ class R2RAgent:
             envs[i].new_episode(0, ob["scan"], action, heading, elevation)
 
     # ---------------- training ------------------------------------------ #
-    def train(self, name, batch, args, config, dataset, step=0):
-        """One training batch (twin of MP3DAgent.train). The teacher half
-        runs the fused teacher; returns its loss (a device scalar) times
-        gradient_accumulation_step, as the JAX agent does."""
+    def train(self, name, batch, args, config, dataset, step=0, **kwargs):
+        """One training batch (twin of MP3DAgent.train): teacher forcing
+        through the fused teacher at stage pretrain and on even steps,
+        the fused DAgger on odd steps of stage multi (``kwargs``, such as
+        forced_actions and np_rng, go to it). Returns the loss (a device
+        scalar) times gradient_accumulation_step, as the JAX agent does."""
         stage_cfg = config.Pretrain if args.stage == "pretrain" \
             else config.Multi
         loss_coef = (getattr(stage_cfg, "LOSS_COEF", None) or {}) \
             .get(name, 1.0)
-        if not (args.stage == "pretrain" or step % 2 == 0):
-            raise NotImplementedError(
-                "DAgger (sample-feedback) training is not ported yet: run "
-                "stage='pretrain', where every step is teacher forcing")
-        if not args.fused_teacher:
-            raise NotImplementedError("only the fused teacher is ported")
-        from .fused_teacher import rollout_teacher_fused
-        loss, _ = rollout_teacher_fused(
-            self, args, name, config.Optim, batch, dataset=dataset,
-            train_ml=loss_coef * args.teacher_forcing_coef)
+        from . import fused_teacher as FT
+        if args.stage == "pretrain" or step % 2 == 0:
+            if not args.fused_teacher:
+                raise NotImplementedError(
+                    "the per-step teacher rollout is not ported (ROADMAP "
+                    "A8): keep fused_teacher=True")
+            loss, _ = FT.rollout_teacher_fused(
+                self, args, name, config.Optim, batch, dataset=dataset,
+                train_ml=loss_coef * args.teacher_forcing_coef, **kwargs)
+        else:
+            if not getattr(args, "fused_dagger", True):
+                raise NotImplementedError(
+                    "the per-step and interleaved DAgger rollouts are not "
+                    "ported (ROADMAP A8): keep fused_dagger=True")
+            # the DAgger half's coefficient is LOSS_COEF alone, as in JAX
+            loss, _ = FT.rollout_dagger_fused(
+                self, args, name, config.Optim, batch, dataset=dataset,
+                train_ml=loss_coef, **kwargs)
         return loss * args.gradient_accumulation_step
 
     # ---------------- continuous-refill streaming evaluation ----------- #

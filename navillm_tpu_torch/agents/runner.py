@@ -1,7 +1,7 @@
 """NavModelRunner: the device entry points of evaluation and training.
 
-Torch twin of the surface of navillm_tpu/agents/runner.py that greedy
-R2R streaming evaluation and fused teacher-forcing training use: ``cfg``,
+Torch twin of the surface of navillm_tpu/agents/runner.py that R2R
+streaming evaluation and fused training (teacher and DAgger) use: ``cfg``,
 ``tok``, ``dims``, ``device_memory``, ``memory_init``, ``eval_step``,
 ``tokenize_with_positions``, the prefix cache (``prefix_cache_enabled``,
 ``prefix_cache_init``, ``prefill``, ``eval_step_cached``), the
@@ -14,7 +14,9 @@ the other group's step running on the card.
 Randomness: jax.random keys become torch.Generators. The runner draws one
 seed per dropout-bearing call from its own host generator; a call seeded
 the same way (the fused trainer's phase-2 panorama and its phase-5
-recompute) draws the same dropout masks.
+recompute) draws the same dropout masks. A sampled eval step (do_sample)
+draws its actions on the device from a generator on the runner's device,
+seeded the same way, as JAX draws them from a fresh key per call.
 """
 from __future__ import annotations
 
@@ -255,17 +257,30 @@ class NavModelRunner:
         card's total memory (torch.cuda.get_device_properties), 60 GB on an
         80 GB H100: under 12e9 a bf16 7B tree (13.5 GB) would never cache
         there. On the CPU it stays 12e9, so CPU runs make JAX's decision."""
+        bytes_needed = n_caches * self.prefix_cache_bytes(batch, max_prefix,
+                                                          kv_int8)
+        return self.device_memory and \
+            bytes_needed + self.params_bytes() < self.memory_ceiling()
+
+    def prefix_cache_bytes(self, batch: int, max_prefix: int,
+                           kv_int8: bool = False) -> int:
+        """Bytes of one [L, batch, max_prefix, NKV, D] K and V cache."""
         c = self.cfg.llm
         itemsize = (1 + 4 / c.head_dim) if kv_int8 else c.dtype.itemsize
-        bytes_needed = n_caches * int(2 * c.num_layers * batch * max_prefix
-                                      * c.num_kv_heads * c.head_dim
-                                      * itemsize)
-        params_bytes = sum(p.numel() * p.element_size()
-                           for p in self.model.parameters())
-        ceiling = (0.75 * torch.cuda.get_device_properties(
-            self.device).total_memory if self.device.type == "cuda"
-            else 12e9)
-        return self.device_memory and bytes_needed + params_bytes < ceiling
+        return int(2 * c.num_layers * batch * max_prefix * c.num_kv_heads
+                   * c.head_dim * itemsize)
+
+    def params_bytes(self) -> int:
+        return sum(p.numel() * p.element_size()
+                   for p in self.model.parameters())
+
+    def memory_ceiling(self) -> float:
+        """The memory policies' ceiling: 0.75 of the card's memory, 12e9
+        bytes on the CPU (see prefix_cache_enabled)."""
+        if self.device.type == "cuda":
+            return 0.75 * torch.cuda.get_device_properties(
+                self.device).total_memory
+        return 12e9
 
     def prefill(self, cache, ids, mask, rows, valid):
         """Prefill refilled rows' prefixes into ``cache`` (in place;
@@ -281,16 +296,21 @@ class NavModelRunner:
                 self.upload(mask), self.upload(np.asarray(rows, np.int32)),
                 self.upload(v))
 
+    def _sampling(self, do_sample: bool, temperature: float):
+        """device_memory's action-selection arguments: with do_sample a
+        generator on the runner's device, seeded from next_seed()."""
+        gen = self.generator(self.next_seed()) if do_sample else None
+        return {"do_sample": do_sample, "temperature": float(temperature),
+                "generator": gen}
+
     def eval_step_cached(self, state, cache, pano_inputs: Dict, batch: Dict,
                          reset_mask, cur_ids, cand_ids, active_mask,
                          a_t_override=None, do_sample: bool = False,
-                         sync: bool = True):
+                         temperature: float = 1.0, sync: bool = True):
         """Prefix-cached fused eval step (device_memory.eval_step_cached):
         eval_step's contract plus the cache, which is updated in place.
         Counts the active rows' window tokens in llm_token_units. Returns
         (state', cache, a_t, logits)."""
-        if do_sample:
-            raise NotImplementedError("sampled decoding is not ported")
         if a_t_override is None:
             a_t_override = np.full(len(cur_ids), -1, np.int32)
         pano = self._pano_dev_inputs(pano_inputs)
@@ -305,20 +325,21 @@ class NavModelRunner:
                 self.model, self.cfg, state, cache, pano, dev,
                 self.upload(reset_mask), self.upload(cur_ids),
                 self.upload(cand_ids), self.upload(active_mask),
-                self.upload(np.asarray(a_t_override, np.int32)))
+                self.upload(np.asarray(a_t_override, np.int32)),
+                **self._sampling(do_sample, temperature))
         return state, cache, (HostCopy(a_t).result() if sync else a_t), logits
 
     def eval_step(self, state, pano_inputs: Dict, batch: Dict, reset_mask,
                   cur_ids, cand_ids, active_mask, a_t_override=None,
-                  do_sample: bool = False, sync: bool = True):
+                  do_sample: bool = False, temperature: float = 1.0,
+                  sync: bool = True):
         """ONE device call per streaming-eval step (reset -> pano -> memory
-        update -> nav forward -> argmax -> hist append). pano_inputs'
+        update -> nav forward -> argmax, or with do_sample a draw at
+        ``temperature`` on the device -> hist append). pano_inputs'
         view_img_fts may already be a device tensor. Returns (new_state,
         a_t, logits [B, G] on device); a_t is a numpy array, or with
         sync=False the device tensor, so the caller can overlap host work
         with the step and download a_t later (HostCopy)."""
-        if do_sample:
-            raise NotImplementedError("sampled decoding is not ported")
         if a_t_override is None:
             a_t_override = np.full(len(cur_ids), -1, np.int32)
         pano = self._pano_dev_inputs(pano_inputs)
@@ -330,7 +351,8 @@ class NavModelRunner:
                 self.model, self.cfg, state, pano, dev,
                 self.upload(reset_mask), self.upload(cur_ids),
                 self.upload(cand_ids), self.upload(active_mask),
-                self.upload(np.asarray(a_t_override, np.int32)))
+                self.upload(np.asarray(a_t_override, np.int32)),
+                **self._sampling(do_sample, temperature))
         return state, (HostCopy(a_t).result() if sync else a_t), logits
 
     def tokenize_with_positions(self, texts, max_cands: Optional[int] = None,

@@ -1,0 +1,55 @@
+"""Dataset registry (twin of navillm_tpu/data/datasets/__init__.py;
+reference tasks/datasets/__init__.py:14-16). ``load_dataset(name, args,
+config, training=..., logger=..., source=..., world=...)`` builds a
+dataset from the task config as the JAX package's does. Only ``r2r`` is
+registered; the other names raise NotImplementedError naming their ROADMAP
+item."""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional
+
+from ..sim.env import WorldModel
+from ..utils.registry import DATASETS
+from .r2r import R2RDataset
+
+
+def load_dataset(name: str, *args, **kwargs):
+    return DATASETS.build(name, *args, **kwargs)
+
+
+def dataset_section(config, src):
+    """The source's section: top-level or nested under ``Dataset`` (the
+    reference nests them, configs/multi.yaml:20)."""
+    if src in config:
+        return config[src]
+    return config["Dataset"][src]
+
+
+def get_anno_file_path(data_dir, dataset_path, filename) -> Path:
+    if str(dataset_path).startswith("/"):
+        return Path(dataset_path) / filename
+    return Path(data_dir) / dataset_path / filename
+
+
+@DATASETS.register("r2r")
+def r2r_from_config(args, config, training: bool = False, logger=None,
+                    source: Optional[str] = "R2R",
+                    world: Optional[WorldModel] = None) -> R2RDataset:
+    """R2RDataset over the split's annotation file (mp3d_base's rules:
+    "train" when training, else args.validation_split; angle features as
+    the config's Feature section or args give them)."""
+    split = "train" if training else args.validation_split
+    section = dataset_section(config, source or "R2R")
+    anno = get_anno_file_path(args.data_dir, section.DIR,
+                              section.SPLIT[split])
+    if world is None:
+        world = WorldModel(str(Path(args.data_dir) / "connectivity"))
+    angle = config.Feature.angle_feat_size if "Feature" in config \
+        else args.angle_feat_size
+    ds = R2RDataset(anno, world, angle_feat_size=angle, debug=args.debug,
+                    training=training, split=split)
+    if logger is not None:
+        logger.info("[INFO] R2RDataset loaded with %d instructions, split: %s"
+                    % (len(ds.alldata), ds.split))
+    return ds

@@ -12,12 +12,12 @@ tasks/loaders.py:12-250):
   - exhausted task iterators re-init with an epoch-bumped shuffle
     (StopIteration handling at loaders.py:181-189).
 Batches are host-side lists; the agents move fixed-shape arrays to the
-card. ``create_dataloaders`` (the config-driven multi-dataset builder)
-waits for the port's dataset registry.
+card. ``create_dataloaders`` makes the loaders of a stage from the config,
+over the port's dataset registry (data/datasets.py: R2R only).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -104,3 +104,57 @@ class MetaLoader:
             self.iters[name] = iter(self.loaders[name])
             batch = next(self.iters[name])
         return name, batch
+
+
+# task name -> registry name, and task name -> feature-DB key
+# (reference tasks/loaders.py:33-40)
+NAME_OF = {"R2R": "r2r", "REVERIE": "reverie", "CVDN": "cvdn",
+           "SOON": "soon", "EQA": "eqa", "ScanQA": "scanqa",
+           "LLaVA": "llava", "R2R_AUG": "r2r_aug",
+           "REVERIE_AUG": "reverie_aug", "COCO": "coco"}
+FEAT_KEY = {"R2R": "mp3d", "REVERIE": "mp3d", "CVDN": "mp3d",
+            "SOON": "mp3d", "EQA": "mp3d", "R2R_AUG": "mp3d",
+            "REVERIE_AUG": "mp3d", "ScanQA": "scan_qa", "LLaVA": "coco"}
+
+
+def create_dataloaders(args, config, training: bool, world=None,
+                       feat_dbs=None, obj_feat_dbs=None, stage=None,
+                       test_datasets: Optional[List[str]] = None,
+                       logger=None):
+    """{task: (Dataloader, ratio)} and {task: dataset} for a stage (twin
+    of create_dataloaders; reference tasks/loaders.py:12-87): the stage
+    section gives SOURCE and Ratio; feature DBs are injected by the caller
+    or built from the config (build_world_and_data). A source the port
+    has no dataset for raises (utils/registry.py)."""
+    from .datasets import load_dataset
+
+    stage = stage or args.stage
+    stage_cfg = config[{"pretrain": "Pretrain", "multi": "Multi"}
+                       .get(stage, stage)]
+    sources = list(stage_cfg.SOURCE)
+    ratios = list(stage_cfg.get("Ratio", [1] * len(sources)))
+    if test_datasets is not None:
+        keep = [i for i, s in enumerate(sources) if s in test_datasets]
+        sources = [sources[i] for i in keep]
+        ratios = [ratios[i] for i in keep]
+
+    loaders: Dict[str, Tuple[Dataloader, float]] = {}
+    datasets: Dict[str, Any] = {}
+    for source, ratio in zip(sources, ratios):
+        ds = load_dataset(NAME_OF[source], args, config, training=training,
+                          logger=logger, source=source, world=world)
+        if feat_dbs is not None:
+            obj_db = None
+            if obj_feat_dbs is not None:
+                if source.startswith("REVERIE"):
+                    obj_db = obj_feat_dbs.get("reverie")
+                elif source == "SOON":
+                    obj_db = obj_feat_dbs.get("soon")
+            ds.init_feat_db(feat_dbs[FEAT_KEY[source]], obj_db)
+        bs = args.batch_size if training else args.val_batch_size
+        loaders[source] = (Dataloader(ds, bs, shuffle=training,
+                                      rank=args.rank,
+                                      world_size=args.world_size,
+                                      seed=args.seed), float(ratio))
+        datasets[source] = ds
+    return loaders, datasets

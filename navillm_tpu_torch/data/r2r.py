@@ -4,10 +4,11 @@ Follows navillm_tpu/data/datasets/mp3d_base.py (annotations, __getitem__,
 collate_batch, make_candidate, get_obs) and r2r.py (instruction split,
 SR/SPL eval) for the R2R navigation task. It builds on the port's own
 host layer (its copies of the sim, the feature DBs and the metrics).
-Instead of a task config it takes the annotation file of its split and
-a WorldModel; ``training`` names the split "train", as mp3d_base does,
-and changes nothing else for R2R (otherwise the split is the file's
-stem).
+It takes the annotation file of its split and a WorldModel; ``training``
+names the split "train", as mp3d_base does, and changes nothing else for
+R2R (otherwise the split is ``split`` or the file's stem). The registry's
+``r2r`` entry (data/datasets.py) builds it from a task config as the JAX
+package's load_dataset does.
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ class R2RDataset:
 
     def __init__(self, anno_file, world: WorldModel,
                  angle_feat_size: int = 4, debug: bool = False,
-                 training: bool = False):
+                 training: bool = False, split: Optional[str] = None):
         self.angle_feat_size = angle_feat_size
-        self.split = "train" if training else Path(anno_file).stem
+        self.split = "train" if training else (split or Path(anno_file).stem)
         self.alldata, self.gt_trajs = self.load_data(anno_file, debug=debug)
         self.scans = sorted({x["scan"] for x in self.alldata})
         self.world = world
@@ -66,7 +67,10 @@ class R2RDataset:
                     for x in new_data if len(x["path"]) > 1}
         return new_data, gt_trajs
 
-    def init_feat_db(self, feat_db):
+    def init_feat_db(self, feat_db, obj_feat_db=None):
+        if obj_feat_db is not None:
+            raise NotImplementedError("object features (REVERIE/SOON) are "
+                                      "not ported yet (ROADMAP A7)")
         self.feat_db = feat_db
 
     def dist_fn(self, scan: str):
@@ -151,6 +155,8 @@ class R2RDataset:
 
     def eval_metrics(self, preds, logger: Optional[Any], name: str):
         """(aggregate SR/SPL/... in percent, per-item metric lists)."""
+        if logger is not None:
+            logger.info("eval %d predictions" % len(preds))
         per_item = []
         metrics = defaultdict(list)
         for item in preds:
@@ -162,3 +168,16 @@ class R2RDataset:
                 metrics[k].append(v)
             metrics["instr_id"].append(item["instr_id"])
         return M.aggregate_r2r(per_item), metrics
+
+    def save_json(self, results, path, item_metrics=None):
+        """Leaderboard format (reference r2r.py:133-144)."""
+        if item_metrics is not None:
+            for k in item_metrics:
+                for item, v in zip(results, item_metrics[k]):
+                    item[k] = v
+        for item in results:
+            item["instr_id"] = "_".join(item["instr_id"].split("_")[1:])
+            item["trajectory"] = [[y, 0, 0] for x in item["trajectory"]
+                                  for y in x]
+        with open(path, "w") as f:
+            json.dump(results, f)

@@ -1,0 +1,184 @@
+"""Checkpointing: save and restore the model's parameters and AdamW state.
+
+Twin of navillm_tpu/training/checkpoints.py (reference tools/optims.py:
+7-32, 65-78): a checkpoint holds {params [, optimizer state, epoch]};
+restore is shape-tolerant and non-strict (an entry whose shape differs
+from the live tensor's is skipped and logged); the resume epoch is the
+saved epoch + 1.
+
+Every tensor is stored under the JAX package's flat key: ``params/`` + the
+parameter's path with "/" for "." (``params/llm/layers/wq``), and the
+optimizer state under the flat names of the optax state that
+``make_optimizer`` builds (chain(clip_by_global_norm, adamw)):
+``opt/1/0/.count``, ``opt/1/0/.mu/<path>``, ``opt/1/0/.nu/<path>`` and
+the schedule's ``opt/1/2/.count``. So a checkpoint one package writes
+restores into the other, AdamW moments and step count included.
+
+Backends, behind one API, each written to a temporary file renamed into
+place, beside a JSON header {"epoch", "backend", "has_opt"}:
+  - "npz" (below 1 GiB of parameters): the JAX package's layout, bf16
+    stored as f32 (np.savez has no bf16);
+  - "torch" (from 1 GiB): one ``torch.save`` file of the same flat keys,
+    bf16 kept as bf16 (a 7B tree is ~13.5 GB, not 27), read back through
+    a memory map. The JAX package writes orbax there, which the port
+    cannot read: restoring an orbax checkpoint raises.
+"""
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+SEP = "/"
+TORCH_THRESHOLD_BYTES = 1 << 30
+# optax's chain(clip_by_global_norm, adamw(schedule)) state, flattened
+OPT_COUNT = "opt/1/0/.count"
+OPT_MU = "opt/1/0/.mu"
+OPT_NU = "opt/1/0/.nu"
+OPT_SCHEDULE_COUNT = "opt/1/2/.count"
+SUFFIXES = (".npz", ".pt", ".json")
+
+
+def _named(params) -> Dict[str, torch.Tensor]:
+    """{dotted name: tensor} of a ParamTree (any nn.Module) or such a
+    dict."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def _key(prefix: str, name: str) -> str:
+    return prefix + SEP + name.replace(".", SEP)
+
+
+def flat_state(params, opt_state=None) -> Dict[str, torch.Tensor]:
+    """The checkpoint's flat keys -> tensors (the live ones, not copies)."""
+    flat = {_key("params", n): p.detach() for n, p in _named(params).items()}
+    if opt_state is not None:
+        count = torch.tensor(opt_state.count, dtype=torch.int32)
+        flat[OPT_COUNT] = flat[OPT_SCHEDULE_COUNT] = count
+        for prefix, moments in ((OPT_MU, opt_state.mu),
+                                (OPT_NU, opt_state.nu)):
+            flat.update({_key(prefix, n): m for n, m in moments.items()})
+    return flat
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()                 # lossless; restore casts back
+    return t.cpu().numpy()
+
+
+def save_checkpoint(path, params, opt_state=None, epoch: Optional[int] = None,
+                    backend: str = "auto"):
+    """Write ``path``.npz or ``path``.pt and ``path``.json. ``params``: a
+    ParamTree or {dotted name: tensor}; ``opt_state``: the port's AdamW."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if backend == "auto":
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in _named(params).values())
+        backend = "torch" if nbytes >= TORCH_THRESHOLD_BYTES else "npz"
+    flat = flat_state(params, opt_state)
+    header: Dict[str, Any] = {"epoch": epoch, "backend": backend}
+    if opt_state is not None:
+        header["has_opt"] = True
+    if backend == "npz":
+        tmp = path.with_suffix(".tmp.npz")
+        np.savez(tmp, **{k: _numpy(v) for k, v in flat.items()})
+        os.replace(tmp, path.with_suffix(".npz"))
+    elif backend == "torch":
+        tmp = path.with_suffix(".tmp.pt")
+        torch.save(flat, tmp)
+        os.replace(tmp, path.with_suffix(".pt"))
+    else:
+        raise ValueError(f"unknown checkpoint backend {backend!r} (npz, "
+                         f"torch; orbax is the JAX package's)")
+    with open(path.with_suffix(".json"), "w") as f:
+        json.dump(header, f)
+
+
+def _as_tensor(x) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x
+    if x.dtype.kind == "V" and x.dtype.itemsize == 2:
+        # a legacy JAX npz leaf: bf16 bits that np.savez wrote as void
+        return torch.from_numpy(np.ascontiguousarray(x).view(np.int16)) \
+            .view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _restore_into(live: Dict[str, torch.Tensor], flat, prefix: str,
+                  logger=None):
+    """Copy flat entries into the live tensors in place, casting to their
+    dtype and device; entries whose shape differs are skipped and logged."""
+    skipped = []
+    with torch.no_grad():
+        for name, t in live.items():
+            key = _key(prefix, name)
+            if key not in flat:
+                continue
+            src = flat[key]
+            if tuple(src.shape) != tuple(t.shape):
+                skipped.append((key, tuple(src.shape), tuple(t.shape)))
+                continue
+            t.copy_(_as_tensor(src).to(t.dtype))
+    if logger is not None:
+        for key, got, want in skipped:
+            logger.info("Ignore weight %s: %s (model wants %s)"
+                        % (key, got, want))
+    return skipped
+
+
+def load_checkpoint(path, params, opt_state=None, logger=None
+                    ) -> Tuple[Any, Any, int]:
+    """Restore into ``params`` (and the AdamW ``opt_state``) in place.
+    Returns (params, opt_state, resume_from_epoch)."""
+    path = Path(path)
+    header = {}
+    if path.with_suffix(".json").exists():
+        header = json.loads(path.with_suffix(".json").read_text())
+    backend = header.get("backend")
+    if backend is None:
+        backend = next((b for b, s in (("npz", ".npz"), ("torch", ".pt"),
+                                       ("orbax", ".orbax"))
+                        if path.with_suffix(s).exists()), None)
+    if backend == "orbax":
+        raise RuntimeError(
+            f"{path.with_suffix('.orbax')} is an orbax checkpoint (the JAX "
+            f"package's backend from 1 GiB), which the port cannot read; "
+            f"re-save it from JAX with backend='npz'")
+    if backend == "torch":
+        flat = torch.load(path.with_suffix(".pt"), map_location="cpu",
+                          mmap=True, weights_only=True)
+    elif backend == "npz":
+        data = np.load(path.with_suffix(".npz"), allow_pickle=False)
+        flat = {k: data[k] for k in data.files}
+    else:
+        raise FileNotFoundError(f"no checkpoint at {path}")
+
+    _restore_into(_named(params), flat, "params", logger)
+    if opt_state is not None and OPT_COUNT in flat:
+        opt_state.count = int(_as_tensor(flat[OPT_COUNT]))
+        _restore_into(opt_state.mu, flat, OPT_MU, logger)
+        _restore_into(opt_state.nu, flat, OPT_NU, logger)
+    epoch = header.get("epoch")
+    return params, opt_state, (epoch + 1) if epoch is not None else 0
+
+
+def checkpoint_exists(path) -> bool:
+    p = Path(path)
+    return any(p.with_suffix(s).exists() for s in (".npz", ".pt", ".orbax"))
+
+
+def remove_checkpoint(path):
+    """Delete a checkpoint's files (the retention policy's worst epoch)."""
+    p = Path(path)
+    for suffix in SUFFIXES:
+        if p.with_suffix(suffix).exists():
+            p.with_suffix(suffix).unlink()

@@ -1,15 +1,61 @@
-"""Training loop: one epoch of teacher-forcing batches with AdamW.
+"""Training driver: multi-task epochs, validation, checkpoint retention.
 
-Torch twin of navillm_tpu/training/train_loop.py's ``Metrics``,
-``make_opt_step`` and ``train_one_epoch``: gradients accumulate in the
-parameters' .grad (runner.zero_grads / take_grads), and every
-gradient_accumulation_step batches one optimizer step applies clip +
-AdamW. The loss of batch N is read on the host only after batch N+1 has
-been dispatched (one-step lag), so the card works through N's backward
-while the host simulates N+1. ``run_training`` (yaml config, validation,
-checkpoints) is not ported yet.
+Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
+33-294):
+  - ``build_runner``: the tokenizer and the model (when no pretrained path
+    is given, the JAX package's tiny configuration, on the card widened to
+    what the attention kernels take; random weights on the port's
+    initialiser from ``args.seed``) on ``args.device``;
+  - ``build_world_and_data`` / ``build_agents``: the world, the stage's
+    loaders and the task agents from the config (R2R only);
+  - ``train_one_epoch``: gradients accumulate in the parameters' .grad
+    (runner.zero_grads / take_grads), and every gradient_accumulation_step
+    batches one optimizer step applies clip + AdamW. The loss of batch N
+    is read on the host only after batch N+1 has been dispatched (one-step
+    lag), so the card works through N's backward while the host simulates
+    N+1;
+  - ``val_one_epoch``: greedy streaming validation per task, the
+    predictions gathered (single process) and scored;
+  - ``calc_overall_score``: task-weighted SPL model selection;
+  - ``run_training``: the epoch loop with best-score checkpoint retention
+    (max_saved_checkpoints), pretrain-stage periodic saves, latest-state
+    saves and resume (training/checkpoints.py). The mesh and ZeRO-1 of the
+    JAX driver are ROADMAP A10: dp_size, tp_size or world_size above 1
+    raises, as does any flag of a path not ported yet
+    (utils/config.check_ported).
 """
 from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..agents import load_agent
+from ..agents.runner import NavModelRunner
+from ..convert import init_nav_params
+from ..data.feature_db import create_feature_db
+from ..data.loaders import NAME_OF, MetaLoader, create_dataloaders
+from ..models import llama as L
+from ..models.nav_model import NavModel, NavModelConfig
+from ..models.pano_encoder import PanoConfig
+from ..models.tokenization import NavTokenizer
+from ..parallel.dist import all_gather_objects, merge_dist_results
+from ..sim.env import WorldModel
+from ..utils.config import check_ported
+from .checkpoints import (checkpoint_exists, load_checkpoint,
+                          remove_checkpoint, save_checkpoint)
+from .optim import make_optimizer
+
+
+def check_single_card(args):
+    if args.dp_size > 1 or args.tp_size > 1 or args.world_size > 1:
+        raise NotImplementedError(
+            f"data/tensor parallelism (dp_size={args.dp_size}, tp_size="
+            f"{args.tp_size}, world_size={args.world_size}) is not ported "
+            f"yet (ROADMAP A10): the port trains on one card")
 
 
 class Metrics:
@@ -84,3 +130,217 @@ def train_one_epoch(args, cfg, runner, tx, opt_step, meta_loader, agents,
             break
     drain(pending)
     return loss_metric.average, grad_norms
+
+
+def tiny_config(args, vocab_size: int, device) -> NavModelConfig:
+    """The model built without a pretrained path. On the CPU it is the JAX
+    package's tiny configuration (2-layer f32 LLM, hidden 128 over 4 heads,
+    tiny panorama encoder), f32 whatever --precision says, as in JAX. On
+    the card every LLM layer runs through the attention kernels, which take
+    bf16 and head_dim 64 or 128 (ops/attention.py), so there the LLM is
+    hidden 256 over 4 heads (head_dim 64, MLP 512) and the LLM and the
+    panorama encoder are bf16; --precision fp32 raises there."""
+    llm_kw, pano_kw = {}, {}
+    if torch.device(device).type == "cuda":
+        if args.precision != "bf16":
+            raise ValueError(f"--precision {args.precision}: the attention "
+                             f"kernels run bf16 only; train in f32 on the "
+                             f"CPU (--device cpu)")
+        llm_kw = dict(hidden_size=256, intermediate_size=512,
+                      dtype=torch.bfloat16)
+        pano_kw = dict(dtype=torch.bfloat16)
+    llm_cfg = L.LlamaConfig.tiny(vocab_size=vocab_size, **llm_kw)
+    pano_cfg = PanoConfig.tiny(output_size=llm_cfg.hidden_size,
+                               use_obj=args.enable_og, **pano_kw)
+    return NavModelConfig(llm=llm_cfg, pano=pano_cfg,
+                          angle_feat_size=args.angle_feat_size)
+
+
+def build_runner(args, cfg, logger=None) -> NavModelRunner:
+    """Tokenizer + model on ``args.device``. Without a pretrained path:
+    the byte tokenizer and tiny_config, with random weights from
+    ``args.seed``."""
+    if args.quantize_llm and args.mode != "test":
+        raise ValueError("--quantize_llm is eval-only: int8 weights are "
+                         "not differentiable (models/quant.py)")
+    if args.act_int8 and not args.quantize_llm:
+        raise ValueError("--act_int8 needs --quantize_llm: int8 "
+                         "activations run against quantized weights "
+                         "(models/llama.py:_mm)")
+    if args.pretrained_model_name_or_path:
+        raise NotImplementedError(
+            "loading a pretrained (HF-layout) Vicuna checkpoint is not "
+            "ported yet (ROADMAP A4, HF-layout weight conversion)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port trains on the card; "
+                           "pass --device cpu to run on the CPU")
+    tok = NavTokenizer()
+    nav_cfg = tiny_config(args, tok.vocab_size, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = NavModel(nav_cfg, init_nav_params(nav_cfg, gen, device=device))
+    if logger is not None:
+        n = sum(p.numel() for p in model.parameters())
+        logger.info("model initialized with %.2f M parameters" % (n / 1e6))
+    return NavModelRunner(nav_cfg, model, tok, device=device,
+                          feat_dropout=args.feat_dropout,
+                          ignore_id=args.ignoreid, seed=args.seed)
+
+
+def build_world_and_data(args, cfg, training: bool, stage: str, world=None,
+                         feat_dbs=None, obj_feat_dbs=None, logger=None,
+                         test_datasets=None):
+    """(world, loaders, datasets, feat_dbs, obj_feat_dbs). Feature DBs are
+    injected or built from the config's feature_database (HDF5, read at
+    first use); object DBs are not built (object grounding is ROADMAP
+    A7)."""
+    if feat_dbs is None and "feature_database" in cfg.get("Feature", {}):
+        feat_dbs = create_feature_db(cfg.Feature.feature_database,
+                                     cfg.Feature.image_feat_size,
+                                     args.data_dir)
+    world = world or WorldModel(str(Path(args.data_dir) / "connectivity"))
+    loaders, datasets = create_dataloaders(
+        args, cfg, training=training, world=world, feat_dbs=feat_dbs,
+        obj_feat_dbs=obj_feat_dbs, stage=stage, logger=logger,
+        test_datasets=test_datasets)
+    return world, loaders, datasets, feat_dbs, obj_feat_dbs
+
+
+def build_agents(args, sources, world, runner) -> Dict[str, Any]:
+    return {src: load_agent(NAME_OF[src], args, world, runner)
+            for src in sources}
+
+
+def val_one_epoch(args, cfg, runner, val_loaders, agents, datasets, epoch,
+                  logger) -> Dict[str, Dict[str, float]]:
+    """Per task: streaming validation, predictions gathered, scored on
+    rank 0 (and saved with save_pred_results)."""
+    task_results: Dict[str, Dict[str, float]] = {}
+    for name, (loader, _ratio) in val_loaders.items():
+        if logger is not None:
+            logger.info("***** validate %s split on %s task *****"
+                        % (args.validation_split, name))
+        if not args.streaming_eval:
+            raise NotImplementedError("the batched validate loop is not "
+                                      "ported (ROADMAP A8): keep "
+                                      "streaming_eval on")
+        preds = agents[name].validate_streaming(name, args, cfg, loader,
+                                                dataset=datasets[name])
+        all_preds = merge_dist_results(all_gather_objects(preds))
+        if args.rank == 0 and not args.validation_split.startswith("test"):
+            score_summary, item_metrics = datasets[name].eval_metrics(
+                all_preds, logger=logger, name=name)
+            task_results[name] = score_summary
+            if logger is not None:
+                logger.info("[Eval] dataset=[%s] %s" % (name, {
+                    k: round(float(v), 2) for k, v in score_summary.items()}))
+            if args.save_pred_results:
+                datasets[name].save_json(
+                    all_preds,
+                    os.path.join(args.output_dir,
+                                 f"{name}_{args.validation_split}.json"),
+                    item_metrics=item_metrics if args.save_detail_results
+                    else None)
+    return task_results
+
+
+def calc_overall_score(results, cfg) -> float:
+    """Normalized-SPL sum over R2R/REVERIE/SOON (train.py:184-204)."""
+    score = 0.0
+    for task in results:
+        if task not in cfg.Multi.SOURCE:
+            continue
+        if task == "R2R":
+            score += results[task]["spl"] / 60
+        elif task == "REVERIE":
+            score += results[task]["spl"] / 36.63
+        elif task == "SOON":
+            score += results[task]["spl"] / 26.58
+        elif task in ("CVDN", "EQA", "ScanQA", "LLaVA"):
+            pass
+        else:
+            raise NotImplementedError(task)
+    return score
+
+
+def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
+                 obj_feat_dbs=None, runner=None):
+    """The main() flow (reference train.py:207-294). ``world``,
+    ``feat_dbs`` and ``runner`` are injectable. Returns the best epoch's
+    validation results (mode "test": that one validation's)."""
+    check_single_card(args)
+    check_ported(args)
+    np.random.seed(args.seed + args.rank)
+
+    world, train_loaders, train_datasets, feat_dbs, obj_feat_dbs = \
+        build_world_and_data(args, cfg, training=True, stage=args.stage,
+                             world=world, feat_dbs=feat_dbs,
+                             obj_feat_dbs=obj_feat_dbs, logger=logger)
+    _, val_loaders, val_datasets, _, _ = build_world_and_data(
+        args, cfg, training=False, stage="multi", world=world,
+        feat_dbs=feat_dbs, obj_feat_dbs=obj_feat_dbs, logger=logger,
+        test_datasets=args.test_datasets)
+
+    runner = runner or build_runner(args, cfg, logger)
+    train_agents = build_agents(args, train_loaders.keys(), world, runner)
+    val_agents = build_agents(args, val_loaders.keys(), world, runner)
+
+    num_batches = args.num_steps_per_epoch if args.num_steps_per_epoch > 0 \
+        else max(len(ld) for ld, _ in train_loaders.values())
+    # test mode validates only: no optimizer, so no moments on the card
+    tx = None if args.mode == "test" else make_optimizer(
+        dict(runner.model.named_parameters()), lr=args.lr,
+        num_warmup_steps=max(args.num_warmup_steps //
+                             max(args.gradient_accumulation_step, 1), 0),
+        grad_clip_norm=args.grad_clip_norm)
+
+    resume_from_epoch = 0
+    if args.resume_from_checkpoint and \
+            checkpoint_exists(args.resume_from_checkpoint):
+        _, _, resume_from_epoch = load_checkpoint(
+            args.resume_from_checkpoint, runner.model, tx, logger)
+
+    if args.mode == "test":
+        return val_one_epoch(args, cfg, runner, val_loaders, val_agents,
+                             val_datasets, resume_from_epoch, logger)
+
+    opt_step = make_opt_step(tx)
+    meta_loader = MetaLoader(train_loaders, seed=args.seed,
+                             off_batch_task=args.off_batch_task,
+                             rank=args.rank)
+    out = Path(args.output_dir)
+    best_results, best_score = None, None
+    history_scores = []
+    for epoch in range(resume_from_epoch, args.num_epochs):
+        train_one_epoch(args, cfg, runner, tx, opt_step, meta_loader,
+                        train_agents, train_datasets, epoch, logger,
+                        num_batches)
+        results = val_one_epoch(args, cfg, runner, val_loaders, val_agents,
+                                val_datasets, epoch, logger)
+        if args.rank == 0:
+            score = calc_overall_score(results, cfg)
+            history_scores.append(score)
+            should_save = False
+            if best_results is None or score > best_score:
+                best_results, best_score = results, score
+                should_save = args.max_saved_checkpoints > 0
+            if logger is not None:
+                logger.info("Current Score: %s | Best Score: %s"
+                            % (score, best_score))
+            if args.stage == "multi" and should_save:
+                if len(history_scores) > args.max_saved_checkpoints:
+                    # the worst of the kept epochs goes (history_scores
+                    # starts at the resume epoch; JAX takes the index as
+                    # the epoch, which only holds without a resume)
+                    ranked = sorted(enumerate(history_scores),
+                                    key=lambda x: x[1], reverse=True)
+                    remove_epoch = resume_from_epoch \
+                        + ranked[args.max_saved_checkpoints][0]
+                    remove_checkpoint(out / f"epoch_{remove_epoch}")
+                save_checkpoint(out / f"epoch_{epoch}", runner.model)
+            elif args.stage == "pretrain" and \
+                    (epoch + 1) % args.save_ckpt_per_epochs == 0:
+                save_checkpoint(out / f"pretrain_{epoch}", runner.model)
+        if args.save_latest_states:
+            save_checkpoint(out / "latest", runner.model, tx, epoch)
+    return best_results

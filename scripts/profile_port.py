@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the card's time goes in the PyTorch/CUDA port's 7B-width cells.
 
-    python3 scripts/profile_port.py [--tokenizer byte|bpe]
+    python3 scripts/profile_port.py [--tokenizer byte|bpe] [--cells all|multi]
         # on an H100, from the repository root
 
 Runs chip_smoke.py's eval slice (bf16), training slice and int4 eval
@@ -10,7 +10,10 @@ its warm-up, on the byte tokenizer (NavTokenizer(max_length=1024,
 pad_to_multiple=128), the default) or the BPE one
 (NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)); then the
 prefix-cached BPE eval cells (bf16 after the eval slice, w4 and w4a8 after
-theirs), as chip_smoke.py's phases 14, 16 and 17 run them. Each measured
+theirs), as chip_smoke.py's phases 14, 16 and 17 run them; and the
+stage-multi training cell (teacher and fused DAgger batches on BPE
+prompts, chip_smoke.py's phase 18) after the training slice. ``--cells
+multi`` traces that cell alone. Each measured
 run is traced with torch.profiler. For each cell it prints the wall time
 of the run, the summed device time of its kernels and copies, the card's
 busy share (the union of their spans over the wall time), the device time
@@ -165,6 +168,7 @@ def traced(cell: str):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tokenizer", choices=("byte", "bpe"), default="byte")
+    ap.add_argument("--cells", choices=("all", "multi"), default="all")
     opts = ap.parse_args()
     smi = C.phase_device()
     C.phase_build()
@@ -183,6 +187,15 @@ def main():
         return lambda: traced(f"r2r_{name}_bpe_cached ({what}, BPE prompts, "
                               f"prefix cache)")
 
+    def multi():
+        return traced("r2r_train_7b_multi (stage multi: teacher and fused "
+                      "DAgger batches, BPE prompts)")
+
+    if opts.cells == "multi":
+        with tempfile.TemporaryDirectory() as tmp:
+            C.phase_dagger(bpe, cfg, model, tmp, window=multi)
+        print(smi)
+        return
     with tempfile.TemporaryDirectory() as tmp:
         C.phase_slice(3, tok, cfg, model, tmp,
                       window=cell("stream_7b", "bf16 eval"))
@@ -192,6 +205,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         C.phase_train(tok, cfg, model, tmp,
                       window=cell("train_7b", "training"))
+    with tempfile.TemporaryDirectory() as tmp:
+        C.phase_dagger(bpe, cfg, model, tmp, window=multi)
     qmodel = C.quantize_model(cfg, model)
     del model
     gc.collect()

@@ -1,8 +1,9 @@
 """The port stands alone: it imports nothing of navillm_tpu, no jax and
 none of the packages the card's machine lacks (tokenizers among them), and
 its tiny slices (greedy evaluation on bytes, on BPE uncached and
-prefix-cached, on int4, then one teacher-forcing optimizer step through
-train_one_epoch) run on the CPU.
+prefix-cached, on int4, one teacher-forcing optimizer step through
+train_one_epoch, then run_training at stage multi from a YAML config) and
+``python -m navillm_tpu_torch.train --help`` run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -91,19 +92,82 @@ with tempfile.TemporaryDirectory() as tmp:
         None, num_batches=1)
     assert loss > 0 and len(norms) == 1 and float(norms[0]) > 0, (loss, norms)
     print("train loss", loss)
+
+    # run_training: a YAML config without pyyaml, stage multi
+    # (teacher, then the fused DAgger) on build_runner's model, validation,
+    # checkpoints
+    import os
+    from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
+    from navillm_tpu_torch.training.train_loop import run_training
+    from navillm_tpu_torch.utils.config import TrainArgs as Args
+    from navillm_tpu_torch.utils.config import load_yaml_text
+    run = tmp + "/run"
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="train")
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="val", seed=1)
+    cfg = load_yaml_text(RUN_CFG)
+    rargs = Args(data_dir=run, output_dir=run + "/out", device="cpu",
+                 num_epochs=1, num_steps_per_epoch=2, batch_size=2,
+                 fused_rows_per_call=4, save_latest_states=True,
+                 max_saved_checkpoints=1)
+    rargs.sync_from_config(cfg)
+    res = run_training(rargs, cfg, feat_dbs={"mp3d": SyntheticImageFeaturesDB(
+        rargs.image_feat_size)})
+    assert "sr" in res["R2R"], res
+    assert sorted(os.listdir(run + "/out")) == [
+        "epoch_0.json", "epoch_0.npz", "latest.json", "latest.npz"]
+    print("run_training", res["R2R"])
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+
+RUN_CFG = '''
+Feature: {image_feat_size: 32, angle_feat_size: 4}
+Dataset:
+  R2R:
+    DIR: R2R
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+Multi:
+  SOURCE: ['R2R']
+  Ratio: [1]
+  LOSS_COEF: {}
+Optim:
+  train_max_action_len: {"R2R": 4}
+  val_max_action_len: {"R2R": 4}
+'''
+SLICE = "RUN_CFG = %r\n" % RUN_CFG + SLICE
+
+# the entry point's --help, in a fresh process
+CLI_HELP = """
+import runpy, sys
+sys.argv = ["navillm_tpu_torch.train", "--help"]
+try:
+    runpy.run_module("navillm_tpu_torch.train", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 print("loaded", sorted(m for m in sys.modules if m in %r
                        or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
 """ % (BANNED,)
 
 
-def test_port_runs_its_slice_without_jax():
+def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
-    proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT, env=env,
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "loaded []" in proc.stdout, proc.stdout
+    return proc.stdout
+
+
+def test_port_runs_its_slice_without_jax():
+    _fresh(SLICE)
+
+
+def test_train_entry_point_help_without_jax():
+    out = _fresh(CLI_HELP)
+    assert "--dagger_prefix_cache" in out and "--device" in out
 
 
 def _port_sources():

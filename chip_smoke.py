@@ -122,6 +122,34 @@ model is live; phases 18-20 on it, on BPE prompts and RolloutDims(48, 44,
      layers, 4 heads of 64, bf16): 1 epoch of 4 batches of 4, validation,
      an npz checkpoint; its kernel launches as the path implies (K1 once
      per layer of every grad call: this model does not remat).
+Generation at 7B width on BPE prompts, phases 22-24 on the bf16 model
+after phase 21, phase 25 on the int4 tree after phase 11:
+ 22. generate A/B: four EQA prompts with their panorama and history
+     injections, left-padded to the 64 bucket; the prefill through K1
+     against the eager attention (every prefill row finite, the last
+     position's logits per element within the CACHED_LOGIT_* bound), the
+     greedy tokens of both equal on every step whose top-2 margin exceeds
+     that bound (the first parting step reported), decode_step's hidden at
+     step 0 against forward_hidden over prompt + token within the same
+     bound; ms per prefill, per decode token, device events per decode
+     step (torch.profiler);
+ 23. EQA streaming evaluation (validate_streaming("EQA"): trie-constrained
+     answers from the generation queue, the oracle pass in the same slot)
+     of 16 episodes in 2 slot groups of 4, uncached and prefix-cached:
+     every answer in the vocabulary, K1 = 32 x (generate calls + uncached
+     steps + prefill calls); ms per nav step and per generate call,
+     episodes/s, peak memory;
+ 24. run_training at stage multi with --enable_summarize --enable_fgr2r and
+     --test_datasets R2R EQA: 4 batches of 8 (the teacher batches run the
+     FGR2R and summarization heads), validation of 8 episodes of each
+     task; losses finite and below MAX_LOSS, K2 = K3 = 32 x grad calls
+     (the heads' included), one head call's gradient through the kernels
+     against eager attention within MIN_GRAD_COSINE; per teacher batch the
+     navigation and head ms, head calls, trained tokens/s, peak memory;
+ 25. phase 23 uncached on the int4 tree (K4 = 7 x 32 per LLM pass, decode
+     steps included), K4 against its plain version at the decode shape
+     m = 4, and one decode step's logits through K4 against q4_impl="plain"
+     within the CACHED_LOGIT_* bound; ms per decode token beside phase 23's.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -151,16 +179,19 @@ from navillm_tpu_torch import testing as T
 from navillm_tpu_torch import train as TRAIN
 from navillm_tpu_torch.agents import device_memory as DM
 from navillm_tpu_torch.agents import fused_teacher as FT
-from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
+from navillm_tpu_torch.agents.mp3d_agent import R2RAgent, TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
 from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
+from navillm_tpu_torch.models import decoding as D
+from navillm_tpu_torch.models import llama as L
 from navillm_tpu_torch.models.llama import LlamaConfig, _act_q
 from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
                                                 forward_navigation)
 from navillm_tpu_torch.models.pano_encoder import PanoConfig
-from navillm_tpu_torch.models.quant import _quant_one4, quantize_nav_params
+from navillm_tpu_torch.models.quant import (_quant_one4, is_quantized,
+                                            quantize_nav_params)
 from navillm_tpu_torch.models.tokenization import NavTokenizer
 from navillm_tpu_torch.ops import _build
 from navillm_tpu_torch.ops.attention import (
@@ -307,6 +338,41 @@ RUN_VAL_EPISODES = 16
 # model): 4 batches of 4, validation of CLI_VAL_EPISODES episodes
 CLI_BATCH = 4
 CLI_VAL_EPISODES = 8
+# phases 22-25: generation at 7B width on BPE prompts. Phases 23 and 25
+# evaluate GEN_EPISODES EQA episodes, each twice (its own pass and the
+# oracle pass), in 2 slot groups of N_SLOTS
+GEN_EPISODES = 16
+GEN_MAX_ACTION_LEN = 15
+# phase 22: tokens of the generate A/B and the history length of each of
+# its prompts
+GEN_AB_TOKENS = 32
+GEN_AB_HISTORY = (0, 3, 7, 12)
+# phase 24: validation episodes of each task
+RUN_GEN_VAL_EPISODES = 8
+# phase 24's experiment: stage multi over R2R with EQA at ratio 0, so EQA is
+# validated (--test_datasets R2R EQA) and never trained (the fused trainer
+# takes R2R batches)
+RUN_GEN_YAML = """
+Feature: {image_feat_size: 1024, angle_feat_size: 4}
+Dataset:
+  R2R:
+    DIR: "R2R"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  EQA:
+    DIR: "EQA"
+    ANSWER_VOCAB: "annotations/answer_vocab.json"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+Multi:
+  SOURCE: ['R2R', 'EQA']
+  Ratio: [1, 0]
+  LOSS_COEF: {}
+Model: {num_pano_layers: 2, enc_full_graph: True, expert_policy: "spl"}
+Optim:
+  train_max_action_len: {"R2R": %(len)d, "EQA": %(len)d}
+  val_max_action_len: {"R2R": %(len)d, "EQA": %(len)d}
+"""
 RUN_YAML = """
 Feature: %(feature)s
 Dataset:
@@ -1130,8 +1196,9 @@ def int4pack(q4p, s):
     return packed, sz.contiguous()
 
 
-def phase_q4_kernel():
-    """Returns {(m, h, o, mode): row}, row holding max_abs_err, ms,
+def phase_q4_kernel(tag=8, rows=(4096, 3584, 7), modes=("w4", "w4a8")):
+    """K4 against its plain version at the 7B layer shapes, ``rows`` the
+    m of x. Returns {(m, h, o, mode): row}, row holding max_abs_err, ms,
     plain_ms, library_ms (w4: with the call's max |d| from the plain version
     and how far beyond K4's tolerance; w4a8: None, with the reason in
     ``library``), bound_ms and bound_by."""
@@ -1145,11 +1212,13 @@ def phase_q4_kernel():
         q4p, s = _quant_one4(w)
         g = h // s.shape[0]
         packed = int4pack(q4p, s) if has_lib else None
-        for m in (4096, 3584, 7):
+        for m in rows:
             x = torch.randn((m, h), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
             dense_ms = cuda_ms(lambda: x @ w)
             for mode, a in (("w4", x), ("w4a8", _act_q(x)[0])):
+                if mode not in modes:
+                    continue
                 y = matmul_q4(a, q4p, s)
                 ref = matmul_q4_reference(a, q4p, s)
                 torch.cuda.synchronize()
@@ -1194,7 +1263,7 @@ def phase_q4_kernel():
                                 f"ms (max|d| {ld.max().item():.3e} from the "
                                 f"plain version; beyond K4's tolerance by "
                                 f"{max(over, 0.0):.3e})")
-                print(f"[8] {mode} m={m} h={h} o={o}: max|d|={err:.3e} "
+                print(f"[{tag}] {mode} m={m} h={h} o={o}: max|d|={err:.3e} "
                       f"(max |d|/|ref| {rel.item():.3e}, |ref| up to "
                       f"{top.max().item():.2f}); kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, dense bf16 matmul {dense_ms:.4f} "
@@ -1439,18 +1508,19 @@ def cuda_timed(fn, sink):
 def zero_counters(runner):
     for fn in COUNTERS.values():
         fn.launches = 0
+    matmul_q4.launches = matmul_q4.int8_launches = 0
     runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
-    runner.grad_calls = 0
+    runner.grad_calls = runner.gen_grad_calls = runner.generate_calls = 0
     runner.llm_token_units = 0.0
 
 
 def check_launches(tag, runner, layers):
-    """K1 once per layer of every prefill and uncached step and of every
-    grad call's forward, and once more under remat (the recomputed
-    forward); K2 and K3 once per layer of every grad call. Returns the
-    launches."""
+    """K1 once per layer of every prefill (the prefix cache's and each
+    generate call's), uncached step and grad call's forward, and once more
+    under remat (the recomputed forward); K2 and K3 once per layer of every
+    grad call, the generation heads' included. Returns the launches."""
     launches = {k: fn.launches for k, fn in COUNTERS.items()}
-    passes = runner.prefill_calls + runner.eval_steps
+    passes = runner.prefill_calls + runner.eval_steps + runner.generate_calls
     calls = runner.grad_calls
     fwd_per_call = 2 if runner.cfg.llm.remat else 1
     want = {"fwd": layers * (passes + fwd_per_call * calls),
@@ -1458,7 +1528,8 @@ def check_launches(tag, runner, layers):
     if launches != want:
         raise RuntimeError(f"[{tag}] kernel launches {launches} != {want} "
                            f"({runner.prefill_calls} prefills + "
-                           f"{runner.eval_steps} uncached steps, {calls} "
+                           f"{runner.eval_steps} uncached steps + "
+                           f"{runner.generate_calls} generate calls, {calls} "
                            f"grad calls, {layers} layers)")
     return launches
 
@@ -2136,6 +2207,459 @@ def phase_cli(tmp):
     return launches
 
 
+def gen_inputs(bpe, cfg, model, tmp):
+    """Phase 22's prompts: the first observations of N_SLOTS EQA episodes as
+    the EQA head assembles them (the 12 horizon views at its <cand> tokens,
+    the question), with GEN_AB_HISTORY history embeds (panorama embeds of
+    the views). Returns (runner, input_ids, attention_mask, inject
+    positions, inject embeds on the card)."""
+    root = f"{tmp}/gen_ab"
+    T.make_r2r_world(root, n_episodes=N_SLOTS, seed=11)
+    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+    agent, ds, _ = T.eqa_eval(root, "val", runner, N_SLOTS,
+                              cfg.pano.image_feat_size)
+    obs = [ds[i]["observations"] for i in range(N_SLOTS)]
+    pano_in, nav_mask, toks, cand_pos, hist_pos = agent._generation_inputs(
+        obs, [["<hist>"] * n for n in GEN_AB_HISTORY],
+        [ob["instruction"] for ob in obs], "embodied_qa")
+    pe = runner.panorama_dev_dict(pano_in, deterministic=True)["pano_embeds"]
+    hist = agent.hist_arrays([list(pe[i, :n].float().cpu().numpy())
+                              for i, n in enumerate(GEN_AB_HISTORY)])
+    emb = runner.gen_embeds(pe, nav_mask)[:, : cand_pos.shape[1]]
+    return (runner, toks.input_ids, toks.attention_mask,
+            np.concatenate([cand_pos, hist_pos], 1),
+            torch.cat([emb.float(), runner.upload(hist)], 1))
+
+
+def device_events(fn) -> int:
+    """Device events (kernels, copies, memsets) of one call of fn, from
+    torch.profiler; 0 if the trace holds none."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.events() if e.device_type == cuda)
+
+
+def phase_gen_ab(bpe, cfg, model, tmp):
+    """Phase 22: generate's prefill through K1 against the eager attention
+    on EQA prompts (left-padded to the 64 bucket, so the leading pad rows
+    see no key): every row of the prefill finite, the last position's
+    logits per element within the CACHED_LOGIT_* bound (logit_tol); the
+    greedy tokens of both equal on every step whose top-2 margin exceeds
+    that bound; decode_step's hidden at step 0 against forward_hidden over
+    the prompt and the token, within the same bound. Times the prefill and
+    the decode steps. Returns the measures."""
+    runner, ids, mask, inj_pos, inj_emb = gen_inputs(bpe, cfg, model, tmp)
+    llm, smask, layers = model["llm"], runner.special_mask, cfg.llm.num_layers
+    eager = dataclasses.replace(cfg.llm, attn_impl="eager")
+    b_ids, b_mask, b_pos = D.bucket_prompt(ids, mask, inj_pos, bpe.pad_id)
+    dev_ids, dev_mask, dev_pos = (runner.upload(x) for x in (
+        b_ids.astype(np.int64), b_mask, b_pos))
+    out = {}
+    flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        for name, c in (("kernel", cfg.llm), ("eager", eager)):
+            x = L.embed_with_injection(llm, dev_ids, dev_pos, inj_emb)
+            hidden, kv = L.forward_hidden(llm, c, x, dev_mask, return_kv=True)
+            out[name] = (hidden, kv, L.logits_from_hidden(
+                llm, c, hidden[:, -1], smask))
+    if flash_attention_fwd.launches != layers:
+        raise RuntimeError(f"[22] {flash_attention_fwd.launches} K1 launches "
+                           f"in the prefill, not {layers}")
+    hk, kvk, lk = out["kernel"]
+    bad = [n for n, t in (("hidden", hk), ("K", kvk["k"]), ("V", kvk["v"]))
+           if not torch.isfinite(t).all()]
+    if bad:
+        raise RuntimeError(f"[22] the kernel prefill's {bad} are not finite "
+                           f"on every row")
+    pad_rows = int((~dev_mask).sum())
+    prefill_exc = logit_excess(lk, out["eager"][2])
+    if not prefill_exc <= 1:
+        raise RuntimeError(f"[22] prefill logits kernel vs eager at "
+                           f"{prefill_exc:.3f} of the limit")
+
+    # the greedy tokens, each pick's logits recorded
+    pick, picks = D.pick_token, []
+
+    def recording_pick(logits, *a, **kw):
+        picks[-1].append(logits.float().masked_fill(smask, NEG_INF))
+        return pick(logits, *a, **kw)
+    D.pick_token = recording_pick
+    try:
+        toks = {}
+        for name, c in (("kernel", cfg.llm), ("eager", eager)):
+            picks.append([])
+            toks[name] = D.generate(
+                llm, c, ids, mask, inject_positions=inj_pos,
+                inject_embeds=inj_emb, special_token_mask=smask,
+                eos_id=bpe.eos_id, pad_id=bpe.pad_id,
+                max_new_tokens=GEN_AB_TOKENS).cpu().numpy()
+    finally:
+        D.pick_token = pick
+    tk, te = toks["kernel"], toks["eager"]
+    parted, compared, worst = [], 0, 0.0
+    for i in range(N_SLOTS):
+        for k in range(min(len(picks[0]), len(picks[1]))):
+            want = picks[1][k][i:i + 1]
+            if tk[i, k] == te[i, k]:
+                compared += 1
+                worst = max(worst, logit_excess(picks[0][k][i:i + 1], want))
+                if te[i, k] == bpe.eos_id:
+                    break
+                continue
+            tol, _ = logit_tol(want)
+            top = want[0].topk(2)
+            margin = (top.values[0] - top.values[1]).item()
+            limit = tol[0, top.indices].sum().item()
+            if margin > limit:
+                raise RuntimeError(f"[22] row {i} parts at token {k} on a "
+                                   f"top-2 margin {margin:.4f} above the "
+                                   f"limit {limit:.4f}")
+            parted.append((i, k, round(margin, 5), round(limit, 5)))
+            break
+
+    # decode_step's hidden at step 0 against the full forward
+    with torch.inference_mode():
+        tok0 = lk.argmax(-1)
+        dec = L.init_decode_cache(cfg.llm, N_SLOTS, 1, runner.device)
+        emb0 = L.embed_rows(llm["embed"], tok0)[:, None]
+        lens = dev_mask.sum(-1)[:, None]
+        hd, _ = L.decode_step(llm, cfg.llm, emb0, kvk, dev_mask, dec, 0, lens)
+        full = L.embed_with_injection(
+            llm, torch.cat([dev_ids, tok0[:, None]], 1), dev_pos, inj_emb)
+        hf = L.forward_hidden(llm, cfg.llm, full, torch.cat(
+            [dev_mask, dev_mask.new_ones((N_SLOTS, 1))], 1))[:, -1]
+        hidden_exc = logit_excess(hd[:, 0].float(), hf.float())
+        if not hidden_exc <= 1:
+            raise RuntimeError(f"[22] decode_step's hidden vs forward_hidden "
+                               f"at {hidden_exc:.3f} of the limit")
+        prefill_ms = cuda_ms(lambda: D.prefill(llm, cfg.llm, dev_ids,
+                                               dev_mask, dev_pos, inj_emb),
+                             iters=5)
+        events = device_events(lambda: L.decode_step(
+            llm, cfg.llm, emb0, kvk, dev_mask, dec, 0, lens))
+    steps, decode_step = [0], L.decode_step
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return decode_step(*a, **kw)
+    L.decode_step = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        D.generate(llm, cfg.llm, ids, mask, inject_positions=inj_pos,
+                   inject_embeds=inj_emb, special_token_mask=smask,
+                   eos_id=bpe.eos_id, pad_id=bpe.pad_id,
+                   max_new_tokens=GEN_AB_TOKENS)
+        torch.cuda.synchronize()
+        gen_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        L.decode_step = decode_step
+    decode_ms = (gen_ms - prefill_ms) / max(steps[0], 1)
+    print(f"[22] generate A/B on {N_SLOTS} EQA prompts of {mask.shape[1]} "
+          f"tokens (bucketed to {b_ids.shape[1]}; {pad_rows} of "
+          f"{b_mask.size} rows are padding, every row of the kernel prefill "
+          f"finite): prefill logits K1 vs eager attention at "
+          f"{prefill_exc:.3f} of the limit; {compared} greedy tokens equal "
+          f"before parting (worst logits there at {worst:.3f} of the limit),"
+          f" rows parting (row, token, top-2 margin, limit): "
+          f"{parted or 'none'}; decode_step's hidden at step 0 vs "
+          f"forward_hidden over prompt + token at {hidden_exc:.3f} of the "
+          f"limit; prefill {prefill_ms:.2f} ms, {GEN_AB_TOKENS} tokens in "
+          f"{gen_ms:.1f} ms = {decode_ms:.2f} ms per decode token ({steps[0]}"
+          f" decode steps); {events or 'not measured:'} device events per "
+          f"decode step{'' if events else ' the trace holds none'}")
+    return {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "events": events}
+
+
+def phase_eqa(tag, bpe, cfg, model, tmp, prefix_cache=False,
+              warm_up=True):
+    """Phases 23 and 25: EQA streaming evaluation of GEN_EPISODES episodes
+    (2 slot groups of N_SLOTS, val_max_action_len GEN_MAX_ACTION_LEN, the
+    answer vocabulary's trie), after a warm-up on its own world. Gates:
+    every episode answered by its pass and its oracle pass, every answer in
+    the vocabulary, K1 once per layer of every generate call (its prefill),
+    uncached step and prefill call (and on an int4 tree K4 7 times per layer
+    of every LLM pass: those and each decode step). Returns the measures."""
+    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+    layers, feat = cfg.llm.num_layers, cfg.pano.image_feat_size
+    gen_s, prefill_s, decodes = [], [], [0]
+    runner.generate = cuda_timed(runner.generate, gen_s)
+    prefill, decode_step = D.prefill, L.decode_step
+
+    def counted_decode(*a, **kw):
+        decodes[0] += 1
+        return decode_step(*a, **kw)
+
+    def run(root, n, seed):
+        T.make_r2r_world(root, n_episodes=n, seed=seed)
+        agent, ds, args = T.eqa_eval(root, "val", runner, N_SLOTS, feat,
+                                     prefix_cache=prefix_cache)
+        with torch.inference_mode():
+            return agent.validate_streaming(
+                "EQA", args, T.eval_config(GEN_MAX_ACTION_LEN, "EQA"),
+                Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds), ds
+
+    D.prefill, L.decode_step = cuda_timed(prefill, prefill_s), counted_decode
+    try:
+        if warm_up:
+            run(f"{tmp}/warm", 2 * N_SLOTS, 1)
+        for v in (gen_s, prefill_s):
+            v.clear()
+        decodes[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters(runner)
+        t0 = time.perf_counter()
+        preds, ds = run(f"{tmp}/main", GEN_EPISODES, 0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        D.prefill, L.decode_step = prefill, decode_step
+    launches = check_launches(tag, runner, layers)
+    passes = (runner.eval_steps + runner.cached_steps + runner.prefill_calls
+              + runner.generate_calls + decodes[0])
+    if is_quantized(model) and matmul_q4.launches != \
+            passes * layers * Q4_LAYER_MATMULS:
+        raise RuntimeError(f"[{tag}] int4 kernel launches "
+                           f"{matmul_q4.launches} != {passes} LLM passes x "
+                           f"{layers} x {Q4_LAYER_MATMULS}")
+    if prefix_cache and (runner.eval_steps or not runner.cached_steps
+                         or not runner.prefill_calls):
+        raise RuntimeError(f"[{tag}] the cached run did not take the cached "
+                           f"path: {runner.eval_steps} uncached steps")
+    vocab = set(ds.answer_vocab)
+    off = [p["instr_id"] for p in preds if p["pred_answer"] not in vocab
+           or p["oracle_pred_answer"] not in vocab]
+    if len(preds) != len(ds) or off:
+        raise RuntimeError(f"[{tag}] {len(preds)} predictions for {len(ds)} "
+                           f"episodes; answers outside the vocabulary: {off}")
+    for p in preds:
+        if p["trajectory"][0][0] != ds.gt_trajs[p["instr_id"]][1][0]:
+            raise RuntimeError(f"[{tag}] {p['instr_id']} does not start at "
+                               f"its start")
+    avg, _ = ds.eval_metrics(preds, None, "EQA")
+    if not all(math.isfinite(avg[k]) for k in ("sr", "spl", "exact_match")):
+        raise RuntimeError(f"[{tag}] metrics not finite: {avg}")
+    steps = runner.eval_steps + runner.cached_steps
+    gen_total = sum(gen_s)
+    st = {"ms_per_step": 1e3 * (dt - gen_total) / steps,
+          "generate_calls": runner.generate_calls,
+          "ms_per_generate": 1e3 * gen_total / len(gen_s),
+          "ms_per_decode": 1e3 * (gen_total - sum(prefill_s))
+          / max(decodes[0], 1),
+          "decode_steps": decodes[0], "episodes_per_s": len(preds) / dt,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches, "q4_launches": matmul_q4.launches}
+    kind = "cached" if prefix_cache else "uncached"
+    q4_note = (f", int4 {matmul_q4.launches} = {passes} LLM passes x "
+               f"{layers} x {Q4_LAYER_MATMULS}" if is_quantized(model) else "")
+    print(f"[{tag}] EQA streaming eval ({kind}) of {len(preds)} episodes, "
+          f"each with its oracle pass, in {dt:.3f} s = "
+          f"{st['episodes_per_s']:.3f} episodes/s: {steps} {kind} steps at "
+          f"{st['ms_per_step']:.2f} ms wall per step (generation excluded)"
+          f"{f', {runner.prefill_calls} prefills' if prefix_cache else ''};"
+          f" {st['generate_calls']} generate calls at "
+          f"{st['ms_per_generate']:.1f} ms each ({st['decode_steps']} decode "
+          f"steps, {st['ms_per_decode']:.2f} ms per decode token); exact "
+          f"match {avg['exact_match']:.2f}, oracle "
+          f"{avg['oracle_exact_match']:.2f}, SR {avg['sr']:.2f}; every answer "
+          f"in the {len(vocab)}-word vocabulary; peak memory "
+          f"{st['peak_gib']:.2f} GiB; launches {launches}{q4_note}")
+    return st
+
+
+def phase_run_gen(bpe, cfg, model, tmp):
+    """Phase 24: run_training at stage multi with --enable_summarize
+    --enable_fgr2r and --test_datasets R2R EQA on the 7B-width runner: one
+    epoch of 4 batches of TRAIN_BATCH (2 teacher batches with the FGR2R and
+    summarization heads, 2 DAgger batches), validation of
+    RUN_GEN_VAL_EPISODES episodes of each task, no checkpoint. Gates:
+    losses finite and below MAX_LOSS, K1-K3 as the path implies with the
+    heads' grad calls counted, and one head call's gradient through the
+    kernels against eager attention. Returns the run's kernel launches."""
+    root = f"{tmp}/rungen"
+    T.make_r2r_world(root, n_episodes=TRAIN_EPISODES, seed=8, split="train")
+    T.make_r2r_world(root, n_episodes=RUN_GEN_VAL_EPISODES, seed=9,
+                     split="val")
+    ycfg = load_yaml_text(RUN_GEN_YAML % {"len": MAX_ACTION_LEN})
+    args = TrainArgs(data_dir=root, output_dir=f"{root}/out", stage="multi",
+                     num_epochs=1, num_steps_per_epoch=4,
+                     batch_size=TRAIN_BATCH, val_batch_size=N_SLOTS,
+                     gradient_accumulation_step=2,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     max_saved_checkpoints=0, enable_summarize=True,
+                     enable_fgr2r=True, test_datasets=["R2R", "EQA"], seed=0)
+    args.sync_from_config(ycfg)
+    runner = NavModelRunner(cfg, model, bpe, dims=DAGGER_DIMS,
+                            feat_dropout=args.feat_dropout, seed=args.seed)
+    rec = {"batch_s": [], "head_s": [], "heads": [], "losses": [],
+           "tokens": [0], "first_head": [], "epochs": []}
+    nav_call, gen_call = runner.pano_navigation_train, \
+        runner.pano_generation_train
+
+    def nav_train(pano_inputs, seed, batch, targets, coef):
+        rec["tokens"][0] += int(batch["attention_mask"][
+            targets != args.ignoreid].sum())
+        return nav_call(pano_inputs, seed, batch, targets, coef)
+
+    def gen_train(pano_inputs, seed, batch, coef):
+        rec["tokens"][0] += int(batch["attention_mask"].sum())
+        rec["heads"][-1] += 1
+        if not rec["first_head"]:
+            rec["first_head"].append((pano_inputs, seed, batch, coef))
+        return cuda_timed(gen_call, rec["head_s"][-1])(pano_inputs, seed,
+                                                       batch, coef)
+
+    runner.pano_navigation_train, runner.pano_generation_train = \
+        nav_train, gen_train
+    agent_train, epoch_fn = R2RAgent.train, TTL.train_one_epoch
+
+    def train(self, name, batch, a, config, dataset, step=0, **kw):
+        rec["heads"].append(0)
+        rec["head_s"].append([])
+        loss = cuda_timed(agent_train, rec["batch_s"])(
+            self, name, batch, a, config, dataset, step=step, **kw)
+        rec["losses"].append(float(loss))
+        return loss
+
+    def train_one_epoch(*a, **kw):
+        t0 = time.perf_counter()
+        out = epoch_fn(*a, **kw)
+        torch.cuda.synchronize()
+        rec["epochs"].append((time.perf_counter() - t0, out))
+        return out
+
+    R2RAgent.train, TTL.train_one_epoch = train, train_one_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    try:
+        t0 = time.perf_counter()
+        res = TTL.run_training(args, ycfg, feat_dbs={
+            "mp3d": SyntheticImageFeaturesDB(cfg.pano.image_feat_size)},
+            runner=runner)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        R2RAgent.train, TTL.train_one_epoch = agent_train, epoch_fn
+    launches = check_launches(24, runner, cfg.llm.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (train_s, (avg_loss, norms)), = rec["epochs"]
+    norms = [float(n) for n in norms]
+    losses = rec["losses"]
+    if len(losses) != 4 or not all(math.isfinite(x) and 0 < x < MAX_LOSS
+                                   for x in losses) \
+            or len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                          for n in norms):
+        raise RuntimeError(f"[24] losses {losses}, gradient norms {norms}")
+    teacher = [i for i in range(4) if i % 2 == 0]
+    if not all(rec["heads"][i] >= 2 for i in teacher) or \
+            any(rec["heads"][i] for i in range(4) if i % 2):
+        raise RuntimeError(f"[24] head calls per batch {rec['heads']}: each "
+                           f"teacher batch runs FGR2R and summarization, no "
+                           f"DAgger batch runs a head")
+    if sorted(res) != ["EQA", "R2R"] or not all(
+            math.isfinite(res[t][k]) for t, k in (("R2R", "spl"),
+                                                  ("EQA", "exact_match"))):
+        raise RuntimeError(f"[24] validation results {res}")
+    head_ms = [1e3 * sum(rec["head_s"][i]) for i in range(4)]
+    batch_ms = [1e3 * x for x in rec["batch_s"]]
+    print(f"[24] run_training (stage multi, --enable_summarize "
+          f"--enable_fgr2r, --test_datasets R2R EQA) in {dt:.3f} s: teacher "
+          f"batch {[round(batch_ms[i], 1) for i in teacher]} ms = nav "
+          f"{[round(batch_ms[i] - head_ms[i], 1) for i in teacher]} + heads "
+          f"{[round(head_ms[i], 1) for i in teacher]} ms ("
+          f"{[rec['heads'][i] for i in teacher]} head calls per batch); "
+          f"DAgger batch {[round(batch_ms[i], 1) for i in range(4) if i % 2]}"
+          f" ms; {rec['tokens'][0]} trained tokens in the {train_s:.3f} s "
+          f"epoch = {rec['tokens'][0] / train_s:.0f} tokens/s; "
+          f"{runner.grad_calls} grad calls ({runner.gen_grad_calls} heads), "
+          f"{runner.generate_calls} generate calls; peak memory {peak:.2f} "
+          f"GiB; losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(n, 4) for n in norms]}; validation R2R "
+          f"{({k: round(float(v), 2) for k, v in res['R2R'].items()})}, EQA "
+          f"exact match {res['EQA']['exact_match']:.2f}; launches {launches}")
+    gen_grad_ab(bpe, cfg, model, rec["first_head"][0])
+    return launches
+
+
+def gen_grad_ab(bpe, cfg, model, call):
+    """Phase 24's first head call again, dropout off, through the kernels
+    and through eager attention: the gradients within MIN_GRAD_COSINE."""
+    last = cfg.llm.num_layers - 1
+    watch = {"llm.layers.wq[0]": lambda m: m.llm.layers.wq.grad[0],
+             f"llm.layers.w_down[{last}]":
+                 lambda m: m.llm.layers.w_down.grad[last],
+             "llm.lm_head": lambda m: m.llm.lm_head.grad,
+             "pano.mapper.w": lambda m: m.pano.mapper.w.grad}
+    res = {}
+    for impl in ("auto", "eager"):
+        cfg_i = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, attn_impl=impl),
+            pano=dataclasses.replace(cfg.pano, hidden_dropout_prob=0.0))
+        runner = NavModelRunner(cfg_i, model, bpe, dims=DAGGER_DIMS,
+                                feat_dropout=0.0)
+        runner.zero_grads()
+        loss = float(runner.pano_generation_train(*call))
+        res[impl] = (loss, {k: f(model).float().clone()
+                            for k, f in watch.items()})
+    (lk, gk), (le, ge) = res["auto"], res["eager"]
+    rows = call[2]["input_ids"].shape
+    print(f"[24] one head call of {rows[0]} rows x {rows[1]} tokens: loss "
+          f"kernel {lk:.6f} eager {le:.6f} (diff {abs(lk - le):.3e})")
+    for name in watch:
+        a, w = gk[name].flatten(), ge[name].flatten()
+        cos = torch.nn.functional.cosine_similarity(a, w, dim=0).item()
+        print(f"[24] {name}: rel L2 err "
+              f"{((a - w).norm() / w.norm()).item():.3e}, cosine {cos:.6f}")
+        if not cos >= MIN_GRAD_COSINE:
+            raise RuntimeError(f"[24] {name}: gradient cosine {cos} < "
+                               f"{MIN_GRAD_COSINE}")
+
+
+def phase_eqa_w4(bpe, cfg, qmodel, tmp, ref):
+    """Phase 25: phase 23's evaluation (uncached) on the int4 tree, K4 at
+    the decode shape m = N_SLOTS against its plain version per element, and
+    one decode step's logits through K4 against q4_impl="plain" under the
+    CACHED_LOGIT_* bound. Returns (the evaluation's measures, K4's rows at
+    m = N_SLOTS)."""
+    st = phase_eqa(25, bpe, cfg, qmodel, tmp)
+    q4 = phase_q4_kernel(tag=25, rows=(N_SLOTS,), modes=("w4",))
+    runner, ids, mask, inj_pos, inj_emb = gen_inputs(bpe, cfg, qmodel, tmp)
+    llm = qmodel["llm"]
+    b_ids, b_mask, b_pos = D.bucket_prompt(ids, mask, inj_pos, bpe.pad_id)
+    dev_mask = runner.upload(b_mask)
+    with torch.inference_mode():
+        logits, kv = D.prefill(llm, cfg.llm, runner.upload(
+            b_ids.astype(np.int64)), dev_mask, runner.upload(b_pos), inj_emb)
+        tok0 = logits.masked_fill(runner.special_mask, NEG_INF).argmax(-1)
+        emb0 = L.embed_rows(llm["embed"], tok0)[:, None]
+        out = {}
+        for impl in ("auto", "plain"):
+            c = dataclasses.replace(cfg.llm, q4_impl=impl)
+            h, _ = L.decode_step(llm, c, emb0, kv, dev_mask,
+                                 L.init_decode_cache(c, N_SLOTS, 1,
+                                                     runner.device),
+                                 0, dev_mask.sum(-1)[:, None])
+            out[impl] = L.logits_from_hidden(llm, c, h[:, 0],
+                                             runner.special_mask)
+    exc = logit_excess(out["auto"], out["plain"])
+    if not exc <= 1:
+        raise RuntimeError(f"[25] a decode step's logits through K4 vs its "
+                           f"plain version at {exc:.3f} of the limit")
+    print(f"[25] one decode step of {N_SLOTS} rows on the int4 tree, logits "
+          f"through K4 vs q4_impl=plain at {exc:.3f} of the limit; "
+          f"{st['ms_per_decode']:.2f} ms per decode token (w4) beside phase "
+          f"23's {ref['ms_per_decode']:.2f} (bf16); {st['ms_per_step']:.2f} "
+          f"against {ref['ms_per_step']:.2f} ms per nav step; peak memory "
+          f"{st['peak_gib']:.2f} against {ref['peak_gib']:.2f} GiB")
+    return st, q4
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2174,6 +2698,22 @@ def main():
         run_launches = phase_run_training(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches = phase_cli(tmp)
+    # generation at 7B width: the EQA path and training with the heads
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_gen_ab(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        eqa = phase_eqa(23, bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        eqa_cached = phase_eqa(23, bpe, cfg, model, tmp, prefix_cache=True,
+                               warm_up=False)
+    print(f"[23] cached against uncached: {eqa_cached['ms_per_step']:.2f} "
+          f"against {eqa['ms_per_step']:.2f} ms per nav step, "
+          f"{eqa_cached['ms_per_generate']:.1f} against "
+          f"{eqa['ms_per_generate']:.1f} ms per generate call, "
+          f"{eqa_cached['episodes_per_s']:.3f} against "
+          f"{eqa['episodes_per_s']:.3f} episodes/s")
+    with tempfile.TemporaryDirectory() as tmp:
+        gen_launches = phase_run_gen(bpe, cfg, model, tmp)
     q4 = phase_q4_kernel()
     qmodel = quantize_model(cfg, model)
     # free the bf16 LLM: the phases' runners hold it in reference cycles
@@ -2209,6 +2749,8 @@ def main():
         mode = "w4a8" if c.llm.act_int8 else "w4"
         compare_logits(11, f"on the int4 tree ({mode}): kernel vs plain "
                        f"version", qmodel, c, plain)
+    with tempfile.TemporaryDirectory() as tmp:
+        eqa_w4, q4_decode = phase_eqa_w4(bpe, cfg, qmodel, tmp, eqa)
     # K1 at the eval slice's widest prompts (B=4, T=1024), K2/K3 at the
     # training slice's (B=16, T=1024), K4 at the w_gate shape with 4 slots
     # of 1024 tokens (w4); launches from the measured runs of phases 6
@@ -2218,7 +2760,10 @@ def main():
             "the same boolean mask (causal AND key mask)")
     def by_phase(key):
         return {"6": launches[key], "18": dagger_launches[key],
-                "20": run_launches[key], "21": cli_launches[key]}
+                "20": run_launches[key], "21": cli_launches[key],
+                "23": eqa["launches"][key],
+                "23_cached": eqa_cached["launches"][key],
+                "24": gen_launches[key]}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
              "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],
@@ -2231,9 +2776,16 @@ def main():
                      "library": "the backward of " + sdpa + " (dQ, dK, dV "
                                 "and delta in one call)"})
     rows.append({**KERNELS["q4"], "launches": launches["q4"],
+                 "launches_by_phase": {"9": launches["q4"],
+                                       "25": eqa_w4["q4_launches"]},
                  **q4[(4096, 4096, 11008, "w4")],
-                 "max_abs_err": max(r["max_abs_err"] for r in q4.values()),
-                 "shape": "m=4096 h=4096 o=11008 w4"})
+                 "max_abs_err": max(r["max_abs_err"] for r in
+                                    [*q4.values(), *q4_decode.values()]),
+                 "shape": "m=4096 h=4096 o=11008 w4",
+                 "decode_m4": {f"h={h} o={o}": {k: r[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")}
+                     for (m, h, o, _), r in q4_decode.items()}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

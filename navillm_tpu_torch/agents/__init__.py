@@ -1,7 +1,7 @@
 """Agent registry (twin of navillm_tpu/agents/__init__.py; reference
-tasks/agents/__init__.py:12-14). Only ``r2r`` is registered; the JAX
-package's other agents raise NotImplementedError naming their ROADMAP
-item."""
+tasks/agents/__init__.py:12-14). ``r2r`` and ``eqa`` are registered;
+the JAX package's other agents raise NotImplementedError naming their
+ROADMAP item."""
 from ..utils.registry import AGENTS
 
 

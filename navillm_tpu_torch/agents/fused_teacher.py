@@ -26,18 +26,22 @@ The shared loss pass (``_fused_trajectory_train``):
      the history following the taken actions (targets or samples);
   5. host prompts + device grad calls in chunks of fused_rows_per_call
      rows, each recomputing its chunk's panorama with the same seed, so
-     the replayed embeddings and the differentiated ones agree.
+     the replayed embeddings and the differentiated ones agree;
+  6. the sub-task heads of the teacher half (agent._generation_step):
+     with enable_fgr2r one generation-loss grad call per collected FGR2R
+     step, with enable_summarize one summarization call at the final step.
 
-Rows of episodes that already ended are dropped (row compaction): their
-targets are ignoreid, so they add nothing to the loss or the gradient
-(R2R runs no final-step head that would read them). The losses stay
-device scalars; train_loop reads them one step later.
+Rows of episodes that already ended are dropped from phases 2-5 (row
+compaction): their targets are ignoreid, so they add nothing to the loss
+or the gradient; the heads read the steps' observations and the final
+history buffer, not these rows. The losses stay device scalars;
+train_loop reads them one step later.
 
 Not ported here: the host-memory path (``device_memory=False``, ROADMAP
-A8), the W8A8 sampling policy (A9), the sub-task heads (object grounding,
-FGR2R, summarization), and the shape high-water marks of the JAX code:
-the gmap width keeps the bucket of 16 and the sampling windows
-``_window_arrays``' own buckets (their extra columns are masked).
+A8), the W8A8 sampling policy (A9), the object-grounding head (A7), and
+the shape high-water marks of the JAX code: the gmap width keeps the
+bucket of 16 and the sampling windows ``_window_arrays``' own buckets
+(their extra columns are masked).
 """
 from __future__ import annotations
 
@@ -74,6 +78,7 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
 
     # ---------------- phase 1: host trajectory simulation ----------------
     steps: List[Dict[str, Any]] = []
+    fgr2r_steps: List[Dict[str, Any]] = []
     ended = np.zeros(B, bool)
     t = 0
     while t < max_action_len:
@@ -93,6 +98,12 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
                       "gmap_vpids": gmap_in["gmap_vpids"]})
 
         a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1] for ob in obs]
+        # FGR2R heads: every step before the last on which the batch's first
+        # episode has not reached its goal (JAX's gate, row 0's alone)
+        if args.enable_fgr2r and not flag and not a_t_stop[0] \
+                and "fg_instruction" in obs[0]:
+            fgr2r_steps.append({"obs": list(obs), "t": t,
+                                "targets": nav_targets.copy()})
         cpu_a_t: List[Optional[str]] = []
         for i in range(B):
             if a_t_stop[i] or ended[i] or gmap_in["no_vp_left"][i] \
@@ -115,7 +126,7 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
     return _fused_trajectory_train(
         agent, args, steps=steps, gmaps=gmaps, traj=traj,
         instructions=instructions, B=B, train_ml=train_ml, loss_den=B,
-        t_pad=max_action_len)
+        t_pad=max_action_len, fgr2r_steps=fgr2r_steps)
 
 
 def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
@@ -405,20 +416,23 @@ def _dagger_sample_group(agent, args, grp, dataset, rng_local,
 
 
 def _check_r2r_only(args, data_type):
-    if args.enable_og or args.enable_summarize or args.enable_fgr2r \
-            or any(d != "r2r" for d in data_type):
+    if args.enable_og:
+        raise NotImplementedError("the fused trainer's object-grounding "
+                                  "head is not ported yet (ROADMAP A7)")
+    if any(d != "r2r" for d in data_type):
         raise NotImplementedError(
-            "the fused trainer's sub-task heads (object grounding, FGR2R, "
-            "summarization) and non-R2R tasks are not ported")
+            f"training on {sorted(set(data_type) - {'r2r'})} batches is not "
+            f"ported yet (ROADMAP A7, A8): the fused trainer takes R2R")
 
 
 def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
                             B, train_ml, loss_den, t_pad=None,
-                            feedback="teacher"):
-    """Phases 2-5 of the fused loss pass on the device-memory path. Under
-    feedback="sample" each step also holds the taken "actions" (the
-    history follows them), and the "order", "prompts", "vp_in" and
-    "match" of the sampling pass, which are reused, not redrawn."""
+                            feedback="teacher", fgr2r_steps=()):
+    """Phases 2-5 of the fused loss pass on the device-memory path, then
+    the sub-task heads (6). Under feedback="sample" each step also holds
+    the taken "actions" (the history follows them), and the "order",
+    "prompts", "vp_in" and "match" of the sampling pass, which are reused,
+    not redrawn; the sampled half runs no head."""
     runner = agent.runner
     T = len(steps)
 
@@ -556,7 +570,7 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
 
     pm_grid = np.zeros((T_pad, B, V), bool)
     pm_grid[:T] = pano_masks_all
-    gmap_flat, hist_flat, _ = runner.replay_fuse_scan(
+    gmap_flat, hist_flat, mem_final = runner.replay_fuse_scan(
         pe_chunks, rows_full, T_pad, pm_grid, cur_ids_g, cand_ids_g,
         slot_ids_g, {k: stack_pad(v) for k, v in fuse_host.items()}, acts_g)
 
@@ -606,4 +620,28 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
         chunk_batch["hist_embeds"] = hist_flat[rows]
         ml_loss = ml_loss + runner.pano_navigation_train(
             chunk_feats(idx), seeds[c0], chunk_batch, part_tgt, coef)
+
+    # ------------- phase 6: the sub-task heads ----------------------------
+    # one FGR2R head call per collected step: where is the expert going
+    for fg in fgr2r_steps:
+        ml_loss = ml_loss + agent._generation_step(
+            args, fg["obs"], history=[[] for _ in range(B)],
+            hist_vis=[[] for _ in range(B)],
+            instructions=["where are we going with direction ({}) ?"
+                          .format(int(idx)) for idx in fg["targets"]],
+            answers=[ob["fg_instruction"][ob["fg_view"][fg["t"]]]
+                     for ob in fg["obs"]],
+            mode="embodied_qa", training=True, loss_denom=loss_den)
+    # summarization at the final step, under teacher feedback only; it
+    # reads the history values: one download of the final history buffer
+    if feedback == "teacher" and args.enable_summarize:
+        hb = mem_final["hist_buf"].cpu().numpy()
+        ml_loss = ml_loss + agent._generation_step(
+            args, steps[-1]["obs"],
+            history=[["<hist>"] * int(cnt[i]) for i in range(B)],
+            hist_vis=[list(hb[i, : min(int(cnt[i]), hb.shape[1])])
+                      for i in range(B)],
+            instructions=instructions,
+            answers=[ob["instruction"] for ob in steps[-1]["obs"]],
+            mode="summarization", training=True, loss_denom=loss_den)
     return ml_loss, traj

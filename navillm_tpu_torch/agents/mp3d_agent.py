@@ -1,9 +1,11 @@
-"""R2R agent: streaming evaluation and fused training (teacher and DAgger).
+"""R2R and EQA agents: streaming evaluation and fused training.
 
-Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: R2R streaming
+Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: streaming
 evaluation (device graph memory, argmax actions, uncached or with the
-prompt-prefix KV cache) and ``train`` through the fused trainer
-(agents/fused_teacher.py): teacher forcing, and on the odd steps of stage
+prompt-prefix KV cache; for EQA and test-mode summarization a generation
+queue, and for EQA the oracle pass) and ``train`` through the fused
+trainer (agents/fused_teacher.py): teacher forcing with the summarization
+and FGR2R heads (``_generation_step``), and on the odd steps of stage
 multi the fused DAgger half. It carries the fixed-shape input assembly of
 the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
 ``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``,
@@ -11,9 +13,9 @@ and for the cache ``_cached_prompt_windows``, ``_window_arrays`` and
 ``prefill_rows``), its expert (``teacher_action``) and its sim step
 (``make_equiv_action``), which are host numpy code, copied because the JAX
 agent module imports jax. The rest of the JAX agent (the per-step and
-batched rollouts and the interleaved DAgger pipeline, OG, generation,
-EQA, sampled evaluation, the int8 prefix cache) is not ported: asking for
-it raises NotImplementedError.
+batched rollouts and the interleaved DAgger pipeline, object grounding,
+sampled evaluation, the int8 prefix cache) is not ported: asking for it
+raises NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ import math
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..models.decoding import decode_to_text
+from ..models.trie import DenseTrie
 from ..utils.config import TrainArgs
 from ..utils.registry import AGENTS
 from . import prompts as P
@@ -36,8 +41,18 @@ EvalArgs = TrainArgs
 
 
 def get_results(pred_results: Dict[str, dict]) -> List[dict]:
-    return [{"instr_id": k, "trajectory": v["path"]}
-            for k, v in pred_results.items()]
+    """Flatten per-episode results; a generated answer (EQA, or a
+    test-mode summary) comes with its oracle answer and ground truth."""
+    out = []
+    for k, v in pred_results.items():
+        ret = {"instr_id": k, "trajectory": v["path"]}
+        if "answer" in v:
+            ret.update({"pred_answer": v.get("generated_sentences", ""),
+                        "oracle_pred_answer": v.get("oracle_pred_answer",
+                                                    ""),
+                        "gt_answer": v["answer"]})
+        out.append(ret)
+    return out
 
 
 @AGENTS.register("r2r")
@@ -61,9 +76,13 @@ class R2RAgent:
         self.dagger_bailouts = 0
 
     def get_prompt(self, task, *a, **kw):
-        if task != "navigation":
-            raise NotImplementedError(f"{task} prompts are not ported")
-        return P.navigation_prompt(self.name, *a, **kw)
+        kind = {"navigation": P.navigation_prompt,
+                "summarization": P.summarization_prompt,
+                "embodied_qa": P.embodied_qa_prompt}.get(task)
+        if kind is None:
+            raise NotImplementedError(f"{task} prompts are not ported yet "
+                                      f"(ROADMAP A7)")
+        return kind(self.name, *a, **kw)
 
     def update_scanvp_cands(self, obs):
         for ob in obs:
@@ -73,9 +92,12 @@ class R2RAgent:
                 slot[cand["viewpointId"]] = cand["pointId"]
 
     # ---------------- fixed-shape input assembly ----------------------- #
-    def panorama_inputs(self, obs) -> Dict[str, Any]:
+    def panorama_inputs(self, obs, twelve_views: bool = False
+                        ) -> Dict[str, Any]:
         """Candidate views first, then non-candidate views, padded to
-        max_views. view_img_fts goes up to the device here, once."""
+        max_views; with twelve_views (the generation heads) the 36 views in
+        order, the first 12 (the horizon) of nav type 1. view_img_fts goes
+        up to the device here, once."""
         D = self.args.image_feat_size
         A = self.args.angle_feat_size
         V = self.dims.max_views
@@ -87,6 +109,15 @@ class R2RAgent:
         cand_vpids: List[List[str]] = []
         for i, ob in enumerate(obs):
             feats = ob["feature"]          # [36, D + A]
+            if twelve_views:
+                n = min(36, V)
+                view_img[i, :n] = feats[:n, :D]
+                loc_fts[i, :n, :A] = feats[:n, D:]
+                loc_fts[i, :n, A:] = 1.0
+                nav_types[i, : min(12, n)] = 1
+                view_lens[i] = n
+                cand_vpids.append([None] * 36)
+                continue
             used = set()
             k = 0
             for cc in ob["candidate"]:
@@ -334,6 +365,110 @@ class R2RAgent:
             cache = self.runner.prefill(cache, ids, mask, rows, valid)
         return cache
 
+    def hist_arrays(self, hist_vis) -> np.ndarray:
+        """[B, max_hist, H] f32: each row's last max_hist history embeds."""
+        Hh = self.dims.max_hist
+        out = np.zeros((len(hist_vis), Hh, self.runner.cfg.hidden_size),
+                       np.float32)
+        for i, vis in enumerate(hist_vis):
+            for k, v in enumerate(vis[-Hh:]):
+                out[i, k] = v
+        return out
+
+    def _generation_inputs(self, obs, history, instructions, mode,
+                           answers=None):
+        """The generation heads' host inputs: the 12 horizon views as the
+        candidates of a summarization / EQA prompt (with answers, the
+        [prompt, answer + eos] pairs). Returns (pano_inputs, nav_mask,
+        TokenBatch, cand_positions, hist_positions)."""
+        pano_in = self.panorama_inputs(obs, twelve_views=True)
+        V = self.dims.max_views
+        host_masks = np.arange(V)[None, :] < pano_in["view_lens"][:, None]
+        # the nav-type 1 views are a contiguous prefix: the 12 horizon ones
+        nav_mask = (pano_in["nav_types"] == 1) & host_masks
+        cand_counts = nav_mask.sum(1)
+        prompts = [self.get_prompt(mode, instruction=instructions[i],
+                                   hist_num=len(history[i]),
+                                   cand_num=int(cand_counts[i]))
+                   for i in range(len(obs))]
+        if answers is not None:
+            eos = self.runner.tok.eos_token
+            prompts = [[p, a + eos] for p, a in zip(prompts, answers)]
+        tok_batch, cand_pos, hist_pos, _ = self.runner.tokenize_with_positions(
+            prompts, max_cands=max(int(cand_counts.max()), 1))
+        return pano_in, nav_mask, tok_batch, cand_pos, hist_pos
+
+    def _generate_answers(self, obs, history, hist_vis, instructions, mode,
+                          trie) -> List[str]:
+        """Greedy decode of up to 50 tokens after the generation prompt,
+        the panorama's fused views and the history injected at its <cand>
+        and <hist> tokens (the eval side of the generation heads)."""
+        runner = self.runner
+        pano_in, nav_mask, tok_batch, cand_pos, hist_pos = \
+            self._generation_inputs(obs, history, instructions, mode)
+        pe = runner.panorama_dev_dict(pano_in, deterministic=True)[
+            "pano_embeds"]
+        emb = runner.gen_embeds(pe, nav_mask)[:, : cand_pos.shape[1]]
+        inj_emb = torch.cat([emb.float(),
+                             runner.upload(self.hist_arrays(hist_vis))], 1)
+        gen_ids = runner.generate(
+            tok_batch.input_ids, tok_batch.attention_mask,
+            np.concatenate([cand_pos, hist_pos], 1), inj_emb,
+            max_new_tokens=50, do_sample=False, trie=trie)
+        return decode_to_text(runner.tok, gen_ids)
+
+    def _generation_step(self, args, obs, history, hist_vis, instructions,
+                         answers, mode, training, traj=None, trie=None,
+                         loss_denom=None):
+        """Summarization / EQA / FGR2R generation head over the 12-view
+        panorama: training, the teacher-forced LM loss times gen_loss_coef
+        / loss_denom / gradient_accumulation_step (a device scalar);
+        evaluation, the decoded answers written onto traj."""
+        if training:
+            pano_in, nav_mask, tok_batch, cand_pos, hist_pos = \
+                self._generation_inputs(obs, history, instructions, mode,
+                                        answers)
+            labels = tok_batch.input_ids.astype(np.int64)
+            labels[tok_batch.token_type_ids == 0] = self.args.ignoreid
+            batch = {"input_ids": tok_batch.input_ids,
+                     "attention_mask": tok_batch.attention_mask,
+                     "labels": labels, "vp_masks": nav_mask,
+                     "cand_positions": cand_pos, "hist_positions": hist_pos,
+                     "hist_embeds": self.hist_arrays(hist_vis)}
+            coef = args.gen_loss_coef / (loss_denom or len(obs)) \
+                / args.gradient_accumulation_step
+            return self.runner.pano_generation_train(
+                pano_in, self.runner.next_seed(), batch, coef)
+        sentences = self._generate_answers(obs, history, hist_vis,
+                                           instructions, mode, trie)
+        for i in range(len(obs)):
+            traj[i]["generated_sentences"] = sentences[i]
+            traj[i]["answer"] = answers[i]
+        return 0.0
+
+    def _streaming_generation(self, snaps, n_real, trie, results):
+        """Batched generation (EQA answers, test-mode summaries) for the
+        snapshots of finished streaming slots, padded to the flush width
+        with copies of the last one; only the first n_real are real. An
+        oracle snapshot writes oracle_pred_answer into its episode's
+        results entry."""
+        is_eqa = snaps[0]["data_type"] == "eqa"
+        sentences = self._generate_answers(
+            [sn["ob"] for sn in snaps], [sn["history"] for sn in snaps],
+            [sn["hist_vis"] for sn in snaps],
+            [sn["instruction"] for sn in snaps],
+            "embodied_qa" if is_eqa else "summarization",
+            trie if is_eqa else None)
+        for sn, sentence in zip(snaps[:n_real], sentences):
+            if sn["oracle"]:
+                entry = results.get(sn["traj"]["instr_id"])
+                if entry is not None:
+                    entry["oracle_pred_answer"] = sentence
+            else:
+                sn["traj"]["generated_sentences"] = sentence
+                sn["traj"]["answer"] = sn["ob"].get("answer", "") \
+                    if is_eqa else sn["instruction"]
+
     def teacher_action(self, obs, vpids, ended, visited_masks=None,
                        imitation_learning=False, t=None) -> np.ndarray:
         """Expert action per row (twin of teacher_action): under imitation
@@ -435,11 +570,33 @@ class R2RAgent:
         instruction prefix is prefilled once, and each step forwards only
         the new history tokens and the candidates section
         (runner.eval_step_cached); queued prefills are flushed before the
-        group's step is dispatched."""
-        if name == "EQA" or args.do_sample or args.enable_og \
-                or (args.enable_summarize and args.mode == "test"):
+        group's step is dispatched.
+
+        EQA streams too: a finishing slot's snapshot (its final observation
+        and the history embeds of the device memory) joins a generation
+        queue, answered by trie-constrained generation in batches of the
+        slot-group width (_streaming_generation), and the slot re-runs the
+        same sample with the expert's actions forced through a_t_override
+        (the oracle pass), whose answer is oracle_pred_answer. Test-mode
+        summarization (enable_summarize, mode "test") rides the same
+        queue."""
+        if args.do_sample or args.enable_og:
             raise NotImplementedError(
-                "only greedy R2R navigation is ported")
+                "sampled streaming evaluation and object grounding are not "
+                "ported yet (ROADMAP A7)")
+        trie = None
+        if name == "EQA":
+            trie = DenseTrie([self.runner.tok.encode(w, add_bos=True)
+                              for w in dataset.answer_vocab],
+                             eos_id=self.runner.tok.eos_id,
+                             device=self.runner.device)
+
+        def needs_generation(sl):
+            return sl.data_type == "eqa" or (
+                sl.data_type == "r2r" and args.enable_summarize
+                and args.mode == "test")
+
+        eqa_oracle = name == "EQA"
         kv_int8 = getattr(args, "kv_int8", False)
         if args.prefix_cache and kv_int8:
             raise NotImplementedError("the int8 prefix cache (kv_int8) is "
@@ -459,27 +616,14 @@ class R2RAgent:
 
         samples = sample_iter()
         results: Dict[str, dict] = {}
+        gen_queue: List[dict] = []
 
         class Slot:
             __slots__ = ("ob", "env", "item", "data_type", "gmap", "traj",
-                         "history", "t", "active", "instruction",
+                         "history", "t", "active", "instruction", "oracle",
                          "cache_ids", "needs_prefill")
 
-        def fill(slot) -> bool:
-            try:
-                s = next(samples)
-            except StopIteration:
-                slot.active = False
-                return False
-            if s["data_type"] != "r2r":
-                raise NotImplementedError(f"{s['data_type']} episodes are "
-                                          f"not ported")
-            slot.ob = s["observations"]
-            slot.env = s["env"]
-            slot.item = s["item"]
-            slot.data_type = s["data_type"]
-            slot.traj = {"instr_id": s["instr_id"],
-                         "path": [[slot.ob["viewpoint"]]], "details": {}}
+        def init_episode(slot):
             slot.gmap = GraphMap(slot.ob["viewpoint"])
             slot.gmap.update_graph(slot.ob)
             slot.history = []
@@ -489,7 +633,38 @@ class R2RAgent:
             slot.cache_ids = None
             slot.needs_prefill = True
             self.update_scanvp_cands([slot.ob])
+
+        def fill(slot) -> bool:
+            try:
+                s = next(samples)
+            except StopIteration:
+                slot.active = False
+                return False
+            if s["data_type"] not in ("r2r", "eqa"):
+                raise NotImplementedError(f"{s['data_type']} episodes are "
+                                          f"not ported yet (ROADMAP A7, A8)")
+            slot.ob = s["observations"]
+            slot.env = s["env"]
+            slot.item = s["item"]
+            slot.data_type = s["data_type"]
+            slot.traj = {"instr_id": s["instr_id"],
+                         "path": [[slot.ob["viewpoint"]]], "details": {}}
+            slot.oracle = False
+            init_episode(slot)
             return True
+
+        def restart_as_oracle(slot):
+            """The EQA oracle pass: the same sample from its start, with
+            fresh graph memory, stepping by the expert's actions."""
+            item = slot.item
+            slot.env.new_episodes([item["scan"]], [item["path"][0]],
+                                  [item.get("heading") or 0.0])
+            slot.ob = dataset.get_obs(items=[item], env=slot.env,
+                                      data_type=slot.data_type)[0]
+            slot.traj = {"instr_id": slot.traj["instr_id"],
+                         "path": [[slot.ob["viewpoint"]]], "details": {}}
+            slot.oracle = True
+            init_episode(slot)
 
         n_streams = max(1, int(getattr(args, "eval_streams", 0) or 2))
         use_cache = args.prefix_cache and self.runner.prefix_cache_enabled(
@@ -498,8 +673,8 @@ class R2RAgent:
         class Stream:
             __slots__ = ("slots", "mem_state", "reset_rows", "pending",
                          "pano_inputs", "gmap_in", "nav_batch", "cur_ids",
-                         "cand_ids", "real_mask", "a_t", "cache",
-                         "prefill_items")
+                         "cand_ids", "real_mask", "a_t_override", "a_t",
+                         "cache", "prefill_items")
 
         streams: List[Stream] = []
         for _ in range(n_streams):
@@ -521,6 +696,16 @@ class R2RAgent:
             streams.append(st)
         if not streams:
             return []
+        flush_width = len(streams[0].slots)
+
+        def flush_gen(force=False):
+            # two streams can queue up to 2 x flush_width snapshots in one
+            # iteration, so a forced flush loops until the queue is empty
+            while gen_queue and (force or len(gen_queue) >= flush_width):
+                batch = gen_queue[: flush_width]
+                del gen_queue[: len(batch)]
+                pad = batch + [batch[-1]] * (flush_width - len(batch))
+                self._streaming_generation(pad, len(batch), trie, results)
 
         def _pre(st: Stream) -> bool:
             """Host assembly of st's next step inputs. False once the
@@ -607,6 +792,16 @@ class R2RAgent:
                 **text,
                 "slot_ids": slot_ids,
             }
+            # oracle slots follow the expert (a host shortest-path argmin)
+            st.a_t_override = np.full(n, -1, np.int32)
+            for i, sl in enumerate(active):
+                if sl.active and sl.oracle:
+                    tgt = self.teacher_action(
+                        [sl.ob], [gmap_in["gmap_vpids"][i]],
+                        np.zeros(1, bool),
+                        visited_masks=gmap_in["gmap_visited_masks"][i:i + 1],
+                        imitation_learning=True, t=sl.t)[0]
+                    st.a_t_override[i] = max(int(tgt), 0)
             st.pano_inputs = pano_inputs
             st.gmap_in = gmap_in
             return True
@@ -624,12 +819,12 @@ class R2RAgent:
                 st.mem_state, st.cache, a_t, _ = self.runner.eval_step_cached(
                     st.mem_state, st.cache, st.pano_inputs, st.nav_batch,
                     st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
-                    sync=False)
+                    st.a_t_override, sync=False)
             else:
                 st.mem_state, a_t, _ = self.runner.eval_step(
                     st.mem_state, st.pano_inputs, st.nav_batch,
                     st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
-                    sync=False)
+                    st.a_t_override, sync=False)
             st.a_t = HostCopy(a_t)
             st.pending = True
 
@@ -649,8 +844,25 @@ class R2RAgent:
                 stop = (a_t[i] == 0) or st.gmap_in["no_vp_left"][i] \
                     or sl.t >= max_action_len
                 if stop:
-                    results[sl.traj["instr_id"]] = sl.traj
-                    fill(sl)
+                    if needs_generation(sl):
+                        # the heads read the history values: one download
+                        # of this row of the device history buffer
+                        buf = st.mem_state["hist_buf"][i].cpu().numpy()
+                        cnt = int(st.mem_state["hist_cnt"][i])
+                        gen_queue.append({
+                            "ob": sl.ob, "history": list(sl.history),
+                            "hist_vis": list(buf[: min(cnt, len(buf))]),
+                            "instruction": sl.instruction, "traj": sl.traj,
+                            "oracle": sl.oracle,
+                            "data_type": sl.data_type})
+                    if sl.oracle:
+                        fill(sl)
+                    else:
+                        results[sl.traj["instr_id"]] = sl.traj
+                        if eqa_oracle:
+                            restart_as_oracle(sl)
+                        else:
+                            fill(sl)
                     st.reset_rows[i] = True
                 else:
                     action = nav_vpids[i][a_t[i]]
@@ -677,4 +889,12 @@ class R2RAgent:
                     _dispatch(st)
             if not progressed:
                 break
+            flush_gen()
+        flush_gen(force=True)
         return get_results(results)
+
+
+@AGENTS.register("eqa")
+class EQAAgent(R2RAgent):
+    """The EQA agent: R2R's navigation under the EQA prompts (name "eqa"),
+    its answers generated over the answer vocabulary's trie."""

@@ -5,11 +5,13 @@ streaming evaluation and fused training (teacher and DAgger) use: ``cfg``,
 ``tok``, ``dims``, ``device_memory``, ``memory_init``, ``eval_step``,
 ``tokenize_with_positions``, the prefix cache (``prefix_cache_enabled``,
 ``prefix_cache_init``, ``prefill``, ``eval_step_cached``), the
-``llm_token_units`` counter, and for training ``zero_grads`` /
+``llm_token_units`` counter, for training ``zero_grads`` /
 ``take_grads``, ``panorama_dev_dict``, ``replay_fuse_scan`` and
-``pano_navigation_train``. Host arrays go up through pinned buffers with
-non-blocking copies, so uploading one slot group's step never waits for
-the other group's step running on the card.
+``pano_navigation_train``, and for generation the special-token logit mask,
+``gen_embeds``, ``generate`` and ``pano_generation_train`` (the
+summarization / EQA / FGR2R heads). Host arrays go up through pinned
+buffers with non-blocking copies, so uploading one slot group's step never
+waits for the other group's step running on the card.
 
 Randomness: jax.random keys become torch.Generators. The runner draws one
 seed per dropout-bearing call from its own host generator; a call seeded
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models import nav_model as NM
+from ..models.decoding import generate
 from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import dropout, forward_panorama
 from ..models.quant import is_quantized
@@ -97,6 +100,14 @@ class NavModelRunner:
         self.feat_dropout = feat_dropout
         self.ignore_id = ignore_id
         self.rng = torch.Generator().manual_seed(seed)
+        # the LM's logit mask: the tokenizer's specials, and every column of
+        # an embedding wider than the tokenizer (a 7B table keeps its 32k
+        # width over the ~1k ids of the hermetic tokenizers)
+        smask = np.asarray(tokenizer.special_logit_mask())
+        v = cfg.llm.vocab_size
+        if smask.shape[0] < v:
+            smask = np.concatenate([smask, np.ones(v - smask.shape[0], bool)])
+        self.special_mask = torch.from_numpy(smask[:v]).to(self.device)
         # True between zero_grads() and take_grads()
         self.grads_open = False
         # UNPADDED (mask-summed) token count forwarded through the LLM, in
@@ -110,9 +121,14 @@ class NavModelRunner:
         # prefixes)
         self.cached_steps = 0
         self.prefill_calls = 0
-        # navigation loss+grad calls (each runs every LLM layer forward,
-        # recomputed forward under remat, and backward)
+        # loss+grad calls, navigation and generation heads alike (each runs
+        # every LLM layer forward, recomputed forward under remat, and
+        # backward), and of those the generation heads' calls
         self.grad_calls = 0
+        self.gen_grad_calls = 0
+        # generate calls (each one prefill over every layer, then the
+        # decode steps)
+        self.generate_calls = 0
 
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
@@ -234,6 +250,58 @@ class NavModelRunner:
                                       self.ignore_id) * coef
             loss.backward()
         return loss.detach()
+
+    def pano_generation_train(self, pano_inputs, seed: int, batch,
+                              coef: float) -> torch.Tensor:
+        """One generation-loss grad call (summarization / EQA / FGR2R
+        heads), one autograd graph: panorama with dropout (seeded by
+        ``seed``) -> forward_generation_loss * coef -> backward into the
+        params' .grad, the panorama encoder's included. batch holds host
+        arrays (input_ids, attention_mask, labels, vp_masks, positions,
+        hist_embeds). Returns the loss as a device scalar: no host sync."""
+        if not self.grads_open:
+            raise RuntimeError("call zero_grads() before a training call")
+        self.llm_token_units += 3.0 * float(
+            np.asarray(batch["attention_mask"]).sum())
+        self.grad_calls += 1
+        self.gen_grad_calls += 1
+        pano_dev = self._pano_dev_inputs(pano_inputs)
+        dev = {k: (v if torch.is_tensor(v) else self.upload(v))
+               for k, v in batch.items()}
+        dev["special_token_mask"] = self.special_mask
+        with torch.enable_grad():
+            dev["vp_img_embeds"] = self.pano_apply(
+                pano_dev, self.generator(seed), False)["pano_embeds"]
+            loss = NM.forward_generation_loss(self.model, self.cfg,
+                                              dev)["loss"] * coef
+            loss.backward()
+        return loss.detach()
+
+    def gen_embeds(self, vp_img_embeds, vp_masks) -> torch.Tensor:
+        """The zero-position, type-0 fusion of the generation paths, on the
+        device."""
+        with torch.inference_mode():
+            return NM.prep_generation_embeds(self.model, self.cfg,
+                                             vp_img_embeds,
+                                             self.upload(vp_masks))
+
+    def generate(self, input_ids, attention_mask, inject_positions,
+                 inject_embeds, max_new_tokens: int, do_sample: bool = False,
+                 temperature: float = 1.0, trie=None) -> np.ndarray:
+        """models/decoding.generate on the LLM under the special-token
+        mask; with do_sample the draws come from a generator on the
+        runner's device, seeded from next_seed(). Returns the token ids
+        [B, max_new_tokens] on the host."""
+        self.generate_calls += 1
+        gen = self.generator(self.next_seed()) if do_sample else None
+        out = generate(self.model["llm"], self.cfg.llm, input_ids,
+                       attention_mask, inject_positions=inject_positions,
+                       inject_embeds=inject_embeds,
+                       special_token_mask=self.special_mask,
+                       eos_id=self.tok.eos_id, pad_id=self.tok.pad_id,
+                       max_new_tokens=max_new_tokens, do_sample=do_sample,
+                       temperature=temperature, generator=gen, trie=trie)
+        return HostCopy(out).result()
 
     def memory_init(self, batch: int, capacity: int = None):
         return DM.init_memory(batch, capacity or MEM_CAPACITY,

@@ -1,16 +1,18 @@
 """Dataset registry (twin of navillm_tpu/data/datasets/__init__.py;
 reference tasks/datasets/__init__.py:14-16). ``load_dataset(name, args,
 config, training=..., logger=..., source=..., world=...)`` builds a
-dataset from the task config as the JAX package's does. Only ``r2r`` is
-registered; the other names raise NotImplementedError naming their ROADMAP
-item."""
+dataset from the task config as the JAX package's does. ``r2r`` and
+``eqa`` are registered; the other names raise NotImplementedError naming
+their ROADMAP item."""
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Optional
 
 from ..sim.env import WorldModel
 from ..utils.registry import DATASETS
+from .eqa import EQADataset
 from .r2r import R2RDataset
 
 
@@ -32,24 +34,43 @@ def get_anno_file_path(data_dir, dataset_path, filename) -> Path:
     return Path(data_dir) / dataset_path / filename
 
 
-@DATASETS.register("r2r")
-def r2r_from_config(args, config, training: bool = False, logger=None,
-                    source: Optional[str] = "R2R",
-                    world: Optional[WorldModel] = None) -> R2RDataset:
-    """R2RDataset over the split's annotation file (mp3d_base's rules:
-    "train" when training, else args.validation_split; angle features as
-    the config's Feature section or args give them)."""
+def _from_config(cls, args, config, training, logger, source, world, **kw):
+    """cls over the split's annotation file (mp3d_base's rules: "train"
+    when training, else args.validation_split; angle features as the
+    config's Feature section or args give them)."""
     split = "train" if training else args.validation_split
-    section = dataset_section(config, source or "R2R")
+    section = dataset_section(config, source)
     anno = get_anno_file_path(args.data_dir, section.DIR,
                               section.SPLIT[split])
     if world is None:
         world = WorldModel(str(Path(args.data_dir) / "connectivity"))
     angle = config.Feature.angle_feat_size if "Feature" in config \
         else args.angle_feat_size
-    ds = R2RDataset(anno, world, angle_feat_size=angle, debug=args.debug,
-                    training=training, split=split)
+    ds = cls(anno, world, angle_feat_size=angle, debug=args.debug,
+             training=training, split=split, **kw)
     if logger is not None:
-        logger.info("[INFO] R2RDataset loaded with %d instructions, split: %s"
-                    % (len(ds.alldata), ds.split))
+        logger.info("[INFO] %s loaded with %d instructions, split: %s"
+                    % (cls.__name__, len(ds.alldata), ds.split))
     return ds
+
+
+@DATASETS.register("r2r")
+def r2r_from_config(args, config, training: bool = False, logger=None,
+                    source: Optional[str] = "R2R",
+                    world: Optional[WorldModel] = None) -> R2RDataset:
+    return _from_config(R2RDataset, args, config, training, logger,
+                        source or "R2R", world)
+
+
+@DATASETS.register("eqa")
+def eqa_from_config(args, config, training: bool = False, logger=None,
+                    source: Optional[str] = "EQA",
+                    world: Optional[WorldModel] = None) -> EQADataset:
+    """EQADataset, its answer vocabulary from the section's ANSWER_VOCAB
+    file."""
+    section = dataset_section(config, source or "EQA")
+    with open(get_anno_file_path(args.data_dir, section.DIR,
+                                 section.ANSWER_VOCAB)) as f:
+        vocab = json.load(f)
+    return _from_config(EQADataset, args, config, training, logger,
+                        source or "EQA", world, answer_vocab=vocab)

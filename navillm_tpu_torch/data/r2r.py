@@ -12,6 +12,7 @@ package's load_dataset does.
 """
 from __future__ import annotations
 
+import ast
 import copy
 import json
 from collections import defaultdict
@@ -43,7 +44,9 @@ class R2RDataset:
         self.feat_db = None
 
     def load_data(self, anno_file, max_instr_len=200, debug=False):
-        """One sample per instruction, ids r2r_<path_id>_<j>."""
+        """One sample per instruction, ids r2r_<path_id>_<j>; an item with
+        FGR2R chunks gives each sample its fine-grained sub-instructions
+        (fg_instruction) and each step's chunk index (fg_view)."""
         with open(str(anno_file)) as f:
             data = json.load(f)
         new_data = []
@@ -59,6 +62,19 @@ class R2RDataset:
                     new_item["instr_encoding"] = \
                         item["instr_encodings"][j][:max_instr_len]
                     del new_item["instr_encodings"]
+                # FGR2R: new_instructions is a Python-literal string of
+                # per-step word lists; chunk_view maps each step's views
+                if "new_instructions" in new_item:
+                    fg_all = ast.literal_eval(item["new_instructions"])
+                    if len(fg_all) > j:
+                        new_item["fg_instruction"] = [" ".join(x)
+                                                      for x in fg_all[j]]
+                        del new_item["new_instructions"]
+                        fg_view = []
+                        for idx, span in enumerate(item["chunk_view"][j]):
+                            fg_view += [idx] * (span[1] - span[0])
+                        new_item["fg_view"] = fg_view
+                        del new_item["chunk_view"]
                 new_item["data_type"] = "r2r"
                 new_data.append(new_item)
         if debug:
@@ -151,6 +167,9 @@ class R2RDataset:
                 "path_id": item.get("path_id"),
                 "distance": 0,
             })
+            if "fg_instruction" in item:
+                obs[-1]["fg_instruction"] = item["fg_instruction"]
+                obs[-1]["fg_view"] = item["fg_view"]
         return obs
 
     def eval_metrics(self, preds, logger: Optional[Any], name: str):

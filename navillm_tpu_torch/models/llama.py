@@ -10,6 +10,8 @@ activation checkpointing, as ``jax.checkpoint`` wraps the scanned layer.
 The layer matmuls go through ``_mm``, which also takes the quantized
 leaves of models/quant.py: int8 weight-only, and int4 (w4, or w4a8 with
 ``act_int8``) through ops/matmul_q4.py (the CUDA int4 kernel on the card).
+Generation adds the one-token ``decode_step`` over the prompt's K/V and a
+decode region, the LM logits and the causal LM loss.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import multi_head_attention
+from ..ops.masking import NEG_INF
 from ..ops.matmul_q4 import matmul_q4, matmul_q4_reference
 from .params import ParamTree
 
@@ -329,6 +332,75 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
                                     causal=False, impl="eager")
         x = _post_attn(cfg, x, lp, attn)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), prefix_kv
+
+
+def init_decode_cache(cfg: LlamaConfig, batch_size: int, max_new: int,
+                      device=None):
+    """The decode region {"k", "v"} [L, B, max_new, NKV, D]: only the
+    generated tokens' K/V live here; the prompt's stay in the read-only
+    stack of forward_hidden(return_kv=True)."""
+    shape = (cfg.num_layers, batch_size, max_new, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def decode_step(params, cfg: LlamaConfig, inputs_embeds, prompt_kv,
+                prompt_mask, dec_cache, step_index: int, positions):
+    """One-token decode step (twin of the JAX decode_step) against the
+    read-only prompt K/V and the decode region.
+
+    inputs_embeds [B, 1, H]; prompt_kv {"k", "v"} [L, B, T, NKV, D];
+    prompt_mask [B, T]; dec_cache {"k", "v"} [L, B, N, NKV, D], whose slot
+    step_index receives this token's post-rope K/V IN PLACE before the
+    layer's attention; positions [B, 1]. Each token sees the valid prompt
+    keys and decode slots 0..step_index: a [B, T+N] key mask over the
+    concatenated keys, through the eager attention, as JAX runs impl="xla"
+    here. Returns (hidden [B, 1, H], dec_cache)."""
+    if "ks" in prompt_kv:
+        raise NotImplementedError("generate on an int8 prompt KV stack "
+                                  "(kv_int8) is not ported yet (ROADMAP A9)")
+    b = inputs_embeds.shape[0]
+    n_dec = dec_cache["k"].shape[2]
+    dev = inputs_embeds.device
+    cos, sin = rope_tables(cfg, positions)
+    dec_mask = (torch.arange(n_dec, device=dev) <= step_index)[None, :]
+    kv_mask = torch.cat([prompt_mask, dec_mask.expand(b, n_dec)], dim=1)
+    x = inputs_embeds.to(cfg.dtype)
+    layers = params["layers"]
+    for i in range(layers["attn_norm"].shape[0]):
+        lp = _layer_weights(layers, i)
+        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        dk, dv = dec_cache["k"][i], dec_cache["v"][i]
+        dk[:, step_index] = k[:, 0]
+        dv[:, step_index] = v[:, 0]
+        keys = torch.cat([prompt_kv["k"][i], dk], dim=1).to(k.dtype)
+        vals = torch.cat([prompt_kv["v"][i], dv], dim=1).to(v.dtype)
+        attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
+                                    causal=False, impl="eager")
+        x = _post_attn(cfg, x, lp, attn)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), dec_cache
+
+
+def logits_from_hidden(params, cfg: LlamaConfig, hidden,
+                       special_token_mask=None):
+    """LM logits in f32, special-token columns (a [vocab] bool mask) at
+    NEG_INF."""
+    logits = _mm(hidden, params["lm_head"], cfg.act_int8,
+                 cfg.q4_impl).float()
+    if special_token_mask is not None:
+        logits = logits.masked_fill(special_token_mask, NEG_INF)
+    return logits
+
+
+def causal_lm_loss(logits, labels, ignore_id: int = -100):
+    """Shifted mean cross-entropy over the labels != ignore_id."""
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_id
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -logp.gather(-1, shift_labels.clamp(min=0).long()[..., None])[..., 0]
+    total = torch.where(valid, nll, torch.zeros((), device=nll.device)).sum()
+    return total / valid.sum().clamp(min=1)
 
 
 def embed_with_injection(params, input_ids, special_positions=None,

@@ -1,6 +1,7 @@
-"""NavModel: LLM + panorama encoder + navigation head, and its loss.
+"""NavModel: LLM + panorama encoder + navigation head, and its losses.
 
-Torch twin of the navigation mode of navillm_tpu/models/nav_model.py.
+Torch twin of the navigation and generation modes of
+navillm_tpu/models/nav_model.py.
 The JAX scatters keep their semantics: ``.at[].add`` with repeated
 indices is ``index_put(..., accumulate=True)``, ``.at[].max`` is
 ``scatter_reduce("amax", include_self=True)``, and bf16 + f32 promotes
@@ -131,6 +132,44 @@ def forward_navigation(params, cfg: NavModelConfig, batch: Dict[str, Any]):
     logits = torch.where(cand_masks, logits,
                          torch.full((), NEG_INF, device=preds.device))
     return {"fuse_embeds": fuse, "fuse_logits": logits}
+
+
+def prep_generation_embeds(params, cfg: NavModelConfig, vp_img_embeds,
+                           vp_masks):
+    """The pre-LLM path of summarization / EQA: zero position features
+    through vp_pos, plus the type-0 token embedding, masked by vp_masks."""
+    b, v, _ = vp_img_embeds.shape
+    zeros = vp_img_embeds.new_zeros((b, v, cfg.angle_feat_size * 2 + 6))
+    x = vp_img_embeds + _pos_mlp(params["vp_pos"], zeros)
+    x = x + params["token_type_emb"][0]
+    return torch.where(vp_masks[..., None], x, _zero(x))
+
+
+def forward_generation_loss(params, cfg: NavModelConfig, batch):
+    """Teacher-forced LM loss of summarization / EQA / FGR2R (twin of the
+    JAX forward_generation_loss). batch: input_ids, attention_mask, labels
+    [B, T] (-100 ignored), cand_positions [B, C], hist_positions [B, Hh],
+    hist_embeds [B, Hh, H], special_token_mask [vocab] bool, and either
+    cand_embeds [B, C, H] or vp_img_embeds [B, V, H] + vp_masks [B, V]
+    (fused here by prep_generation_embeds; the valid views are a prefix).
+    Returns {"loss": scalar, "logits": [B, T, vocab] f32}."""
+    c = batch["cand_positions"].shape[1]
+    if "cand_embeds" in batch:
+        cand_embeds = batch["cand_embeds"]
+    else:
+        cand_embeds = prep_generation_embeds(
+            params, cfg, batch["vp_img_embeds"], batch["vp_masks"])[:, :c]
+    positions = torch.cat([batch["cand_positions"], batch["hist_positions"]],
+                          dim=1)
+    embeds = torch.cat([cand_embeds, batch["hist_embeds"]], dim=1)
+    inputs_embeds = L.embed_with_injection(params["llm"], batch["input_ids"],
+                                           positions, embeds)
+    hidden = L.forward_hidden(params["llm"], cfg.llm, inputs_embeds,
+                              batch["attention_mask"])
+    logits = L.logits_from_hidden(params["llm"], cfg.llm, hidden,
+                                  batch.get("special_token_mask"))
+    return {"loss": L.causal_lm_loss(logits, batch["labels"]),
+            "logits": logits}
 
 
 def navigation_loss(fuse_logits, targets, ignore_id: int = -100,

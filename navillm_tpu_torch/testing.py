@@ -2,10 +2,10 @@
 
 ``make_grid_connectivity`` and ``synthetic_nav_batch`` follow
 navillm_tpu/testing.py (the port imports nothing of the JAX package).
-``make_r2r_world`` writes a grid world with R2R annotations, as
-bench.py's rollout world does; ``r2r_eval`` wires the port's greedy
-streaming evaluation over it and ``r2r_train`` its teacher-forcing
-training.
+``make_r2r_world`` writes a grid world with R2R annotations (with FGR2R
+chunks) and EQA annotations, as bench.py's rollout world does;
+``r2r_eval`` and ``eqa_eval`` wire the port's greedy streaming evaluation
+over it and ``r2r_train`` its teacher-forcing training.
 """
 from __future__ import annotations
 
@@ -64,12 +64,35 @@ def _instruction(rng: random.Random) -> str:
     return " ".join(sentence() for _ in range(rng.randint(1, 5)))
 
 
+# EQA's closed answer vocabulary (ANSWER_VOCAB): colors, counts, rooms
+EQA_ANSWERS = ("red blue green white black brown yellow gray purple orange "
+               "pink one two three four five").split() + _ROOMS
+# FGR2R chunks cover at least this many steps: the JAX head reads every
+# row's fg_view at the steps where the batch's first episode still walks
+FG_STEPS = 15
+
+
+def _fgr2r(instruction: str, n_steps: int):
+    """FGR2R fields of one instruction: its sentences as the fine-grained
+    chunks (word lists, as a Python-literal string) and the chunks' step
+    spans, splitting steps 1..n_steps evenly."""
+    chunks = [c.split() for c in instruction.split(". ") if c]
+    cuts = np.linspace(1, n_steps + 1, len(chunks) + 1).round().astype(int)
+    spans = [[int(a), int(max(b, a + 1))] for a, b in zip(cuts, cuts[1:])]
+    return repr([chunks]), [spans]
+
+
+
+
 def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
                    scan: str = "grid0", seed: int = 0, split: str = "val"
                    ) -> Path:
     """Write ``root/connectivity`` and R2R annotations (``<split>.json``)
-    for shortest-path episodes between random distinct grid nodes; returns
-    the annotation file."""
+    for shortest-path episodes between random distinct grid nodes, each
+    with FGR2R chunks (``new_instructions``, ``chunk_view``); beside them
+    EQA annotations of as many episodes (``EQA/annotations/<split>.json``:
+    a question about the goal, an answer of ``answer_vocab.json``, which
+    holds EQA_ANSWERS). Returns the R2R annotation file."""
     root = Path(root)
     make_grid_connectivity(root / "connectivity", scan=scan, rows=rows,
                            cols=cols)
@@ -84,12 +107,30 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
                 tuple(rng.randint(0, cols, 2))
         path = graph.path(f"vp_{start[0]}_{start[1]}",
                           f"vp_{end[0]}_{end[1]}")
+        instruction = _instruction(irng)
+        fg, chunk_view = _fgr2r(instruction, max(len(path) - 1, FG_STEPS))
         items.append({"distance": 1.0, "scan": scan, "path_id": pid,
-                      "heading": 0.0, "instructions": [_instruction(irng)],
-                      "path": path})
+                      "heading": 0.0, "instructions": [instruction],
+                      "path": path, "new_instructions": fg,
+                      "chunk_view": chunk_view})
     anno = root / "R2R" / "annotations" / f"{split}.json"
     anno.parent.mkdir(parents=True, exist_ok=True)
     anno.write_text(json.dumps(items))
+
+    qrng = random.Random(seed + 1)
+    eqa = []
+    for i in range(n_episodes):
+        start, end = qrng.sample(range(rows * cols), 2)
+        eqa.append({"sample_idx": i, "scan": scan, "path": graph.path(
+            f"vp_{start // cols}_{start % cols}",
+            f"vp_{end // cols}_{end % cols}"), "question": {
+            "question_text": f"what color is the {qrng.choice(_OBJECTS)} in "
+                             f"the {qrng.choice(_ROOMS)}?",
+            "answer_text": qrng.choice(EQA_ANSWERS)}})
+    eqa_dir = root / "EQA" / "annotations"
+    eqa_dir.mkdir(parents=True, exist_ok=True)
+    (eqa_dir / f"{split}.json").write_text(json.dumps(eqa))
+    (eqa_dir / "answer_vocab.json").write_text(json.dumps(EQA_ANSWERS))
     return anno
 
 
@@ -116,6 +157,24 @@ def r2r_eval(anno_file, runner, n_slots: int, image_feat_size: int,
                     image_feat_size=image_feat_size,
                     prefix_cache=prefix_cache)
     return R2RAgent(args, world, runner), ds, args
+
+
+def eqa_eval(root, split, runner, n_slots: int, image_feat_size: int,
+             seed: int = 0, prefix_cache: bool = False):
+    """(agent, dataset, args) for EQA streaming evaluation over the EQA
+    annotations make_r2r_world wrote beside ``split``'s R2R ones."""
+    from .agents.mp3d_agent import EQAAgent, EvalArgs
+    from .data.eqa import EQADataset
+
+    eqa_dir = Path(root) / "EQA" / "annotations"
+    world = WorldModel(str(Path(root) / "connectivity"))
+    ds = EQADataset(eqa_dir / f"{split}.json", world, answer_vocab=json.loads(
+        (eqa_dir / "answer_vocab.json").read_text()))
+    ds.init_feat_db(SyntheticImageFeaturesDB(image_feat_size))
+    args = EvalArgs(seed=seed, val_batch_size=n_slots,
+                    image_feat_size=image_feat_size,
+                    prefix_cache=prefix_cache)
+    return EQAAgent(args, world, runner), ds, args
 
 
 def train_config(max_action_len: int, name: str = "R2R"):

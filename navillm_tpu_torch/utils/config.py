@@ -197,7 +197,6 @@ UNPORTED = {
     "from_scratch": "the pretrained-weight loader is not ported (ROADMAP A4, "
                     "HF-layout weight conversion)",
     "adam_8bit": "8-bit Adam moments are not ported (ROADMAP A5)",
-    "gen_loss_coef": "the generation losses are not ported (ROADMAP A6)",
     "fuse_obj": "object grounding is not ported (ROADMAP A7)",
     "obj_loss_coef": "object grounding is not ported (ROADMAP A7)",
     "multi_endpoints": "the REVERIE dataset is not ported (ROADMAP A7)",

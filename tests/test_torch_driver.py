@@ -359,7 +359,7 @@ def test_registries_loaders_and_helpers(train_args, task_config, data_dir):
     world = WorldModel(str(data_dir / "connectivity"))
     jworld = JWorld(str(data_dir / "connectivity"))
     args = TCFG.TrainArgs(data_dir=str(data_dir), batch_size=2, device="cpu")
-    for name, item in (("reverie", "A7"), ("cvdn", "A8"), ("eqa", "A6")):
+    for name, item in (("reverie", "A7"), ("cvdn", "A8"), ("soon", "A7")):
         with pytest.raises(NotImplementedError, match=item):
             load_agent(name, args, world, None)
         with pytest.raises(NotImplementedError, match=item):

@@ -2,8 +2,10 @@
 none of the packages the card's machine lacks (tokenizers among them), and
 its tiny slices (greedy evaluation on bytes, on BPE uncached and
 prefix-cached, on int4, one teacher-forcing optimizer step through
-train_one_epoch, then run_training at stage multi from a YAML config) and
-``python -m navillm_tpu_torch.train --help`` run on the CPU.
+train_one_epoch, then run_training at stage multi from a YAML config),
+its generation paths (EQA streaming evaluation, run_training with the
+summarization and FGR2R heads validating R2R and EQA) and ``python -m
+navillm_tpu_torch.train --help`` run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -150,6 +152,86 @@ print("loaded", sorted(m for m in sys.modules if m in %r
 """ % (BANNED,)
 
 
+# the generation paths: EQA streaming evaluation (trie answers, oracle pass)
+# uncached and prefix-cached, then run_training at stage multi with the
+# summarization and FGR2R heads, validating R2R and EQA
+GEN = """
+import os, sys, tempfile
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
+from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
+from navillm_tpu_torch.data.loaders import Dataloader
+from navillm_tpu_torch.models.nav_model import NavModel, NavModelConfig
+from navillm_tpu_torch.models.tokenization import NavTokenizer
+from navillm_tpu_torch.training.train_loop import run_training
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+
+torch.set_num_threads(1)
+bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+cfg = NavModelConfig.tiny(vocab_size=bpe.vocab_size, use_obj=False)
+model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+with tempfile.TemporaryDirectory() as tmp:
+    T.make_r2r_world(tmp, n_episodes=3, rows=3, cols=3, split="val")
+    answers = []
+    for cached in (False, True):
+        runner = NavModelRunner(cfg, model, bpe, dims=RolloutDims.tiny())
+        agent, ds, args = T.eqa_eval(tmp, "val", runner, 2,
+                                     cfg.pano.image_feat_size,
+                                     prefix_cache=cached)
+        preds = agent.validate_streaming("EQA", args,
+                                         T.eval_config(3, "EQA"),
+                                         Dataloader(ds, 2, False), dataset=ds)
+        assert runner.generate_calls == 3, runner.generate_calls
+        answers.append({p["instr_id"]: (p["pred_answer"],
+                                        p["oracle_pred_answer"])
+                        for p in preds})
+    assert len(answers[0]) == 3 and answers[0] == answers[1], answers
+    assert all(a in ds.answer_vocab for ab in answers[0].values()
+               for a in ab), answers
+    print("eqa", ds.eval_metrics(preds, None, "EQA")[0])
+
+    T.make_r2r_world(tmp, n_episodes=2, rows=3, cols=3, split="train")
+    ycfg = load_yaml_text(GEN_CFG)
+    rargs = TrainArgs(data_dir=tmp, output_dir=tmp + "/out", device="cpu",
+                      num_epochs=1, num_steps_per_epoch=2, batch_size=2,
+                      fused_rows_per_call=4, max_saved_checkpoints=0,
+                      enable_summarize=True, enable_fgr2r=True,
+                      gen_loss_coef=0.5, test_datasets=["R2R", "EQA"])
+    rargs.sync_from_config(ycfg)
+    res = run_training(rargs, ycfg, feat_dbs={"mp3d": SyntheticImageFeaturesDB(
+        rargs.image_feat_size)})
+    assert sorted(res) == ["EQA", "R2R"], res
+    assert "exact_match" in res["EQA"] and "sr" in res["R2R"], res
+    print("run_training", res)
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+GEN_CFG = '''
+Feature: {image_feat_size: 32, angle_feat_size: 4}
+Dataset:
+  R2R:
+    DIR: R2R
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  EQA:
+    DIR: EQA
+    ANSWER_VOCAB: annotations/answer_vocab.json
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+Multi:
+  SOURCE: ['R2R', 'EQA']
+  Ratio: [1, 0]
+  LOSS_COEF: {}
+Optim:
+  train_max_action_len: {"R2R": 4, "EQA": 4}
+  val_max_action_len: {"R2R": 4, "EQA": 3}
+'''
+GEN = "GEN_CFG = %r\n" % GEN_CFG + GEN
+
+
 def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -165,9 +247,14 @@ def test_port_runs_its_slice_without_jax():
     _fresh(SLICE)
 
 
+def test_port_runs_its_generation_paths_without_jax():
+    _fresh(GEN)
+
+
 def test_train_entry_point_help_without_jax():
     out = _fresh(CLI_HELP)
     assert "--dagger_prefix_cache" in out and "--device" in out
+    assert "--enable_fgr2r" in out and "--gen_loss_coef" in out
 
 
 def _port_sources():

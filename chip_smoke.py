@@ -150,6 +150,36 @@ after phase 21, phase 25 on the int4 tree after phase 11:
      steps included), K4 against its plain version at the decode shape
      m = 4, and one decode step's logits through K4 against q4_impl="plain"
      within the CACHED_LOGIT_* bound; ms per decode token beside phase 23's.
+Object grounding at 7B width on BPE prompts, phases 26-28 on the bf16 model
+after phase 24 (the model carries the panorama's object branch, obj_feat_size
+768; objects from synthetic_object_db, OG_OBJECTS per viewpoint under
+max_objects 70, configs/multi.yaml's):
+ 26. OG A/B: forward_object_grounding on eight REVERIE OG prompts (24
+     objects and 0-12 history embeds each, one row with no object) through
+     K1 and through the eager attention: obj_logits within the
+     CACHED_LOGIT_* bound on the valid options, every other option exactly
+     NEG_INF, the same pick wherever the top-2 margin exceeds what the
+     bound can move; ms per OG forward;
+ 27. REVERIE and SOON streaming evaluation (validate_streaming with
+     enable_og, the scripts/evaluation recipe: --do_sample --temperature
+     0.01) of 16 episodes each in 2 slot groups of 4, uncached and
+     prefix-cached, then argmax: every pred_objid one of its final
+     viewpoint's objects (None exactly where there is none), SOON's
+     direction finite, the metrics finite, K1 = 32 x (uncached steps +
+     prefills + OG calls), every draw that leaves the argmax of its logits
+     on a top-2 margin within 20 temperatures; ms per nav step and per OG
+     call, episodes/s, peak memory, sampled trajectories equal to argmax;
+ 28. run_training at stage multi over R2R, REVERIE and SOON with
+     --enable_og --enable_summarize --enable_fgr2r: 4 batches of 8 (the OG
+     head on every REVERIE/SOON batch, teacher or DAgger), validation of 8
+     episodes of each task; losses finite and below MAX_LOSS, K2 = K3 = 32
+     x grad calls (the heads' included), calc_overall_score finite, one OG
+     head call's gradient through the kernels against eager attention
+     within MIN_GRAD_COSINE; per batch the navigation and head ms, OG calls,
+     trained tokens/s, peak memory. Then the same flags on the command
+     line: python -m navillm_tpu_torch.train's main() on its own small bf16
+     model with --fuse_obj and --do_sample --temperature 0.01 (validation
+     sampled).
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -182,13 +212,15 @@ from navillm_tpu_torch.agents import fused_teacher as FT
 from navillm_tpu_torch.agents.mp3d_agent import R2RAgent, TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import init_nav_params
-from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
+from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
+                                               synthetic_object_db)
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
 from navillm_tpu_torch.models import decoding as D
 from navillm_tpu_torch.models import llama as L
 from navillm_tpu_torch.models.llama import LlamaConfig, _act_q
 from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
-                                                forward_navigation)
+                                                forward_navigation,
+                                                forward_object_grounding)
 from navillm_tpu_torch.models.pano_encoder import PanoConfig
 from navillm_tpu_torch.models.quant import (_quant_one4, is_quantized,
                                             quantize_nav_params)
@@ -372,6 +404,53 @@ Model: {num_pano_layers: 2, enc_full_graph: True, expert_policy: "spl"}
 Optim:
   train_max_action_len: {"R2R": %(len)d, "EQA": %(len)d}
   val_max_action_len: {"R2R": %(len)d, "EQA": %(len)d}
+"""
+# phases 26-28: object grounding at 7B width on BPE prompts. Objects come
+# from synthetic_object_db(style, obj_feat_size 768, OG_OBJECTS per
+# viewpoint), under configs/multi.yaml's max_objects (OG_MAX_OBJECTS)
+OG_OBJECTS = 24
+OG_MAX_OBJECTS = 70
+# phase 26: the history length of each of its OG prompts (the last row also
+# has no object)
+OG_AB_HISTORY = (0, 2, 4, 6, 8, 10, 12, 3)
+# phase 27: episodes of each task, sampled at the recipe's temperature
+# (scripts/evaluation/eval_reverie.sh: --do_sample --temperature 0.01)
+OG_EPISODES = 16
+OG_TEMPERATURE = 0.01
+# a draw at OG_TEMPERATURE leaves the argmax of its own logits only where
+# their top-2 margin is within this many temperatures (Gumbel-max: the
+# chance past it is below e^-20 per decision)
+OG_DRAW_TEMPS = 20
+# phase 28: validation episodes of each task, and the seed at which the
+# MetaLoader draws REVERIE (teacher), SOON (DAgger), R2R (teacher),
+# REVERIE (DAgger) for the epoch's 4 batches
+OG_VAL_EPISODES = 8
+OG_SEED = 3
+RUN_OG_YAML = """
+Feature: {image_feat_size: %(feat)d, angle_feat_size: 4,
+          obj_feat_size: %(obj)d, max_objects: %(objects)d}
+Dataset:
+  R2R:
+    DIR: "R2R"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  REVERIE:
+    DIR: "REVERIE"
+    bbox_file: "annotations/BBoxes.json"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  SOON:
+    DIR: "SOON"
+    SPLIT: {"train": "annotations/train.jsonl",
+            "val_unseen": "annotations/val.jsonl"}
+Multi:
+  SOURCE: ['R2R', 'REVERIE', 'SOON']
+  Ratio: [1, 1, 1]
+  LOSS_COEF: {}
+Model: {num_pano_layers: 2, enc_full_graph: True, expert_policy: "spl"}
+Optim:
+  train_max_action_len: {"R2R": %(len)d, "REVERIE": %(len)d, "SOON": %(len)d}
+  val_max_action_len: {"R2R": %(len)d, "REVERIE": %(len)d, "SOON": %(len)d}
 """
 RUN_YAML = """
 Feature: %(feature)s
@@ -684,7 +763,8 @@ def model_7b():
     llm = LlamaConfig.vicuna_7b(vocab_size=32128, max_seq_len=1024,
                                 dtype=torch.bfloat16)
     cfg = NavModelConfig(llm=llm, pano=PanoConfig(output_size=llm.hidden_size,
-                                                  dtype=torch.bfloat16))
+                                                  dtype=torch.bfloat16,
+                                                  use_obj=True))
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = NavModel(cfg, init_nav_params(cfg, gen))  # on the card
@@ -1511,16 +1591,19 @@ def zero_counters(runner):
     matmul_q4.launches = matmul_q4.int8_launches = 0
     runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
     runner.grad_calls = runner.gen_grad_calls = runner.generate_calls = 0
+    runner.og_calls = runner.og_grad_calls = 0
     runner.llm_token_units = 0.0
 
 
 def check_launches(tag, runner, layers):
     """K1 once per layer of every prefill (the prefix cache's and each
-    generate call's), uncached step and grad call's forward, and once more
-    under remat (the recomputed forward); K2 and K3 once per layer of every
-    grad call, the generation heads' included. Returns the launches."""
+    generate call's), uncached step, object-grounding forward and grad
+    call's forward, and once more under remat (the recomputed forward); K2
+    and K3 once per layer of every grad call, the generation and OG heads'
+    included. Returns the launches."""
     launches = {k: fn.launches for k, fn in COUNTERS.items()}
-    passes = runner.prefill_calls + runner.eval_steps + runner.generate_calls
+    passes = runner.prefill_calls + runner.eval_steps + runner.generate_calls \
+        + runner.og_calls
     calls = runner.grad_calls
     fwd_per_call = 2 if runner.cfg.llm.remat else 1
     want = {"fwd": layers * (passes + fwd_per_call * calls),
@@ -1529,8 +1612,9 @@ def check_launches(tag, runner, layers):
         raise RuntimeError(f"[{tag}] kernel launches {launches} != {want} "
                            f"({runner.prefill_calls} prefills + "
                            f"{runner.eval_steps} uncached steps + "
-                           f"{runner.generate_calls} generate calls, {calls} "
-                           f"grad calls, {layers} layers)")
+                           f"{runner.generate_calls} generate calls + "
+                           f"{runner.og_calls} OG calls, {calls} grad "
+                           f"calls, {layers} layers)")
     return launches
 
 
@@ -2660,6 +2744,481 @@ def phase_eqa_w4(bpe, cfg, qmodel, tmp, ref):
     return st, q4
 
 
+def og_dims(dims=None):
+    """``dims`` (the eval slices' by default) with room for OG_MAX_OBJECTS
+    objects."""
+    return dataclasses.replace(dims or slice_dims(),
+                               max_objects=OG_MAX_OBJECTS)
+
+
+def og_obj_dbs(cfg):
+    return {style: synthetic_object_db(style, cfg.pano.obj_feat_size,
+                                       OG_OBJECTS)
+            for style in ("reverie", "soon")}
+
+
+def og_inputs(bpe, cfg, model, tmp):
+    """Phase 26's batch: the first observations of len(OG_AB_HISTORY)
+    REVERIE episodes as the OG head assembles them (OG_OBJECTS objects at
+    its <cand> tokens, the last row with none), with OG_AB_HISTORY history
+    embeds (panorama embeds of the views). Returns (runner, batch with
+    obj_embeds on the card)."""
+    root = f"{tmp}/og_ab"
+    n = len(OG_AB_HISTORY)
+    T.make_r2r_world(root, n_episodes=n, seed=12)
+    runner = NavModelRunner(cfg, model, bpe, dims=og_dims())
+    agent, ds, _ = T.reverie_eval(root, "val", runner, N_SLOTS,
+                                  cfg.pano.image_feat_size,
+                                  og_obj_dbs(cfg)["reverie"])
+    obs = [ds[i]["observations"] for i in range(n)]
+    obs[-1] = dict(obs[-1], obj_ids=[], **{
+        k: obs[-1][k][:0] for k in ("obj_img_fts", "obj_ang_fts",
+                                    "obj_box_fts")})
+    pano_in = agent.panorama_inputs(obs)
+    out = runner.panorama_dev_dict(pano_in, deterministic=True)
+    pe = out["pano_embeds"]
+    batch = agent._og_inputs(
+        pano_in, True, [ob["instruction"] for ob in obs],
+        [["<hist>"] * k for k in OG_AB_HISTORY],
+        [list(pe[i, :k].float().cpu().numpy())
+         for i, k in enumerate(OG_AB_HISTORY)])
+    batch = {k: runner.upload(v) for k, v in batch.items()}
+    batch["obj_embeds"] = out["obj_embeds"]
+    return runner, batch
+
+
+def phase_og_ab(bpe, cfg, model, tmp):
+    """Phase 26: forward_object_grounding through K1 and through the eager
+    attention on the same OG batch: obj_logits within phase 15's
+    CACHED_LOGIT_* bound on the valid options, every other option exactly
+    NEG_INF (the object-less row keeps option 0 alone), and the same pick
+    on every row whose top-2 margin exceeds what the bound can move. Then
+    ms per OG forward, K1 and eager."""
+    runner, batch = og_inputs(bpe, cfg, model, tmp)
+    eager = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, attn_impl="eager"))
+    with torch.inference_mode():
+        got = forward_object_grounding(model, cfg, batch)["obj_logits"]
+        want = forward_object_grounding(model, eager, batch)["obj_logits"]
+        ms = {name: cuda_ms(lambda c=c: forward_object_grounding(
+            model, c, batch), iters=5) for name, c in (("kernel", cfg),
+                                                       ("eager", eager))}
+    n_obj = batch["obj_masks"].sum(1)
+    valid = torch.arange(got.shape[1], device=got.device)[None, :] \
+        <= n_obj[:, None]
+    if not ((got[~valid] == NEG_INF).all() and (want[~valid] == NEG_INF)
+            .all() and (got[valid] > NEG_INF / 2).all()):
+        raise RuntimeError("[26] the options past a row's objects are not "
+                           "exactly NEG_INF, or a valid one is")
+    exc = logit_excess(got, want)
+    if not exc <= 1:
+        raise RuntimeError(f"[26] obj_logits through K1 vs eager at {exc:.3f}"
+                           f" of the limit")
+    parted = []
+    for i in range(got.shape[0]):
+        if got[i].argmax() == want[i].argmax():
+            continue
+        tol, _ = logit_tol(want[i:i + 1])
+        top = want[i].topk(2)
+        margin = (top.values[0] - top.values[1]).item()
+        limit = tol[0, top.indices].sum().item()
+        if margin > limit:
+            raise RuntimeError(f"[26] row {i} picks another object on a "
+                               f"top-2 margin {margin:.4f} above the limit "
+                               f"{limit:.4f}")
+        parted.append((i, round(margin, 5), round(limit, 5)))
+    shape = tuple(batch["input_ids"].shape)
+    print(f"[26] OG A/B on {shape[0]} REVERIE prompts x {shape[1]} tokens "
+          f"({n_obj.tolist()} objects, histories {list(OG_AB_HISTORY)}): "
+          f"obj_logits through K1 vs eager attention at {exc:.3f} of the "
+          f"limit, options past the objects exactly NEG_INF, rows picking "
+          f"apart (row, top-2 margin, limit): {parted}; one OG forward "
+          f"{ms['kernel']:.3f} ms through K1, {ms['eager']:.3f} ms eager")
+
+
+def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
+                  do_sample=True):
+    """Phase 27: REVERIE or SOON streaming evaluation of OG_EPISODES
+    episodes (2 slot groups of N_SLOTS, val_max_action_len
+    GEN_MAX_ACTION_LEN) with enable_og, sampled at OG_TEMPERATURE unless
+    do_sample is off. Gates: every pred_objid one of its final viewpoint's
+    objects (None exactly where there is none), SOON's direction finite,
+    the metrics finite, K1 once per layer of every uncached step, prefill
+    and OG call, and every draw that leaves the argmax of its own logits
+    on a top-2 margin within OG_DRAW_TEMPS temperatures (recorded on the
+    card, read after the run). Returns the measures and the
+    trajectories."""
+    runner = NavModelRunner(cfg, model, bpe, dims=og_dims())
+    og_s = []
+    runner.object_grounding = cuda_timed(runner.object_grounding, og_s)
+    root = f"{tmp}/og_{task}"
+    T.make_r2r_world(root, n_episodes=OG_EPISODES, seed=13)
+    obj_db = og_obj_dbs(cfg)[task.lower()]
+    flags = dict(do_sample=True, temperature=OG_TEMPERATURE) \
+        if do_sample else {}
+    agent, ds, args = T.object_eval(task, root, "val", runner, N_SLOTS,
+                                    cfg.pano.image_feat_size, obj_db,
+                                    prefix_cache=prefix_cache, **flags)
+    draws, select = [], DM.select_actions
+
+    def recording_select(logits, override, sample, temperature, generator):
+        a_t = select(logits, override, sample, temperature, generator)
+        if sample:
+            top = logits.topk(2, dim=-1).values
+            left = (a_t != logits.argmax(-1)) & (override < 0)
+            draws.append((left, top[:, 0] - top[:, 1]))
+        return a_t
+
+    DM.select_actions = recording_select
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            preds = agent.validate_streaming(
+                task, args, T.eval_config(GEN_MAX_ACTION_LEN, task),
+                Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        DM.select_actions = select
+    launches = check_launches(tag, runner, cfg.llm.num_layers)
+    left = [m[lf] for lf, m in draws]
+    left = torch.cat(left).float().cpu() if left else torch.zeros(0)
+    if len(left) and left.max() > OG_DRAW_TEMPS * OG_TEMPERATURE:
+        raise RuntimeError(f"[{tag}] a draw left the argmax on a top-2 "
+                           f"margin {left.max().item():.4f}")
+    n_draws = sum(len(lf) for lf, _ in draws)
+    if prefix_cache and (runner.eval_steps or not runner.cached_steps):
+        raise RuntimeError(f"[{tag}] the cached run took {runner.eval_steps} "
+                           f"uncached steps")
+    if len(preds) != len(ds) or runner.og_calls != -(-len(ds) // N_SLOTS):
+        raise RuntimeError(f"[{tag}] {len(preds)} predictions for {len(ds)} "
+                           f"episodes in {runner.og_calls} OG calls")
+    starts = {x["instr_id"]: (x["scan"], x["path"][0]) for x in ds.alldata}
+    for p in preds:
+        vp = p["trajectory"][-1][-1]
+        scan, start = starts[p["instr_id"]]
+        ids = list(obj_db.load_feature(scan, vp)[1].get("obj_ids", []))
+        ok = p["pred_objid"] in ids if ids else p["pred_objid"] is None
+        if task == "SOON" and ids:
+            ok = ok and all(math.isfinite(x)
+                            for x in p["pred_obj_direction"])
+        if not ok or p["trajectory"][0][0] != start:
+            raise RuntimeError(f"[{tag}] {p['instr_id']}: pred_objid "
+                               f"{p['pred_objid']} of {ids} at {vp}, or it "
+                               f"does not start at its start")
+    avg, _ = ds.eval_metrics(preds, None, task)
+    if not all(math.isfinite(v) for v in avg.values()):
+        raise RuntimeError(f"[{tag}] metrics not finite: {avg}")
+    steps = runner.eval_steps + runner.cached_steps
+    og_total = sum(og_s)
+    st = {"ms_per_step": 1e3 * (dt - og_total) / steps,
+          "ms_per_og": 1e3 * og_total / len(og_s), "og_calls": len(og_s),
+          "episodes_per_s": len(preds) / dt,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches}
+    kind = ("cached" if prefix_cache else "uncached") + (
+        f", sampled at T={OG_TEMPERATURE}" if do_sample else ", argmax")
+    drawn = (f"{len(left)} of {n_draws} draws left the argmax of their "
+             f"logits, on top-2 margins "
+             f"{sorted(round(x, 5) for x in left.tolist())}; "
+             if do_sample else "")
+    cached = f", {runner.prefill_calls} prefills" if prefix_cache else ""
+    print(f"[{tag}] {task} streaming eval ({kind}, enable_og) of "
+          f"{len(preds)} episodes in {dt:.3f} s = {st['episodes_per_s']:.3f}"
+          f" episodes/s: {steps} steps at {st['ms_per_step']:.2f} ms wall per"
+          f" step (OG excluded){cached}; {len(og_s)} OG calls at "
+          f"{st['ms_per_og']:.1f} ms each; {drawn}"
+          f"{({k: round(float(v), 2) for k, v in avg.items()})}; every "
+          f"pred_objid one of its viewpoint's {OG_OBJECTS} objects; peak "
+          f"memory {st['peak_gib']:.2f} GiB; launches {launches}")
+    return st, {p["instr_id"]: p["trajectory"] for p in preds}
+
+
+def phase_og_evals(bpe, cfg, model, tmp):
+    """Phase 27 for REVERIE and SOON: sampled uncached, sampled cached, and
+    argmax uncached (how many trajectories the draws at T = 0.01 leave as
+    the argmax's). Returns {task: (uncached, cached) measures}."""
+    out = {}
+    for task in ("REVERIE", "SOON"):
+        unc, trajs = phase_og_eval(27, bpe, cfg, model, tmp, task)
+        cac, _ = phase_og_eval(27, bpe, cfg, model, tmp, task,
+                               prefix_cache=True)
+        _, greedy = phase_og_eval(27, bpe, cfg, model, tmp, task,
+                                  do_sample=False)
+        same = sum(trajs[k] == greedy[k] for k in greedy)
+        print(f"[27] {task}: {same} of {len(greedy)} sampled trajectories "
+              f"(T={OG_TEMPERATURE}) equal the argmax ones; cached against "
+              f"uncached {cac['ms_per_step']:.2f} against "
+              f"{unc['ms_per_step']:.2f} ms per step, "
+              f"{cac['ms_per_og']:.1f} against {unc['ms_per_og']:.1f} ms per "
+              f"OG call")
+        out[task] = (unc, cac)
+    return out
+
+
+def phase_run_og(bpe, cfg, model, tmp):
+    """Phase 28: run_training at stage multi over R2R, REVERIE and SOON
+    with --enable_og --enable_summarize --enable_fgr2r on the 7B-width
+    runner: one epoch of 4 batches of TRAIN_BATCH (at OG_SEED: REVERIE
+    teacher, SOON DAgger, R2R teacher, REVERIE DAgger; the OG head runs on
+    every REVERIE/SOON batch, once per DAgger slot group), validation of
+    OG_VAL_EPISODES episodes of each task, no checkpoint. Gates: losses
+    finite and below MAX_LOSS, K1-K3 as the path implies with the heads'
+    grad calls counted, calc_overall_score finite, and one OG head call's
+    gradient through the kernels against eager attention. Returns the
+    run's kernel launches."""
+    root = f"{tmp}/runog"
+    T.make_r2r_world(root, n_episodes=TRAIN_EPISODES, seed=14, split="train")
+    T.make_r2r_world(root, n_episodes=OG_VAL_EPISODES, seed=15, split="val")
+    ycfg = load_yaml_text(RUN_OG_YAML % {
+        "len": MAX_ACTION_LEN, "objects": OG_MAX_OBJECTS,
+        "feat": cfg.pano.image_feat_size, "obj": cfg.pano.obj_feat_size})
+    args = TrainArgs(data_dir=root, output_dir=f"{root}/out", stage="multi",
+                     num_epochs=1, num_steps_per_epoch=4,
+                     batch_size=TRAIN_BATCH, val_batch_size=N_SLOTS,
+                     gradient_accumulation_step=2,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     max_saved_checkpoints=0, enable_og=True,
+                     enable_summarize=True, enable_fgr2r=True,
+                     test_datasets=["R2R", "REVERIE", "SOON"], seed=OG_SEED)
+    args.sync_from_config(ycfg)
+    runner = NavModelRunner(cfg, model, bpe, dims=og_dims(DAGGER_DIMS),
+                            feat_dropout=args.feat_dropout, seed=args.seed)
+    rec = {"batch_s": [], "head_s": [], "og": [], "gen": [], "losses": [],
+           "names": [], "tokens": [0], "first_og": [], "epochs": []}
+    nav_call, gen_call, og_call = runner.pano_navigation_train, \
+        runner.pano_generation_train, runner.pano_og_train
+
+    def nav_train(pano_inputs, seed, batch, targets, coef):
+        rec["tokens"][0] += int(batch["attention_mask"][
+            targets != args.ignoreid].sum())
+        return nav_call(pano_inputs, seed, batch, targets, coef)
+
+    def gen_train(pano_inputs, seed, batch, coef):
+        rec["tokens"][0] += int(batch["attention_mask"].sum())
+        rec["gen"][-1] += 1
+        return cuda_timed(gen_call, rec["head_s"][-1])(pano_inputs, seed,
+                                                       batch, coef)
+
+    def og_train(pano_inputs, seed, batch, targets, coef, **kw):
+        live = targets != args.ignoreid
+        rec["tokens"][0] += int(batch["attention_mask"][live].sum())
+        rec["og"][-1] += 1
+        if not rec["first_og"] and live.any():
+            rec["first_og"].append((pano_inputs, seed, batch, targets, coef))
+        return cuda_timed(og_call, rec["head_s"][-1])(pano_inputs, seed,
+                                                      batch, targets, coef,
+                                                      **kw)
+
+    runner.pano_navigation_train, runner.pano_generation_train, \
+        runner.pano_og_train = nav_train, gen_train, og_train
+    agent_train, epoch_fn = R2RAgent.train, TTL.train_one_epoch
+
+    def train(self, name, batch, a, config, dataset, step=0, **kw):
+        for k in ("og", "gen"):
+            rec[k].append(0)
+        rec["head_s"].append([])
+        rec["names"].append(name)
+        loss = cuda_timed(agent_train, rec["batch_s"])(
+            self, name, batch, a, config, dataset, step=step, **kw)
+        rec["losses"].append(float(loss))
+        return loss
+
+    def train_one_epoch(*a, **kw):
+        t0 = time.perf_counter()
+        out = epoch_fn(*a, **kw)
+        torch.cuda.synchronize()
+        rec["epochs"].append((time.perf_counter() - t0, out))
+        return out
+
+    R2RAgent.train, TTL.train_one_epoch = train, train_one_epoch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    try:
+        t0 = time.perf_counter()
+        res = TTL.run_training(args, ycfg, feat_dbs={
+            "mp3d": SyntheticImageFeaturesDB(cfg.pano.image_feat_size)},
+            obj_feat_dbs=og_obj_dbs(cfg), runner=runner)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        R2RAgent.train, TTL.train_one_epoch = agent_train, epoch_fn
+    launches = check_launches(28, runner, cfg.llm.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (train_s, (avg_loss, norms)), = rec["epochs"]
+    norms = [float(n) for n in norms]
+    losses = rec["losses"]
+    if len(losses) != 4 or not all(math.isfinite(x) and 0 < x < MAX_LOSS
+                                   for x in losses) \
+            or len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                          for n in norms):
+        raise RuntimeError(f"[28] losses {losses}, gradient norms {norms}")
+    want_og = [(0 if n == "R2R" else 1 if i % 2 == 0 else 2)
+               for i, n in enumerate(rec["names"])]
+    if rec["og"] != want_og or not any(rec["og"]) \
+            or runner.og_grad_calls != sum(want_og):
+        raise RuntimeError(f"[28] OG head calls per batch {rec['og']} for "
+                           f"the tasks {rec['names']}: want {want_og}")
+    score = TTL.calc_overall_score(res, ycfg)
+    if sorted(res) != ["R2R", "REVERIE", "SOON"] or not math.isfinite(score) \
+            or not all(math.isfinite(v) for r in res.values()
+                       for v in r.values()):
+        raise RuntimeError(f"[28] validation results {res}, score {score}")
+    head_ms = [1e3 * sum(x) for x in rec["head_s"]]
+    batch_ms = [1e3 * x for x in rec["batch_s"]]
+    kinds = ["teacher" if i % 2 == 0 else "DAgger" for i in range(4)]
+    per_batch = "; ".join(
+        f"{kinds[i]} {rec['names'][i]} {batch_ms[i]:.1f} ms = nav "
+        f"{batch_ms[i] - head_ms[i]:.1f} + heads {head_ms[i]:.1f} "
+        f"({rec['og'][i]} OG, {rec['gen'][i]} generation calls)"
+        for i in range(4))
+    print(f"[28] run_training (stage multi over R2R, REVERIE, SOON, "
+          f"--enable_og --enable_summarize --enable_fgr2r) in {dt:.3f} s: "
+          f"{per_batch}; {rec['tokens'][0]} trained tokens in the "
+          f"{train_s:.3f} s epoch = {rec['tokens'][0] / train_s:.0f} "
+          f"tokens/s; {runner.grad_calls} grad calls ({runner.og_grad_calls}"
+          f" OG, {runner.gen_grad_calls} generation), {runner.og_calls} OG "
+          f"calls in validation; peak memory {peak:.2f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(n, 4) for n in norms]}; overall score {score:.4f}; "
+          f"validation "
+          f"{({t: {k: round(float(v), 2) for k, v in r.items()} for t, r in res.items()})}"
+          f"; launches {launches}")
+    og_grad_ab(bpe, cfg, model, rec["first_og"][0])
+    return launches
+
+
+def phase_cli_og(tmp):
+    """Phase 28, on the command line: the entry point's main() on the card
+    at stage multi over R2R, REVERIE and SOON with --enable_og
+    --obj_loss_coef 0.5 --fuse_obj --enable_summarize --enable_fgr2r
+    --do_sample --temperature 0.01 (validation sampled) and --test_datasets
+    R2R REVERIE SOON, on build_runner's model (2 layers, 4 heads of 64,
+    bf16, the object branch fused into the panorama encoder): 1 epoch of 4
+    batches of CLI_BATCH. The card's machine has neither h5py nor lmdb, so
+    the YAML's feature_database and object_database resolve to the
+    synthetic stores where run_training builds them. Gates: the loss and
+    gradient norms finite, the OG head trained, every task validated, K1-K3
+    as the path implies. Returns the run's kernel launches."""
+    root = f"{tmp}/cli_og"
+    T.make_r2r_world(root, n_episodes=4 * CLI_BATCH, seed=16, split="train")
+    T.make_r2r_world(root, n_episodes=CLI_VAL_EPISODES, seed=17, split="val")
+    yaml_path = Path(root) / "og.yaml"
+    yaml_path.write_text(RUN_OG_YAML.replace(
+        "max_objects: %(objects)d}", "max_objects: %(objects)d,\n"
+        "          feature_database: {\"mp3d\": \"features.hdf5\"},\n"
+        "          object_database: {\"reverie\": \"obj/reverie\", "
+        "\"soon\": \"obj/soon\"}}") % {
+        "len": MAX_ACTION_LEN, "objects": OG_MAX_OBJECTS, "feat": 32,
+        "obj": 16})
+    out = Path(root) / "out"
+    built, epochs = [], []
+    saved = (TTL.build_runner, TTL.create_feature_db,
+             TTL.create_object_feature_db, TTL.train_one_epoch)
+
+    def build_runner(*a, **kw):
+        built.append(saved[0](*a, **kw))
+        return built[-1]
+
+    def feature_dbs(config, image_feat_size, data_dir):
+        return {src: SyntheticImageFeaturesDB(image_feat_size)
+                for src in config}
+
+    def object_dbs(config, obj_feat_size, data_dir):
+        return {src: synthetic_object_db(src, obj_feat_size, OG_OBJECTS)
+                for src in config}
+
+    def train_one_epoch(*a, **kw):
+        epochs.append(saved[3](*a, **kw))
+        return epochs[-1]
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    TTL.build_runner, TTL.create_feature_db, TTL.create_object_feature_db, \
+        TTL.train_one_epoch = build_runner, feature_dbs, object_dbs, \
+        train_one_epoch
+    try:
+        t0 = time.perf_counter()
+        res = TRAIN.main([
+            "--cfg_file", str(yaml_path), "--data_dir", root, "--output_dir",
+            str(out), "--num_epochs", "1", "--num_steps_per_epoch", "4",
+            "--batch_size", str(CLI_BATCH), "--val_batch_size", str(N_SLOTS),
+            "--seed", str(OG_SEED), "--enable_og", "--obj_loss_coef", "0.5",
+            "--fuse_obj", "--enable_summarize", "--enable_fgr2r",
+            "--do_sample", "--temperature", str(OG_TEMPERATURE),
+            "--test_datasets", "R2R", "REVERIE", "SOON"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        TTL.build_runner, TTL.create_feature_db, \
+            TTL.create_object_feature_db, TTL.train_one_epoch = saved
+    runner = built[0]
+    launches = check_launches(28, runner, runner.cfg.llm.num_layers)
+    avg_loss, norms = epochs[0]
+    norms = [float(n) for n in norms]
+    pano = runner.model["pano"]
+    if runner.device.type != "cuda" or not runner.og_grad_calls \
+            or not ("obj_linear" in pano and "obj_projector" in pano) \
+            or not (math.isfinite(avg_loss) and 0 < avg_loss < MAX_LOSS) \
+            or len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                           for n in norms) \
+            or sorted(res) != ["R2R", "REVERIE", "SOON"]:
+        raise RuntimeError(f"[28] the CLI run: {runner.og_grad_calls} OG grad "
+                           f"calls on {runner.device}, loss {avg_loss}, "
+                           f"norms {norms}, results {res}")
+    print(f"[28] python -m navillm_tpu_torch.train's main() on the card over "
+          f"R2R, REVERIE, SOON with --enable_og --obj_loss_coef 0.5 "
+          f"--fuse_obj --enable_summarize --enable_fgr2r --do_sample "
+          f"--temperature {OG_TEMPERATURE} in {dt:.3f} s: loss "
+          f"{avg_loss:.4f}, grad norms {[round(x, 4) for x in norms]}; "
+          f"{runner.grad_calls} grad calls ({runner.og_grad_calls} OG), "
+          f"{runner.og_calls} OG calls in sampled validation; "
+          f"{({t: {k: round(float(v), 2) for k, v in r.items()} for t, r in res.items()})}"
+          f"; launches {launches}")
+    return launches
+
+
+def og_grad_ab(bpe, cfg, model, call):
+    """Phase 28's first OG head call with a target again, dropout off,
+    through the kernels and through eager attention: the gradients, the
+    panorama's object branch included, within MIN_GRAD_COSINE."""
+    last = cfg.llm.num_layers - 1
+    watch = {"llm.layers.wq[0]": lambda m: m.llm.layers.wq.grad[0],
+             f"llm.layers.w_down[{last}]":
+                 lambda m: m.llm.layers.w_down.grad[last],
+             "out_head.w": lambda m: m.out_head.w.grad,
+             "obj_pos.w": lambda m: m.obj_pos.w.grad,
+             "pano.obj_projector.w": lambda m: m.pano.obj_projector.w.grad}
+    res = {}
+    for impl in ("auto", "eager"):
+        cfg_i = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm, attn_impl=impl),
+            pano=dataclasses.replace(cfg.pano, hidden_dropout_prob=0.0))
+        runner = NavModelRunner(cfg_i, model, bpe,
+                                dims=og_dims(DAGGER_DIMS), feat_dropout=0.0)
+        runner.zero_grads()
+        _, loss = runner.pano_og_train(*call)
+        res[impl] = (float(loss), {k: f(model).float().clone()
+                                   for k, f in watch.items()})
+    (lk, gk), (le, ge) = res["auto"], res["eager"]
+    rows = call[2]["input_ids"].shape
+    print(f"[28] one OG head call of {rows[0]} rows x {rows[1]} tokens "
+          f"({int((call[3] != -100).sum())} with a target): loss kernel "
+          f"{lk:.6f} eager {le:.6f} (diff {abs(lk - le):.3e})")
+    for name in watch:
+        a, w = gk[name].flatten(), ge[name].flatten()
+        cos = torch.nn.functional.cosine_similarity(a, w, dim=0).item()
+        print(f"[28] {name}: rel L2 err "
+              f"{((a - w).norm() / w.norm()).item():.3e}, cosine {cos:.6f}")
+        if not cos >= MIN_GRAD_COSINE:
+            raise RuntimeError(f"[28] {name}: gradient cosine {cos} < "
+                               f"{MIN_GRAD_COSINE}")
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -2714,6 +3273,16 @@ def main():
           f"{eqa['episodes_per_s']:.3f} episodes/s")
     with tempfile.TemporaryDirectory() as tmp:
         gen_launches = phase_run_gen(bpe, cfg, model, tmp)
+    # object grounding at 7B width: REVERIE and SOON evaluation and training
+    # with the OG head
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_og_ab(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        og_evals = phase_og_evals(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        og_launches = phase_run_og(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        og_cli_launches = phase_cli_og(tmp)
     q4 = phase_q4_kernel()
     qmodel = quantize_model(cfg, model)
     # free the bf16 LLM: the phases' runners hold it in reference cycles
@@ -2763,7 +3332,11 @@ def main():
                 "20": run_launches[key], "21": cli_launches[key],
                 "23": eqa["launches"][key],
                 "23_cached": eqa_cached["launches"][key],
-                "24": gen_launches[key]}
+                "24": gen_launches[key],
+                **{f"27_{t.lower()}{sfx}": og_evals[t][j]["launches"][key]
+                   for t in og_evals
+                   for j, sfx in enumerate(("", "_cached"))},
+                "28": og_launches[key], "28_cli": og_cli_launches[key]}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
              "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],

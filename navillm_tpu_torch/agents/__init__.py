@@ -1,5 +1,6 @@
 """Agent registry (twin of navillm_tpu/agents/__init__.py; reference
-tasks/agents/__init__.py:12-14). ``r2r`` and ``eqa`` are registered;
+tasks/agents/__init__.py:12-14). ``r2r``, ``eqa``, ``reverie`` and
+``soon`` are registered;
 the JAX package's other agents raise NotImplementedError naming their
 ROADMAP item."""
 from ..utils.registry import AGENTS

@@ -155,6 +155,21 @@ def select_actions(logits, a_t_override, do_sample: bool, temperature,
     return torch.where(a_t_override >= 0, a_t_override.int(), a_t)
 
 
+OBJ_KEYS = ("obj_img_fts", "obj_lens", "obj_loc_fts")
+
+
+def panorama(params, cfg, pano_in, generator=None, training: bool = False):
+    """The panorama encoder over a dict of pano inputs: the views, and the
+    objects when pano_in holds them (with fuse_obj they move the views'
+    embeddings)."""
+    return forward_panorama(params["pano"], cfg.pano, pano_in["view_img_fts"],
+                            pano_in["view_lens"], loc_fts=pano_in["loc_fts"],
+                            nav_types=pano_in["nav_types"],
+                            **{k: pano_in[k] for k in OBJ_KEYS
+                               if k in pano_in},
+                            generator=generator, training=training)
+
+
 def eval_step(params, cfg, state: State, pano_in, batch, reset_mask, cur_ids,
               cand_ids, active_mask, a_t_override, do_sample: bool = False,
               temperature: float = 1.0, generator=None):
@@ -164,9 +179,7 @@ def eval_step(params, cfg, state: State, pano_in, batch, reset_mask, cur_ids,
     a_t_override [B]: force the action for rows >= 0.
     Returns (new_state, a_t [B] int32, logits [B, G] f32)."""
     state = reset_slots(state, reset_mask)
-    po = forward_panorama(params["pano"], cfg.pano, pano_in["view_img_fts"],
-                          pano_in["view_lens"], loc_fts=pano_in["loc_fts"],
-                          nav_types=pano_in["nav_types"])
+    po = panorama(params, cfg, pano_in)
     pano_embeds, pano_masks = po["pano_embeds"], po["pano_masks"]
     state = memory_update(state, pano_embeds, pano_masks, cur_ids, cand_ids)
     logits, fuse = nav_step_from_memory(params, cfg, state, batch,
@@ -264,9 +277,7 @@ def eval_step_cached(params, cfg, state: State, cache, pano_in, batch,
     b = reset_mask.shape[0]
     llm = params["llm"]
     plen = cache["plen"]
-    po = forward_panorama(params["pano"], cfg.pano, pano_in["view_img_fts"],
-                          pano_in["view_lens"], loc_fts=pano_in["loc_fts"],
-                          nav_types=pano_in["nav_types"])
+    po = panorama(params, cfg, pano_in)
     pano_embeds, pano_masks = po["pano_embeds"], po["pano_masks"]
     state = memory_update(state, pano_embeds, pano_masks, cur_ids, cand_ids)
 

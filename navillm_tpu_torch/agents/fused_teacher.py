@@ -27,21 +27,26 @@ The shared loss pass (``_fused_trajectory_train``):
   5. host prompts + device grad calls in chunks of fused_rows_per_call
      rows, each recomputing its chunk's panorama with the same seed, so
      the replayed embeddings and the differentiated ones agree;
-  6. the sub-task heads of the teacher half (agent._generation_step):
-     with enable_fgr2r one generation-loss grad call per collected FGR2R
-     step, with enable_summarize one summarization call at the final step.
+  6. the sub-task heads at the final step: on REVERIE/SOON batches with
+     enable_og the object-grounding head (agent._object_grounding_step,
+     under either feedback), then (agent._generation_step) with
+     enable_fgr2r one generation-loss grad call per collected FGR2R step
+     of an R2R batch, and with enable_summarize, under teacher feedback,
+     one summarization call.
 
 Rows of episodes that already ended are dropped from phases 2-5 (row
 compaction): their targets are ignoreid, so they add nothing to the loss
-or the gradient; the heads read the steps' observations and the final
-history buffer, not these rows. The losses stay device scalars;
-train_loop reads them one step later.
+or the gradient. One exception: under sample feedback a row keeps
+appending history after its episode ended (every drawn action appends),
+and the OG head reads the final history buffer, so when it runs nothing is
+compacted. The losses stay device scalars; train_loop reads them one step
+later.
 
 Not ported here: the host-memory path (``device_memory=False``, ROADMAP
-A8), the W8A8 sampling policy (A9), the object-grounding head (A7), and
-the shape high-water marks of the JAX code: the gmap width keeps the
-bucket of 16 and the sampling windows ``_window_arrays``' own buckets
-(their extra columns are masked).
+A8), training on CVDN, EQA and the augmented sets (A8), the W8A8 sampling
+policy (A9), and the shape high-water marks of the JAX code: the gmap
+width keeps the bucket of 16 and the sampling windows ``_window_arrays``'
+own buckets (their extra columns are masked).
 """
 from __future__ import annotations
 
@@ -64,7 +69,7 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
     envs = batch_dict["env"]
     items = batch_dict["item"]
     data_type = batch_dict["data_type"]
-    _check_r2r_only(args, data_type)
+    _check_data_types(data_type)
     B = len(obs)
     max_action_len = optim_cfg.train_max_action_len[name]
 
@@ -100,8 +105,8 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
         a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1] for ob in obs]
         # FGR2R heads: every step before the last on which the batch's first
         # episode has not reached its goal (JAX's gate, row 0's alone)
-        if args.enable_fgr2r and not flag and not a_t_stop[0] \
-                and "fg_instruction" in obs[0]:
+        if args.enable_fgr2r and data_type[0] == "r2r" and not flag \
+                and not a_t_stop[0] and "fg_instruction" in obs[0]:
             fgr2r_steps.append({"obs": list(obs), "t": t,
                                 "targets": nav_targets.copy()})
         cpu_a_t: List[Optional[str]] = []
@@ -125,8 +130,9 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
 
     return _fused_trajectory_train(
         agent, args, steps=steps, gmaps=gmaps, traj=traj,
-        instructions=instructions, B=B, train_ml=train_ml, loss_den=B,
-        t_pad=max_action_len, fgr2r_steps=fgr2r_steps)
+        instructions=instructions, data_type=data_type, B=B,
+        train_ml=train_ml, loss_den=B, t_pad=max_action_len,
+        fgr2r_steps=fgr2r_steps)
 
 
 def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
@@ -145,7 +151,7 @@ def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
         raise NotImplementedError(
             "the W8A8 sampling policy (dagger_sample_quant) is not ported "
             "yet (ROADMAP A9)")
-    _check_r2r_only(args, batch_dict["data_type"])
+    _check_data_types(batch_dict["data_type"])
     obs_all = list(batch_dict["observations"])
     B = len(obs_all)
     loss_den = loss_denom if loss_denom is not None else B
@@ -210,8 +216,9 @@ def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
         loss_g, traj_g = _fused_trajectory_train(
             agent, args, steps=grp["steps"], gmaps=grp["gmaps"],
             traj=grp["traj"], instructions=grp["instructions"],
-            B=len(grp["obs"]), train_ml=train_ml, loss_den=loss_den,
-            t_pad=max_action_len, feedback="sample")
+            data_type=grp["data_type"], B=len(grp["obs"]),
+            train_ml=train_ml, loss_den=loss_den, t_pad=max_action_len,
+            feedback="sample")
         ml_loss = ml_loss + loss_g
         traj.extend(traj_g)
     return ml_loss, traj
@@ -415,38 +422,58 @@ def _dagger_sample_group(agent, args, grp, dataset, rng_local,
         agent._dagger_cache_pool.append((B, cache_P, cache))
 
 
-def _check_r2r_only(args, data_type):
-    if args.enable_og:
-        raise NotImplementedError("the fused trainer's object-grounding "
-                                  "head is not ported yet (ROADMAP A7)")
-    if any(d != "r2r" for d in data_type):
+TRAINED_TYPES = ("r2r", "reverie", "soon")
+
+
+def _check_data_types(data_type):
+    other = sorted(set(data_type) - set(TRAINED_TYPES))
+    if other:
         raise NotImplementedError(
-            f"training on {sorted(set(data_type) - {'r2r'})} batches is not "
-            f"ported yet (ROADMAP A7, A8): the fused trainer takes R2R")
+            f"training on {other} batches is not ported yet (ROADMAP A8): "
+            f"the fused trainer takes {list(TRAINED_TYPES)}")
+
+
+def _live_rows(steps, feedback, run_og) -> np.ndarray:
+    """[T*B] rows the loss pass runs: those of live episodes, or under
+    sample feedback with the OG head every row (an ended row's drawn
+    actions keep appending the history the head reads)."""
+    if feedback == "teacher" or not run_og:
+        return np.concatenate([~s["ended"] for s in steps])
+    return np.ones(len(steps) * len(steps[0]["ended"]), bool)
 
 
 def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
-                            B, train_ml, loss_den, t_pad=None,
+                            data_type, B, train_ml, loss_den, t_pad=None,
                             feedback="teacher", fgr2r_steps=()):
     """Phases 2-5 of the fused loss pass on the device-memory path, then
     the sub-task heads (6). Under feedback="sample" each step also holds
     the taken "actions" (the history follows them), and the "order",
     "prompts", "vp_in" and "match" of the sampling pass, which are reused,
-    not redrawn; the sampled half runs no head."""
+    not redrawn; the sampled half runs the OG head only."""
     runner = agent.runner
     T = len(steps)
+    run_og = data_type[0] in ("soon", "reverie") and args.enable_og
+    run_gen = feedback == "teacher" and args.enable_summarize
 
     # ---------------- phase 2: panorama over the live rows ---------------
-    # the view features are already on the device (panorama_inputs uploads
-    # them); host members are concatenated and compacted here
-    view_all = torch.cat([s["pano_inputs"]["view_img_fts"] for s in steps])
-    row_live = np.concatenate([~s["ended"] for s in steps])       # [T*B]
+    # the feature arrays are already on the device (panorama_inputs uploads
+    # them); host members are concatenated and compacted here. A row whose
+    # episode ended is live only where its history feeds the OG head
+    # (sample feedback: see the module docstring)
+    dev_keys = [k for k in ("view_img_fts", "obj_img_fts")
+                if k in steps[0]["pano_inputs"]]
+    dev_all = {k: torch.cat([s["pano_inputs"][k] for s in steps])
+               for k in dev_keys}
+    row_live = _live_rows(steps, feedback, run_og)                # [T*B]
     live_idx = np.nonzero(row_live)[0]
     n_live = len(live_idx)
     compact_of = np.full(T * B, -1, np.int64)
     compact_of[live_idx] = np.arange(n_live)
+    host_keys = ["loc_fts", "nav_types", "view_lens"]
+    if "obj_img_fts" in dev_all:
+        host_keys += ["obj_loc_fts", "obj_lens"]
     pano_host = {k: np.concatenate([s["pano_inputs"][k] for s in steps])
-                 [live_idx] for k in ("loc_fts", "nav_types", "view_lens")}
+                 [live_idx] for k in host_keys}
     chunk = int(getattr(args, "fused_rows_per_call", 0) or 0)
     if chunk <= 0:
         chunk = n_live
@@ -459,7 +486,8 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
 
     def chunk_feats(idx):
         feats = {k: v[idx] for k, v in pano_host.items()}
-        feats["view_img_fts"] = view_all[runner.upload(live_idx[idx])]
+        rows = runner.upload(live_idx[idx])
+        feats.update({k: v[rows] for k, v in dev_all.items()})
         return feats
 
     V = steps[0]["pano_inputs"]["view_img_fts"].shape[1]
@@ -622,6 +650,18 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
             chunk_feats(idx), seeds[c0], chunk_batch, part_tgt, coef)
 
     # ------------- phase 6: the sub-task heads ----------------------------
+    # the final-step heads read the history values: one download of the
+    # final history buffer, only when one of them runs
+    history_final = [["<hist>"] * int(cnt[i]) for i in range(B)]
+    hist_vis_final = None
+    if run_og or run_gen:
+        hb = mem_final["hist_buf"].cpu().numpy()
+        hist_vis_final = [list(hb[i, : min(int(cnt[i]), hb.shape[1])])
+                          for i in range(B)]
+    if run_og:
+        ml_loss = ml_loss + agent._object_grounding_step(
+            args, steps[-1]["obs"], instructions, history_final,
+            hist_vis_final, traj, training=True, loss_denom=loss_den)
     # one FGR2R head call per collected step: where is the expert going
     for fg in fgr2r_steps:
         ml_loss = ml_loss + agent._generation_step(
@@ -632,16 +672,11 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
             answers=[ob["fg_instruction"][ob["fg_view"][fg["t"]]]
                      for ob in fg["obs"]],
             mode="embodied_qa", training=True, loss_denom=loss_den)
-    # summarization at the final step, under teacher feedback only; it
-    # reads the history values: one download of the final history buffer
-    if feedback == "teacher" and args.enable_summarize:
-        hb = mem_final["hist_buf"].cpu().numpy()
+    # summarization at the final step, under teacher feedback only
+    if run_gen:
         ml_loss = ml_loss + agent._generation_step(
-            args, steps[-1]["obs"],
-            history=[["<hist>"] * int(cnt[i]) for i in range(B)],
-            hist_vis=[list(hb[i, : min(int(cnt[i]), hb.shape[1])])
-                      for i in range(B)],
-            instructions=instructions,
+            args, steps[-1]["obs"], history=history_final,
+            hist_vis=hist_vis_final, instructions=instructions,
             answers=[ob["instruction"] for ob in steps[-1]["obs"]],
             mode="summarization", training=True, loss_denom=loss_den)
     return ml_loss, traj

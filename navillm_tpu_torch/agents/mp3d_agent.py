@@ -1,21 +1,24 @@
-"""R2R and EQA agents: streaming evaluation and fused training.
+"""R2R, REVERIE, SOON and EQA agents: streaming evaluation and fused
+training.
 
 Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: streaming
-evaluation (device graph memory, argmax actions, uncached or with the
-prompt-prefix KV cache; for EQA and test-mode summarization a generation
+evaluation (device graph memory, argmax or sampled actions, uncached or
+with the prompt-prefix KV cache; for REVERIE and SOON with enable_og an
+object-grounding queue, for EQA and test-mode summarization a generation
 queue, and for EQA the oracle pass) and ``train`` through the fused
-trainer (agents/fused_teacher.py): teacher forcing with the summarization
-and FGR2R heads (``_generation_step``), and on the odd steps of stage
-multi the fused DAgger half. It carries the fixed-shape input assembly of
-the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
+trainer (agents/fused_teacher.py): teacher forcing with the
+object-grounding, summarization and FGR2R heads
+(``_object_grounding_step``, ``_generation_step``), and on the odd steps
+of stage multi the fused DAgger half. It carries the fixed-shape input
+assembly of the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
 ``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``,
 and for the cache ``_cached_prompt_windows``, ``_window_arrays`` and
-``prefill_rows``), its expert (``teacher_action``) and its sim step
-(``make_equiv_action``), which are host numpy code, copied because the JAX
-agent module imports jax. The rest of the JAX agent (the per-step and
-batched rollouts and the interleaved DAgger pipeline, object grounding,
-sampled evaluation, the int8 prefix cache) is not ported: asking for it
-raises NotImplementedError naming its ROADMAP item.
+``prefill_rows``), its experts (``teacher_action``, ``teacher_object``)
+and its sim step (``make_equiv_action``), which are host numpy code,
+copied because the JAX agent module imports jax. The rest of the JAX agent
+(the per-step and batched rollouts and the interleaved DAgger pipeline,
+the int8 prefix cache) is not ported: asking for it raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ EvalArgs = TrainArgs
 
 def get_results(pred_results: Dict[str, dict]) -> List[dict]:
     """Flatten per-episode results; a generated answer (EQA, or a
-    test-mode summary) comes with its oracle answer and ground truth."""
+    test-mode summary) comes with its oracle answer and ground truth, a
+    grounded object with its direction (SOON; None for REVERIE)."""
     out = []
     for k, v in pred_results.items():
         ret = {"instr_id": k, "trajectory": v["path"]}
@@ -51,6 +55,9 @@ def get_results(pred_results: Dict[str, dict]) -> List[dict]:
                         "oracle_pred_answer": v.get("oracle_pred_answer",
                                                     ""),
                         "gt_answer": v["answer"]})
+        if "pred_objid" in v:
+            ret.update({"pred_objid": v["pred_objid"],
+                        "pred_obj_direction": v["pred_obj_direction"]})
         out.append(ret)
     return out
 
@@ -78,10 +85,8 @@ class R2RAgent:
     def get_prompt(self, task, *a, **kw):
         kind = {"navigation": P.navigation_prompt,
                 "summarization": P.summarization_prompt,
-                "embodied_qa": P.embodied_qa_prompt}.get(task)
-        if kind is None:
-            raise NotImplementedError(f"{task} prompts are not ported yet "
-                                      f"(ROADMAP A7)")
+                "embodied_qa": P.embodied_qa_prompt,
+                "object_grounding": P.object_grounding_prompt}[task]
         return kind(self.name, *a, **kw)
 
     def update_scanvp_cands(self, obs):
@@ -92,12 +97,15 @@ class R2RAgent:
                 slot[cand["viewpointId"]] = cand["pointId"]
 
     # ---------------- fixed-shape input assembly ----------------------- #
-    def panorama_inputs(self, obs, twelve_views: bool = False
-                        ) -> Dict[str, Any]:
+    def panorama_inputs(self, obs, with_objects: bool = True,
+                        twelve_views: bool = False) -> Dict[str, Any]:
         """Candidate views first, then non-candidate views, padded to
         max_views; with twelve_views (the generation heads) the 36 views in
-        order, the first 12 (the horizon) of nav type 1. view_img_fts goes
-        up to the device here, once."""
+        order, the first 12 (the horizon) of nav type 1. With with_objects
+        and observations that carry objects, each viewpoint's objects too,
+        padded to max_objects (obj_img_fts, obj_loc_fts = angle ⊕ box
+        features, obj_lens, obj_ids). The feature arrays go up to the
+        device here, once."""
         D = self.args.image_feat_size
         A = self.args.angle_feat_size
         V = self.dims.max_views
@@ -107,6 +115,22 @@ class R2RAgent:
         nav_types = np.zeros((b, V), np.int32)
         view_lens = np.zeros((b,), np.int32)
         cand_vpids: List[List[str]] = []
+        has_obj = with_objects and "obj_img_fts" in obs[0]
+        if has_obj:
+            O = self.dims.max_objects
+            obj_img = np.zeros((b, O, self.args.obj_feat_size), np.float32)
+            obj_loc = np.zeros((b, O, A + 3), np.float32)
+            obj_lens = np.zeros((b,), np.int32)
+            obj_ids: List[List] = []
+            for i, ob in enumerate(obs):
+                n_obj = min(len(ob["obj_img_fts"]), O)
+                if n_obj:
+                    obj_img[i, :n_obj] = ob["obj_img_fts"][:n_obj]
+                    obj_loc[i, :n_obj] = np.concatenate(
+                        [ob["obj_ang_fts"][:n_obj],
+                         ob["obj_box_fts"][:n_obj]], 1)
+                obj_lens[i] = n_obj
+                obj_ids.append(list(ob["obj_ids"])[:n_obj])
         for i, ob in enumerate(obs):
             feats = ob["feature"]          # [36, D + A]
             if twelve_views:
@@ -139,9 +163,15 @@ class R2RAgent:
                 loc_fts[i, k, A:] = 1.0
                 k += 1
             view_lens[i] = k
-        return {"view_img_fts": self.runner.upload(view_img, self._feat_dtype),
-                "loc_fts": loc_fts, "nav_types": nav_types,
-                "view_lens": view_lens, "cand_vpids": cand_vpids}
+        ret = {"view_img_fts": self.runner.upload(view_img, self._feat_dtype),
+               "loc_fts": loc_fts, "nav_types": nav_types,
+               "view_lens": view_lens, "cand_vpids": cand_vpids}
+        if has_obj:
+            ret.update({"obj_img_fts": self.runner.upload(obj_img,
+                                                          self._feat_dtype),
+                        "obj_loc_fts": obj_loc, "obj_lens": obj_lens,
+                        "obj_ids": obj_ids})
+        return ret
 
     def nav_gmap_inputs(self, obs, gmaps: List[GraphMap]) -> Dict[str, Any]:
         """Graph-node bookkeeping; the node embeddings stay on the device."""
@@ -381,7 +411,8 @@ class R2RAgent:
         candidates of a summarization / EQA prompt (with answers, the
         [prompt, answer + eos] pairs). Returns (pano_inputs, nav_mask,
         TokenBatch, cand_positions, hist_positions)."""
-        pano_in = self.panorama_inputs(obs, twelve_views=True)
+        pano_in = self.panorama_inputs(obs, with_objects=False,
+                                       twelve_views=True)
         V = self.dims.max_views
         host_masks = np.arange(V)[None, :] < pano_in["view_lens"][:, None]
         # the nav-type 1 views are a contiguous prefix: the 12 horizon ones
@@ -469,6 +500,102 @@ class R2RAgent:
                 sn["traj"]["answer"] = sn["ob"].get("answer", "") \
                     if is_eqa else sn["instruction"]
 
+    def _og_inputs(self, pano_in, has_obj, instructions, history,
+                   hist_vis):
+        """The object-grounding prompt and its host arrays for a batch:
+        with has_obj obj_masks from obj_lens, else all False and zero
+        objects (the model has no object branch or the observations no
+        objects); one <cand> per object after "(0) not exist", the history
+        at <hist>. Returns the batch without obj_embeds."""
+        b = len(instructions)
+        O = self.dims.max_objects
+        if has_obj:
+            obj_masks = np.arange(O)[None, :] < pano_in["obj_lens"][:, None]
+            obj_loc = pano_in["obj_loc_fts"]
+        else:
+            obj_masks = np.zeros((b, O), bool)
+            obj_loc = np.zeros((b, O, self.args.angle_feat_size + 3),
+                               np.float32)
+        prompts = [self.get_prompt(
+            "object_grounding", instruction=instructions[i],
+            hist_num=len(history[i]), cand_num=int(obj_masks[i].sum()) + 1,
+            cls_token=CLS_TOKEN_TEXT) for i in range(b)]
+        tok_batch, cand_pos, hist_pos, cls_pos = \
+            self.runner.tokenize_with_positions(prompts, max_cands=O)
+        return {"obj_loc_fts": obj_loc, "obj_masks": obj_masks,
+                "input_ids": tok_batch.input_ids,
+                "attention_mask": tok_batch.attention_mask,
+                "cand_positions": cand_pos, "hist_positions": hist_pos,
+                "hist_embeds": self.hist_arrays(hist_vis),
+                "cls_pos": cls_pos}
+
+    @staticmethod
+    def _write_objects(obs, obj_logits, trajs):
+        """pred_objid (the best of the viewpoint's objects, option 0 aside)
+        and, for SOON, its direction onto each traj; None without
+        objects."""
+        for ob, logits, traj in zip(obs, obj_logits, trajs):
+            objids = ob["obj_ids"]
+            if len(objids):
+                best = int(logits[1: len(objids) + 1].argmax())
+                traj["pred_objid"] = objids[best]
+                dirs = ob.get("obj_directions")
+                traj["pred_obj_direction"] = dirs[best] if dirs else None
+            else:
+                traj["pred_objid"] = None
+                traj["pred_obj_direction"] = None
+
+    def _object_grounding_step(self, args, obs, instructions, history,
+                               hist_vis, traj, training, loss_denom=None):
+        """The object-grounding head at the final step (twin of
+        _object_grounding_step): training, the OG loss times obj_loss_coef /
+        loss_denom / gradient_accumulation_step through the panorama's
+        object branch (runner.pano_og_train; a device scalar); evaluation,
+        the objects' logits. Either way pred_objid (and for SOON its
+        direction) lands on traj."""
+        runner = self.runner
+        b = len(obs)
+        pano_in = self.panorama_inputs(obs)
+        seed = runner.next_seed()
+        has_obj = "obj_img_fts" in pano_in and runner.cfg.pano.use_obj
+        og_batch = self._og_inputs(pano_in, has_obj, instructions, history,
+                                   hist_vis)
+        if not has_obj:
+            og_batch["obj_embeds"] = np.zeros(
+                (b, self.dims.max_objects, runner.cfg.hidden_size),
+                np.float32)
+        loss = 0.0
+        if training:
+            targets = self.teacher_object(obs)
+            coef = args.obj_loss_coef / (loss_denom or b) \
+                / args.gradient_accumulation_step
+            if has_obj:
+                obj_logits, loss = runner.pano_og_train(
+                    pano_in, seed, og_batch, targets, coef)
+            else:
+                obj_logits, loss = runner.object_grounding(
+                    og_batch, targets=targets, coef=coef, train=True)
+        else:
+            if has_obj:
+                og_batch["obj_embeds"] = runner.panorama_dev_dict(
+                    pano_in, deterministic=True, seed=seed)["obj_embeds"]
+            obj_logits, _ = runner.object_grounding(og_batch)
+        self._write_objects(obs, obj_logits, traj)
+        return loss
+
+    def _streaming_og(self, snaps, n_real):
+        """Object grounding (_object_grounding_step's evaluation branch) for
+        the snapshots of finished streaming slots, padded to the flush width
+        with copies of the last one; only the first n_real write their
+        episode's pred_objid."""
+        trajs = [sn["traj"] for sn in snaps[:n_real]] \
+            + [{} for _ in snaps[n_real:]]
+        self._object_grounding_step(
+            self.args, [sn["ob"] for sn in snaps],
+            [sn["instruction"] for sn in snaps],
+            [sn["history"] for sn in snaps],
+            [sn["hist_vis"] for sn in snaps], trajs, training=False)
+
     def teacher_action(self, obs, vpids, ended, visited_masks=None,
                        imitation_learning=False, t=None) -> np.ndarray:
         """Expert action per row (twin of teacher_action): under imitation
@@ -507,6 +634,20 @@ class R2RAgent:
                         min_dist, min_idx = d, j
                 a[i] = min_idx
         return a
+
+    def teacher_object(self, obs) -> np.ndarray:
+        """Target option of the object-grounding head: the ground-truth
+        object's index + 1 (option 0 is "not exist") where this viewpoint
+        sees it, else ignoreid."""
+        targets = np.zeros(len(obs), np.int64)
+        for i, ob in enumerate(obs):
+            targets[i] = self.args.ignoreid
+            if len(ob["obj_ids"]) and ob["viewpoint"] in ob["gt_end_vps"]:
+                for j, obj_id in enumerate(ob["obj_ids"]):
+                    if str(obj_id) == str(ob["gt_obj_id"]):
+                        targets[i] = j + 1
+                        break
+        return targets
 
     def make_equiv_action(self, a_t_vpids, gmaps, obs, traj, envs):
         """Append the graph path and teleport the sim."""
@@ -578,12 +719,17 @@ class R2RAgent:
         slot-group width (_streaming_generation), and the slot re-runs the
         same sample with the expert's actions forced through a_t_override
         (the oracle pass), whose answer is oracle_pred_answer. Test-mode
-        summarization (enable_summarize, mode "test") rides the same
-        queue."""
-        if args.do_sample or args.enable_og:
-            raise NotImplementedError(
-                "sampled streaming evaluation and object grounding are not "
-                "ported yet (ROADMAP A7)")
+        summarization (enable_summarize, mode "test", not do_sample) rides
+        the same queue.
+
+        REVERIE and SOON with args.enable_og: a finishing slot's snapshot
+        joins an object-grounding queue, grounded in batches of the
+        slot-group width (_streaming_og), which writes pred_objid (and for
+        SOON pred_obj_direction) onto the episode's result.
+
+        With args.do_sample each step draws its action on the card at
+        args.temperature (device_memory.sample_actions, a generator seeded
+        from the runner's), uncached or cached; oracle rows stay forced."""
         trie = None
         if name == "EQA":
             trie = DenseTrie([self.runner.tok.encode(w, add_bos=True)
@@ -592,9 +738,14 @@ class R2RAgent:
                              device=self.runner.device)
 
         def needs_generation(sl):
+            # summarization only under argmax, never under sampling (the
+            # batched rollout's feedback gate)
             return sl.data_type == "eqa" or (
-                sl.data_type == "r2r" and args.enable_summarize
-                and args.mode == "test")
+                sl.data_type in ("r2r", "soon", "reverie")
+                and args.enable_summarize and args.mode == "test"
+                and not args.do_sample)
+
+        do_sample = bool(args.do_sample)
 
         eqa_oracle = name == "EQA"
         kv_int8 = getattr(args, "kv_int8", False)
@@ -616,6 +767,7 @@ class R2RAgent:
 
         samples = sample_iter()
         results: Dict[str, dict] = {}
+        og_queue: List[dict] = []
         gen_queue: List[dict] = []
 
         class Slot:
@@ -640,9 +792,9 @@ class R2RAgent:
             except StopIteration:
                 slot.active = False
                 return False
-            if s["data_type"] not in ("r2r", "eqa"):
+            if s["data_type"] not in ("r2r", "eqa", "reverie", "soon"):
                 raise NotImplementedError(f"{s['data_type']} episodes are "
-                                          f"not ported yet (ROADMAP A7, A8)")
+                                          f"not ported yet (ROADMAP A8)")
             slot.ob = s["observations"]
             slot.env = s["env"]
             slot.item = s["item"]
@@ -698,9 +850,16 @@ class R2RAgent:
             return []
         flush_width = len(streams[0].slots)
 
-        def flush_gen(force=False):
+        def flush_og(force=False):
             # two streams can queue up to 2 x flush_width snapshots in one
             # iteration, so a forced flush loops until the queue is empty
+            while og_queue and (force or len(og_queue) >= flush_width):
+                batch = og_queue[: flush_width]
+                del og_queue[: len(batch)]
+                pad = batch + [batch[-1]] * (flush_width - len(batch))
+                self._streaming_og(pad, len(batch))
+
+        def flush_gen(force=False):
             while gen_queue and (force or len(gen_queue) >= flush_width):
                 batch = gen_queue[: flush_width]
                 del gen_queue[: len(batch)]
@@ -819,12 +978,14 @@ class R2RAgent:
                 st.mem_state, st.cache, a_t, _ = self.runner.eval_step_cached(
                     st.mem_state, st.cache, st.pano_inputs, st.nav_batch,
                     st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
-                    st.a_t_override, sync=False)
+                    st.a_t_override, do_sample=do_sample,
+                    temperature=args.temperature, sync=False)
             else:
                 st.mem_state, a_t, _ = self.runner.eval_step(
                     st.mem_state, st.pano_inputs, st.nav_batch,
                     st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
-                    st.a_t_override, sync=False)
+                    st.a_t_override, do_sample=do_sample,
+                    temperature=args.temperature, sync=False)
             st.a_t = HostCopy(a_t)
             st.pending = True
 
@@ -844,17 +1005,24 @@ class R2RAgent:
                 stop = (a_t[i] == 0) or st.gmap_in["no_vp_left"][i] \
                     or sl.t >= max_action_len
                 if stop:
-                    if needs_generation(sl):
+                    need_og = sl.data_type in ("soon", "reverie") \
+                        and args.enable_og and not sl.oracle
+                    need_gen = needs_generation(sl)
+                    if need_og or need_gen:
                         # the heads read the history values: one download
                         # of this row of the device history buffer
                         buf = st.mem_state["hist_buf"][i].cpu().numpy()
                         cnt = int(st.mem_state["hist_cnt"][i])
-                        gen_queue.append({
+                        snap = {
                             "ob": sl.ob, "history": list(sl.history),
                             "hist_vis": list(buf[: min(cnt, len(buf))]),
                             "instruction": sl.instruction, "traj": sl.traj,
                             "oracle": sl.oracle,
-                            "data_type": sl.data_type})
+                            "data_type": sl.data_type}
+                        if need_og:
+                            og_queue.append(snap)
+                        if need_gen:
+                            gen_queue.append(snap)
                     if sl.oracle:
                         fill(sl)
                     else:
@@ -889,9 +1057,23 @@ class R2RAgent:
                     _dispatch(st)
             if not progressed:
                 break
+            flush_og()
             flush_gen()
+        flush_og(force=True)
         flush_gen(force=True)
         return get_results(results)
+
+
+@AGENTS.register("reverie")
+class REVERIEAgent(R2RAgent):
+    """The REVERIE agent: R2R's navigation under the REVERIE prompts (name
+    "reverie"), with the object-grounding head."""
+
+
+@AGENTS.register("soon")
+class SOONAgent(R2RAgent):
+    """The SOON agent: R2R's navigation under the SOON prompts (name
+    "soon"), with the object-grounding head."""
 
 
 @AGENTS.register("eqa")

@@ -1,17 +1,18 @@
 """NavModelRunner: the device entry points of evaluation and training.
 
-Torch twin of the surface of navillm_tpu/agents/runner.py that R2R
-streaming evaluation and fused training (teacher and DAgger) use: ``cfg``,
+Torch twin of the surface of navillm_tpu/agents/runner.py that streaming
+evaluation and fused training (teacher and DAgger) use: ``cfg``,
 ``tok``, ``dims``, ``device_memory``, ``memory_init``, ``eval_step``,
 ``tokenize_with_positions``, the prefix cache (``prefix_cache_enabled``,
 ``prefix_cache_init``, ``prefill``, ``eval_step_cached``), the
 ``llm_token_units`` counter, for training ``zero_grads`` /
 ``take_grads``, ``panorama_dev_dict``, ``replay_fuse_scan`` and
-``pano_navigation_train``, and for generation the special-token logit mask,
+``pano_navigation_train``, for generation the special-token logit mask,
 ``gen_embeds``, ``generate`` and ``pano_generation_train`` (the
-summarization / EQA / FGR2R heads). Host arrays go up through pinned
-buffers with non-blocking copies, so uploading one slot group's step never
-waits for the other group's step running on the card.
+summarization / EQA / FGR2R heads), and for object grounding (REVERIE,
+SOON) ``object_grounding`` and ``pano_og_train``. Host arrays go up through
+pinned buffers with non-blocking copies, so uploading one slot group's step
+never waits for the other group's step running on the card.
 
 Randomness: jax.random keys become torch.Generators. The runner draws one
 seed per dropout-bearing call from its own host generator; a call seeded
@@ -31,7 +32,7 @@ import torch
 from ..models import nav_model as NM
 from ..models.decoding import generate
 from ..models.nav_model import NavModel, NavModelConfig
-from ..models.pano_encoder import dropout, forward_panorama
+from ..models.pano_encoder import dropout
 from ..models.quant import is_quantized
 from ..models.tokenization import NavTokenizer
 from . import device_memory as DM
@@ -47,6 +48,8 @@ class RolloutDims:
     max_views: int = 44
     max_cands: int = 99
     max_hist: int = 32
+    # objects per viewpoint (<cand> tokens of the object-grounding prompt)
+    max_objects: int = 72
     # prompt-prefix KV cache capacity per slot (instruction + history
     # tokens; the cached streaming eval raises if a prefix outgrows it)
     max_prefix: int = 768
@@ -54,7 +57,7 @@ class RolloutDims:
     @classmethod
     def tiny(cls) -> "RolloutDims":
         return cls(max_gmap_nodes=16, max_views=40, max_cands=8, max_hist=8,
-                   max_prefix=448)
+                   max_objects=8, max_prefix=448)
 
 
 class HostCopy:
@@ -79,7 +82,8 @@ class HostCopy:
 
 
 class NavModelRunner:
-    PANO_KEYS = ("view_img_fts", "view_lens", "loc_fts", "nav_types")
+    PANO_KEYS = ("view_img_fts", "view_lens", "loc_fts", "nav_types",
+                 "obj_img_fts", "obj_lens", "obj_loc_fts")
 
     def __init__(self, cfg: NavModelConfig, model: NavModel,
                  tokenizer: NavTokenizer, dims: RolloutDims = RolloutDims(),
@@ -129,6 +133,10 @@ class NavModelRunner:
         # generate calls (each one prefill over every layer, then the
         # decode steps)
         self.generate_calls = 0
+        # object-grounding forwards without a gradient (each runs every LLM
+        # layer once), and of the grad calls those of the OG head
+        self.og_calls = 0
+        self.og_grad_calls = 0
 
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
@@ -176,17 +184,17 @@ class NavModelRunner:
     def pano_apply(self, pano_dev, generator: Optional[torch.Generator],
                    deterministic: bool) -> Dict[str, torch.Tensor]:
         """Feature dropout + panorama forward (twin of pano_apply): the
-        view features are dropped at feat_dropout, then the encoder runs
-        in training mode, both drawing from ``generator``."""
-        view = pano_dev["view_img_fts"]
+        view features, then the object features when there are any, are
+        dropped at feat_dropout, then the encoder runs in training mode,
+        all drawing from ``generator``."""
+        pano_dev = dict(pano_dev)
         if not deterministic and self.feat_dropout > 0:
-            view = dropout(view, self.feat_dropout, generator)
-        return forward_panorama(self.model["pano"], self.cfg.pano, view,
-                                pano_dev["view_lens"],
-                                loc_fts=pano_dev["loc_fts"],
-                                nav_types=pano_dev["nav_types"],
-                                generator=generator,
-                                training=not deterministic)
+            for k in ("view_img_fts", "obj_img_fts"):
+                if k in pano_dev:
+                    pano_dev[k] = dropout(pano_dev[k], self.feat_dropout,
+                                          generator)
+        return DM.panorama(self.model, self.cfg, pano_dev, generator,
+                           training=not deterministic)
 
     def panorama_dev_dict(self, pano_inputs, deterministic: bool,
                           seed: Optional[int] = None
@@ -276,6 +284,69 @@ class NavModelRunner:
                                               dev)["loss"] * coef
             loss.backward()
         return loss.detach()
+
+    def pano_og_train(self, pano_inputs, seed: int, batch, targets,
+                      coef: float, need_logits: bool = True):
+        """One object-grounding grad call, one autograd graph: panorama with
+        dropout (seeded by ``seed``) -> obj_embeds -> forward_object_grounding
+        -> navigation_loss * coef -> backward into the params' .grad, the
+        object branch of the panorama encoder included (JAX: the grad to the
+        params and to obj_embeds, then the panorama's object VJP). batch
+        holds host arrays (the prompt, obj_loc_fts, obj_masks, positions,
+        hist_embeds). Returns (obj_logits [B, 100] on the host, or None
+        without need_logits, which spares the sync; the loss as a device
+        scalar)."""
+        if not self.grads_open:
+            raise RuntimeError("call zero_grads() before a training call")
+        self.llm_token_units += 3.0 * float(
+            np.asarray(batch["attention_mask"]).sum())
+        self.grad_calls += 1
+        self.og_grad_calls += 1
+        pano_dev = self._pano_dev_inputs(pano_inputs)
+        dev = {k: (v if torch.is_tensor(v) else self.upload(v))
+               for k, v in batch.items()}
+        with torch.enable_grad():
+            dev["obj_embeds"] = self.pano_apply(
+                pano_dev, self.generator(seed), False)["obj_embeds"]
+            logits = NM.forward_object_grounding(self.model, self.cfg,
+                                                 dev)["obj_logits"]
+            loss = NM.navigation_loss(logits, self.upload(targets),
+                                      self.ignore_id) * coef
+            loss.backward()
+        if not need_logits:
+            return None, loss.detach()
+        return HostCopy(logits.detach()).result(), loss.detach()
+
+    def object_grounding(self, batch, targets=None, coef: float = 1.0,
+                         train: bool = False):
+        """forward_object_grounding on a batch with obj_embeds given (host
+        array or device tensor). Inference: (obj_logits [B, 100] on the
+        host, 0.0). train: the loss * coef backpropagates into the params'
+        .grad (not into the panorama: see pano_og_train), and the loss comes
+        back as a float."""
+        dev = {k: (v if torch.is_tensor(v) else self.upload(v))
+               for k, v in batch.items()}
+        if train:
+            if not self.grads_open:
+                raise RuntimeError("call zero_grads() before a training "
+                                   "call")
+            self.llm_token_units += 3.0 * float(
+                np.asarray(batch["attention_mask"]).sum())
+            self.grad_calls += 1
+            self.og_grad_calls += 1
+            with torch.enable_grad():
+                logits = NM.forward_object_grounding(self.model, self.cfg,
+                                                     dev)["obj_logits"]
+                loss = NM.navigation_loss(logits, self.upload(targets),
+                                          self.ignore_id) * coef
+                loss.backward()
+            return HostCopy(logits.detach()).result(), float(loss)
+        self.llm_token_units += float(np.asarray(batch["attention_mask"]).sum())
+        self.og_calls += 1
+        with torch.inference_mode():
+            logits = NM.forward_object_grounding(self.model, self.cfg,
+                                                 dev)["obj_logits"]
+        return HostCopy(logits).result(), 0.0
 
     def gen_embeds(self, vp_img_embeds, vp_masks) -> torch.Tensor:
         """The zero-position, type-0 fusion of the generation paths, on the

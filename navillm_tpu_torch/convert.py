@@ -134,6 +134,12 @@ def init_pano_params(cfg: PanoConfig, generator, device=None):
                         "ffn1": stack(lambda: init.linear(h, i)),
                         "ffn2": stack(lambda: init.linear(i, h))}
         p["encoder_norm"] = init.ln(h)
+    if cfg.use_obj:
+        p["obj_projector"] = init.linear(cfg.obj_feat_size, cfg.output_size)
+        p["obj_projector_ln"] = init.ln(cfg.output_size)
+        if cfg.fuse_obj:
+            p["obj_linear"] = init.linear(cfg.obj_feat_size, h)
+            p["obj_linear_ln"] = init.ln(h)
     return p
 
 

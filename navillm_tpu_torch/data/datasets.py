@@ -1,9 +1,9 @@
 """Dataset registry (twin of navillm_tpu/data/datasets/__init__.py;
 reference tasks/datasets/__init__.py:14-16). ``load_dataset(name, args,
 config, training=..., logger=..., source=..., world=...)`` builds a
-dataset from the task config as the JAX package's does. ``r2r`` and
-``eqa`` are registered; the other names raise NotImplementedError naming
-their ROADMAP item."""
+dataset from the task config as the JAX package's does. ``r2r``, ``eqa``,
+``reverie`` and ``soon`` are registered; the other names raise
+NotImplementedError naming their ROADMAP item."""
 from __future__ import annotations
 
 import json
@@ -14,6 +14,8 @@ from ..sim.env import WorldModel
 from ..utils.registry import DATASETS
 from .eqa import EQADataset
 from .r2r import R2RDataset
+from .reverie import REVERIEDataset
+from .soon import SOONDataset
 
 
 def load_dataset(name: str, *args, **kwargs):
@@ -74,3 +76,39 @@ def eqa_from_config(args, config, training: bool = False, logger=None,
         vocab = json.load(f)
     return _from_config(EQADataset, args, config, training, logger,
                         source or "EQA", world, answer_vocab=vocab)
+
+
+def _max_objects(config, training: bool):
+    """The objects kept per viewpoint: Feature.max_objects in training,
+    all of them in evaluation (mp3d_base's rule)."""
+    if training and "Feature" in config:
+        return config.Feature.get("max_objects", None)
+    return None
+
+
+@DATASETS.register("reverie")
+def reverie_from_config(args, config, training: bool = False, logger=None,
+                        source: Optional[str] = "REVERIE",
+                        world: Optional[WorldModel] = None) -> REVERIEDataset:
+    """REVERIEDataset over the section's bbox_file (the base REVERIE
+    section's, which the augmented set shares, when there is one)."""
+    section = dataset_section(config, source or "REVERIE")
+    try:
+        base = dataset_section(config, "REVERIE")
+    except KeyError:
+        base = section
+    return _from_config(REVERIEDataset, args, config, training, logger,
+                        source or "REVERIE", world,
+                        bbox_file=get_anno_file_path(args.data_dir, base.DIR,
+                                                     base.bbox_file),
+                        max_objects=_max_objects(config, training),
+                        multi_endpoints=args.multi_endpoints)
+
+
+@DATASETS.register("soon")
+def soon_from_config(args, config, training: bool = False, logger=None,
+                     source: Optional[str] = "SOON",
+                     world: Optional[WorldModel] = None) -> SOONDataset:
+    return _from_config(SOONDataset, args, config, training, logger,
+                        source or "SOON", world,
+                        max_objects=_max_objects(config, training))

@@ -13,7 +13,7 @@ tasks/loaders.py:12-250):
     (StopIteration handling at loaders.py:181-189).
 Batches are host-side lists; the agents move fixed-shape arrays to the
 card. ``create_dataloaders`` makes the loaders of a stage from the config,
-over the port's dataset registry (data/datasets.py: R2R only).
+over the port's dataset registry (data/datasets.py).
 """
 from __future__ import annotations
 

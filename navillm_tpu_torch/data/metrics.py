@@ -1,16 +1,21 @@
 """Navigation evaluation metrics as pure functions.
 
-The port's copy of the R2R scorer of navillm_tpu/data/metrics.py, with
-the same names and numerics: ``eval_r2r_item`` <- R2RDataset.eval_dis_item
-(reference r2r.py:108-131) and ``aggregate_r2r``. The other tasks'
-scorers (REVERIE, CVDN, SOON) come with those tasks.
+The port's copy of the scorers of navillm_tpu/data/metrics.py, with the
+same names and numerics:
+  - eval_r2r_item      <- R2RDataset.eval_dis_item (reference r2r.py:108-131)
+  - eval_reverie_item  <- REVERIEDataset.eval_dis_item (reverie.py:138-168)
+  - eval_soon_item     <- SOONDataset.eval_soon_item (soon.py:163-223), with
+                          shapely's point-in-polygon replaced by a ray-casting
+                          test (point_in_polygon)
+and their aggregates. CVDN's scorer comes with CVDN.
 
 All scorers take `dist`: a callable (vp_a, vp_b) -> float over the
 scan's all-pairs shortest distances (ScanGraph.distance).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+import math
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -71,3 +76,109 @@ def aggregate_r2r(per_item: List[Dict[str, float]]) -> Dict[str, float]:
         "oracle_sr": m("oracle_success") * 100,
         "spl": m("spl") * 100,
     }
+
+
+def eval_reverie_item(dist: Dist, pred_traj: Sequence[Sequence[str]],
+                      pred_objid: Optional[str], gt_path: Sequence[str],
+                      gt_objid: Optional[str],
+                      goal_viewpoints: Sequence[str]) -> Dict[str, float]:
+    """REVERIE success = final vp sees the gt object (reverie.py:156-165)."""
+    path = flatten_trajectory(pred_traj)
+    assert gt_path[0] == path[0], "trajectories must include the start"
+    nearest = get_nearest(dist, gt_path[-1], path)
+    s: Dict[str, float] = {}
+    s["nav_error"] = dist(path[-1], gt_path[-1])
+    s["oracle_error"] = dist(nearest, gt_path[-1])
+    s["action_steps"] = len(pred_traj) - 1
+    s["trajectory_steps"] = len(path) - 1
+    s["trajectory_lengths"] = path_length(dist, path)
+    gt_lengths = path_length(dist, gt_path)
+    goal_set = set(goal_viewpoints)
+    assert goal_set, "gt object must be visible somewhere"
+    s["success"] = float(path[-1] in goal_set)
+    s["oracle_success"] = float(any(vp in goal_set for vp in path))
+    s["spl"] = s["success"] * gt_lengths / max(s["trajectory_lengths"],
+                                               gt_lengths, 0.01)
+    s["rgs"] = float(str(pred_objid) == str(gt_objid))
+    s["rgspl"] = s["rgs"] * gt_lengths / max(s["trajectory_lengths"],
+                                             gt_lengths, 0.01)
+    return s
+
+
+def aggregate_reverie(per_item: List[Dict[str, float]]) -> Dict[str, float]:
+    out = aggregate_r2r(per_item)
+    m = lambda k: float(np.mean([x[k] for x in per_item]))
+    out["rgs"] = m("rgs") * 100
+    out["rgspl"] = m("rgspl") * 100
+    return out
+
+
+def point_in_polygon(x: float, y: float,
+                     poly: Sequence[Sequence[float]]) -> bool:
+    """Ray-casting point-in-polygon (replaces shapely, soon.py:189-198).
+
+    Matches shapely `contains` semantics for simple polygons: boundary
+    points are NOT contained (even-odd rule; ties on edges are
+    don't-care for this metric, angle floats never land exactly)."""
+    inside = False
+    n = len(poly)
+    for i in range(n):
+        x1, y1 = poly[i]
+        x2, y2 = poly[(i + 1) % n]
+        if (y1 > y) != (y2 > y):
+            xin = (x2 - x1) * (y - y1) / (y2 - y1) + x1
+            if x < xin:
+                inside = not inside
+    return inside
+
+
+def eval_soon_item(dist: Dist, pred_traj: Sequence[Sequence[str]],
+                   gt_path: Sequence[str], gt_bboxes: Dict[str, dict],
+                   obj_heading: Optional[float],
+                   obj_elevation: Optional[float]) -> Dict[str, float]:
+    """SOON scorer (soon.py:163-223). gt_bboxes: vp -> normalized bbox
+    dict with 'heading'/'elevation' and 'target' corner dict."""
+    start_vp, goal_vp = gt_path[0], gt_path[-1]
+    path = flatten_trajectory(pred_traj)
+    assert gt_path[0] == path[0], "trajectories must include the start"
+    nearest = get_nearest(dist, goal_vp, path)
+
+    s: Dict[str, float] = {}
+    if path[-1] in gt_bboxes and obj_heading is not None \
+            and obj_elevation is not None:
+        bb = gt_bboxes[path[-1]]
+        s["heading_error"] = math.fabs(bb["heading"] - obj_heading)
+        s["elevation_error"] = math.fabs(bb["elevation"] - obj_elevation)
+        s["point_det_error"] = math.hypot(bb["heading"] - obj_heading,
+                                          bb["elevation"] - obj_elevation)
+        t = bb["target"]
+        poly = [(t["left_top"]["heading"], t["left_top"]["elevation"]),
+                (t["right_top"]["heading"], t["right_top"]["elevation"]),
+                (t["right_bottom"]["heading"], t["right_bottom"]["elevation"]),
+                (t["left_bottom"]["heading"], t["left_bottom"]["elevation"])]
+        s["det_success"] = point_in_polygon(obj_heading, obj_elevation, poly)
+    else:
+        s["det_success"] = False
+
+    s["action_steps"] = len(pred_traj) - 1
+    s["trajectory_steps"] = len(path) - 1
+    s["trajectory_lengths"] = path_length(dist, path)
+    s["nav_error"] = dist(path[-1], goal_vp)
+    s["oracle_error"] = dist(nearest, goal_vp)
+    s["success"] = s["nav_error"] < ERROR_MARGIN
+    s["oracle_success"] = s["oracle_error"] < ERROR_MARGIN
+    s["goal_progress"] = dist(start_vp, goal_vp) - dist(path[-1], goal_vp)
+    gt_lengths = dist(gt_path[0], goal_vp)   # NOTE: shortest, not path sum
+    s["spl"] = s["success"] * gt_lengths / max(s["trajectory_lengths"],
+                                               gt_lengths, 0.01)
+    s["det_spl"] = s["det_success"] * gt_lengths / max(s["trajectory_lengths"],
+                                                       gt_lengths, 0.01)
+    return s
+
+
+def aggregate_soon(per_item: List[Dict[str, float]]) -> Dict[str, float]:
+    out = aggregate_r2r(per_item)
+    m = lambda k: float(np.mean([float(x[k]) for x in per_item]))
+    out["det_sr"] = m("det_success") * 100
+    out["det_spl"] = m("det_spl") * 100
+    return out

@@ -9,6 +9,12 @@ names the split "train", as mp3d_base does, and changes nothing else for
 R2R (otherwise the split is ``split`` or the file's stem). The registry's
 ``r2r`` entry (data/datasets.py) builds it from a task config as the JAX
 package's load_dataset does.
+
+It is also the base of the object-grounding datasets (data/reverie.py,
+data/soon.py), as far as they need one: ``preprocess_item`` (identity
+here) rewrites a sample before its episode starts, and with an object
+feature DB (``init_feat_db``'s obj_feat_db) ``get_obs`` adds the
+dataset's ``get_object_info`` to every observation, as mp3d_base does.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ class R2RDataset:
         # precomputed [36, 36, A] angle-feature table
         self.angle_feature = all_point_angle_features(angle_feat_size)
         self.feat_db = None
+        self.obj_feat_db = None
 
     def load_data(self, anno_file, max_instr_len=200, debug=False):
         """One sample per instruction, ids r2r_<path_id>_<j>; an item with
@@ -84,19 +91,27 @@ class R2RDataset:
         return new_data, gt_trajs
 
     def init_feat_db(self, feat_db, obj_feat_db=None):
-        if obj_feat_db is not None:
-            raise NotImplementedError("object features (REVERIE/SOON) are "
-                                      "not ported yet (ROADMAP A7)")
         self.feat_db = feat_db
+        self.obj_feat_db = obj_feat_db
 
     def dist_fn(self, scan: str):
         return self.world.graph(scan).distance
 
+    def shortest_path(self, scan: str, a: str, b: str) -> List[str]:
+        return self.world.graph(scan).path(a, b)
+
     def __len__(self):
         return len(self.alldata)
 
+    def preprocess_item(self, item):
+        return item
+
+    def get_object_info(self, item, state):
+        raise NotImplementedError(f"{type(self).__name__} has no objects")
+
     def __getitem__(self, index):
         item = copy.deepcopy(self.alldata[index])
+        item = self.preprocess_item(item)
         env = EpisodeBatch(self.world, 1)
         env.new_episodes([item["scan"]], [item["path"][0]],
                          [item.get("heading") or 0.0])
@@ -170,6 +185,8 @@ class R2RDataset:
             if "fg_instruction" in item:
                 obs[-1]["fg_instruction"] = item["fg_instruction"]
                 obs[-1]["fg_view"] = item["fg_view"]
+            if self.obj_feat_db is not None:
+                obs[-1].update(self.get_object_info(item, state))
         return obs
 
     def eval_metrics(self, preds, logger: Optional[Any], name: str):

@@ -1,6 +1,6 @@
 """NavModel: LLM + panorama encoder + navigation head, and its losses.
 
-Torch twin of the navigation and generation modes of
+Torch twin of the navigation, generation and object-grounding modes of
 navillm_tpu/models/nav_model.py.
 The JAX scatters keep their semantics: ``.at[].add`` with repeated
 indices is ``index_put(..., accumulate=True)``, ``.at[].max`` is
@@ -170,6 +170,36 @@ def forward_generation_loss(params, cfg: NavModelConfig, batch):
                                   batch.get("special_token_mask"))
     return {"loss": L.causal_lm_loss(logits, batch["labels"]),
             "logits": logits}
+
+
+def forward_object_grounding(params, cfg: NavModelConfig, batch):
+    """Object-grounding logits (twin of forward_object_grounding). batch:
+    obj_embeds [B, O, H], obj_loc_fts [B, O, A+3], obj_masks [B, O],
+    input_ids / attention_mask [B, T], cand_positions [B, O] (token index of
+    the k-th object <cand>), hist_positions [B, Hh], hist_embeds [B, Hh, H],
+    cls_pos [B]. Object k (0-based) is option k+1; option 0 is "not exist".
+    Returns {"obj_logits": [B, 100] f32}, the options past the row's objects
+    at NEG_INF."""
+    obj = batch["obj_embeds"] + _pos_mlp(params["obj_pos"],
+                                         batch["obj_loc_fts"])
+    obj = torch.where(batch["obj_masks"][..., None], obj, _zero(obj))
+    b = obj.shape[0]
+    positions = torch.cat([batch["cand_positions"], batch["hist_positions"]],
+                          dim=1)
+    embeds = torch.cat([obj, batch["hist_embeds"]], dim=1)
+    inputs_embeds = L.embed_with_injection(params["llm"], batch["input_ids"],
+                                           positions, embeds)
+    hidden = L.forward_hidden(params["llm"], cfg.llm, inputs_embeds,
+                              batch["attention_mask"])
+    rows = torch.arange(b, device=hidden.device)
+    cls_hidden = hidden[rows, batch["cls_pos"].long()]
+    preds = (cls_hidden @ params["out_head"]["w"]
+             + params["out_head"]["b"]).float()
+    cand_nums = batch["obj_masks"].sum(1) + 1          # + "not exist"
+    slot = torch.arange(NUM_CAND_SLOTS, device=preds.device)[None, :]
+    return {"obj_logits": torch.where(
+        slot < cand_nums[:, None], preds,
+        torch.full((), NEG_INF, device=preds.device))}
 
 
 def navigation_loss(fuse_logits, targets, ignore_id: int = -100,

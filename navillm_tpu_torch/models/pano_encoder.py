@@ -6,6 +6,14 @@ Dropout (hidden_dropout_prob) runs only with training=True, drawing from
 the given torch.Generator; the forward is deterministic otherwise or at
 rate 0. The encoder's attention is the plain eager path, as it is
 ``impl="xla"`` in JAX.
+
+Objects (use_obj): their features go through obj_projector + LN to the
+LLM width (obj_embeds, with obj_masks and obj_loc_fts beside them). With
+fuse_obj they also join the encoder's sequence as nav type 2 (obj_linear +
+LN ⊕ loc linear + LN ⊕ type embedding) under one [B, V+O] mask, and the
+views read them through attention; the fixed shapes with masks stand for
+the reference's ragged repacking, which is the same function because the
+encoder has no positional encoding.
 """
 from __future__ import annotations
 
@@ -85,15 +93,20 @@ def _encoder_stack(params, cfg: PanoConfig, x, mask):
     return layer_norm(x, en["s"], en["b"])
 
 
+def _linear_ln(x, lin, ln):
+    return layer_norm(x @ lin["w"] + lin["b"], ln["s"], ln["b"])
+
+
 def forward_panorama(params, cfg: PanoConfig, view_img_fts, view_lens,
-                     loc_fts=None, nav_types=None,
+                     loc_fts=None, nav_types=None, obj_img_fts=None,
+                     obj_lens=None, obj_loc_fts=None,
                      generator: Optional[torch.Generator] = None,
                      training: bool = False) -> Dict[str, torch.Tensor]:
     """view_img_fts: [B, V, Di]; view_lens: [B]; loc_fts: [B, V, 7];
-    nav_types: [B, V] int (0 non-nav, 1 navigable). Returns pano_embeds
-    [B, V, output_size] and pano_masks [B, V]. Objects are not ported."""
-    if cfg.fuse_obj:
-        raise NotImplementedError("object fusion (fuse_obj) is not ported")
+    nav_types: [B, V] int (0 non-nav, 1 navigable); objects: obj_img_fts
+    [B, O, Do], obj_lens [B], obj_loc_fts [B, O, 7]. Returns pano_embeds
+    [B, V, output_size] and pano_masks [B, V], and with use_obj and O > 0
+    obj_embeds [B, O, output_size], obj_masks [B, O] and obj_loc_fts."""
     b, v, _ = view_img_fts.shape
     dev = view_img_fts.device
     x = layer_norm(view_img_fts.to(cfg.dtype) @ params["img_linear"]["w"]
@@ -114,9 +127,27 @@ def forward_panorama(params, cfg: PanoConfig, view_img_fts, view_lens,
 
     pano_masks = gen_seq_masks(view_lens, v)
     if "encoder" in params:
-        x = _encoder_stack(params, cfg, x, pano_masks)
+        if cfg.fuse_obj and obj_img_fts is not None:
+            o = obj_img_fts.shape[1]
+            oe = _linear_ln(obj_img_fts.to(cfg.dtype), params["obj_linear"],
+                            params["obj_linear_ln"])
+            oe = oe + _linear_ln(obj_loc_fts.to(cfg.dtype),
+                                 params["loc_linear"], params["loc_ln"])
+            oe = oe + params["nav_type_emb"][2]
+            fmask = torch.cat([pano_masks, gen_seq_masks(obj_lens, o)], 1)
+            x = _encoder_stack(params, cfg, torch.cat([x, oe], 1),
+                               fmask)[:, :v]
+        else:
+            x = _encoder_stack(params, cfg, x, pano_masks)
     x = x @ params["mapper"]["w"] + params["mapper"]["b"]
     x = torch.where(pano_masks[..., None], x,
                     torch.zeros((), dtype=x.dtype, device=dev))
-    return {"pano_embeds": x, "pano_masks": pano_masks}
+    ret = {"pano_embeds": x, "pano_masks": pano_masks}
+    if obj_img_fts is not None and obj_img_fts.shape[1] > 0 and cfg.use_obj:
+        ret["obj_embeds"] = _linear_ln(obj_img_fts.to(cfg.dtype),
+                                       params["obj_projector"],
+                                       params["obj_projector_ln"])
+        ret["obj_masks"] = gen_seq_masks(obj_lens, obj_img_fts.shape[1])
+        ret["obj_loc_fts"] = obj_loc_fts
+    return ret
 

@@ -3,13 +3,15 @@
 ``make_grid_connectivity`` and ``synthetic_nav_batch`` follow
 navillm_tpu/testing.py (the port imports nothing of the JAX package).
 ``make_r2r_world`` writes a grid world with R2R annotations (with FGR2R
-chunks) and EQA annotations, as bench.py's rollout world does;
-``r2r_eval`` and ``eqa_eval`` wire the port's greedy streaming evaluation
+chunks), as bench.py's rollout world does, and beside them EQA, REVERIE
+and SOON annotations on the same grid; ``r2r_eval``, ``eqa_eval``,
+``reverie_eval`` and ``soon_eval`` wire the port's streaming evaluation
 over it and ``r2r_train`` its teacher-forcing training.
 """
 from __future__ import annotations
 
 import json
+import math
 import random
 from pathlib import Path
 from types import SimpleNamespace
@@ -17,7 +19,7 @@ from typing import Dict
 
 import numpy as np
 
-from .data.feature_db import SyntheticImageFeaturesDB
+from .data.feature_db import SyntheticImageFeaturesDB, _SyntheticObjectStore
 from .data.loaders import Dataloader
 from .sim import ScanGraph, WorldModel
 
@@ -84,6 +86,72 @@ def _fgr2r(instruction: str, n_steps: int):
 
 
 
+# the synthetic object stores (data.feature_db.synthetic_object_db) hold
+# at least this many objects per viewpoint where REVERIE and SOON episodes
+# have their targets
+MIN_OBJECTS = 3
+
+
+def synthetic_object_id(scan: str, vp: str, k: int) -> str:
+    """The k-th object id the synthetic object stores give (scan, vp)."""
+    return _SyntheticObjectStore(n_objects=k + 1).get(f"{scan}_{vp}")[
+        "obj_ids"][k]
+
+
+def _object_annotations(root, graph, scan, rows, cols, n_episodes, seed,
+                        split):
+    """REVERIE (``REVERIE/annotations/<split>.json`` and the shared
+    ``BBoxes.json``, merged across splits) and SOON
+    (``SOON/annotations/<split>.jsonl``) episodes on the grid: a
+    shortest path to a goal whose target is one of the synthetic objects
+    there (the (path_id % MIN_OBJECTS)-th), visible also from the node
+    before the goal (a second end viewpoint)."""
+    rng = np.random.RandomState(seed + 2)
+    trng = random.Random(seed + 2)
+    bbox_file = root / "REVERIE" / "annotations" / "BBoxes.json"
+    bbox_file.parent.mkdir(parents=True, exist_ok=True)
+    bboxes = json.loads(bbox_file.read_text()) if bbox_file.exists() else {}
+    reverie, soon = [], []
+    for pid in range(n_episodes):
+        a, b = rng.choice(rows * cols, 2, replace=False)
+        path = graph.path(f"vp_{a // cols}_{a % cols}",
+                          f"vp_{b // cols}_{b % cols}")
+        ends = path[-2:] if len(path) > 2 else path[-1:]
+        k = pid % MIN_OBJECTS
+        obj, room = trng.choice(_OBJECTS), trng.choice(_ROOMS)
+        goal_obj = synthetic_object_id(scan, path[-1], k)
+        for vp in ends:
+            bboxes.setdefault(f"{scan}_{vp}", {})[goal_obj] = {
+                "visible_pos": [int(rng.randint(36))], "name": obj}
+        reverie.append({"scan": scan, "path_id": pid, "objId": int(goal_obj),
+                        "path": path, "heading": 0.0,
+                        "instructions": [f"Go to the {room} and bring me "
+                                         f"the {obj} by the "
+                                         f"{trng.choice(_OBJECTS)}."]})
+        heading = float(rng.rand() * 2 * math.pi)
+        elevation = float(rng.rand() - 0.5)
+        target = {"center": {"heading": heading, "elevation": elevation}}
+        for corner, dh, de in (("left_top", -0.3, 0.2),
+                               ("right_top", 0.3, 0.2),
+                               ("right_bottom", 0.3, -0.2),
+                               ("left_bottom", -0.3, -0.2)):
+            target[corner] = {"heading": heading + dh,
+                              "elevation": elevation + de}
+        soon.append({"scan": scan, "path_id": pid, "path": path,
+                     "bboxes": [{"image_id": vp, "pseudo_label": {
+                         "obj_id": synthetic_object_id(scan, vp, k)},
+                         "target": target} for vp in ends],
+                     "instructions": [{"full": f"Find the {obj} in the "
+                                               f"{room}, next to the "
+                                               f"{trng.choice(_OBJECTS)}."}]})
+    bbox_file.write_text(json.dumps(bboxes))
+    (bbox_file.parent / f"{split}.json").write_text(json.dumps(reverie))
+    soon_dir = root / "SOON" / "annotations"
+    soon_dir.mkdir(parents=True, exist_ok=True)
+    (soon_dir / f"{split}.jsonl").write_text(
+        "".join(json.dumps(x) + "\n" for x in soon))
+
+
 def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
                    scan: str = "grid0", seed: int = 0, split: str = "val"
                    ) -> Path:
@@ -92,7 +160,8 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
     with FGR2R chunks (``new_instructions``, ``chunk_view``); beside them
     EQA annotations of as many episodes (``EQA/annotations/<split>.json``:
     a question about the goal, an answer of ``answer_vocab.json``, which
-    holds EQA_ANSWERS). Returns the R2R annotation file."""
+    holds EQA_ANSWERS), and as many REVERIE and SOON episodes
+    (_object_annotations). Returns the R2R annotation file."""
     root = Path(root)
     make_grid_connectivity(root / "connectivity", scan=scan, rows=rows,
                            cols=cols)
@@ -131,6 +200,8 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
     eqa_dir.mkdir(parents=True, exist_ok=True)
     (eqa_dir / f"{split}.json").write_text(json.dumps(eqa))
     (eqa_dir / "answer_vocab.json").write_text(json.dumps(EQA_ANSWERS))
+    _object_annotations(root, graph, scan, rows, cols, n_episodes, seed,
+                        split)
     return anno
 
 
@@ -175,6 +246,49 @@ def eqa_eval(root, split, runner, n_slots: int, image_feat_size: int,
                     image_feat_size=image_feat_size,
                     prefix_cache=prefix_cache)
     return EQAAgent(args, world, runner), ds, args
+
+
+def object_eval(task, root, split, runner, n_slots: int,
+                image_feat_size: int, obj_db, seed: int = 0,
+                prefix_cache: bool = False, **flags):
+    """(agent, dataset, args) for REVERIE or SOON (``task``) streaming
+    evaluation with object grounding (enable_og) over the annotations
+    make_r2r_world wrote beside ``split``'s R2R ones, with synthetic image
+    features and the object DB ``obj_db``; ``flags`` go to the args
+    (do_sample, temperature)."""
+    from .agents.mp3d_agent import EvalArgs, REVERIEAgent, SOONAgent
+    from .data.reverie import REVERIEDataset
+    from .data.soon import SOONDataset
+
+    world = WorldModel(str(Path(root) / "connectivity"))
+    if task == "REVERIE":
+        anno = Path(root) / "REVERIE" / "annotations"
+        ds = REVERIEDataset(anno / f"{split}.json", world,
+                            bbox_file=anno / "BBoxes.json", split=split)
+        agent_cls = REVERIEAgent
+    else:
+        ds = SOONDataset(Path(root) / "SOON" / "annotations"
+                         / f"{split}.jsonl", world, split=split)
+        agent_cls = SOONAgent
+    ds.init_feat_db(SyntheticImageFeaturesDB(image_feat_size), obj_db)
+    args = EvalArgs(seed=seed, val_batch_size=n_slots,
+                    image_feat_size=image_feat_size,
+                    obj_feat_size=obj_db.obj_feat_size, enable_og=True,
+                    prefix_cache=prefix_cache, **flags)
+    return agent_cls(args, world, runner), ds, args
+
+
+def reverie_eval(root, split, runner, n_slots, image_feat_size, obj_db,
+                 **kw):
+    """object_eval for REVERIE (obj_db in the REVERIE layout)."""
+    return object_eval("REVERIE", root, split, runner, n_slots,
+                       image_feat_size, obj_db, **kw)
+
+
+def soon_eval(root, split, runner, n_slots, image_feat_size, obj_db, **kw):
+    """object_eval for SOON (obj_db in the SOON layout)."""
+    return object_eval("SOON", root, split, runner, n_slots,
+                       image_feat_size, obj_db, **kw)
 
 
 def train_config(max_action_len: int, name: str = "R2R"):

@@ -7,15 +7,17 @@ Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
     what the attention kernels take; random weights on the port's
     initialiser from ``args.seed``) on ``args.device``;
   - ``build_world_and_data`` / ``build_agents``: the world, the stage's
-    loaders and the task agents from the config (R2R only);
+    loaders (with the view and object feature DBs) and the task agents
+    from the config (R2R, REVERIE, SOON, EQA);
   - ``train_one_epoch``: gradients accumulate in the parameters' .grad
     (runner.zero_grads / take_grads), and every gradient_accumulation_step
     batches one optimizer step applies clip + AdamW. The loss of batch N
     is read on the host only after batch N+1 has been dispatched (one-step
     lag), so the card works through N's backward while the host simulates
     N+1;
-  - ``val_one_epoch``: greedy streaming validation per task, the
-    predictions gathered (single process) and scored;
+  - ``val_one_epoch``: streaming validation per task (greedy, or sampled
+    under --do_sample), the predictions gathered (single process) and
+    scored;
   - ``calc_overall_score``: task-weighted SPL model selection;
   - ``run_training``: the epoch loop with best-score checkpoint retention
     (max_saved_checkpoints), pretrain-stage periodic saves, latest-state
@@ -36,7 +38,7 @@ import torch
 from ..agents import load_agent
 from ..agents.runner import NavModelRunner
 from ..convert import init_nav_params
-from ..data.feature_db import create_feature_db
+from ..data.feature_db import create_feature_db, create_object_feature_db
 from ..data.loaders import NAME_OF, MetaLoader, create_dataloaders
 from ..models import llama as L
 from ..models.nav_model import NavModel, NavModelConfig
@@ -135,7 +137,9 @@ def train_one_epoch(args, cfg, runner, tx, opt_step, meta_loader, agents,
 def tiny_config(args, vocab_size: int, device) -> NavModelConfig:
     """The model built without a pretrained path. On the CPU it is the JAX
     package's tiny configuration (2-layer f32 LLM, hidden 128 over 4 heads,
-    tiny panorama encoder), f32 whatever --precision says, as in JAX. On
+    tiny panorama encoder, its object branch with --enable_og), f32
+    whatever --precision says, as in JAX; --fuse_obj fuses the objects into
+    the encoder (the JAX package reads it only on its pretrained path). On
     the card every LLM layer runs through the attention kernels, which take
     bf16 and head_dim 64 or 128 (ops/attention.py), so there the LLM is
     hidden 256 over 4 heads (head_dim 64, MLP 512) and the LLM and the
@@ -151,7 +155,9 @@ def tiny_config(args, vocab_size: int, device) -> NavModelConfig:
         pano_kw = dict(dtype=torch.bfloat16)
     llm_cfg = L.LlamaConfig.tiny(vocab_size=vocab_size, **llm_kw)
     pano_cfg = PanoConfig.tiny(output_size=llm_cfg.hidden_size,
-                               use_obj=args.enable_og, **pano_kw)
+                               use_obj=args.enable_og,
+                               fuse_obj=args.enable_og and args.fuse_obj,
+                               **pano_kw)
     return NavModelConfig(llm=llm_cfg, pano=pano_cfg,
                           angle_feat_size=args.angle_feat_size)
 
@@ -192,12 +198,16 @@ def build_world_and_data(args, cfg, training: bool, stage: str, world=None,
                          test_datasets=None):
     """(world, loaders, datasets, feat_dbs, obj_feat_dbs). Feature DBs are
     injected or built from the config's feature_database (HDF5, read at
-    first use); object DBs are not built (object grounding is ROADMAP
-    A7)."""
+    first use), object DBs from its object_database (LMDB, opened when
+    built: the lmdb and msgpack packages must be there)."""
     if feat_dbs is None and "feature_database" in cfg.get("Feature", {}):
         feat_dbs = create_feature_db(cfg.Feature.feature_database,
                                      cfg.Feature.image_feat_size,
                                      args.data_dir)
+    if obj_feat_dbs is None and "object_database" in cfg.get("Feature", {}):
+        obj_feat_dbs = create_object_feature_db(cfg.Feature.object_database,
+                                                cfg.Feature.obj_feat_size,
+                                                args.data_dir)
     world = world or WorldModel(str(Path(args.data_dir) / "connectivity"))
     loaders, datasets = create_dataloaders(
         args, cfg, training=training, world=world, feat_dbs=feat_dbs,

@@ -197,9 +197,6 @@ UNPORTED = {
     "from_scratch": "the pretrained-weight loader is not ported (ROADMAP A4, "
                     "HF-layout weight conversion)",
     "adam_8bit": "8-bit Adam moments are not ported (ROADMAP A5)",
-    "fuse_obj": "object grounding is not ported (ROADMAP A7)",
-    "obj_loss_coef": "object grounding is not ported (ROADMAP A7)",
-    "multi_endpoints": "the REVERIE dataset is not ported (ROADMAP A7)",
     "max_datapoints": "the CVDN and LLaVA datasets are not ported (ROADMAP A8)",
     "path_type": "the CVDN dataset is not ported (ROADMAP A8)",
     "dagger_pipeline": "the interleaved per-step DAgger, which runs only "

@@ -4,8 +4,8 @@ port does not yet raises NotImplementedError naming its ROADMAP item."""
 from typing import Callable, Dict
 
 # the JAX package's registered names that the port lacks, by ROADMAP item
-PENDING = {"reverie": "A7", "soon": "A7", "cvdn": "A8", "r2r_aug": "A8",
-           "reverie_aug": "A8", "scanqa": "A8", "llava": "A8", "coco": "A8"}
+PENDING = {"cvdn": "A8", "r2r_aug": "A8", "reverie_aug": "A8",
+           "scanqa": "A8", "llava": "A8", "coco": "A8"}
 
 
 class Registry:

@@ -54,6 +54,7 @@ from navillm_tpu_torch.training import checkpoints as TC  # noqa: E402
 from navillm_tpu_torch.training import train_loop as TTL  # noqa: E402
 from navillm_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from navillm_tpu_torch.utils import config as TCFG  # noqa: E402
+from navillm_tpu_torch.utils.registry import AGENTS  # noqa: E402
 from navillm_tpu_torch.utils import yaml_subset  # noqa: E402
 
 torch.set_num_threads(1)
@@ -359,11 +360,20 @@ def test_registries_loaders_and_helpers(train_args, task_config, data_dir):
     world = WorldModel(str(data_dir / "connectivity"))
     jworld = JWorld(str(data_dir / "connectivity"))
     args = TCFG.TrainArgs(data_dir=str(data_dir), batch_size=2, device="cpu")
-    for name, item in (("reverie", "A7"), ("cvdn", "A8"), ("soon", "A7")):
+    for name, item in (("reverie_aug", "A8"), ("cvdn", "A8"),
+                       ("scanqa", "A8")):
         with pytest.raises(NotImplementedError, match=item):
             load_agent(name, args, world, None)
         with pytest.raises(NotImplementedError, match=item):
             load_dataset(name, args, task_config)
+    # REVERIE and SOON are registered, dataset and agent
+    for name, source in (("reverie", "REVERIE"), ("soon", "SOON")):
+        ds = load_dataset(name, args, task_config, source=source,
+                          world=world)
+        jds = j_load_dataset(name, train_args, task_config, source=source,
+                             world=jworld)
+        assert ds.alldata == jds.alldata and ds.name == name
+        assert AGENTS.get(name).name == name
     with pytest.raises(KeyError):
         load_dataset("nope", args, task_config)
 

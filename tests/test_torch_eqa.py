@@ -196,11 +196,20 @@ def test_test_mode_summarization_matches_jax(runners, tmp_path):
 
 
 def test_unported_eval_paths_still_raise(runners, tmp_path):
-    """Sampled streaming evaluation and object grounding name A7."""
+    """The int8 prefix cache still names A9. Sampled evaluation and the OG
+    flag, which named A7, run now: EQA sampled at T = 0.01 with enable_og
+    answers every episode from the vocabulary and grounds nothing (the OG
+    head is REVERIE's and SOON's)."""
     _, trunner = runners
     T.make_r2r_world(tmp_path, n_episodes=2, rows=4, cols=4, seed=9)
-    for flags in (dict(do_sample=True), dict(enable_og=True)):
-        with pytest.raises(NotImplementedError, match="A7"):
-            _stream(trunner, True, tmp_path, "val.json", "EQA", 2, **flags)
+    with pytest.raises(NotImplementedError, match="A9"):
+        _stream(trunner, True, tmp_path, "val.json", "EQA", 2,
+                prefix_cache=True, kv_int8=True)
+    calls = trunner.og_calls
+    got, _, ds = _stream(trunner, True, tmp_path, "val.json", "EQA", 2,
+                         do_sample=True, temperature=0.01, enable_og=True)
+    assert len(got) == 2 and trunner.og_calls == calls
+    assert all(p["pred_answer"] in ds.answer_vocab
+               and "pred_objid" not in p for p in got.values())
     assert json.loads((tmp_path / "EQA" / "annotations" /
                        "answer_vocab.json").read_text()) == T.EQA_ANSWERS

@@ -1,7 +1,8 @@
 """The port's host layer against the JAX package's: the same inputs through
 navillm_tpu_torch.{sim, data.metrics, data.loaders, data.feature_db,
 models.tokenization} and their navillm_tpu twins give identical results
-(integers, strings, paths and float64 distances compared exactly).
+(integers, strings, paths and float64 distances compared exactly), the
+object stores and the REVERIE/SOON scorers included.
 """
 import json
 import random
@@ -183,6 +184,77 @@ def test_r2r_metrics_match(world_dir):
         items)["sr"] <= PM.aggregate_r2r(items)["oracle_sr"]
 
 
+def _walks(g, r, n):
+    """n (start, goal, ground-truth path, random walk from start)."""
+    out = []
+    for _ in range(n):
+        start, goal = r.sample(g.ids, 2)
+        traj, vp = [[start]], start
+        for _ in range(r.randint(0, 5)):
+            nxt = r.choice(g.neighbors(vp))
+            traj.append(g.path(vp, nxt)[1:])
+            vp = nxt
+        out.append((start, goal, g.path(start, goal), traj))
+    return out
+
+
+def test_reverie_metrics_match(world_dir):
+    g = JE.WorldModel(world_dir, scans=["scan0"]).graph("scan0")
+    r = random.Random(4)
+    items = []
+    for start, goal, gt, traj in _walks(g, r, 20):
+        goals = [goal] + r.sample(g.ids, r.randint(0, 2))
+        pred = r.choice(["7", "8", None])
+        pi = PM.eval_reverie_item(g.distance, traj, pred, gt, "7", goals)
+        _assert_same(pi, JM.eval_reverie_item(g.distance, traj, pred, gt,
+                                              "7", goals))
+        items.append(pi)
+    _assert_same(PM.aggregate_reverie(items), JM.aggregate_reverie(items))
+    assert 0 < PM.aggregate_reverie(items)["rgs"] < 100
+
+
+def test_soon_metrics_match(world_dir):
+    g = JE.WorldModel(world_dir, scans=["scan0"]).graph("scan0")
+    r = random.Random(5)
+    items = []
+    for start, goal, gt, traj in _walks(g, r, 20):
+        end = traj[-1][-1]
+        bb = {"heading": r.random(), "elevation": r.random(),
+              "target": {c: {"heading": r.random(), "elevation": r.random()}
+                         for c in ("left_top", "right_top", "right_bottom",
+                                   "left_bottom")}}
+        boxes = {end if r.random() < 0.7 else goal: bb}
+        oh, oe = (None, None) if r.random() < 0.2 else (r.random(),
+                                                        r.random())
+        pi = PM.eval_soon_item(g.distance, traj, gt, boxes, oh, oe)
+        _assert_same(pi, JM.eval_soon_item(g.distance, traj, gt, boxes, oh,
+                                           oe))
+        items.append(pi)
+    _assert_same(PM.aggregate_soon(items), JM.aggregate_soon(items))
+
+
+def test_point_in_polygon_matches_on_and_off_the_boundary():
+    """Inside, outside, the vertices and points on each edge of a square
+    and of a concave polygon: the port's ray casting answers as the JAX
+    package's (the even-odd rule counts a point on a left or bottom edge
+    in and one on a right or top edge out)."""
+    square = [(0.2, 0.6), (0.6, 0.6), (0.6, 0.2), (0.2, 0.2)]
+    concave = [(0.0, 0.0), (1.0, 0.0), (1.0, 1.0), (0.5, 0.4), (0.0, 1.0)]
+    r = np.random.RandomState(6)
+    for poly in (square, concave):
+        pts = [tuple(p) for p in poly]
+        for (x1, y1), (x2, y2) in zip(poly, poly[1:] + poly[:1]):
+            pts += [((x1 + x2) / 2, (y1 + y2) / 2),
+                    (x1 + 0.25 * (x2 - x1), y1 + 0.25 * (y2 - y1))]
+        pts += [tuple(p) for p in r.uniform(-0.2, 1.2, (200, 2))]
+        got = [PM.point_in_polygon(x, y, poly) for x, y in pts]
+        assert got == [JM.point_in_polygon(x, y, poly) for x, y in pts]
+        assert any(got) and not all(got)
+    assert PM.point_in_polygon(0.4, 0.4, square)
+    assert not PM.point_in_polygon(0.7, 0.4, square)
+    assert not PM.point_in_polygon(0.5, 0.6, concave)
+
+
 def _slice_prompts():
     """Navigation prompts as the slice builds them, plus a prompt/answer
     pair and one prompt past max_length (left truncation)."""
@@ -273,6 +345,43 @@ def test_feature_dbs_match(tmp_path):
         JF.create_feature_db(cfg, 16, str(tmp_path))
     assert {k: (v.img_ft_file, v.image_feat_size) for k, v in pd.items()} \
         == {k: (v.img_ft_file, v.image_feat_size) for k, v in jd.items()}
+
+
+@pytest.mark.parametrize("style", ["reverie", "soon"])
+def test_object_feature_dbs_match(style, tmp_path):
+    """synthetic_object_db in either layout: the raw store, load_feature
+    (cached, cut to max_objects) and get_object_feature (angle and bbox
+    features, ids, SOON's directions) as the JAX package's; a viewpoint
+    the store lacks has no objects; create_object_feature_db opens an
+    LMDB store at build time, which without lmdb raises ImportError."""
+    p, j = PF.synthetic_object_db(style, 12, 5), \
+        JF.synthetic_object_db(style, 12, 5)
+    assert type(p).__name__ == type(j).__name__
+    for scan, vp in (("scan0", "vp_0_0"), ("grid0", "vp_3_1")):
+        _assert_same(p.store.get(f"{scan}_{vp}"), j.store.get(f"{scan}_{vp}"))
+        for mo in (None, 3):
+            _assert_same(p.load_feature(scan, vp, mo),
+                         j.load_feature(scan, vp, mo))
+            _assert_same(p.get_object_feature(scan, vp, 0.7, -0.2, 4, mo),
+                         j.get_object_feature(scan, vp, 0.7, -0.2, 4, mo))
+
+    class Empty:
+        def get(self, key):
+            return None
+    cls = PF.REVERIEObjectFeatureDB if style == "reverie" \
+        else PF.SOONObjectFeatureDB
+    jcls = getattr(JF, cls.__name__)
+    _assert_same(cls("", 12, store=Empty()).get_object_feature(
+        "s", "v", 0.0, 0.0, 4), jcls("", 12, store=Empty())
+        .get_object_feature("s", "v", 0.0, 0.0, 4))
+    _assert_same(PF._bbox_size_fts(30.0, 20.0, 640, 480),
+                 JF._bbox_size_fts(30.0, 20.0, 640, 480))
+    try:
+        import lmdb  # noqa: F401
+    except ImportError:
+        with pytest.raises(ImportError):
+            PF.create_object_feature_db({style: "obj"}, 12, str(tmp_path))
+    assert PF.create_object_feature_db({"other": "x"}, 12, "") == {}
 
 
 def test_r2r_world_is_written_by_the_ports_sim(tmp_path):

@@ -4,8 +4,11 @@ its tiny slices (greedy evaluation on bytes, on BPE uncached and
 prefix-cached, on int4, one teacher-forcing optimizer step through
 train_one_epoch, then run_training at stage multi from a YAML config),
 its generation paths (EQA streaming evaluation, run_training with the
-summarization and FGR2R heads validating R2R and EQA) and ``python -m
-navillm_tpu_torch.train --help`` run on the CPU.
+summarization and FGR2R heads validating R2R and EQA), its object-grounding
+paths (REVERIE and SOON streaming evaluation with enable_og, sampled and
+prefix-cached, and run_training over R2R, REVERIE and SOON with the OG,
+summarization and FGR2R heads) and ``python -m navillm_tpu_torch.train
+--help`` run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -232,6 +235,92 @@ Optim:
 GEN = "GEN_CFG = %r\n" % GEN_CFG + GEN
 
 
+# the object-grounding paths: REVERIE and SOON streaming evaluation with the
+# OG queue, sampled at T = 0.01 and prefix-cached, then run_training at
+# stage multi over R2R, REVERIE and SOON with --enable_og --fuse_obj
+# --enable_summarize --enable_fgr2r, validating all three
+OG = """
+import sys, tempfile
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
+from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
+                                               synthetic_object_db)
+from navillm_tpu_torch.data.loaders import Dataloader
+from navillm_tpu_torch.models.nav_model import NavModel, NavModelConfig
+from navillm_tpu_torch.models.tokenization import NavTokenizer
+from navillm_tpu_torch.training.train_loop import (calc_overall_score,
+                                                   run_training)
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+
+torch.set_num_threads(1)
+bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+cfg = NavModelConfig.tiny(vocab_size=bpe.vocab_size, use_obj=True)
+model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+dbs = {s: synthetic_object_db(s, cfg.pano.obj_feat_size, 4)
+       for s in ("reverie", "soon")}
+with tempfile.TemporaryDirectory() as tmp:
+    T.make_r2r_world(tmp, n_episodes=3, rows=3, cols=3, split="val")
+    for task in ("REVERIE", "SOON"):
+        runner = NavModelRunner(cfg, model, bpe, dims=RolloutDims.tiny())
+        agent, ds, args = T.object_eval(
+            task, tmp, "val", runner, 2, cfg.pano.image_feat_size,
+            dbs[task.lower()], prefix_cache=True, do_sample=True,
+            temperature=0.01)
+        preds = agent.validate_streaming(task, args, T.eval_config(3, task),
+                                         Dataloader(ds, 2, False), dataset=ds)
+        assert len(preds) == 3 and runner.og_calls == 2, runner.og_calls
+        assert runner.cached_steps and not runner.eval_steps
+        assert all("pred_objid" in p for p in preds), preds
+        print(task, ds.eval_metrics(preds, None, task)[0])
+
+    T.make_r2r_world(tmp, n_episodes=2, rows=3, cols=3, split="train")
+    ycfg = load_yaml_text(OG_CFG)
+    rargs = TrainArgs(data_dir=tmp, output_dir=tmp + "/out", device="cpu",
+                      num_epochs=1, num_steps_per_epoch=4, batch_size=2,
+                      fused_rows_per_call=4, max_saved_checkpoints=0,
+                      enable_og=True, fuse_obj=True, obj_loss_coef=0.5,
+                      enable_summarize=True, enable_fgr2r=True, seed=3,
+                      test_datasets=["R2R", "REVERIE", "SOON"])
+    rargs.sync_from_config(ycfg)
+    res = run_training(rargs, ycfg, feat_dbs={"mp3d": SyntheticImageFeaturesDB(
+        rargs.image_feat_size)}, obj_feat_dbs=dbs)
+    assert sorted(res) == ["R2R", "REVERIE", "SOON"], res
+    assert "rgs" in res["REVERIE"] and "det_sr" in res["SOON"], res
+    print("run_training", res, calc_overall_score(res, ycfg))
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+OG_CFG = '''
+Feature: {image_feat_size: 32, angle_feat_size: 4, obj_feat_size: 16,
+          max_objects: 70}
+Dataset:
+  R2R:
+    DIR: R2R
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  REVERIE:
+    DIR: REVERIE
+    bbox_file: annotations/BBoxes.json
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  SOON:
+    DIR: SOON
+    SPLIT: {"train": "annotations/train.jsonl",
+            "val_unseen": "annotations/val.jsonl"}
+Multi:
+  SOURCE: ['R2R', 'REVERIE', 'SOON']
+  Ratio: [1, 1, 1]
+  LOSS_COEF: {}
+Optim:
+  train_max_action_len: {"R2R": 4, "REVERIE": 4, "SOON": 4}
+  val_max_action_len: {"R2R": 3, "REVERIE": 3, "SOON": 3}
+'''
+OG = "OG_CFG = %r\n" % OG_CFG + OG
+
+
 def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -251,16 +340,27 @@ def test_port_runs_its_generation_paths_without_jax():
     _fresh(GEN)
 
 
+def test_port_runs_its_object_grounding_paths_without_jax():
+    out = _fresh(OG)
+    assert "REVERIE" in out and "SOON" in out and "run_training" in out
+
+
 def test_train_entry_point_help_without_jax():
     out = _fresh(CLI_HELP)
     assert "--dagger_prefix_cache" in out and "--device" in out
     assert "--enable_fgr2r" in out and "--gen_loss_coef" in out
+    for flag in ("--enable_og", "--obj_loss_coef", "--fuse_obj",
+                 "--do_sample", "--temperature"):
+        assert flag in out, flag
 
 
 def _port_sources():
     files = [*(ROOT / "navillm_tpu_torch").rglob("*.py"),
              ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"navillm_tpu_torch/data/reverie.py",
+            "navillm_tpu_torch/data/soon.py"} <= names
     return files
 
 

@@ -199,11 +199,16 @@ def test_fused_teacher_head_matches_jax(models, world_root, flag):
 
 def test_dagger_half_accepts_the_head_flags_and_runs_no_head(models,
                                                              world_root):
-    """The sampled half runs neither head (JAX fused_teacher.py:1171-1175)
-    but takes the flags; object grounding still raises naming A7."""
+    """The sampled half runs neither generation head (JAX
+    fused_teacher.py:1171-1175) but takes the flags; on R2R batches the OG
+    flag runs no head either (it is REVERIE's and SOON's), under either
+    feedback, and leaves the loss as it was."""
     loss, _, _, runner = _port_batch(models, world_root, dagger=True,
                                      enable_summarize=True,
                                      enable_fgr2r=True)
     assert np.isfinite(loss) and runner.gen_grad_calls == 0
-    with pytest.raises(NotImplementedError, match="A7"):
-        _port_batch(models, world_root, enable_og=True)
+    for dagger in (False, True):
+        og, _, _, og_runner = _port_batch(models, world_root, dagger=dagger,
+                                          enable_og=True)
+        base, _, _, _ = _port_batch(models, world_root, dagger=dagger)
+        assert og_runner.og_grad_calls == 0 and og == base

@@ -180,6 +180,44 @@ max_objects 70, configs/multi.yaml's):
      line: python -m navillm_tpu_torch.train's main() on its own small bf16
      model with --fuse_obj and --do_sample --temperature 0.01 (validation
      sampled).
+The rest of the paper's task mix at 7B width on BPE prompts, phases 29-32
+on the bf16 model after phase 28 (configs/multi.yaml's CVDN, ScanQA and
+LLaVA sections and its stage sources; image_feat_size 1024, obj_feat_size
+768):
+ 29. CVDN streaming evaluation (scripts/evaluation/eval_cvdn.sh: greedy,
+     val_max_action_len 30) of 16 dialogs of 60-128 words in 2 slot groups
+     of 4, under the runner's default dims (160 graph nodes, 32 history
+     slots), the stop logit lowered by AB_STOP_SHIFT so that the dialogs
+     walk to the 30-step cap, uncached, then prefix-cached with every cached
+     step replayed through eval_step on the same state and gated per
+     element (CACHED_LOGIT_*; the step with each row's last history entry
+     hidden from its cache must move the logits FAULT_RESOLVE times as far
+     as the cached step does), then prefix-cached and timed: trajectories start at their start
+     panorama, the scores finite, K1 = 32 x (uncached steps + prefills);
+     ms per step, episodes/s, LLM tokens per step, the longest prompt and
+     peak memory;
+ 30. ScanQA evaluation (ScanQAAgent.validate, scripts/evaluation/
+     eval_scanqa.sh's generation: 36 frames per question, 20 tokens, no
+     trie) of 16 questions in batches of 4: one batch's prefill through K1
+     against the eager attention (first-token logits within the
+     CACHED_LOGIT_* bound, every row finite), K1 = 32 per generate call,
+     every answer a string, the scores finite; ms per generate call and per
+     decode token, device events per decode step, BLEU-4, CIDEr, exact
+     match;
+ 31. run_training at stage multi over configs/multi.yaml's six sources at
+     its ratios with --enable_og --enable_summarize --enable_fgr2r: 4
+     batches of 8 (at MIX_SEED a CVDN teacher batch, a CVDN DAgger batch at
+     train_max_action_len 15, a LLaVA batch and a ScanQA batch), validation
+     of 8 CVDN dialogs and 8 ScanQA questions; losses finite and below
+     MAX_LOSS, gradient norms finite and > 0, K2 = K3 = 32 x grad calls,
+     the first ScanQA batch's gradient through the kernels against eager
+     attention within MIN_GRAD_COSINE; ms per batch by type, trained
+     tokens/s, peak memory;
+ 32. python -m navillm_tpu_torch.train's main() on its small card model at
+     stage pretrain (configs/multi.yaml's Pretrain sources, the augmented
+     sets from .json files) and at stage multi (its Multi sources), each
+     with the three heads and --test_datasets CVDN ScanQA; not a speed
+     cell.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -195,6 +233,7 @@ import dataclasses
 import gc
 import json
 import math
+import random
 import shutil
 import subprocess
 import tempfile
@@ -452,6 +491,99 @@ Optim:
   train_max_action_len: {"R2R": %(len)d, "REVERIE": %(len)d, "SOON": %(len)d}
   val_max_action_len: {"R2R": %(len)d, "REVERIE": %(len)d, "SOON": %(len)d}
 """
+# phases 29-32: the rest of the paper's task mix at 7B width on BPE prompts.
+# Phase 29: CVDN streaming evaluation (scripts/evaluation/eval_cvdn.sh) of
+# CVDN_EPISODES dialogs of 60-128 words (testing.DIALOG_WORDS, cut at 128)
+# with configs/multi.yaml's val_max_action_len, under the runner's default
+# dims (160 graph nodes, 99 candidates: the out_head's 100 slots, more than
+# the 8x8 grid's 64 nodes; 32 history slots) with a prefix capacity that
+# holds the longest dialog prefix after 30 steps (361 BPE tokens on this
+# world, measured on the CPU)
+CVDN_EPISODES = 16
+CVDN_MAX_ACTION_LEN = 30
+CVDN_PREFIX = 512
+# phase 29's planted fault (one history entry hidden from the cache) must
+# move the candidate logits at least this many times as far as the cached
+# step's own deviation from the uncached one
+FAULT_RESOLVE = 2.0
+# phase 30: ScanQA questions (36 of 40-48 frames each), in batches of
+# N_SLOTS, scripts/evaluation/eval_scanqa.sh's generation (20 tokens, no
+# trie)
+SCANQA_QUESTIONS = 16
+SCANQA_NEW_TOKENS = 20
+# phase 31: configs/multi.yaml's Multi stage at its ratios; at this seed the
+# MetaLoader draws CVDN (teacher), CVDN (DAgger), LLaVA, ScanQA for the
+# epoch's 4 batches. CVDN trains at its train_max_action_len, the other
+# navigation tasks at MAX_ACTION_LEN; validation of MIX_VAL_EPISODES CVDN
+# dialogs and ScanQA questions
+MIX_SEED = 18175
+MIX_TASKS = ["CVDN", "CVDN", "LLaVA", "ScanQA"]
+MIX_TRAIN_LEN = 15
+MIX_VAL_EPISODES = 8
+# phase 32: the CLI at stage pretrain (seed 31: R2R_AUG, CVDN,
+# REVERIE_AUG, ScanQA) and stage multi (seed 257: LLaVA, ScanQA, CVDN,
+# SOON) over configs/multi.yaml's sources and ratios
+CLI_MIX_SEEDS = {"pretrain": 31, "multi": 257}
+RUN_MIX_YAML = """
+Feature: {image_feat_size: %(feat)d, angle_feat_size: 4,
+          obj_feat_size: %(obj)d, max_objects: %(objects)d%(stores)s}
+Dataset:
+  R2R:
+    DIR: "R2R"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  REVERIE:
+    DIR: "REVERIE"
+    bbox_file: "annotations/BBoxes.json"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  CVDN:
+    DIR: "CVDN"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  SOON:
+    DIR: "SOON"
+    SPLIT: {"train": "annotations/train.jsonl",
+            "val_unseen": "annotations/val.jsonl"}
+  ScanQA:
+    DIR: "ScanQA"
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+  LLaVA:
+    DIR: "LLaVA"
+    SPLIT: {"train": "annotations/train.json"}
+  R2R_AUG:
+    DIR: "R2R"
+    SPLIT: {"train": "annotations/train_aug.json"}
+  REVERIE_AUG:
+    DIR: "REVERIE"
+    bbox_file: "annotations/BBoxes.json"
+    SPLIT: {"train": "annotations/train_aug.json"}
+Pretrain:
+  SOURCE: ['R2R_AUG', 'REVERIE_AUG', 'R2R', 'REVERIE', 'SOON', 'CVDN', 'ScanQA']
+  Ratio: [20, 2, 1, 1, 1, 1, 1]
+  LOSS_COEF: {"R2R_AUG": 1, "REVERIE_AUG": 1}
+Multi:
+  SOURCE: ['R2R', 'REVERIE', 'CVDN', 'SOON', 'ScanQA', 'LLaVA']
+  Ratio: [20, 5, 1, 5, 5, 5]
+  LOSS_COEF: {}
+Model: {num_pano_layers: 2, enc_full_graph: True, expert_policy: "spl"}
+Optim:
+  train_max_action_len: {"R2R": %(len)d, "REVERIE": %(len)d, "SOON": %(len)d,
+                         "CVDN": %(cvdn)d, "R2R_AUG": %(len)d,
+                         "REVERIE_AUG": %(len)d}
+  val_max_action_len: {"R2R": %(len)d, "REVERIE": %(len)d, "SOON": %(len)d,
+                       "CVDN": %(cvdn_val)d}
+"""
+
+
+def run_mix_yaml(feat: int, obj: int, stores: str = "") -> str:
+    return RUN_MIX_YAML % {"feat": feat, "obj": obj,
+                           "objects": OG_MAX_OBJECTS, "stores": stores,
+                           "len": MAX_ACTION_LEN, "cvdn": MIX_TRAIN_LEN,
+                           "cvdn_val": CVDN_MAX_ACTION_LEN}
+
+
 RUN_YAML = """
 Feature: %(feature)s
 Dataset:
@@ -2204,6 +2336,57 @@ def phase_run_training(bpe, cfg, model, tmp):
     return launches
 
 
+def cli_main(argv):
+    """The entry point's main(argv) on the card, its runner, epoch result
+    and trained tasks recorded; the YAML's feature_database and
+    object_database resolve to synthetic stores where run_training builds
+    them (the card's machine has neither h5py nor lmdb). Returns (results,
+    runner, (average loss, gradient norms), tasks trained, seconds)."""
+    from navillm_tpu_torch.agents.llava_agent import LLaVAAgent
+    built, epochs, names = [], [], []
+    saved = (TTL.build_runner, TTL.create_feature_db,
+             TTL.create_object_feature_db, TTL.train_one_epoch,
+             R2RAgent.train, LLaVAAgent.train)
+
+    def build_runner(*a, **kw):
+        built.append(saved[0](*a, **kw))
+        return built[-1]
+
+    def feature_dbs(config, image_feat_size, data_dir):
+        return {src: T.feature_dbs(image_feat_size)[src] for src in config}
+
+    def object_dbs(config, obj_feat_size, data_dir):
+        return {src: synthetic_object_db(src, obj_feat_size, OG_OBJECTS)
+                for src in config}
+
+    def train_one_epoch(*a, **kw):
+        epochs.append(saved[3](*a, **kw))
+        return epochs[-1]
+
+    def named(fn):
+        def train(self, name, *a, **kw):
+            names.append(name)
+            return fn(self, name, *a, **kw)
+        return train
+
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    TTL.build_runner, TTL.create_feature_db, TTL.create_object_feature_db, \
+        TTL.train_one_epoch, R2RAgent.train, LLaVAAgent.train = \
+        build_runner, feature_dbs, object_dbs, train_one_epoch, \
+        named(saved[4]), named(saved[5])
+    try:
+        t0 = time.perf_counter()
+        res = TRAIN.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        TTL.build_runner, TTL.create_feature_db, \
+            TTL.create_object_feature_db, TTL.train_one_epoch, \
+            R2RAgent.train, LLaVAAgent.train = saved
+    return res, built[0], epochs[0], names, dt
+
+
 def phase_cli(tmp):
     """Phase 21: the entry point's main() (python -m navillm_tpu_torch.train)
     on its defaults: the card, stage multi, the JAX DAgger defaults, no
@@ -2222,37 +2405,11 @@ def phase_cli(tmp):
                                   '4, feature_database: {"mp3d": '
                                   '"features.hdf5"}}'))
     out = Path(root) / "out"
-    built, epochs = [], []
-    saved = (TTL.build_runner, TTL.create_feature_db, TTL.train_one_epoch)
-
-    def build_runner(*a, **kw):
-        built.append(saved[0](*a, **kw))
-        return built[-1]
-
-    def feature_dbs(config, image_feat_size, data_dir):
-        return {src: SyntheticImageFeaturesDB(image_feat_size)
-                for src in config}
-
-    def train_one_epoch(*a, **kw):
-        epochs.append(saved[2](*a, **kw))
-        return epochs[-1]
-
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    TTL.build_runner, TTL.create_feature_db, TTL.train_one_epoch = \
-        build_runner, feature_dbs, train_one_epoch
-    try:
-        t0 = time.perf_counter()
-        res = TRAIN.main(["--cfg_file", str(yaml_path), "--data_dir", root,
-                          "--output_dir", str(out), "--num_epochs", "1",
-                          "--num_steps_per_epoch", "4", "--batch_size",
-                          str(CLI_BATCH), "--val_batch_size", str(N_SLOTS),
-                          "--max_saved_checkpoints", "1"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    finally:
-        TTL.build_runner, TTL.create_feature_db, TTL.train_one_epoch = saved
-    runner = built[0]
+    res, runner, (avg_loss, norms), _, dt = cli_main([
+        "--cfg_file", str(yaml_path), "--data_dir", root, "--output_dir",
+        str(out), "--num_epochs", "1", "--num_steps_per_epoch", "4",
+        "--batch_size", str(CLI_BATCH), "--val_batch_size", str(N_SLOTS),
+        "--max_saved_checkpoints", "1"])
     llm = runner.cfg.llm
     if runner.device.type != "cuda" or llm.dtype != torch.bfloat16 \
             or llm.head_dim not in (64, 128):
@@ -2263,7 +2420,6 @@ def phase_cli(tmp):
         raise RuntimeError(f"[21] {runner.grad_calls} grad calls, "
                            f"{runner.cached_steps} cached sampling steps, "
                            f"{runner.eval_steps} validation steps")
-    avg_loss, norms = epochs[0]
     norms = [float(n) for n in norms]
     if not (math.isfinite(avg_loss) and 0 < avg_loss < MAX_LOSS) or \
             len(norms) != 2 or not all(math.isfinite(n) and n > 0
@@ -2671,9 +2827,10 @@ def phase_run_gen(bpe, cfg, model, tmp):
     return launches
 
 
-def gen_grad_ab(bpe, cfg, model, call):
-    """Phase 24's first head call again, dropout off, through the kernels
-    and through eager attention: the gradients within MIN_GRAD_COSINE."""
+def gen_grad_ab(bpe, cfg, model, call, tag=24, dims=DAGGER_DIMS):
+    """Phase 24's first head call (or phase 31's first ScanQA batch) again,
+    dropout off, through the kernels and through eager attention: the
+    gradients within MIN_GRAD_COSINE."""
     last = cfg.llm.num_layers - 1
     watch = {"llm.layers.wq[0]": lambda m: m.llm.layers.wq.grad[0],
              f"llm.layers.w_down[{last}]":
@@ -2685,7 +2842,7 @@ def gen_grad_ab(bpe, cfg, model, call):
         cfg_i = dataclasses.replace(
             cfg, llm=dataclasses.replace(cfg.llm, attn_impl=impl),
             pano=dataclasses.replace(cfg.pano, hidden_dropout_prob=0.0))
-        runner = NavModelRunner(cfg_i, model, bpe, dims=DAGGER_DIMS,
+        runner = NavModelRunner(cfg_i, model, bpe, dims=dims,
                                 feat_dropout=0.0)
         runner.zero_grads()
         loss = float(runner.pano_generation_train(*call))
@@ -2693,15 +2850,16 @@ def gen_grad_ab(bpe, cfg, model, call):
                             for k, f in watch.items()})
     (lk, gk), (le, ge) = res["auto"], res["eager"]
     rows = call[2]["input_ids"].shape
-    print(f"[24] one head call of {rows[0]} rows x {rows[1]} tokens: loss "
-          f"kernel {lk:.6f} eager {le:.6f} (diff {abs(lk - le):.3e})")
+    print(f"[{tag}] one generation-loss call of {rows[0]} rows x {rows[1]} "
+          f"tokens: loss kernel {lk:.6f} eager {le:.6f} (diff "
+          f"{abs(lk - le):.3e})")
     for name in watch:
         a, w = gk[name].flatten(), ge[name].flatten()
         cos = torch.nn.functional.cosine_similarity(a, w, dim=0).item()
-        print(f"[24] {name}: rel L2 err "
+        print(f"[{tag}] {name}: rel L2 err "
               f"{((a - w).norm() / w.norm()).item():.3e}, cosine {cos:.6f}")
         if not cos >= MIN_GRAD_COSINE:
-            raise RuntimeError(f"[24] {name}: gradient cosine {cos} < "
+            raise RuntimeError(f"[{tag}] {name}: gradient cosine {cos} < "
                                f"{MIN_GRAD_COSINE}")
 
 
@@ -3115,50 +3273,16 @@ def phase_cli_og(tmp):
         "\"soon\": \"obj/soon\"}}") % {
         "len": MAX_ACTION_LEN, "objects": OG_MAX_OBJECTS, "feat": 32,
         "obj": 16})
-    out = Path(root) / "out"
-    built, epochs = [], []
-    saved = (TTL.build_runner, TTL.create_feature_db,
-             TTL.create_object_feature_db, TTL.train_one_epoch)
-
-    def build_runner(*a, **kw):
-        built.append(saved[0](*a, **kw))
-        return built[-1]
-
-    def feature_dbs(config, image_feat_size, data_dir):
-        return {src: SyntheticImageFeaturesDB(image_feat_size)
-                for src in config}
-
-    def object_dbs(config, obj_feat_size, data_dir):
-        return {src: synthetic_object_db(src, obj_feat_size, OG_OBJECTS)
-                for src in config}
-
-    def train_one_epoch(*a, **kw):
-        epochs.append(saved[3](*a, **kw))
-        return epochs[-1]
-
-    for fn in COUNTERS.values():
-        fn.launches = 0
-    TTL.build_runner, TTL.create_feature_db, TTL.create_object_feature_db, \
-        TTL.train_one_epoch = build_runner, feature_dbs, object_dbs, \
-        train_one_epoch
-    try:
-        t0 = time.perf_counter()
-        res = TRAIN.main([
-            "--cfg_file", str(yaml_path), "--data_dir", root, "--output_dir",
-            str(out), "--num_epochs", "1", "--num_steps_per_epoch", "4",
-            "--batch_size", str(CLI_BATCH), "--val_batch_size", str(N_SLOTS),
-            "--seed", str(OG_SEED), "--enable_og", "--obj_loss_coef", "0.5",
-            "--fuse_obj", "--enable_summarize", "--enable_fgr2r",
-            "--do_sample", "--temperature", str(OG_TEMPERATURE),
-            "--test_datasets", "R2R", "REVERIE", "SOON"])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    finally:
-        TTL.build_runner, TTL.create_feature_db, \
-            TTL.create_object_feature_db, TTL.train_one_epoch = saved
-    runner = built[0]
+    res, runner, (avg_loss, norms), _, dt = cli_main([
+        "--cfg_file", str(yaml_path), "--data_dir", root, "--output_dir",
+        str(Path(root) / "out"), "--num_epochs", "1",
+        "--num_steps_per_epoch", "4", "--batch_size", str(CLI_BATCH),
+        "--val_batch_size", str(N_SLOTS), "--seed", str(OG_SEED),
+        "--enable_og", "--obj_loss_coef", "0.5", "--fuse_obj",
+        "--enable_summarize", "--enable_fgr2r", "--do_sample",
+        "--temperature", str(OG_TEMPERATURE), "--test_datasets", "R2R",
+        "REVERIE", "SOON"])
     launches = check_launches(28, runner, runner.cfg.llm.num_layers)
-    avg_loss, norms = epochs[0]
     norms = [float(n) for n in norms]
     pano = runner.model["pano"]
     if runner.device.type != "cuda" or not runner.og_grad_calls \
@@ -3217,6 +3341,483 @@ def og_grad_ab(bpe, cfg, model, call):
         if not cos >= MIN_GRAD_COSINE:
             raise RuntimeError(f"[28] {name}: gradient cosine {cos} < "
                                f"{MIN_GRAD_COSINE}")
+
+
+def cvdn_dims():
+    """Phase 29's and 31's padded sizes: the runner's defaults (JAX's),
+    which hold 30 steps, the 8x8 grid's nodes and OG_OBJECTS objects, with
+    CVDN_PREFIX prefix tokens."""
+    return RolloutDims(max_prefix=CVDN_PREFIX)
+
+
+def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
+                    ab=False):
+    """Phase 29: CVDN streaming evaluation (greedy, val_max_action_len
+    CVDN_MAX_ACTION_LEN) of CVDN_EPISODES dialogs in 2 slot groups of
+    N_SLOTS, uncached or prefix-cached. Gates: every trajectory starts at
+    its start panorama, the scores finite, K1 once per layer of every
+    uncached step and prefill, the cached run through cached steps only.
+    With ``ab`` (a cached run, not timed) every cached step is replayed
+    through eval_step on a copy of the same state with the whole prompts,
+    the active rows' candidate logits gated per element (CACHED_LOGIT_*),
+    as phase 15 does. In a dialog prefix of 300 tokens or more a
+    random-weight 7B model's candidate logits move less than that limit
+    allows when part of the prefix is hidden, so its power is shown
+    relatively: on the AB_SNAPSHOT-th step on which every row appends
+    history, the step with each row's last history entry hidden from its
+    cache (as many tokens as the step appends) must move the logits at
+    least FAULT_RESOLVE times as far as the cached step itself deviates
+    there (its last cached token hidden alone is printed). Returns the
+    measures and the trajectories."""
+    runner = NavModelRunner(cfg, model, bpe, dims=cvdn_dims())
+    root = f"{tmp}/cvdn"
+    T.make_r2r_world(root, n_episodes=CVDN_EPISODES, seed=18)
+    agent, ds, args = T.cvdn_eval(root, "val", runner, N_SLOTS,
+                                  cfg.pano.image_feat_size,
+                                  prefix_cache=prefix_cache)
+    widest, tokenize = [0], runner.tokenize_with_positions
+
+    def tokenize_recorded(texts, *a, **kw):
+        out = tokenize(texts, *a, **kw)
+        widest[0] = max(widest[0], int(out[0].attention_mask.sum(1).max()))
+        return out
+
+    runner.tokenize_with_positions = tokenize_recorded
+    checks = {"steps": 0, "worst": 0.0, "fault": None, "token": None,
+              "snap": None, "plen": 0, "found": 0}
+    step, windows, seen = runner.eval_step_cached, \
+        agent._cached_prompt_windows, []
+
+    def cached_prompt_windows(slots, prompts, *a):
+        seen.append(list(prompts))
+        return windows(slots, prompts, *a)
+
+    def clone(d):
+        return {k: v.clone() for k, v in d.items()}
+
+    def eval_step_cached(state, cache, pano, batch, reset, cur, cand, active,
+                         *a, **kw):
+        before = (clone(state), clone(cache))
+        out = step(state, cache, pano, batch, reset, cur, cand, active, *a,
+                   **kw)
+        checks["plen"] = max(checks["plen"], int(out[1]["plen"].max()))
+        toks, cand_pos, hist_pos, cls_pos = tokenize(seen[-1])
+        full = {k: v for k, v in batch.items() if k not in WINDOW_KEYS}
+        full.update(input_ids=toks.input_ids,
+                    attention_mask=toks.attention_mask,
+                    cand_positions=cand_pos, hist_positions=hist_pos,
+                    cls_pos=cls_pos)
+        rows = torch.as_tensor(active, device=out[3].device)
+        want = runner.eval_step(clone(before[0]), pano, full, reset, cur,
+                                cand, active)[2][rows]
+        exc = logit_excess(out[3][rows], want)
+        checks["steps"] += 1
+        checks["worst"] = max(checks["worst"], exc)
+        if not exc <= 1:
+            raise RuntimeError(f"[{tag}] cached step {checks['steps']} vs "
+                               f"eval_step at {exc:.3f} of the limit")
+        appended = batch["app_mask"].sum(1)
+        if active.all() and (appended > 0).all():
+            checks["found"] += 1
+        if checks["fault"] is None and checks["found"] == AB_SNAPSHOT:
+            checks["snap"] = exc
+            def faulty(hide):
+                hidden = clone(before[1])
+                hidden["plen"] -= torch.as_tensor(hide, dtype=torch.int32,
+                                                  device=out[3].device)
+                return logit_excess(step(
+                    clone(before[0]), hidden, pano, batch, reset, cur, cand,
+                    active, *a, **kw)[3][rows], want)
+            checks["token"] = faulty(1)
+            checks["fault"] = faulty(appended)
+        return out
+
+    if ab:
+        runner.eval_step_cached = eval_step_cached
+        agent._cached_prompt_windows = cached_prompt_windows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        preds = agent.validate_streaming(
+            "CVDN", args, T.eval_config(CVDN_MAX_ACTION_LEN, "CVDN"),
+            Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = check_launches(tag, runner, cfg.llm.num_layers)
+    if prefix_cache and (runner.eval_steps != (checks["steps"] if ab else 0)
+                         or not runner.cached_steps):
+        raise RuntimeError(f"[{tag}] the cached run took {runner.eval_steps} "
+                           f"uncached steps of its own")
+    # the planted faults' replays are two cached steps more
+    if ab and (checks["fault"] is None
+               or checks["steps"] + 2 != runner.cached_steps):
+        raise RuntimeError(f"[{tag}] {checks['steps']} of "
+                           f"{runner.cached_steps} cached steps compared, "
+                           f"planted fault {checks['fault']}")
+    if len(preds) != len(ds):
+        raise RuntimeError(f"[{tag}] {len(preds)} predictions for {len(ds)} "
+                           f"dialogs")
+    for p in preds:
+        if p["trajectory"][0][0] != \
+                ds.gt_trajs[p["instr_id"]]["start_pano"]["pano"]:
+            raise RuntimeError(f"[{tag}] {p['instr_id']} does not start at "
+                               f"its start panorama")
+    avg, _ = ds.eval_metrics(preds, None, "CVDN")
+    if not all(math.isfinite(v) for v in avg.values()):
+        raise RuntimeError(f"[{tag}] metrics not finite: {avg}")
+    steps = runner.eval_steps + runner.cached_steps
+    lens = sorted(len(p["trajectory"]) for p in preds)
+    st = {"ms_per_step": 1e3 * dt / steps, "episodes_per_s": len(preds) / dt,
+          "tokens_per_step": runner.llm_token_units / steps,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches}
+    kind = "cached" if prefix_cache else "uncached"
+    if ab:
+        print(f"[{tag}] cached CVDN steps vs eval_step on the same states and "
+              f"whole prompts: {checks['steps']} steps, the active rows' "
+              f"candidate logits at worst {checks['worst']:.3f} of the limit "
+              f"(CACHED_LOGIT_*); on step {AB_SNAPSHOT} with every row "
+              f"appending, the cached step at {checks['snap']:.3f} of the "
+              f"limit, with each row's last history entry hidden at "
+              f"{checks['fault']:.3f} (last cached token alone: "
+              f"{checks['token']:.3f}); longest prefix {checks['plen']} of "
+              f"{CVDN_PREFIX} tokens")
+        if not checks["fault"] >= FAULT_RESOLVE * checks["snap"]:
+            raise RuntimeError(f"[{tag}] a hidden history entry moves the "
+                               f"logits less than {FAULT_RESOLVE}x the "
+                               f"cached step's own deviation")
+        return st, {p["instr_id"]: p["trajectory"] for p in preds}
+    print(f"[{tag}] CVDN streaming eval ({kind}, greedy, "
+          f"val_max_action_len {CVDN_MAX_ACTION_LEN}) of {len(preds)} "
+          f"dialogs in {dt:.3f} s = {st['episodes_per_s']:.3f} episodes/s: "
+          f"{steps} steps at {st['ms_per_step']:.2f} ms wall per step"
+          f"{f', {runner.prefill_calls} prefills' if prefix_cache else ''}, "
+          f"{st['tokens_per_step']:.1f} LLM tokens per step; trajectory "
+          f"lengths {lens}; "
+          f"{'' if prefix_cache else f'longest prompt {widest[0]} tokens; '}"
+          f"{({k: round(float(v), 2) for k, v in avg.items()})}; peak memory "
+          f"{st['peak_gib']:.2f} GiB; launches {launches}")
+    return st, {p["instr_id"]: p["trajectory"] for p in preds}
+
+
+def phase_cvdn_evals(bpe, cfg, model, tmp):
+    """Phase 29: uncached, the cached A/B run, then the timed cached run,
+    with the stop logit lowered by AB_STOP_SHIFT: with random weights the
+    agent stops within a few steps, and a CVDN agent walks to the 30-step
+    cap over 30 history slots and the longest prefixes. Returns
+    (uncached, cached) measures."""
+    stop_b = model.out_head.b
+    with torch.no_grad():
+        stop_b0 = stop_b[0].clone()
+        stop_b[0] -= AB_STOP_SHIFT
+    try:
+        unc, trajs = phase_cvdn_eval(29, bpe, cfg, model, tmp)
+        phase_cvdn_eval(29, bpe, cfg, model, tmp, prefix_cache=True, ab=True)
+        cac, ctrajs = phase_cvdn_eval(29, bpe, cfg, model, tmp,
+                                      prefix_cache=True)
+    finally:
+        with torch.no_grad():
+            stop_b[0] = stop_b0
+    same = sum(trajs[k] == ctrajs[k] for k in trajs)
+    print(f"[29] cached against uncached: {cac['ms_per_step']:.2f} against "
+          f"{unc['ms_per_step']:.2f} ms per step, {cac['tokens_per_step']:.1f}"
+          f" against {unc['tokens_per_step']:.1f} LLM tokens per step, "
+          f"{cac['episodes_per_s']:.3f} against {unc['episodes_per_s']:.3f} "
+          f"episodes/s; {same} of {len(trajs)} trajectories equal")
+    return unc, cac
+
+
+def scanqa_batch(agent, runner, ds):
+    """The first N_SLOTS questions as ScanQAAgent.validate assembles them:
+    (input_ids, attention_mask, inject positions, inject embeds on the
+    card)."""
+    random.seed(0)
+    batch = ds.collate_batch([ds[i] for i in range(N_SLOTS)])
+    pano_out = runner.panorama(agent._pano_batch(batch), deterministic=True)
+    C = int(pano_out["pano_masks"].sum(1).max())
+    toks, cand_pos, hist_pos, _ = runner.tokenize_with_positions(
+        agent.prepare_prompts(batch), max_cands=C, max_hist=1)
+    emb = runner.gen_embeds(pano_out["pano_embeds"], pano_out["pano_masks"])
+    inj = torch.cat([emb[:, :C].float(), emb.new_zeros(
+        (N_SLOTS, 1, runner.cfg.hidden_size), dtype=torch.float32)], 1)
+    return (toks.input_ids, toks.attention_mask,
+            np.concatenate([cand_pos, hist_pos], 1), inj)
+
+
+def phase_scanqa(bpe, cfg, model, tmp):
+    """Phase 30: ScanQA evaluation (ScanQAAgent.validate: 36 frames per
+    question through the panorama, gen_embeds, runner.generate with
+    SCANQA_NEW_TOKENS tokens and no trie) of SCANQA_QUESTIONS questions in
+    batches of N_SLOTS. First one batch's prefill through K1 against the
+    eager attention (the first generated token's logits per element within
+    the CACHED_LOGIT_* bound, every prefill row finite), then the timed
+    run. Gates: K1 once per layer of every generate call, every answer a
+    string, the scores finite. Returns the measures."""
+    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+    root = f"{tmp}/scanqa"
+    T.make_r2r_world(root, n_episodes=SCANQA_QUESTIONS, seed=19)
+    agent, ds, args = T.scanqa_eval(root, "val", runner, N_SLOTS,
+                                    cfg.pano.image_feat_size)
+    ids, mask, inj_pos, inj_emb = scanqa_batch(agent, runner, ds)
+    llm, smask, layers = model["llm"], runner.special_mask, cfg.llm.num_layers
+    b_ids, b_mask, b_pos = D.bucket_prompt(ids, mask, inj_pos, bpe.pad_id)
+    dev_ids, dev_mask, dev_pos = (runner.upload(x) for x in (
+        b_ids.astype(np.int64), b_mask, b_pos))
+    eager = dataclasses.replace(cfg.llm, attn_impl="eager")
+    out = {}
+    flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        for name, c in (("kernel", cfg.llm), ("eager", eager)):
+            x = L.embed_with_injection(llm, dev_ids, dev_pos, inj_emb)
+            hidden = L.forward_hidden(llm, c, x, dev_mask)
+            out[name] = (hidden, L.logits_from_hidden(llm, c, hidden[:, -1],
+                                                      smask))
+    if flash_attention_fwd.launches != layers:
+        raise RuntimeError(f"[30] {flash_attention_fwd.launches} K1 launches "
+                           f"in the prefill, not {layers}")
+    if not torch.isfinite(out["kernel"][0]).all():
+        raise RuntimeError("[30] the kernel prefill is not finite on every "
+                           "row")
+    exc = logit_excess(out["kernel"][1], out["eager"][1])
+    if not exc <= 1:
+        raise RuntimeError(f"[30] first-token logits K1 vs eager at "
+                           f"{exc:.3f} of the limit")
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: D.prefill(llm, cfg.llm, dev_ids,
+                                               dev_mask, dev_pos, inj_emb),
+                             iters=5)
+        _, kv = D.prefill(llm, cfg.llm, dev_ids, dev_mask, dev_pos, inj_emb)
+        dec = L.init_decode_cache(cfg.llm, N_SLOTS, 1, runner.device)
+        emb0 = L.embed_rows(llm["embed"], out["kernel"][1].argmax(-1))[:, None]
+        events = device_events(lambda: L.decode_step(
+            llm, cfg.llm, emb0, kv, dev_mask, dec, 0,
+            dev_mask.sum(-1)[:, None]))
+    gen_s, prefill_s, decodes = [], [], [0]
+    runner.generate = cuda_timed(runner.generate, gen_s)
+    prefill, decode_step = D.prefill, L.decode_step
+
+    def counted_decode(*a, **kw):
+        decodes[0] += 1
+        return decode_step(*a, **kw)
+
+    D.prefill, L.decode_step = cuda_timed(prefill, prefill_s), counted_decode
+    random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    try:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            preds = agent.validate("ScanQA", args, None,
+                                   Dataloader(ds, N_SLOTS, shuffle=False))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        D.prefill, L.decode_step = prefill, decode_step
+    launches = check_launches(30, runner, layers)
+    if len(preds) != len(ds) or runner.generate_calls != \
+            -(-len(ds) // N_SLOTS) or not all(
+                isinstance(p["generated_sentences"][0], str) for p in preds):
+        raise RuntimeError(f"[30] {len(preds)} answers for {len(ds)} "
+                           f"questions in {runner.generate_calls} generate "
+                           f"calls")
+    avg, _ = ds.eval_metrics(preds, None, "ScanQA")
+    if not all(math.isfinite(v) for v in avg.values()):
+        raise RuntimeError(f"[30] scores not finite: {avg}")
+    gen_total = sum(gen_s)
+    st = {"ms_per_generate": 1e3 * gen_total / len(gen_s),
+          "ms_per_decode": 1e3 * (gen_total - sum(prefill_s))
+          / max(decodes[0], 1), "prefill_ms": prefill_ms, "events": events,
+          "questions_per_s": len(preds) / dt,
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "launches": launches}
+    print(f"[30] ScanQA A/B on {N_SLOTS} questions of {ids.shape[1]} tokens "
+          f"({int((inj_pos[0, :-1] >= 0).sum())} frames injected per row, "
+          f"bucketed to {b_ids.shape[1]}): first-token logits K1 vs eager "
+          f"attention at {exc:.3f} of the limit, every prefill row finite; "
+          f"prefill {prefill_ms:.2f} ms; {events or 'not measured:'} device "
+          f"events per decode step{'' if events else ' the trace holds none'}"
+          )
+    print(f"[30] ScanQA evaluation (ScanQAAgent.validate) of {len(preds)} "
+          f"questions in {dt:.3f} s = {st['questions_per_s']:.3f} questions/s:"
+          f" {runner.generate_calls} generate calls at "
+          f"{st['ms_per_generate']:.1f} ms each ({decodes[0]} decode steps, "
+          f"{st['ms_per_decode']:.2f} ms per decode token); BLEU-4 "
+          f"{avg['bleu-4']:.2f}, CIDEr {avg['cider']:.2f}, exact match "
+          f"{avg['exact_match']:.2f}, ROUGE-L {avg['rouge']:.2f}"
+          f"{'' if 'meteor' in avg else ' (METEOR: no java or jar here)'}; "
+          f"peak memory {st['peak_gib']:.2f} GiB; launches {launches}")
+    return st
+
+
+def phase_run_mix(bpe, cfg, model, tmp):
+    """Phase 31: run_training at stage multi over configs/multi.yaml's six
+    sources at its ratios, with --enable_og --enable_summarize
+    --enable_fgr2r, on the 7B-width runner (cvdn_dims): one epoch of 4
+    batches of TRAIN_BATCH (at MIX_SEED: a CVDN teacher batch, a CVDN DAgger
+    batch, a LLaVA batch and a ScanQA batch), then validation of
+    MIX_VAL_EPISODES CVDN dialogs (streaming) and ScanQA questions (its
+    agent's validate). Gates: the planned tasks, losses finite and below
+    MAX_LOSS, gradient norms finite and > 0, K1-K3 as the path implies,
+    the scores finite, and the first ScanQA batch's gradient through the
+    kernels against eager attention. Returns the run's kernel launches."""
+    from navillm_tpu_torch.agents.llava_agent import LLaVAAgent
+    root = f"{tmp}/runmix"
+    T.make_r2r_world(root, n_episodes=TRAIN_EPISODES, seed=20, split="train")
+    T.make_r2r_world(root, n_episodes=MIX_VAL_EPISODES, seed=21, split="val")
+    ycfg = load_yaml_text(run_mix_yaml(cfg.pano.image_feat_size,
+                                       cfg.pano.obj_feat_size))
+    args = TrainArgs(data_dir=root, output_dir=f"{root}/out", stage="multi",
+                     num_epochs=1, num_steps_per_epoch=4,
+                     batch_size=TRAIN_BATCH, val_batch_size=N_SLOTS,
+                     gradient_accumulation_step=2,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     max_saved_checkpoints=0, enable_og=True,
+                     enable_summarize=True, enable_fgr2r=True,
+                     test_datasets=["CVDN", "ScanQA"], seed=MIX_SEED)
+    args.sync_from_config(ycfg)
+    runner = NavModelRunner(cfg, model, bpe, dims=cvdn_dims(),
+                            feat_dropout=args.feat_dropout, seed=args.seed)
+    rec = {"batch_s": [], "losses": [], "names": [], "tokens": [0],
+           "first_qa": [], "epochs": []}
+    nav_call, gen_call, og_call = runner.pano_navigation_train, \
+        runner.pano_generation_train, runner.pano_og_train
+
+    def nav_train(pano_inputs, seed, batch, targets, coef):
+        rec["tokens"][0] += int(batch["attention_mask"][
+            targets != args.ignoreid].sum())
+        return nav_call(pano_inputs, seed, batch, targets, coef)
+
+    def gen_train(pano_inputs, seed, batch, coef):
+        rec["tokens"][0] += int(batch["attention_mask"].sum())
+        if rec["names"][-1] == "ScanQA" and not rec["first_qa"]:
+            rec["first_qa"].append((pano_inputs, seed, batch, coef))
+        return gen_call(pano_inputs, seed, batch, coef)
+
+    def og_train(pano_inputs, seed, batch, targets, coef, **kw):
+        rec["tokens"][0] += int(batch["attention_mask"][
+            targets != args.ignoreid].sum())
+        return og_call(pano_inputs, seed, batch, targets, coef, **kw)
+
+    runner.pano_navigation_train, runner.pano_generation_train, \
+        runner.pano_og_train = nav_train, gen_train, og_train
+    saved = (R2RAgent.train, LLaVAAgent.train, TTL.train_one_epoch)
+
+    def timed(fn):
+        def train(self, name, *a, **kw):
+            rec["names"].append(name)
+            loss = cuda_timed(fn, rec["batch_s"])(self, name, *a, **kw)
+            rec["losses"].append(float(loss))
+            return loss
+        return train
+
+    def train_one_epoch(*a, **kw):
+        t0 = time.perf_counter()
+        out = saved[2](*a, **kw)
+        torch.cuda.synchronize()
+        rec["epochs"].append((time.perf_counter() - t0, out))
+        return out
+
+    R2RAgent.train, LLaVAAgent.train, TTL.train_one_epoch = \
+        timed(saved[0]), timed(saved[1]), train_one_epoch
+    random.seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    try:
+        t0 = time.perf_counter()
+        res = TTL.run_training(args, ycfg, feat_dbs=T.feature_dbs(
+            cfg.pano.image_feat_size), obj_feat_dbs=og_obj_dbs(cfg),
+            runner=runner)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        R2RAgent.train, LLaVAAgent.train, TTL.train_one_epoch = saved
+    launches = check_launches(31, runner, cfg.llm.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    (train_s, (avg_loss, norms)), = rec["epochs"]
+    norms = [float(n) for n in norms]
+    losses = rec["losses"]
+    if rec["names"] != MIX_TASKS:
+        raise RuntimeError(f"[31] trained {rec['names']}, planned {MIX_TASKS}")
+    if not all(math.isfinite(x) and 0 < x < MAX_LOSS for x in losses) \
+            or len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                          for n in norms):
+        raise RuntimeError(f"[31] losses {losses}, gradient norms {norms}")
+    if sorted(res) != ["CVDN", "ScanQA"] or not all(
+            math.isfinite(v) for r in res.values() for v in r.values()):
+        raise RuntimeError(f"[31] validation results {res}")
+    kinds = ["CVDN teacher", "CVDN DAgger", "LLaVA", "ScanQA"]
+    per_batch = "; ".join(f"{k} {1e3 * t:.1f} ms"
+                          for k, t in zip(kinds, rec["batch_s"]))
+    print(f"[31] run_training (stage multi over {len(ycfg.Multi.SOURCE)} "
+          f"sources at ratios {list(ycfg.Multi.Ratio)}, --enable_og "
+          f"--enable_summarize --enable_fgr2r, --test_datasets CVDN ScanQA) "
+          f"in {dt:.3f} s: {per_batch}; {rec['tokens'][0]} trained tokens in "
+          f"the {train_s:.3f} s epoch = {rec['tokens'][0] / train_s:.0f} "
+          f"tokens/s; {runner.grad_calls} grad calls "
+          f"({runner.gen_grad_calls} generation-loss, {runner.og_grad_calls} "
+          f"OG), {runner.generate_calls} generate calls in validation; peak "
+          f"memory {peak:.2f} GiB; losses {[round(x, 4) for x in losses]}; "
+          f"grad norms {[round(n, 4) for n in norms]}; validation "
+          f"{({t: {k: round(float(v), 2) for k, v in r.items()} for t, r in res.items()})}"
+          f"; launches {launches}")
+    gen_grad_ab(bpe, cfg, model, rec["first_qa"][0], tag=31,
+                dims=cvdn_dims())
+    return launches
+
+
+def phase_cli_mix(tmp, stage):
+    """Phase 32: the entry point's main() on the card over configs/multi
+    .yaml's sources of ``stage`` at its ratios (stage pretrain: the
+    augmented sets' .json files) with --enable_og --enable_summarize
+    --enable_fgr2r and --test_datasets CVDN ScanQA, on build_runner's small
+    bf16 model: 1 epoch of 4 batches of CLI_BATCH. The YAML's
+    feature_database (mp3d, scan_qa, coco) and object_database resolve to
+    the synthetic stores where run_training builds them (the card's machine
+    has neither h5py nor lmdb). Gates: the loss and gradient norms finite,
+    CVDN and ScanQA validated, K1-K3 as the path implies. Returns the run's
+    kernel launches."""
+    root = f"{tmp}/cli_{stage}"
+    T.make_r2r_world(root, n_episodes=4 * CLI_BATCH, seed=22, split="train")
+    T.make_r2r_world(root, n_episodes=CLI_VAL_EPISODES, seed=23, split="val")
+    yaml_path = Path(root) / "mix.yaml"
+    yaml_path.write_text(run_mix_yaml(32, 16, stores=(
+        ',\n          feature_database: {"mp3d": "mp3d.hdf5", '
+        '"scan_qa": "scanqa.hdf5", "coco": "coco.hdf5"},\n'
+        '          object_database: {"reverie": "obj/reverie", '
+        '"soon": "obj/soon"}')))
+    random.seed(0)
+    res, runner, (avg_loss, norms), names, dt = cli_main([
+        "--cfg_file", str(yaml_path), "--data_dir", root, "--output_dir",
+        f"{root}/out", "--stage", stage, "--num_epochs", "1",
+        "--num_steps_per_epoch", "4", "--batch_size", str(CLI_BATCH),
+        "--val_batch_size", str(N_SLOTS), "--seed",
+        str(CLI_MIX_SEEDS[stage]), "--save_ckpt_per_epochs", "100",
+        "--max_saved_checkpoints", "0", "--enable_og", "--enable_summarize",
+        "--enable_fgr2r", "--test_datasets", "CVDN", "ScanQA"])
+    launches = check_launches(32, runner, runner.cfg.llm.num_layers)
+    norms = [float(n) for n in norms]
+    if runner.device.type != "cuda" or len(names) != 4 \
+            or not (math.isfinite(avg_loss) and 0 < avg_loss < MAX_LOSS) \
+            or len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                           for n in norms) \
+            or sorted(res) != ["CVDN", "ScanQA"]:
+        raise RuntimeError(f"[32] the CLI run at stage {stage} on "
+                           f"{runner.device}: tasks {names}, loss {avg_loss}, "
+                           f"norms {norms}, results {res}")
+    print(f"[32] python -m navillm_tpu_torch.train's main() on the card at "
+          f"stage {stage} (--enable_og --enable_summarize --enable_fgr2r "
+          f"--test_datasets CVDN ScanQA) in {dt:.3f} s: batches {names}, loss "
+          f"{avg_loss:.4f}, grad norms {[round(x, 4) for x in norms]}; "
+          f"{runner.grad_calls} grad calls ({runner.gen_grad_calls} "
+          f"generation-loss, {runner.og_grad_calls} OG), "
+          f"{runner.generate_calls} generate calls; "
+          f"{({t: {k: round(float(v), 2) for k, v in r.items()} for t, r in res.items()})}"
+          f"; launches {launches}")
+    return launches
 
 
 def main():
@@ -3283,6 +3884,19 @@ def main():
         og_launches = phase_run_og(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         og_cli_launches = phase_cli_og(tmp)
+    # the rest of the paper's task mix at 7B width: CVDN and ScanQA
+    # evaluation, training over configs/multi.yaml's six sources, and the
+    # CLI at stage pretrain and stage multi
+    with tempfile.TemporaryDirectory() as tmp:
+        cvdn = phase_cvdn_evals(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        scanqa = phase_scanqa(bpe, cfg, model, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        mix_launches = phase_run_mix(bpe, cfg, model, tmp)
+    cli_mix = {}
+    for stage in ("pretrain", "multi"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cli_mix[stage] = phase_cli_mix(tmp, stage)
     q4 = phase_q4_kernel()
     qmodel = quantize_model(cfg, model)
     # free the bf16 LLM: the phases' runners hold it in reference cycles
@@ -3336,7 +3950,11 @@ def main():
                 **{f"27_{t.lower()}{sfx}": og_evals[t][j]["launches"][key]
                    for t in og_evals
                    for j, sfx in enumerate(("", "_cached"))},
-                "28": og_launches[key], "28_cli": og_cli_launches[key]}
+                "28": og_launches[key], "28_cli": og_cli_launches[key],
+                "29": cvdn[0]["launches"][key],
+                "29_cached": cvdn[1]["launches"][key],
+                "30": scanqa["launches"][key], "31": mix_launches[key],
+                **{f"32_{st}": cli_mix[st][key] for st in cli_mix}}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
              "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],

@@ -6,14 +6,17 @@ tests/test_torch_*.py parity tests. The port imports torch and nothing of
 navillm_tpu or jax: it keeps its own copies of the host layer (sim/ with
 navsim.cpp, data/metrics, loaders and feature_db, models/tokenization).
 
-What runs today: streaming evaluation of R2R, EQA (generated answers, the
-oracle pass), REVERIE and SOON (object grounding), greedy or sampled on
-the card (agents/mp3d_agent.py validate_streaming), through the
-device-memory eval step, uncached or prefix-cached; and training on R2R,
-REVERIE and SOON (training/train_loop.py train_one_epoch -> agent.train ->
-agents/fused_teacher.py: teacher forcing, and the fused DAgger half with
-actions drawn on the card, with the object-grounding, summarization and
-FGR2R heads) with AdamW, driven from the command line by ``python -m
+What runs today: streaming evaluation of R2R, CVDN, EQA (generated
+answers, the oracle pass), REVERIE and SOON (object grounding), greedy or
+sampled on the card (agents/mp3d_agent.py validate_streaming), through the
+device-memory eval step, uncached or prefix-cached; ScanQA's generated
+answers (agents/llava_agent.py validate, scored by eval/captioning.py);
+and training on every task of the paper's mix, R2R, CVDN, REVERIE, SOON,
+the augmented R2R and REVERIE sets, ScanQA and LLaVA (training/
+train_loop.py train_one_epoch -> agent.train -> agents/fused_teacher.py:
+teacher forcing, and the fused DAgger half with actions drawn on the card,
+with the object-grounding, summarization and FGR2R heads; or the 3D-QA
+answer loss), with AdamW, driven from the command line by ``python -m
 navillm_tpu_torch.train`` (YAML config, validation, model selection,
 checkpoints, resume). Every Llama
 layer's attention runs in hand-written CUDA kernels: the forward in

@@ -32,7 +32,9 @@ The shared loss pass (``_fused_trajectory_train``):
      under either feedback), then (agent._generation_step) with
      enable_fgr2r one generation-loss grad call per collected FGR2R step
      of an R2R batch, and with enable_summarize, under teacher feedback,
-     one summarization call.
+     one summarization call (not on CVDN batches). Neither the augmented
+     REVERIE set, whose samples have no target object, nor CVDN runs the
+     object-grounding head.
 
 Rows of episodes that already ended are dropped from phases 2-5 (row
 compaction): their targets are ignoreid, so they add nothing to the loss
@@ -43,10 +45,10 @@ compacted. The losses stay device scalars; train_loop reads them one step
 later.
 
 Not ported here: the host-memory path (``device_memory=False``, ROADMAP
-A8), training on CVDN, EQA and the augmented sets (A8), the W8A8 sampling
-policy (A9), and the shape high-water marks of the JAX code: the gmap
-width keeps the bucket of 16 and the sampling windows ``_window_arrays``'
-own buckets (their extra columns are masked).
+A8), training on EQA batches (A8), the W8A8 sampling policy (A9), and the
+shape high-water marks of the JAX code: the gmap width keeps the bucket
+of 16 and the sampling windows ``_window_arrays``' own buckets (their
+extra columns are masked).
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ import numpy as np
 import torch
 
 from .graph_map import GraphMap
-from .mp3d_agent import CLS_TOKEN_TEXT
+from .mp3d_agent import CLS_TOKEN_TEXT, SUMMARIZED_TYPES
 from .runner import MEM_CAPACITY, HostCopy
 
 
@@ -422,7 +424,8 @@ def _dagger_sample_group(agent, args, grp, dataset, rng_local,
         agent._dagger_cache_pool.append((B, cache_P, cache))
 
 
-TRAINED_TYPES = ("r2r", "reverie", "soon")
+# EQA batches (the EQA head at the final step) are ROADMAP A8
+TRAINED_TYPES = ("r2r", "reverie", "soon", "cvdn", "r2r_aug", "reverie_aug")
 
 
 def _check_data_types(data_type):
@@ -453,7 +456,8 @@ def _fused_trajectory_train(agent, args, *, steps, gmaps, traj, instructions,
     runner = agent.runner
     T = len(steps)
     run_og = data_type[0] in ("soon", "reverie") and args.enable_og
-    run_gen = feedback == "teacher" and args.enable_summarize
+    run_gen = feedback == "teacher" and args.enable_summarize \
+        and data_type[0] in SUMMARIZED_TYPES
 
     # ---------------- phase 2: panorama over the live rows ---------------
     # the feature arrays are already on the device (panorama_inputs uploads

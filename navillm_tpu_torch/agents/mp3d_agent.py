@@ -1,5 +1,5 @@
-"""R2R, REVERIE, SOON and EQA agents: streaming evaluation and fused
-training.
+"""The navigation agents (R2R, CVDN, REVERIE, SOON, EQA and the augmented
+R2R and REVERIE sets): streaming evaluation and fused training.
 
 Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: streaming
 evaluation (device graph memory, argmax or sampled actions, uncached or
@@ -37,6 +37,10 @@ from .graph_map import GraphMap
 from .runner import HostCopy, NavModelRunner, RolloutDims
 
 CLS_TOKEN_TEXT = "<cls_1>"
+
+# the tasks whose episodes the summarization head retells (CVDN's dialogs
+# and EQA's questions are not)
+SUMMARIZED_TYPES = ("r2r", "soon", "reverie", "r2r_aug", "reverie_aug")
 
 # one set of run flags (utils.config.TrainArgs, the JAX package's names and
 # defaults) serves evaluation and training
@@ -741,7 +745,7 @@ class R2RAgent:
             # summarization only under argmax, never under sampling (the
             # batched rollout's feedback gate)
             return sl.data_type == "eqa" or (
-                sl.data_type in ("r2r", "soon", "reverie")
+                sl.data_type in SUMMARIZED_TYPES
                 and args.enable_summarize and args.mode == "test"
                 and not args.do_sample)
 
@@ -792,9 +796,6 @@ class R2RAgent:
             except StopIteration:
                 slot.active = False
                 return False
-            if s["data_type"] not in ("r2r", "eqa", "reverie", "soon"):
-                raise NotImplementedError(f"{s['data_type']} episodes are "
-                                          f"not ported yet (ROADMAP A8)")
             slot.ob = s["observations"]
             slot.env = s["env"]
             slot.item = s["item"]
@@ -1064,10 +1065,28 @@ class R2RAgent:
         return get_results(results)
 
 
+@AGENTS.register("r2r_aug")
+class R2RAugAgent(R2RAgent):
+    """The augmented R2R set's agent: R2R's navigation under the r2r_aug
+    prompts (R2R's text)."""
+
+
+@AGENTS.register("cvdn")
+class CVDNAgent(R2RAgent):
+    """The CVDN agent: R2R's navigation under the CVDN prompts (name
+    "cvdn"), which read the dialog history as the instruction."""
+
+
 @AGENTS.register("reverie")
 class REVERIEAgent(R2RAgent):
     """The REVERIE agent: R2R's navigation under the REVERIE prompts (name
     "reverie"), with the object-grounding head."""
+
+
+@AGENTS.register("reverie_aug")
+class REVERIEAgent_Aug(R2RAgent):
+    """The augmented REVERIE set's agent: REVERIE's prompts, no object to
+    ground (its samples carry objId None)."""
 
 
 @AGENTS.register("soon")

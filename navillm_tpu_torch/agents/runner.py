@@ -5,14 +5,16 @@ evaluation and fused training (teacher and DAgger) use: ``cfg``,
 ``tok``, ``dims``, ``device_memory``, ``memory_init``, ``eval_step``,
 ``tokenize_with_positions``, the prefix cache (``prefix_cache_enabled``,
 ``prefix_cache_init``, ``prefill``, ``eval_step_cached``), the
-``llm_token_units`` counter, for training ``zero_grads`` /
-``take_grads``, ``panorama_dev_dict``, ``replay_fuse_scan`` and
+``llm_token_units`` counter, ``panorama`` (its outputs on the host: the
+3D-QA evaluation), for training ``zero_grads`` / ``take_grads``,
+``panorama_dev_dict``, ``replay_fuse_scan`` and
 ``pano_navigation_train``, for generation the special-token logit mask,
 ``gen_embeds``, ``generate`` and ``pano_generation_train`` (the
-summarization / EQA / FGR2R heads), and for object grounding (REVERIE,
-SOON) ``object_grounding`` and ``pano_og_train``. Host arrays go up through
-pinned buffers with non-blocking copies, so uploading one slot group's step
-never waits for the other group's step running on the card.
+summarization / EQA / FGR2R heads and the ScanQA / LLaVA loss), and for
+object grounding (REVERIE, SOON) ``object_grounding`` and
+``pano_og_train``. Host arrays go up through pinned buffers with
+non-blocking copies, so uploading one slot group's step never waits for
+the other group's step running on the card.
 
 Randomness: jax.random keys become torch.Generators. The runner draws one
 seed per dropout-bearing call from its own host generator; a call seeded
@@ -196,6 +198,14 @@ class NavModelRunner:
         return DM.panorama(self.model, self.cfg, pano_dev, generator,
                            training=not deterministic)
 
+    def panorama(self, pano_inputs, deterministic: bool,
+                 seed: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """panorama_dev_dict, downloaded: every output on the host, float
+        outputs in f32 (numpy has no bf16)."""
+        out = self.panorama_dev_dict(pano_inputs, deterministic, seed)
+        return {k: HostCopy(v.float() if v.is_floating_point() else v)
+                .result() for k, v in out.items()}
+
     def panorama_dev_dict(self, pano_inputs, deterministic: bool,
                           seed: Optional[int] = None
                           ) -> Dict[str, torch.Tensor]:
@@ -350,7 +360,9 @@ class NavModelRunner:
 
     def gen_embeds(self, vp_img_embeds, vp_masks) -> torch.Tensor:
         """The zero-position, type-0 fusion of the generation paths, on the
-        device."""
+        device; host embeds go up in the panorama's dtype."""
+        if not torch.is_tensor(vp_img_embeds):
+            vp_img_embeds = self.upload(vp_img_embeds, self.cfg.pano.dtype)
         with torch.inference_mode():
             return NM.prep_generation_embeds(self.model, self.cfg,
                                              vp_img_embeds,

@@ -4,10 +4,12 @@ The port's copy of the scorers of navillm_tpu/data/metrics.py, with the
 same names and numerics:
   - eval_r2r_item      <- R2RDataset.eval_dis_item (reference r2r.py:108-131)
   - eval_reverie_item  <- REVERIEDataset.eval_dis_item (reverie.py:138-168)
+  - eval_cvdn_item     <- CVDNDataset.eval_cvdn (cvdn.py:165-207), over the
+                          flattened path
   - eval_soon_item     <- SOONDataset.eval_soon_item (soon.py:163-223), with
                           shapely's point-in-polygon replaced by a ray-casting
                           test (point_in_polygon)
-and their aggregates. CVDN's scorer comes with CVDN.
+and their aggregates.
 
 All scorers take `dist`: a callable (vp_a, vp_b) -> float over the
 scan's all-pairs shortest distances (ScanGraph.distance).
@@ -111,6 +113,51 @@ def aggregate_reverie(per_item: List[Dict[str, float]]) -> Dict[str, float]:
     out["rgs"] = m("rgs") * 100
     out["rgspl"] = m("rgspl") * 100
     return out
+
+
+def eval_cvdn_item(dist: Dist, path: Sequence[str], gt_path: Sequence[str],
+                   planner_path: Sequence[str],
+                   end_panos: Sequence[str]) -> Dict[str, float]:
+    """CVDN scorer over the FLAT path (caller flattens; cvdn.py:152,165-207)."""
+    start, goal = gt_path[0], gt_path[-1]
+    assert start == path[0], "trajectories must include the start"
+    planner_goal = planner_path[-1]
+    final = path[-1]
+    nearest = get_nearest(dist, goal, path)
+    nearest_planner = get_nearest(dist, planner_goal, path)
+    dist_to_end_start = min(dist(start, p) for p in end_panos)
+    dist_to_end_end = min(dist(final, p) for p in end_panos)
+
+    s: Dict[str, float] = {}
+    s["nav_errors"] = dist(final, goal)
+    s["oracle_errors"] = dist(nearest, goal)
+    s["oracle_plan_errors"] = dist(nearest_planner, planner_goal)
+    s["dist_to_end_reductions"] = dist_to_end_start - dist_to_end_end
+    s["trajectory_lengths"] = path_length(dist, path)
+    s["success"] = float(s["nav_errors"] < ERROR_MARGIN)
+    gt_lengths = path_length(dist, gt_path)
+    s["spl"] = s["success"] * gt_lengths / max(s["trajectory_lengths"],
+                                               gt_lengths, 0.01)
+    s["shortest_path_lengths"] = dist(start, goal)
+    return s
+
+
+def aggregate_cvdn(per_item: List[Dict[str, float]]) -> Dict[str, float]:
+    n = len(per_item)
+    num_s = sum(1 for x in per_item if x["nav_errors"] < ERROR_MARGIN)
+    num_os = sum(1 for x in per_item if x["oracle_errors"] < ERROR_MARGIN)
+    num_ops = sum(1 for x in per_item if x["oracle_plan_errors"] < ERROR_MARGIN)
+    m = lambda k: float(np.mean([x[k] for x in per_item]))
+    return {
+        "lengths": m("trajectory_lengths"),
+        "nav_error": m("nav_errors"),
+        "oracle_sr": num_os / n * 100,
+        "sr": num_s / n * 100,
+        "spl": m("spl") * 100,
+        "oracle path_success_rate": num_ops / n * 100,
+        "dist_to_end_reduction": float(
+            sum(x["dist_to_end_reductions"] for x in per_item) / n),
+    }
 
 
 def point_in_polygon(x: float, y: float,

@@ -3,10 +3,14 @@
 ``make_grid_connectivity`` and ``synthetic_nav_batch`` follow
 navillm_tpu/testing.py (the port imports nothing of the JAX package).
 ``make_r2r_world`` writes a grid world with R2R annotations (with FGR2R
-chunks), as bench.py's rollout world does, and beside them EQA, REVERIE
-and SOON annotations on the same grid; ``r2r_eval``, ``eqa_eval``,
-``reverie_eval`` and ``soon_eval`` wire the port's streaming evaluation
-over it and ``r2r_train`` its teacher-forcing training.
+chunks), as bench.py's rollout world does, and beside them EQA, REVERIE,
+SOON and CVDN annotations on the same grid, ScanQA questions and LLaVA
+conversations, and the augmented R2R and REVERIE sets (``.jsonl`` token
+ids that ``aug_decoder`` reads, and ``.json``); ``r2r_eval``,
+``eqa_eval``, ``reverie_eval``, ``soon_eval``, ``cvdn_eval`` and
+``scanqa_eval`` wire the port's evaluation over it, ``r2r_train`` its
+teacher-forcing training, and ``feature_dbs`` the synthetic stores of
+every task.
 """
 from __future__ import annotations
 
@@ -152,6 +156,149 @@ def _object_annotations(root, graph, scan, rows, cols, n_episodes, seed,
         "".join(json.dumps(x) + "\n" for x in soon))
 
 
+# CVDN dialogs: the words of each dialog cycle through these lengths (the
+# dataset cuts a dialog's instruction to 128 words)
+DIALOG_WORDS = (60, 90, 128, 150)
+# ScanQA: frames per scene (the dataset draws at most 36 of them)
+SCANQA_FRAMES = (40, 48)
+# the augmented sets' fake token vocabulary: an instruction's word k has
+# the id AUG_WORDS.index(word) + AUG_ID0 (the "bert ids" of its .jsonl)
+AUG_WORDS = sorted(set((" ".join(_VERBS + _DIRS + _ROOMS + _OBJECTS)
+                        + " into the and stop next to near").split()))
+AUG_ID0 = 1000
+
+
+def aug_encode(text: str):
+    """A synthetic augmented instruction's token ids (aug_decoder's
+    inverse on AUG_WORDS' words)."""
+    return [AUG_WORDS.index(w) + AUG_ID0 for w in text.lower().split()]
+
+
+def aug_decoder(ids) -> str:
+    """The decoder the augmented datasets take in place of
+    bert-base-uncased's (``R2RAugDataset.decoder``)."""
+    return " ".join(AUG_WORDS[i - AUG_ID0] for i in ids)
+
+
+def _plain_instruction(rng: random.Random) -> str:
+    """An _instruction in AUG_WORDS' words (no capitals, no stops)."""
+    return " ".join(f"{rng.choice(_VERBS)} {rng.choice(_DIRS)} into the "
+                    f"{rng.choice(_ROOMS)} and stop next to the "
+                    f"{rng.choice(_OBJECTS)}" for _ in range(rng.randint(1, 3)))
+
+
+def _dialog(rng: random.Random, n_words: int):
+    """A navigator/oracle dialog of about n_words words: questions end
+    with "?", answers without a stop (the dataset adds one)."""
+    turns, words = [], 0
+    while words < n_words:
+        role = "navigator" if len(turns) % 2 == 0 else "oracle"
+        if role == "navigator":
+            msg = (f"should I {rng.choice(_VERBS)} {rng.choice(_DIRS)} past "
+                   f"the {rng.choice(_OBJECTS)}?")
+        else:
+            msg = (f"{rng.choice(_VERBS)} {rng.choice(_DIRS)} into the "
+                   f"{rng.choice(_ROOMS)} and look for the "
+                   f"{rng.choice(_OBJECTS)} near the {rng.choice(_OBJECTS)}")
+        turns.append({"role": role, "message": msg})
+        words += len(msg.split()) + 1
+    return turns
+
+
+def _dialog_annotations(root, graph, scan, rows, cols, n_episodes, seed,
+                        split):
+    """CVDN episodes (``CVDN/annotations/<split>.json``): a dialog of
+    DIALOG_WORDS[i % 4] words, the start panorama and its heading, the
+    planner's path to a goal and the goal's end panoramas (it and one
+    neighbour). Every third planner path walks one node past the goal,
+    so trusted_path corrects it."""
+    rng = np.random.RandomState(seed + 3)
+    trng = random.Random(seed + 3)
+    items = []
+    for i in range(n_episodes):
+        a, b = rng.choice(rows * cols, 2, replace=False)
+        start, goal = f"vp_{a // cols}_{a % cols}", f"vp_{b // cols}_{b % cols}"
+        path = graph.path(start, goal)
+        nbrs = [v for v in sorted(graph.neighbors(goal)) if v not in path]
+        planner = path + nbrs[-1:] if i % 3 == 2 else path
+        ends = [goal] + [v for v in nbrs if v not in planner][:1]
+        items.append({"inst_idx": 100 + i, "scan": scan,
+                      "target": trng.choice(_OBJECTS),
+                      "dialog_history": _dialog(
+                          trng, DIALOG_WORDS[i % len(DIALOG_WORDS)]),
+                      "start_pano": {"pano": start,
+                                     "heading": float(rng.rand() * 2
+                                                      * math.pi)},
+                      "planner_path": planner, "end_panos": ends})
+    out = root / "CVDN" / "annotations" / f"{split}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(items))
+
+
+def _qa_annotations(root, n_episodes, seed, split):
+    """ScanQA scenes (``ScanQA/annotations/<split>.json``: SCANQA_FRAMES
+    frames each, two questions per scene) and LLaVA conversations
+    (``LLaVA/annotations/<split>.json``), n_episodes questions each."""
+    trng = random.Random(seed + 4)
+    scenes = []
+    for i in range(-(-n_episodes // 2)):
+        n_frames = SCANQA_FRAMES[i % len(SCANQA_FRAMES)]
+        scenes.append({
+            "scene_id": f"scene{i:04d}_00",
+            "image_info": [{"image_id": f"frame_{k}"}
+                           for k in range(n_frames)],
+            "annotation": [{
+                "question_id": f"q{2 * i + j}",
+                "question": f"what is next to the {trng.choice(_OBJECTS)} "
+                            f"in the {trng.choice(_ROOMS)}?",
+                "answers": [trng.choice(EQA_ANSWERS).capitalize(),
+                            trng.choice(EQA_ANSWERS)]}
+                for j in range(min(2, n_episodes - 2 * i))]})
+    llava = [{"id": f"{i:04d}", "image": f"{100000 + i:012d}.jpg",
+              "conversations": [
+                  {"from": "human", "value": f"<image>\nDescribe the "
+                                             f"{trng.choice(_ROOMS)}."},
+                  {"from": "gpt", "value": f"A {trng.choice(EQA_ANSWERS)} "
+                                           f"{trng.choice(_OBJECTS)} near a "
+                                           f"{trng.choice(_OBJECTS)}."}]}
+             for i in range(n_episodes)]
+    for task, data in (("ScanQA", scenes), ("LLaVA", llava)):
+        out = root / task / "annotations" / f"{split}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(data))
+
+
+def _aug_annotations(root, graph, scan, rows, cols, n_episodes, seed,
+                     split):
+    """The augmented sets, both ways: ``.jsonl`` files of token ids
+    (aug_encode) with their own paths (R2R/annotations/<split>_aug.jsonl;
+    REVERIE/annotations/<split>_aug.jsonl, whose pos_vps are the goal and
+    the node before it) and ``.json`` files in R2R's and REVERIE's layout
+    (<split>_aug.json: the split's R2R and REVERIE episodes again under
+    path ids offset by 1000)."""
+    rng = np.random.RandomState(seed + 5)
+    trng = random.Random(seed + 5)
+    r2r, rev = [], []
+    for i in range(n_episodes):
+        a, b = rng.choice(rows * cols, 2, replace=False)
+        path = graph.path(f"vp_{a // cols}_{a % cols}",
+                          f"vp_{b // cols}_{b % cols}")
+        r2r.append({"instr_id": f"{i}_0", "scan": scan, "path": path,
+                    "heading": float(rng.rand() * 2 * math.pi),
+                    "instr_encoding": aug_encode(_plain_instruction(trng))})
+        rev.append({"instr_id": f"{i}_{i % 3}", "scan": scan, "path": path,
+                    "instr_encoding": aug_encode(_plain_instruction(trng)),
+                    "pos_vps": path[-2:]})
+    for task, data in (("R2R", r2r), ("REVERIE", rev)):
+        d = root / task / "annotations"
+        (d / f"{split}_aug.jsonl").write_text(
+            "".join(json.dumps(x) + "\n" for x in data))
+        items = json.loads((d / f"{split}.json").read_text())
+        for x in items:
+            x["path_id"] += 1000
+        (d / f"{split}_aug.json").write_text(json.dumps(items))
+
+
 def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
                    scan: str = "grid0", seed: int = 0, split: str = "val"
                    ) -> Path:
@@ -161,7 +308,10 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
     EQA annotations of as many episodes (``EQA/annotations/<split>.json``:
     a question about the goal, an answer of ``answer_vocab.json``, which
     holds EQA_ANSWERS), and as many REVERIE and SOON episodes
-    (_object_annotations). Returns the R2R annotation file."""
+    (_object_annotations), CVDN dialogs (_dialog_annotations), ScanQA
+    questions and LLaVA conversations (_qa_annotations) and augmented R2R
+    and REVERIE episodes (_aug_annotations). Returns the R2R annotation
+    file."""
     root = Path(root)
     make_grid_connectivity(root / "connectivity", scan=scan, rows=rows,
                            cols=cols)
@@ -202,6 +352,10 @@ def make_r2r_world(root, n_episodes: int = 32, rows: int = 8, cols: int = 8,
     (eqa_dir / "answer_vocab.json").write_text(json.dumps(EQA_ANSWERS))
     _object_annotations(root, graph, scan, rows, cols, n_episodes, seed,
                         split)
+    _dialog_annotations(root, graph, scan, rows, cols, n_episodes, seed,
+                        split)
+    _qa_annotations(root, n_episodes, seed, split)
+    _aug_annotations(root, graph, scan, rows, cols, n_episodes, seed, split)
     return anno
 
 
@@ -289,6 +443,49 @@ def soon_eval(root, split, runner, n_slots, image_feat_size, obj_db, **kw):
     """object_eval for SOON (obj_db in the SOON layout)."""
     return object_eval("SOON", root, split, runner, n_slots,
                        image_feat_size, obj_db, **kw)
+
+
+def feature_dbs(image_feat_size: int) -> Dict[str, SyntheticImageFeaturesDB]:
+    """Synthetic stores under configs/multi.yaml's feature_database keys:
+    36 views per viewpoint (mp3d), one frame per ScanNet frame (scan_qa,
+    keyed scene_frame) and per COCO image (coco)."""
+    return {"mp3d": SyntheticImageFeaturesDB(image_feat_size),
+            "scan_qa": SyntheticImageFeaturesDB(image_feat_size, num_views=1),
+            "coco": SyntheticImageFeaturesDB(image_feat_size, num_views=1)}
+
+
+def cvdn_eval(root, split, runner, n_slots: int, image_feat_size: int,
+              seed: int = 0, prefix_cache: bool = False):
+    """(agent, dataset, args) for greedy CVDN streaming evaluation over the
+    dialogs make_r2r_world wrote beside ``split``'s R2R episodes."""
+    from .agents.mp3d_agent import CVDNAgent, EvalArgs
+    from .data.cvdn import CVDNDataset
+
+    world = WorldModel(str(Path(root) / "connectivity"))
+    ds = CVDNDataset(Path(root) / "CVDN" / "annotations" / f"{split}.json",
+                     world, split=split)
+    ds.init_feat_db(SyntheticImageFeaturesDB(image_feat_size))
+    args = EvalArgs(seed=seed, val_batch_size=n_slots,
+                    image_feat_size=image_feat_size,
+                    prefix_cache=prefix_cache)
+    return CVDNAgent(args, world, runner), ds, args
+
+
+def scanqa_eval(root, split, runner, n_slots: int, image_feat_size: int,
+                seed: int = 0):
+    """(agent, dataset, args) for ScanQA evaluation (ScanQAAgent.validate)
+    over the questions make_r2r_world wrote, with a synthetic scan_qa
+    frame store."""
+    from .agents.llava_agent import ScanQAAgent
+    from .agents.mp3d_agent import EvalArgs
+    from .data.scanqa import ScanQADataset
+
+    ds = ScanQADataset(Path(root) / "ScanQA" / "annotations"
+                       / f"{split}.json", split=split)
+    ds.init_feat_db(feature_dbs(image_feat_size)["scan_qa"])
+    args = EvalArgs(seed=seed, val_batch_size=n_slots,
+                    image_feat_size=image_feat_size)
+    return ScanQAAgent(args, None, runner), ds, args
 
 
 def train_config(max_action_len: int, name: str = "R2R"):

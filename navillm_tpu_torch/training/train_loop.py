@@ -7,16 +7,18 @@ Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
     what the attention kernels take; random weights on the port's
     initialiser from ``args.seed``) on ``args.device``;
   - ``build_world_and_data`` / ``build_agents``: the world, the stage's
-    loaders (with the view and object feature DBs) and the task agents
-    from the config (R2R, REVERIE, SOON, EQA);
+    loaders (with the view and object feature DBs: ``mp3d``, ``scan_qa``
+    and ``coco`` views, REVERIE and SOON objects) and the task agents from
+    the config (every task of configs/multi.yaml);
   - ``train_one_epoch``: gradients accumulate in the parameters' .grad
     (runner.zero_grads / take_grads), and every gradient_accumulation_step
     batches one optimizer step applies clip + AdamW. The loss of batch N
     is read on the host only after batch N+1 has been dispatched (one-step
     lag), so the card works through N's backward while the host simulates
     N+1;
-  - ``val_one_epoch``: streaming validation per task (greedy, or sampled
-    under --do_sample), the predictions gathered (single process) and
+  - ``val_one_epoch``: streaming validation per navigation task (greedy,
+    or sampled under --do_sample), ScanQA's generated answers through its
+    agent's validate, the predictions gathered (single process) and
     scored;
   - ``calc_overall_score``: task-weighted SPL model selection;
   - ``run_training``: the epoch loop with best-score checkpoint retention
@@ -223,19 +225,25 @@ def build_agents(args, sources, world, runner) -> Dict[str, Any]:
 
 def val_one_epoch(args, cfg, runner, val_loaders, agents, datasets, epoch,
                   logger) -> Dict[str, Dict[str, float]]:
-    """Per task: streaming validation, predictions gathered, scored on
-    rank 0 (and saved with save_pred_results)."""
+    """Per task: streaming validation (the 3D-QA agent, which has none:
+    its validate), predictions gathered, scored on rank 0 (and saved with
+    save_pred_results)."""
     task_results: Dict[str, Dict[str, float]] = {}
     for name, (loader, _ratio) in val_loaders.items():
         if logger is not None:
             logger.info("***** validate %s split on %s task *****"
                         % (args.validation_split, name))
-        if not args.streaming_eval:
-            raise NotImplementedError("the batched validate loop is not "
-                                      "ported (ROADMAP A8): keep "
-                                      "streaming_eval on")
-        preds = agents[name].validate_streaming(name, args, cfg, loader,
-                                                dataset=datasets[name])
+        agent = agents[name]
+        if hasattr(agent, "validate_streaming"):
+            if not args.streaming_eval:
+                raise NotImplementedError("the batched validate loop of the "
+                                          "navigation agents is not ported "
+                                          "(ROADMAP A8): keep streaming_eval "
+                                          "on")
+            validate = agent.validate_streaming
+        else:
+            validate = agent.validate
+        preds = validate(name, args, cfg, loader, dataset=datasets[name])
         all_preds = merge_dist_results(all_gather_objects(preds))
         if args.rank == 0 and not args.validation_split.startswith("test"):
             score_summary, item_metrics = datasets[name].eval_metrics(

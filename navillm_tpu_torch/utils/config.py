@@ -197,8 +197,6 @@ UNPORTED = {
     "from_scratch": "the pretrained-weight loader is not ported (ROADMAP A4, "
                     "HF-layout weight conversion)",
     "adam_8bit": "8-bit Adam moments are not ported (ROADMAP A5)",
-    "max_datapoints": "the CVDN and LLaVA datasets are not ported (ROADMAP A8)",
-    "path_type": "the CVDN dataset is not ported (ROADMAP A8)",
     "dagger_pipeline": "the interleaved per-step DAgger, which runs only "
                        "without fused_dagger, is not ported (ROADMAP A8)",
     "zero1": "ZeRO-1 over the data axis is not ported (ROADMAP A10)",

@@ -1,11 +1,7 @@
 """Name-keyed registries for datasets and agents (twin of
-navillm_tpu/utils/registry.py). A name the JAX package registers but the
-port does not yet raises NotImplementedError naming its ROADMAP item."""
+navillm_tpu/utils/registry.py). An unknown name raises KeyError, as in
+the JAX package."""
 from typing import Callable, Dict
-
-# the JAX package's registered names that the port lacks, by ROADMAP item
-PENDING = {"cvdn": "A8", "r2r_aug": "A8", "reverie_aug": "A8",
-           "scanqa": "A8", "llava": "A8", "coco": "A8"}
 
 
 class Registry:
@@ -24,10 +20,6 @@ class Registry:
 
     def get(self, name: str) -> Callable:
         if name not in self._items:
-            if name in PENDING:
-                raise NotImplementedError(
-                    f"the {self.kind} '{name}' is not ported yet (ROADMAP "
-                    f"{PENDING[name]}); ported: {sorted(self._items)}")
             raise KeyError(f"unknown {self.kind} '{name}'; known: "
                            f"{sorted(self._items)}")
         return self._items[name]

@@ -360,22 +360,26 @@ def test_registries_loaders_and_helpers(train_args, task_config, data_dir):
     world = WorldModel(str(data_dir / "connectivity"))
     jworld = JWorld(str(data_dir / "connectivity"))
     args = TCFG.TrainArgs(data_dir=str(data_dir), batch_size=2, device="cpu")
-    for name, item in (("reverie_aug", "A8"), ("cvdn", "A8"),
-                       ("scanqa", "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            load_agent(name, args, world, None)
-        with pytest.raises(NotImplementedError, match=item):
-            load_dataset(name, args, task_config)
-    # REVERIE and SOON are registered, dataset and agent
-    for name, source in (("reverie", "REVERIE"), ("soon", "SOON")):
+    # every task of the JAX package is registered, dataset and agent; a
+    # name JAX does not register ("coco": a feature store's key) raises
+    # KeyError in both
+    for name in ("coco", "nope"):
+        for build in (lambda n: load_agent(n, args, world, None),
+                      lambda n: load_dataset(n, args, task_config),
+                      lambda n: j_load_dataset(n, train_args, task_config)):
+            with pytest.raises(KeyError):
+                build(name)
+    for name, source in (("reverie", "REVERIE"), ("soon", "SOON"),
+                         ("cvdn", "CVDN"), ("scanqa", "ScanQA"),
+                         ("llava", "LLaVA")):
         ds = load_dataset(name, args, task_config, source=source,
                           world=world)
         jds = j_load_dataset(name, train_args, task_config, source=source,
                              world=jworld)
         assert ds.alldata == jds.alldata and ds.name == name
         assert AGENTS.get(name).name == name
-    with pytest.raises(KeyError):
-        load_dataset("nope", args, task_config)
+    for name in ("r2r_aug", "reverie_aug", "eqa"):
+        assert AGENTS.get(name).name == name
 
     for training in (True, False):
         ds = load_dataset("r2r", args, task_config, training=training,

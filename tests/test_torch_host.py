@@ -1,8 +1,9 @@
 """The port's host layer against the JAX package's: the same inputs through
 navillm_tpu_torch.{sim, data.metrics, data.loaders, data.feature_db,
-models.tokenization} and their navillm_tpu twins give identical results
+models.tokenization, eval.captioning} and the CVDN, ScanQA, LLaVA and
+augmented datasets, and their navillm_tpu twins give identical results
 (integers, strings, paths and float64 distances compared exactly), the
-object stores and the REVERIE/SOON scorers included.
+object stores and the REVERIE/SOON/CVDN scorers included.
 """
 import json
 import random
@@ -391,3 +392,214 @@ def test_r2r_world_is_written_by_the_ports_sim(tmp_path):
     g = JGR.ScanGraph.from_connectivity(tmp_path / "connectivity", "grid0")
     for item in json.loads(anno.read_text()):
         assert item["path"] == g.path(item["path"][0], item["path"][-1])
+
+
+def test_cvdn_metrics_match(world_dir):
+    """eval_cvdn_item over flattened random walks (goal progress against
+    1-3 end panoramas, the planner's goal apart from the trusted path's)
+    and aggregate_cvdn."""
+    g = JE.WorldModel(world_dir, scans=["scan0"]).graph("scan0")
+    r = random.Random(6)
+    items = []
+    for start, goal, gt, traj in _walks(g, r, 20):
+        path = JM.flatten_trajectory(traj)
+        planner = g.path(start, r.choice(g.ids))
+        ends = [goal] + r.sample(g.ids, r.randint(0, 2))
+        pi = PM.eval_cvdn_item(g.distance, path, gt, planner, ends)
+        _assert_same(pi, JM.eval_cvdn_item(g.distance, path, gt, planner,
+                                           ends))
+        items.append(pi)
+    _assert_same(PM.flatten_trajectory(traj), path)
+    _assert_same(PM.aggregate_cvdn(items), JM.aggregate_cvdn(items))
+    agg = PM.aggregate_cvdn(items)
+    assert 0 < agg["sr"] < 100 and agg["dist_to_end_reduction"] != 0
+
+
+# references of five questions: repeated answers, one-word answers, an
+# empty hypothesis and one longer than every reference
+CAPTION_REFS = {"a": ["two chairs", "two chairs", "2"],
+                "b": ["the red sofa by the window", "a sofa"],
+                "c": ["brown"], "d": ["on the table near the lamp"],
+                "e": ["kitchen", "the kitchen"]}
+CAPTION_HYPS = {"a": ["two chairs"], "b": ["a red sofa near the window"],
+                "c": [""], "d": ["on the table on the table near a lamp"],
+                "e": ["kitchen"]}
+
+
+@pytest.mark.parametrize("scorer", ["Bleu", "Rouge", "Cider"])
+def test_caption_scorers_match(scorer):
+    """Each scorer of eval/captioning.py gives JAX's corpus score and
+    per-item scores exactly, on the whole set and on one item."""
+    from navillm_tpu.eval import captioning as JC
+    from navillm_tpu_torch.eval import captioning as PC
+    for keys in (list(CAPTION_REFS), ["c"]):
+        refs = {k: CAPTION_REFS[k] for k in keys}
+        hyps = {k: CAPTION_HYPS[k] for k in keys}
+        got = getattr(PC, scorer)().compute_score(refs, hyps)
+        want = getattr(JC, scorer)().compute_score(refs, hyps)
+        _assert_same(got[0], want[0])
+        _assert_same(got[1], want[1])
+    assert getattr(PC, scorer)().compute_score(CAPTION_REFS, CAPTION_HYPS)[
+        0] != 0
+
+
+def test_meteor_availability_matches(monkeypatch, tmp_path):
+    """METEOR runs only where java and the jar are: both packages agree on
+    .available(), and scoring without them raises."""
+    from navillm_tpu.eval import captioning as JC
+    from navillm_tpu_torch.eval import captioning as PC
+    for jar in (str(tmp_path / "missing.jar"), None):
+        if jar:
+            monkeypatch.setenv("METEOR_JAR", jar)
+        assert PC.Meteor().available() == JC.Meteor().available()
+    monkeypatch.setenv("METEOR_JAR", str(tmp_path / "missing.jar"))
+    with pytest.raises(RuntimeError):
+        PC.Meteor().compute_score({"a": ["x"]}, {"a": ["x"]})
+
+
+def _dataset_pair(name, source, root, cfg, training, **flags):
+    from navillm_tpu.data.datasets import load_dataset as j_load
+    from navillm_tpu.utils import config as JCFG
+    from navillm_tpu_torch.data.datasets import load_dataset as p_load
+    from navillm_tpu_torch.utils import config as PCFG
+    kw = dict(data_dir=str(root), image_feat_size=32, **flags)
+    ds = p_load(name, PCFG.TrainArgs(device="cpu", **kw),
+                PCFG.ConfigDict(cfg), training=training, source=source,
+                world=PE.WorldModel(str(root / "connectivity")))
+    jds = j_load(name, JCFG.TrainArgs(**kw), JCFG.ConfigDict(cfg),
+                 training=training, source=source,
+                 world=JE.WorldModel(str(root / "connectivity")))
+    key = {"scanqa": "scan_qa", "llava": "coco"}.get(name, "mp3d")
+    ds.init_feat_db(T.feature_dbs(32)[key])
+    jds.init_feat_db(JF.SyntheticImageFeaturesDB(
+        32, num_views=36 if key == "mp3d" else 1))
+    return ds, jds
+
+
+def _same_samples(ds, jds):
+    """Every sample of both datasets, each read after the same seeds of
+    Python's and numpy's global RNGs (ScanQA's frames, the training
+    resamplings), twice: the samples and alldata agree after each pass."""
+    for _ in range(2):
+        random.seed(4)
+        np.random.seed(4)
+        got = [ds[i] for i in range(len(ds))]
+        random.seed(4)
+        np.random.seed(4)
+        want = [jds[i] for i in range(len(jds))]
+        for g, w in zip(got, want):
+            assert g.keys() == w.keys()
+            for k in w:
+                if k == "env":
+                    continue
+                if k == "observations":
+                    assert g[k].keys() == w[k].keys()
+                    for kk, v in w[k].items():
+                        if kk != "candidate":
+                            _assert_same(g[k][kk], v)
+                else:
+                    _assert_same(g[k], w[k])
+        assert ds.alldata == jds.alldata
+    return got
+
+
+def _task_config(tmp, aug_ext=".jsonl"):
+    split = {"train": "annotations/train{}", "val_unseen":
+             "annotations/val{}"}
+    cfg = {"Feature": {"image_feat_size": 32, "angle_feat_size": 4,
+                       "max_objects": 4},
+           "REVERIE": {"DIR": "REVERIE", "bbox_file":
+                       "annotations/BBoxes.json"}}
+    for task in ("CVDN", "ScanQA", "LLaVA"):
+        cfg[task] = {"DIR": task, "SPLIT": {k: v.format(".json")
+                                            for k, v in split.items()}}
+    for task, d in (("R2R_AUG", "R2R"), ("REVERIE_AUG", "REVERIE")):
+        cfg[task] = {"DIR": d, "SPLIT": {"train": "annotations/train_aug"
+                                         + aug_ext}}
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def qa_world(tmp_path_factory):
+    root = tmp_path_factory.mktemp("new_tasks")
+    T.make_r2r_world(root, n_episodes=6, rows=4, cols=4, seed=3,
+                     split="train")
+    T.make_r2r_world(root, n_episodes=5, rows=4, cols=4, seed=4, split="val")
+    return root
+
+
+@pytest.mark.parametrize("name,source,training", [
+    ("cvdn", "CVDN", True), ("cvdn", "CVDN", False),
+    ("scanqa", "ScanQA", True), ("scanqa", "ScanQA", False),
+    ("llava", "LLaVA", True)])
+def test_new_datasets_match(name, source, training, qa_world, data_dir,
+                            task_config):
+    """CVDN (the dialog instruction, the trusted-path correction, the
+    128-word cut written back into alldata, seen by the second pass),
+    ScanQA (36 of 40-48 frames from the global random) and LLaVA: items,
+    gt_trajs and samples of both packages, on the conftest fixture's
+    annotations and on make_r2r_world's."""
+    for root, cfg in ((data_dir, dict(task_config)),
+                      (qa_world, _task_config(qa_world))):
+        ds, jds = _dataset_pair(name, source, root, cfg, training)
+        assert ds.alldata == jds.alldata and ds.split == jds.split
+        if name == "cvdn":
+            assert ds.gt_trajs == jds.gt_trajs
+        before = [x.get("instruction") for x in ds.alldata]
+        samples = _same_samples(ds, jds)
+    if name == "cvdn":
+        cut = [i for i, x in enumerate(ds.alldata)
+               if x["instruction"] != before[i]]
+        assert cut and all(len(ds.alldata[i]["instruction"].split()) == 128
+                           for i in cut)
+        corrected = [x for x in ds.alldata
+                     if x["path"] != x["planner_path"]]
+        assert corrected and all(x["path"][-1] in x["end_panos"]
+                                 for x in corrected)
+    if name == "scanqa":
+        assert {s["features"].shape[0] for s in samples} == {36}
+
+
+@pytest.mark.parametrize("flags", [dict(max_datapoints=2),
+                                   dict(path_type="planner_path")])
+def test_cvdn_flags_match(flags, qa_world):
+    """--max_datapoints cuts every new dataset the same way in both
+    packages, and a path_type other than trusted_path leaves the planner's
+    paths as they are."""
+    cfg = _task_config(qa_world)
+    for name, source in (("cvdn", "CVDN"), ("scanqa", "ScanQA"),
+                         ("llava", "LLaVA")):
+        ds, jds = _dataset_pair(name, source, qa_world, cfg, True, **flags)
+        assert ds.alldata == jds.alldata
+        if "max_datapoints" in flags:
+            assert len(ds) == 2
+        elif name == "cvdn":
+            assert all(x["path"] == x["planner_path"] for x in ds.alldata)
+
+
+@pytest.mark.parametrize("name,source", [("r2r_aug", "R2R_AUG"),
+                                         ("reverie_aug", "REVERIE_AUG")])
+@pytest.mark.parametrize("ext", [".jsonl", ".json"])
+def test_aug_datasets_match(name, source, ext, qa_world, monkeypatch):
+    """The augmented sets: .jsonl token ids through an injected decoder
+    (pos_vps as the end viewpoints, objId None) and the .json
+    fall-through to the parent loader, items and samples of both packages
+    (REVERIE's training resampling from numpy's global RNG)."""
+    from navillm_tpu.data.datasets import aug as JA
+    from navillm_tpu_torch.data import aug as PA
+    for mod in (JA, PA):
+        for cls in (mod.R2RAugDataset, mod.REVERIEAugDataset):
+            monkeypatch.setattr(cls, "decoder",
+                                staticmethod(T.aug_decoder))
+    ds, jds = _dataset_pair(name, source, qa_world,
+                            _task_config(qa_world, ext), True)
+    assert ds.alldata == jds.alldata and ds.gt_trajs == jds.gt_trajs
+    assert ds.scans == jds.scans
+    _same_samples(ds, jds)
+    types = {x["data_type"] for x in ds.alldata}
+    if ext == ".jsonl":
+        assert types == {name}
+        assert all(x["instruction"] == T.aug_decoder(x["instr_encoding"])
+                   for x in ds.alldata)
+    else:
+        assert types == {name.split("_")[0]}

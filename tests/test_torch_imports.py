@@ -7,8 +7,10 @@ its generation paths (EQA streaming evaluation, run_training with the
 summarization and FGR2R heads validating R2R and EQA), its object-grounding
 paths (REVERIE and SOON streaming evaluation with enable_og, sampled and
 prefix-cached, and run_training over R2R, REVERIE and SOON with the OG,
-summarization and FGR2R heads) and ``python -m navillm_tpu_torch.train
---help`` run on the CPU.
+summarization and FGR2R heads), the rest of the task mix (CVDN streaming
+evaluation, ScanQA evaluation, and run_training over configs/multi.yaml's
+sources at stage multi and, with the augmented sets, at stage pretrain)
+and ``python -m navillm_tpu_torch.train --help`` run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -321,6 +323,116 @@ Optim:
 OG = "OG_CFG = %r\n" % OG_CFG + OG
 
 
+# the rest of the paper's task mix: CVDN streaming evaluation (uncached and
+# prefix-cached), ScanQA evaluation, then run_training at stage multi over
+# the six sources of configs/multi.yaml with --enable_og --enable_summarize
+# --enable_fgr2r (validating CVDN, SOON, R2R, REVERIE and ScanQA), and at
+# stage pretrain over its seven (the augmented sets' .jsonl files read
+# through testing.aug_decoder)
+MIX = """
+import sys, tempfile
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
+from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data import aug
+from navillm_tpu_torch.data.feature_db import synthetic_object_db
+from navillm_tpu_torch.data.loaders import Dataloader
+from navillm_tpu_torch.models.nav_model import NavModel, NavModelConfig
+from navillm_tpu_torch.models.tokenization import NavTokenizer
+from navillm_tpu_torch.training.train_loop import run_training
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+
+torch.set_num_threads(1)
+bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+cfg = NavModelConfig.tiny(vocab_size=bpe.vocab_size, use_obj=True)
+model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+dims = RolloutDims(max_gmap_nodes=16, max_views=40, max_cands=15,
+                   max_hist=8, max_objects=8, max_prefix=448)
+dbs = {s: synthetic_object_db(s, cfg.pano.obj_feat_size, 4)
+       for s in ("reverie", "soon")}
+for cls in (aug.R2RAugDataset, aug.REVERIEAugDataset):
+    cls.decoder = staticmethod(T.aug_decoder)
+with tempfile.TemporaryDirectory() as tmp:
+    T.make_r2r_world(tmp, n_episodes=3, rows=3, cols=3, split="val")
+    trajs = []
+    for cached in (False, True):
+        runner = NavModelRunner(cfg, model, bpe, dims=dims)
+        agent, ds, args = T.cvdn_eval(tmp, "val", runner, 2,
+                                      cfg.pano.image_feat_size,
+                                      prefix_cache=cached)
+        preds = agent.validate_streaming("CVDN", args,
+                                         T.eval_config(6, "CVDN"),
+                                         Dataloader(ds, 2, False), dataset=ds)
+        trajs.append({p["instr_id"]: p["trajectory"] for p in preds})
+    assert runner.cached_steps and not runner.eval_steps
+    assert len(trajs[0]) == 3 and trajs[0] == trajs[1], trajs
+    print("cvdn", ds.eval_metrics(preds, None, "CVDN")[0])
+    runner = NavModelRunner(cfg, model, bpe, dims=dims)
+    agent, ds, args = T.scanqa_eval(tmp, "val", runner, 2,
+                                    cfg.pano.image_feat_size)
+    preds = agent.validate("ScanQA", args, None, Dataloader(ds, 2, False))
+    assert len(preds) == 3 and runner.generate_calls == 2, preds
+    print("scanqa", ds.eval_metrics(preds, None, "ScanQA")[0])
+
+    T.make_r2r_world(tmp, n_episodes=4, rows=3, cols=3, split="train")
+    ycfg = load_yaml_text(MIX_CFG)
+    for stage, steps, seed in (("multi", 8, 262), ("pretrain", 6, 175)):
+        runner = NavModelRunner(cfg, model, bpe, dims=dims, seed=seed)
+        rargs = TrainArgs(data_dir=tmp, output_dir=tmp + "/out",
+                          device="cpu", stage=stage, num_epochs=1,
+                          num_steps_per_epoch=steps, batch_size=2,
+                          fused_rows_per_call=4, max_saved_checkpoints=0,
+                          save_ckpt_per_epochs=100, enable_og=True,
+                          enable_summarize=True, enable_fgr2r=True,
+                          seed=seed, test_datasets=["CVDN", "SOON", "R2R",
+                                                    "REVERIE", "ScanQA"])
+        rargs.sync_from_config(ycfg)
+        res = run_training(rargs, ycfg, feat_dbs=T.feature_dbs(
+            rargs.image_feat_size), obj_feat_dbs=dbs, runner=runner)
+        assert sorted(res) == ["CVDN", "R2R", "REVERIE", "SOON", "ScanQA"]
+        assert runner.gen_grad_calls and runner.og_grad_calls, stage
+        print("run_training", stage, res["CVDN"], res["ScanQA"])
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+MIX_CFG = '''
+Feature: {image_feat_size: 32, angle_feat_size: 4, obj_feat_size: 16,
+          max_objects: 70}
+Dataset:
+  R2R: {DIR: R2R, SPLIT: {"train": "annotations/train.json",
+                          "val_unseen": "annotations/val.json"}}
+  REVERIE: {DIR: REVERIE, bbox_file: annotations/BBoxes.json,
+            SPLIT: {"train": "annotations/train.json",
+                    "val_unseen": "annotations/val.json"}}
+  CVDN: {DIR: CVDN, SPLIT: {"train": "annotations/train.json",
+                            "val_unseen": "annotations/val.json"}}
+  SOON: {DIR: SOON, SPLIT: {"train": "annotations/train.jsonl",
+                            "val_unseen": "annotations/val.jsonl"}}
+  ScanQA: {DIR: ScanQA, SPLIT: {"train": "annotations/train.json",
+                                "val_unseen": "annotations/val.json"}}
+  LLaVA: {DIR: LLaVA, SPLIT: {"train": "annotations/train.json"}}
+  R2R_AUG: {DIR: R2R, SPLIT: {"train": "annotations/train_aug.jsonl"}}
+  REVERIE_AUG: {DIR: REVERIE, bbox_file: annotations/BBoxes.json,
+                SPLIT: {"train": "annotations/train_aug.jsonl"}}
+Pretrain:
+  SOURCE: ['R2R_AUG', 'REVERIE_AUG', 'R2R', 'REVERIE', 'SOON', 'CVDN',
+           'ScanQA']
+  Ratio: [1, 1, 1, 1, 1, 1, 1]
+  LOSS_COEF: {"R2R_AUG": 1, "REVERIE_AUG": 1}
+Multi:
+  SOURCE: ['R2R', 'REVERIE', 'CVDN', 'SOON', 'ScanQA', 'LLaVA']
+  Ratio: [1, 1, 1, 1, 1, 1]
+  LOSS_COEF: {}
+Optim:
+  train_max_action_len: {"R2R": 4, "REVERIE": 4, "SOON": 4, "CVDN": 4,
+                         "R2R_AUG": 4, "REVERIE_AUG": 4}
+  val_max_action_len: {"R2R": 3, "REVERIE": 3, "SOON": 3, "CVDN": 6}
+'''
+MIX = "MIX_CFG = %r\n" % MIX_CFG + MIX
+
+
 def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -345,6 +457,12 @@ def test_port_runs_its_object_grounding_paths_without_jax():
     assert "REVERIE" in out and "SOON" in out and "run_training" in out
 
 
+def test_port_runs_the_task_mix_without_jax():
+    out = _fresh(MIX)
+    assert "cvdn" in out and "scanqa" in out
+    assert "run_training multi" in out and "run_training pretrain" in out
+
+
 def test_train_entry_point_help_without_jax():
     out = _fresh(CLI_HELP)
     assert "--dagger_prefix_cache" in out and "--device" in out
@@ -360,7 +478,12 @@ def _port_sources():
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"navillm_tpu_torch/data/reverie.py",
-            "navillm_tpu_torch/data/soon.py"} <= names
+            "navillm_tpu_torch/data/soon.py",
+            "navillm_tpu_torch/data/cvdn.py", "navillm_tpu_torch/data/aug.py",
+            "navillm_tpu_torch/data/llava.py",
+            "navillm_tpu_torch/data/scanqa.py",
+            "navillm_tpu_torch/eval/captioning.py",
+            "navillm_tpu_torch/agents/llava_agent.py"} <= names
     return files
 
 

@@ -218,6 +218,33 @@ LLaVA sections and its stage sources; image_feat_size 1024, obj_feat_size
      sets from .json files) and at stage multi (its Multi sources), each
      with the three heads and --test_datasets CVDN ScanQA; not a speed
      cell.
+The pretrained path at 7B width, phase 33 on the bf16 model after phase 32,
+phases 34 and 35 after phase 25 (the bf16 model freed):
+ 33. the model's LLM written as an HF-layout checkpoint with plain code
+     (models/convert.save_vicuna: config.json with bpe_nav.json's base
+     vocabulary of 1016, ~5 GB safetensors shards and their index, and
+     bpe_nav.json as tokenizer.json), then read back through build_runner
+     with the CLI's --pretrained_model_name_or_path on the card: every leaf
+     equal to its source bit for bit (rows 1016..1023 of embed and lm_head
+     the numpy-f32 mean of the checkpoint's rows), one forward_navigation
+     step on phase 4's inputs through K1 giving the source's logits bit
+     for bit; write and load seconds, the host RSS during the load and the
+     device peak;
+ 34. main() from that directory at stage multi, bf16, --adam_8bit: 4
+     batches of 8 over phase 32's R2R world (gradient accumulation 2: 2
+     optimizer steps), validation of 4 episodes, epoch_0 (torch backend);
+     K1-K3 per grad call, the 8-bit moments against exact AdamW on one
+     trained layer slice (tests/test_optim8.py's closeness bound on a
+     regression), moment bytes against AdamW's, the peak against phase
+     31's, losses and optimizer-step ms; then eval_r2r.sh's shape, --mode
+     test --resume_from_checkpoint epoch_0 from the same directory: the
+     resumed tree equal to the trained one bit for bit, K1 once per layer
+     of every step;
+ 35. --mode test --quantize_llm --quant_bits 4 from that directory
+     (quantize_host_llama on the card): K4 = 7 x 32 per LLM pass, the int4
+     tree equal to phase 9's byte for byte on the checkpoint's vocabulary,
+     and phase 9's evaluation replayed on it (phase 9's tokenizer,
+     panorama and heads) giving phase 9's trajectories.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -233,10 +260,13 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import random
+import resource
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -256,6 +286,7 @@ from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
 from navillm_tpu_torch.models import decoding as D
 from navillm_tpu_torch.models import llama as L
+from navillm_tpu_torch.models.convert import save_vicuna
 from navillm_tpu_torch.models.llama import LlamaConfig, _act_q
 from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
                                                 forward_navigation,
@@ -275,10 +306,10 @@ from navillm_tpu_torch.ops.matmul_q4 import (matmul_q4, matmul_q4_reference,
                                              unpack_q4)
 from navillm_tpu_torch.training import train_loop as TTL
 from navillm_tpu_torch.training.checkpoints import load_checkpoint
-from navillm_tpu_torch.training.optim import make_optimizer
+from navillm_tpu_torch.training.optim import AdamQ8, make_optimizer
 from navillm_tpu_torch.training.train_loop import (make_opt_step,
                                                    train_one_epoch)
-from navillm_tpu_torch.utils.config import load_yaml_text
+from navillm_tpu_torch.utils.config import load_yaml_text, read_args
 
 KERNELS = {
     "fwd": {"name": "flash_attn_fwd", "route": "cuda",
@@ -524,6 +555,16 @@ MIX_VAL_EPISODES = 8
 # REVERIE_AUG, ScanQA) and stage multi (seed 257: LLaVA, ScanQA, CVDN,
 # SOON) over configs/multi.yaml's sources and ratios
 CLI_MIX_SEEDS = {"pretrain": 31, "multi": 257}
+# phases 33-35: the pretrained directory holds the LLM with bpe_nav.json's
+# base vocabulary (its tokenizer.json), so the 8 rows the tokenizer's
+# 1024-row table adds are mean-initialised; shards of ~5 GB, as Vicuna-7B's
+BPE_VOCAB = 1016
+SHARD_BYTES = 5 * 10 ** 9
+PRETRAINED_VAL_EPISODES = 4
+# phase 34's moment gate: Adam steps of a regression on one layer slice
+MOMENT_STEPS = 40
+MOMENT_LR = 1e-3
+MOMENT_ROWS = 256
 RUN_MIX_YAML = """
 Feature: {image_feat_size: %(feat)d, angle_feat_size: 4,
           obj_feat_size: %(obj)d, max_objects: %(objects)d%(stores)s}
@@ -1529,10 +1570,12 @@ def phase_q4_slice(tag, tok, cfg, qmodel, tmp, dense_trajs, warm_up,
     same = sum(trajs[k] == dense_trajs[k] for k in trajs)
     what = (f"({stats['prefill_calls']} prefill calls + {stats['steps']} "
             f"cached steps)" if prefix_cache else f"{passes} steps")
+    ref = " (bf16, before training moved the weights)" if dense_tag == 3 \
+        else ""
     print(f"[{tag}] int4 kernel launches {launches} = {what} x "
           f"{cfg.llm.num_layers} x {Q4_LAYER_MATMULS} (int8 activations: "
-          f"{int8}); trajectories equal to phase {dense_tag}'s (bf16, before "
-          f"training moved the weights): {same} of {len(trajs)}")
+          f"{int8}); trajectories equal to phase {dense_tag}'s{ref}: {same} "
+          f"of {len(trajs)}")
     return launches, trajs, stats
 
 
@@ -2384,7 +2427,7 @@ def cli_main(argv):
         TTL.build_runner, TTL.create_feature_db, \
             TTL.create_object_feature_db, TTL.train_one_epoch, \
             R2RAgent.train, LLaVAAgent.train = saved
-    return res, built[0], epochs[0], names, dt
+    return res, built[0], epochs[0] if epochs else None, names, dt
 
 
 def phase_cli(tmp):
@@ -3662,7 +3705,8 @@ def phase_run_mix(bpe, cfg, model, tmp):
     agent's validate). Gates: the planned tasks, losses finite and below
     MAX_LOSS, gradient norms finite and > 0, K1-K3 as the path implies,
     the scores finite, and the first ScanQA batch's gradient through the
-    kernels against eager attention. Returns the run's kernel launches."""
+    kernels against eager attention. Returns (the run's kernel launches, its
+    peak memory in GiB)."""
     from navillm_tpu_torch.agents.llava_agent import LLaVAAgent
     root = f"{tmp}/runmix"
     T.make_r2r_world(root, n_episodes=TRAIN_EPISODES, seed=20, split="train")
@@ -3766,7 +3810,7 @@ def phase_run_mix(bpe, cfg, model, tmp):
           f"; launches {launches}")
     gen_grad_ab(bpe, cfg, model, rec["first_qa"][0], tag=31,
                 dims=cvdn_dims())
-    return launches
+    return launches, peak
 
 
 def phase_cli_mix(tmp, stage):
@@ -3818,6 +3862,383 @@ def phase_cli_mix(tmp, stage):
           f"{({t: {k: round(float(v), 2) for k, v in r.items()} for t, r in res.items()})}"
           f"; launches {launches}")
     return launches
+
+
+# ------------------------------------------- the pretrained path (33-35) --- #
+class RSSPeak(contextlib.AbstractContextManager):
+    """The process's resident set sampled every 20 ms while the block runs:
+    ``peak_gib`` above ``base_gib`` (the RSS on entry)."""
+
+    def __enter__(self):
+        self.base_gib = self.peak_gib = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> float:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE") / 2 ** 30
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak_gib = max(self.peak_gib, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gib = max(self.peak_gib, self._rss())
+
+
+def max_rss_gib() -> float:
+    """resource.getrusage's peak RSS of the process so far."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def write_pretrained(cfg, model, vic):
+    """Phase 33's checkpoint: the model's LLM as an HF-layout directory
+    (models/convert.save_vicuna: config.json with the BPE's base vocabulary,
+    ~5 GB safetensors shards and their index) with bpe_nav.json as its
+    tokenizer.json. Returns (bytes, shards, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = save_vicuna(vic, model.llm, cfg.llm, vocab_rows=BPE_VOCAB,
+                        shard_bytes=SHARD_BYTES)
+    shutil.copy(Path(L.__file__).with_name("bpe_nav.json"),
+                Path(vic) / "tokenizer.json")
+    (Path(vic) / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<s>",
+        "eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<PAD>",
+        "clean_up_tokenization_spaces": False}))
+    os.sync()
+    dt = time.perf_counter() - t0
+    return (index["metadata"]["total_size"],
+            len(set(index["weight_map"].values())), dt)
+
+
+def pretrained_yaml(root, feat):
+    path = Path(root) / "r2r.yaml"
+    path.write_text(run_yaml('{image_feat_size: %d, angle_feat_size: 4, '
+                             'feature_database: {"mp3d": "features.hdf5"}}'
+                             % feat))
+    return str(path)
+
+
+def phase_load(cfg, model, vic, tmp):
+    """Phase 33: the model's LLM written as an HF-layout checkpoint, then
+    read back through build_runner with the CLI's arguments
+    (--pretrained_model_name_or_path, bf16, --enable_og) on the card. Gates:
+    every loaded leaf equal to its source bit for bit (the embedding and
+    lm_head rows past the checkpoint's vocabulary equal to the numpy-f32
+    mean of its rows), the configuration equal to the source's but for the
+    vocabulary, and one forward_navigation step on phase 4's inputs through
+    K1 giving the source model's logits bit for bit. Returns K1's
+    launches."""
+    for p in model.parameters():       # earlier phases' gradients
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    nbytes, shards, write_s = write_pretrained(cfg, model, vic)
+    args, ycfg = read_args([
+        "--cfg_file", pretrained_yaml(tmp, cfg.pano.image_feat_size),
+        "--output_dir", f"{tmp}/load", "--pretrained_model_name_or_path",
+        vic, "--precision", "bf16", "--enable_og"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with RSSPeak() as rss:
+        t0 = time.perf_counter()
+        runner = TTL.build_runner(args, ycfg)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    dev_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    loaded = runner.model.llm
+    if runner.device.type != model.llm["embed"].device.type or \
+            runner.cfg.pano != cfg.pano or \
+            dataclasses.replace(runner.cfg.llm, vocab_size=cfg.llm.vocab_size
+                                ) != cfg.llm:
+        raise RuntimeError(f"[33] build_runner built {runner.cfg} on "
+                           f"{runner.device}, the source is {cfg}")
+    V, V2 = BPE_VOCAB, runner.cfg.llm.vocab_size
+    src = dict(model.llm.named_parameters())
+    for name, got in loaded.named_parameters():
+        want = src[name]
+        if name in ("embed", "lm_head"):
+            rows = want[:V] if name == "embed" else want[:, :V].t()
+            # the mean over the rows as the file holds them ([V, H], C
+            # order: numpy's summation order follows the layout)
+            mean = torch.from_numpy(rows.detach().float().contiguous()
+                                    .cpu().numpy().mean(axis=0))
+            ext = got[V:] if name == "embed" else got[:, V:].t()
+            got = got[:V] if name == "embed" else got[:, :V]
+            want = want[:V] if name == "embed" else want[:, :V]
+            if ext.shape[0] != V2 - V or not torch.equal(
+                    ext, mean.to(ext)[None].expand_as(ext)):
+                raise RuntimeError(f"[33] {name}'s rows {V}..{V2} are not "
+                                   f"the numpy-f32 mean of its {V} rows")
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise RuntimeError(f"[33] loaded {name} differs from its source")
+    # one navigation step, source and loaded, on the same inputs
+    vcfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, vocab_size=V))
+    dev = ab_batch(vcfg)
+    twin = NavModel(runner.cfg, {**{k: v for k, v in model.items()
+                                    if k != "llm"}, "llm": loaded})
+    flash_attention_fwd.launches = 0
+    with torch.inference_mode():
+        want = forward_navigation(model, cfg, dev)["fuse_logits"]
+        got = forward_navigation(twin, runner.cfg, dev)["fuse_logits"]
+    launches = flash_attention_fwd.launches
+    if launches != 2 * cfg.llm.num_layers:
+        raise RuntimeError(f"[33] K1 launches {launches} != 2 forwards x "
+                           f"{cfg.llm.num_layers} layers")
+    if not torch.isfinite(want).any() or not torch.equal(got, want):
+        raise RuntimeError("[33] the loaded model's logits differ from the "
+                           "source's")
+    print(f"[33] HF-layout checkpoint of the 7B-width LLM ({nbytes / 1e9:.3f}"
+          f" GB bf16 in {shards} safetensors shards of <= "
+          f"{SHARD_BYTES / 1e9:.0f} GB, vocabulary {V}) written in "
+          f"{write_s:.2f} s; loaded through build_runner (the CLI's "
+          f"--pretrained_model_name_or_path, tokenizer.json read in plain "
+          f"Python, vocabulary grown to {V2}) in {load_s:.2f} s: host RSS "
+          f"{rss.base_gib:.2f} GiB before, {rss.peak_gib:.2f} GiB peak "
+          f"during the load (+{rss.peak_gib - rss.base_gib:.2f} GiB; "
+          f"getrusage's peak of the process so far {max_rss_gib():.2f} GiB);"
+          f" device peak {dev_peak:.2f} GiB above the "
+          f"{base / 2 ** 30:.2f} GiB already held; every leaf equal to its "
+          f"source bit for bit, rows {V}..{V2 - 1} the numpy-f32 mean; "
+          f"forward_navigation's {int((want > NEG_INF / 2).sum())} "
+          f"candidate logits equal bit for bit through K1 ({launches} "
+          f"launches)")
+    del runner, twin, loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fwd": launches, "dkv": 0, "dq": 0}
+
+
+def moment_gate(w0):
+    """8-bit Adam against exact f32 AdamW on one 7B layer slice (a trained
+    w_gate[0], f32): MOMENT_STEPS steps of a noisy linear regression from
+    it; tests/test_optim8.py's closeness bound on the final losses. Returns
+    (initial, exact, 8-bit losses, ms per step exact and 8-bit)."""
+    dev = w0.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    h, o = w0.shape
+    target = w0 + 0.02 * torch.randn((h, o), generator=g, device=dev)
+    x = torch.randn((MOMENT_ROWS, h), generator=g, device=dev) \
+        * (40.0 / h ** 0.5)
+    y = x @ target
+
+    def loss(w):
+        return float(((x @ w - y) ** 2).mean())
+
+    def run(moments_8bit):
+        p = {"w": w0.clone()}
+        opt = make_optimizer(p, lr=MOMENT_LR, grad_clip_norm=1e9,
+                             moments_8bit=moments_8bit)
+        times = []
+        step = cuda_timed(opt.step, times)
+        for _ in range(MOMENT_STEPS):
+            r = x @ p["w"] - y
+            step({"w": (2.0 / r.numel()) * (x.t() @ r)})
+        return loss(p["w"]), 1e3 * sum(times[1:]) / (len(times) - 1)
+    (exact, exact_ms), (q8, q8_ms) = run(False), run(True)
+    first = loss(w0)
+    if not (q8 <= max(exact * 1.10, exact + 1e-4) and q8 < 0.1 * first):
+        raise RuntimeError(f"[34] 8-bit Adam on a 7B layer slice: loss "
+                           f"{first:.4e} -> {q8:.4e}, exact AdamW "
+                           f"{exact:.4e}")
+    return first, exact, q8, exact_ms, q8_ms
+
+
+def phase_pretrained_train(vic, tmp):
+    """Phase 34: python -m navillm_tpu_torch.train's main() from the
+    pretrained directory at stage multi, bf16, --adam_8bit: 4 batches of
+    TRAIN_BATCH over phase 32's R2R world (gradient accumulation 2: 2
+    optimizer steps; teacher and DAgger batches), validation and an
+    epoch_0 checkpoint (the torch backend). Gates: losses finite and below
+    MAX_LOSS, K1-K3 as the path implies, the 8-bit moments against exact
+    AdamW on one trained layer slice (moment_gate). Then eval_r2r.sh's
+    shape, --mode test --resume_from_checkpoint epoch_0 from the same
+    directory: the resumed tree equal to the trained one bit for bit, K1
+    once per layer of every step. Returns ({phase: launches}, the training
+    peak in GiB)."""
+    root = f"{tmp}/pre"
+    T.make_r2r_world(root, n_episodes=4 * TRAIN_BATCH, seed=22,
+                     split="train")
+    T.make_r2r_world(root, n_episodes=PRETRAINED_VAL_EPISODES, seed=23,
+                     split="val")
+    common = ["--cfg_file", pretrained_yaml(root, 1024), "--data_dir", root,
+              "--pretrained_model_name_or_path", vic, "--precision", "bf16",
+              "--stage", "multi", "--val_batch_size", str(N_SLOTS)]
+    rec = {"opt": [], "step_s": [], "batch_s": [], "losses": []}
+    saved = (TTL.make_optimizer, R2RAgent.train)
+
+    def make_opt(*a, **kw):
+        tx = saved[0](*a, **kw)
+        tx.step = cuda_timed(tx.step, rec["step_s"])
+        rec["opt"].append(tx)
+        return tx
+
+    def train(self, name, *a, **kw):
+        loss = cuda_timed(saved[1], rec["batch_s"])(self, name, *a, **kw)
+        rec["losses"].append(float(loss))
+        return loss
+    TTL.make_optimizer, R2RAgent.train = make_opt, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, runner, (avg_loss, norms), names, dt = cli_main(common + [
+            "--output_dir", f"{root}/out", "--adam_8bit", "--num_epochs",
+            "1", "--num_steps_per_epoch", "4", "--batch_size",
+            str(TRAIN_BATCH), "--gradient_accumulation_step", "2",
+            "--fused_rows_per_call", str(ROWS_PER_CALL),
+            "--max_saved_checkpoints", "1"])
+    finally:
+        TTL.make_optimizer, R2RAgent.train = saved
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    layers = runner.cfg.llm.num_layers
+    launches = check_launches(34, runner, layers)
+    tx, = rec["opt"]
+    if not isinstance(tx, AdamQ8):
+        raise RuntimeError(f"[34] --adam_8bit built {type(tx).__name__}")
+    q8_bytes = tx.moment_bytes()
+    scale_bytes = sum(t.numel() * t.element_size() for tree in (tx.ms, tx.vs)
+                      for t in tree.values())
+    adamw_bytes = 2 * sum(p.numel() * p.element_size()
+                          for p in tx.params.values())
+    norms = [float(n) for n in norms]
+    losses = rec["losses"]
+    if len(losses) != 4 or not all(math.isfinite(x) and 0 < x < MAX_LOSS
+                                   for x in losses) \
+            or len(norms) != 2 or not all(math.isfinite(n) and n > 0
+                                          for n in norms) \
+            or not runner.cached_steps or len(rec["step_s"]) != 2:
+        raise RuntimeError(f"[34] losses {losses}, gradient norms {norms}, "
+                           f"{runner.cached_steps} cached sampling steps, "
+                           f"{len(rec['step_s'])} optimizer steps")
+    r2r = res["R2R"]
+    if not all(math.isfinite(r2r[k]) for k in ("sr", "spl")):
+        raise RuntimeError(f"[34] SR/SPL not finite: {r2r}")
+    w0 = runner.model.llm["layers"]["w_gate"][0].detach().float().clone()
+    first, exact, q8, exact_ms, q8_ms = moment_gate(w0)
+    del w0
+    print(f"[34] main() from the pretrained directory (stage multi, bf16, "
+          f"--adam_8bit, gradient accumulation 2) in {dt:.3f} s: batches "
+          f"{names} in {[round(1e3 * s, 1) for s in rec['batch_s']]} ms, "
+          f"losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}; 8-bit optimizer step "
+          f"{[round(1e3 * s, 1) for s in rec['step_s']]} ms; moments "
+          f"{q8_bytes / 1e9:.3f} GB ({scale_bytes / 1e9:.3f} GB of f32 "
+          f"scales) against AdamW's {adamw_bytes / 1e9:.3f} GB (bf16 m and "
+          f"v); peak memory {peak:.2f} GiB; R2R "
+          f"{({k: round(float(v), 2) for k, v in r2r.items()})}; "
+          f"{runner.grad_calls} grad calls, {runner.cached_steps} cached "
+          f"sampling steps; launches {launches}")
+    print(f"[34] 8-bit moments on one 7B layer slice (w_gate[0], "
+          f"{tuple(tx.params['llm.layers.w_gate'].shape[1:])} f32, "
+          f"{MOMENT_STEPS} Adam steps of a linear regression): loss "
+          f"{first:.4e} -> {q8:.4e}, exact AdamW {exact:.4e} (bound "
+          f"{max(exact * 1.10, exact + 1e-4):.4e}); ms per step {q8_ms:.3f} "
+          f"8-bit, {exact_ms:.3f} exact")
+    # free the optimizer and the gradients before the second 7B tree
+    del tx, rec["opt"][:]
+    for p in runner.model.parameters():
+        p.grad = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    res2, runner2, _, _, dt2 = cli_main(common + [
+        "--output_dir", f"{root}/eval", "--mode", "test",
+        "--resume_from_checkpoint", f"{root}/out/epoch_0"])
+    resumed = check_launches(34, runner2, layers)
+    trained = dict(runner.model.named_parameters())
+    for name, p in runner2.model.named_parameters():
+        if p.dtype != trained[name].dtype or not torch.equal(p,
+                                                             trained[name]):
+            raise RuntimeError(f"[34] resumed {name} differs from the "
+                               f"trained one")
+    if not runner2.eval_steps or runner2.grad_calls or \
+            not all(math.isfinite(v) for v in res2["R2R"].values()):
+        raise RuntimeError(f"[34] the resumed evaluation: "
+                           f"{runner2.eval_steps} steps, "
+                           f"{runner2.grad_calls} grad calls, {res2}")
+    ckpt, = (p for p in Path(root, "out").glob("epoch_0.*")
+             if p.suffix != ".json")
+    print(f"[34] --mode test --resume_from_checkpoint epoch_0 ({ckpt.name}, "
+          f"{ckpt.stat().st_size / 1e9:.3f} GB) "
+          f"from the same directory in {dt2:.3f} s: the resumed tree equal "
+          f"to the trained one bit for bit; {runner2.eval_steps} steps, "
+          f"K1 {resumed['fwd']} = {runner2.eval_steps} x {layers}; R2R "
+          f"{({k: round(float(v), 2) for k, v in res2['R2R'].items()})}")
+    shutil.rmtree(f"{root}/out")
+    del runner, runner2, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"34": launches, "34_resume": resumed}, peak
+
+
+def phase_pretrained_int4(vic, tmp, tok, cfg, qmodel, w4):
+    """Phase 35: --mode test --quantize_llm --quant_bits 4 from the
+    pretrained directory (load_vicuna quantizes the loaded tree on the card
+    with quantize_host_llama): K4 = 7 x 32 per LLM pass and K1 once per
+    layer of it. The loaded int4 tree equals phase 9's (quantize_nav_params
+    of the same weights, the CPU tests hold the two quantizers equal) byte
+    for byte, on every row of the checkpoint's vocabulary; so phase 9's
+    evaluation replayed on it (phase 9's tokenizer, panorama and heads)
+    must give phase 9's trajectories. Returns ({phase: K1 launches},
+    {phase: K4 launches})."""
+    root = f"{tmp}/int4"
+    T.make_r2r_world(root, n_episodes=PRETRAINED_VAL_EPISODES, seed=23,
+                     split="val")
+    T.make_r2r_world(root, n_episodes=N_SLOTS, seed=22, split="train")
+    matmul_q4.launches = matmul_q4.int8_launches = 0
+    res, runner, _, _, dt = cli_main([
+        "--cfg_file", pretrained_yaml(root, 1024), "--data_dir", root,
+        "--pretrained_model_name_or_path", vic, "--precision", "bf16",
+        "--output_dir", f"{root}/out", "--mode", "test", "--quantize_llm",
+        "--quant_bits", "4", "--val_batch_size", str(N_SLOTS)])
+    layers = runner.cfg.llm.num_layers
+    fwd = check_launches(35, runner, layers)
+    passes = runner.eval_steps + runner.prefill_calls
+    q4 = matmul_q4.launches
+    if q4 != passes * layers * Q4_LAYER_MATMULS or not passes:
+        raise RuntimeError(f"[35] K4 launches {q4} != {passes} LLM passes x "
+                           f"{layers} x {Q4_LAYER_MATMULS}")
+    got = dict(runner.model.llm.named_parameters())
+    V = BPE_VOCAB
+    for name, want in qmodel.llm.named_parameters():
+        g = got[name]
+        if name.startswith("embed."):
+            g, want = g[:V], want[:V]
+        elif name.startswith("lm_head."):
+            g, want = g[..., :V], want[..., :V]
+        if g.dtype != want.dtype or not torch.equal(g, want):
+            raise RuntimeError(f"[35] the loaded int4 {name} differs from "
+                               f"phase 9's")
+    print(f"[35] --mode test --quantize_llm --quant_bits 4 from the "
+          f"pretrained directory in {dt:.3f} s: K4 {q4} = {passes} LLM "
+          f"passes x {layers} x {Q4_LAYER_MATMULS}, K1 {fwd['fwd']}; the "
+          f"int4 tree (quantize_host_llama on the card) equal to phase 9's "
+          f"(quantize_nav_params) byte for byte; R2R "
+          f"{({k: round(float(v), 2) for k, v in res['R2R'].items()})}")
+    cfg35 = dataclasses.replace(cfg, llm=runner.cfg.llm)
+    replay = NavModel(cfg35, {**{k: v for k, v in qmodel.items()
+                                 if k != "llm"}, "llm": runner.model.llm})
+    del runner
+    launches, trajs, _ = phase_q4_slice(35, tok, cfg35, replay, tmp, w4,
+                                        warm_up=False, dense_tag=9)
+    same = sum(trajs[k] == w4[k] for k in w4)
+    if same != len(w4):
+        raise RuntimeError(f"[35] {same} of {len(w4)} trajectories equal "
+                           f"phase 9's")
+    del replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"35": fwd}, {"35": q4, "35_replay": launches}
 
 
 def main():
@@ -3892,11 +4313,17 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         scanqa = phase_scanqa(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        mix_launches = phase_run_mix(bpe, cfg, model, tmp)
+        mix_launches, mix_peak = phase_run_mix(bpe, cfg, model, tmp)
     cli_mix = {}
     for stage in ("pretrain", "multi"):
         with tempfile.TemporaryDirectory() as tmp:
             cli_mix[stage] = phase_cli_mix(tmp, stage)
+    # the pretrained path: the model's LLM written as an HF-layout
+    # checkpoint and read back through build_runner; the directory serves
+    # phases 34 and 35 too
+    pre_dir = tempfile.TemporaryDirectory()
+    vic = f"{pre_dir.name}/vicuna"
+    load_launches = phase_load(cfg, model, vic, pre_dir.name)
     q4 = phase_q4_kernel()
     qmodel = quantize_model(cfg, model)
     # free the bf16 LLM: the phases' runners hold it in reference cycles
@@ -3934,6 +4361,17 @@ def main():
                        f"version", qmodel, c, plain)
     with tempfile.TemporaryDirectory() as tmp:
         eqa_w4, q4_decode = phase_eqa_w4(bpe, cfg, qmodel, tmp, eqa)
+    # the pretrained path's training (8-bit moments) and resume, then its
+    # int4 evaluation, after the bf16 model is gone
+    with tempfile.TemporaryDirectory() as tmp:
+        pre_launches, pre_peak = phase_pretrained_train(vic, tmp)
+    print(f"[34] training peak {pre_peak:.2f} GiB with 8-bit moments, "
+          f"against phase 31's {mix_peak:.2f} GiB with AdamW (6 tasks and "
+          f"the heads)")
+    with tempfile.TemporaryDirectory() as tmp:
+        int4_launches, int4_q4 = phase_pretrained_int4(vic, tmp, tok, cfg,
+                                                       qmodel, w4)
+    pre_dir.cleanup()
     # K1 at the eval slice's widest prompts (B=4, T=1024), K2/K3 at the
     # training slice's (B=16, T=1024), K4 at the w_gate shape with 4 slots
     # of 1024 tokens (w4); launches from the measured runs of phases 6
@@ -3954,7 +4392,10 @@ def main():
                 "29": cvdn[0]["launches"][key],
                 "29_cached": cvdn[1]["launches"][key],
                 "30": scanqa["launches"][key], "31": mix_launches[key],
-                **{f"32_{st}": cli_mix[st][key] for st in cli_mix}}
+                **{f"32_{st}": cli_mix[st][key] for st in cli_mix},
+                "33": load_launches[key],
+                **{ph: n[key] for ph, n in pre_launches.items()},
+                **{ph: n[key] for ph, n in int4_launches.items()}}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
              "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],
@@ -3968,7 +4409,8 @@ def main():
                                 "and delta in one call)"})
     rows.append({**KERNELS["q4"], "launches": launches["q4"],
                  "launches_by_phase": {"9": launches["q4"],
-                                       "25": eqa_w4["q4_launches"]},
+                                       "25": eqa_w4["q4_launches"],
+                                       **int4_q4},
                  **q4[(4096, 4096, 11008, "w4")],
                  "max_abs_err": max(r["max_abs_err"] for r in
                                     [*q4.values(), *q4_decode.values()]),

@@ -144,9 +144,11 @@ def init_pano_params(cfg: PanoConfig, generator, device=None):
 
 
 def init_nav_params(cfg: NavModelConfig, generator: torch.Generator,
-                    device: Optional[torch.device] = None) -> Dict[str, Any]:
+                    device: Optional[torch.device] = None,
+                    llm: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Random navigation parameters on ``device`` (default: the card; the
-    generator must live on the same device)."""
+    generator must live on the same device). ``llm``, a loaded LLM tree,
+    takes the LLM's place and none is drawn."""
     device = target_device(device)
     h, a = cfg.hidden_size, cfg.angle_feat_size
     init = _Init(generator, device, cfg.llm.dtype)
@@ -156,7 +158,8 @@ def init_nav_params(cfg: NavModelConfig, generator: torch.Generator,
                 "ln_b": init.const((h,), 0.0)}
 
     return {
-        "llm": init_llama_params(cfg.llm, generator, device),
+        "llm": llm if llm is not None
+        else init_llama_params(cfg.llm, generator, device),
         "pano": init_pano_params(cfg.pano, generator, device),
         "token_type_emb": init.normal((cfg.type_vocab_size, h), 0.02),
         "gmap_pos": mlp_ln(a + 3),

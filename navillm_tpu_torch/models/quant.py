@@ -133,6 +133,26 @@ def quantize_llama_params(params, bits: int = 8) -> Dict[str, Any]:
             "lm_head": _quant_weight(params["lm_head"])}
 
 
+@torch.no_grad()
+def quantize_host_llama(params: Dict[str, Any],
+                        bits: int = 8) -> Dict[str, Any]:
+    """The twin of the JAX package's quantize_host_llama, the path after a
+    checkpoint conversion (models/convert.py:load_vicuna): quantizes a
+    dense LLM tree of nested dicts in place, on whatever device it lives,
+    with quantize_llama_params's formats and rounding. Each dense weight
+    is dropped as soon as its quantized form exists, so the peak is the
+    tree and one weight (one layer's f32 transient)."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    qw = _quant_weight4 if bits == 4 else _quant_weight
+    layers = params["layers"]
+    for k in _QUANT_KEYS:
+        layers[k] = qw(layers.pop(k))
+    params["embed"] = _quant_embed(params.pop("embed"))
+    params["lm_head"] = _quant_weight(params.pop("lm_head"))
+    return params
+
+
 def quantize_nav_params(params, bits: int = 8) -> Dict[str, Any]:
     """Quantize only the LLM subtree of a navigation tree; the panorama
     encoder and heads stay as they are (shared, not copied)."""

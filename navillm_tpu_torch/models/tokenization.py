@@ -1,9 +1,10 @@
-"""Tokenizer adapter: the hermetic byte tokenizer and the vendored BPE.
+"""Tokenizer adapter: the hermetic byte tokenizer, the vendored BPE and HF
+fast-tokenizer directories.
 
-The port's copy of ``TokenBatch``, ``ByteTokenizer``, ``BPETokenizer`` and
-``NavTokenizer`` from navillm_tpu/models/tokenization.py, with the same
-names, ids and masks. It keeps the reference's tokenizer contract
-(models/modified_lm.py:56-87):
+The port's copy of ``TokenBatch``, ``ByteTokenizer``, ``BPETokenizer``,
+``HFTokenizer`` and ``NavTokenizer`` from navillm_tpu/models/tokenization.py,
+with the same names, ids and masks. It keeps the reference's tokenizer
+contract (models/modified_lm.py:56-87):
   - special tokens `<cand> <hist> <obj> <cls_1> <cls_2>` (+ `<PAD>`),
   - left padding and left truncation at max_length=1024,
   - pair encoding [prompt, answer] with token_type_ids 0/1 used for
@@ -12,20 +13,26 @@ Batches pad to a bucketed static length (a multiple of
 ``pad_to_multiple``), and the embedding table is sized up to a multiple
 of 128 (ids >= the true vocab are masked in the logits).
 
-``BPETokenizer`` reads the port's own copy of ``bpe_nav.json`` and
-encodes it in plain Python, without the ``tokenizers`` package (which the
-card's machine lacks): the byte-level BPE of that file, with the GPT-2
-split written out over ``str``. The HF Llama tokenizer needs
-``transformers``, so ``NavTokenizer.from_pretrained`` raises.
+``TokenizerFile`` reads a fast-tokenizer ``tokenizer.json`` and runs it in
+plain Python, without the ``tokenizers`` or ``transformers`` packages (the
+card's machine has neither): the byte-level layout of ``bpe_nav.json``
+(``BPETokenizer``, the GPT-2 split written out over ``str``), the Llama
+layouts (byte-fallback BPE under the legacy ``Prepend``/``Replace``
+normalizer or the ``Metaspace`` pre-tokenizer) and the ``Whitespace`` one.
+``NavTokenizer.from_pretrained`` reads such a directory through
+``HFTokenizer``; a directory with only a sentencepiece ``tokenizer.model``
+raises (ROADMAP A13).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import heapq
 import json
 import os
 import re
 import unicodedata
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -180,117 +187,500 @@ def gpt2_split(text: str) -> List[str]:
     return out
 
 
-class BPETokenizer:
-    """The vendored byte-level BPE (the JAX package's ``BPETokenizer``),
-    in plain Python.
+def _whitespace_split(text: str) -> List[str]:
+    """The Whitespace pre-tokenizer's split: the matches of
+    ``\\w+|[^\\w\\s]+``, where \\w is a letter, a mark, a decimal digit or
+    a connector (Oniguruma's Unicode word class) and \\s White_Space."""
+    out, run, kind = [], [], None
+    for c in text:
+        if c.isspace() and c not in _NOT_WS:
+            k = None
+        else:
+            cat = unicodedata.category(c)
+            k = "w" if cat[0] in "LM" or cat in ("Nd", "Pc") else "p"
+        if k != kind and run:
+            out.append("".join(run))
+            run = []
+        if k is not None:
+            run.append(c)
+        kind = k
+    if run:
+        out.append("".join(run))
+    return out
+
+
+def _metaspace_split(text: str, rep: str) -> List[str]:
+    """Split before every ``rep`` (the delimiter merged with what follows)."""
+    out, start = [], 0
+    for i, c in enumerate(text):
+        if c == rep and i > start:
+            out.append(text[start:i])
+            start = i
+    if start < len(text):
+        out.append(text[start:])
+    return out
+
+
+def _string_pattern(spec: dict, where: str) -> str:
+    pat = spec["pattern"]
+    if "String" not in pat:
+        raise ValueError(f"{where}: only string patterns are read, got {pat}")
+    return pat["String"]
+
+
+class TokenizerFile:
+    """A fast-tokenizer file (``tokenizer.json``) with a BPE model, read and
+    run in plain Python, as the ``tokenizers`` package runs it.
+
+    The parts it reads (anything else raises ValueError):
+      - normalizer: none, or ``Prepend`` / ``Replace`` (string pattern) /
+        a ``Sequence`` of them (the legacy Llama layout);
+      - pre-tokenizer: none, ``ByteLevel`` (GPT-2 split, no prefix space),
+        ``Whitespace``, or ``Metaspace`` (``prepend_scheme`` always /
+        first / never, ``split``);
+      - model: ``BPE`` without dropout or subword affixes, with
+        ``byte_fallback`` (``<0x00>``..``<0xFF>`` vocabulary entries),
+        ``fuse_unk``, ``unk_token`` and ``ignore_merges``;
+      - decoder: none (tokens joined by a space), ``ByteLevel``, or
+        ``Replace`` / ``ByteFallback`` / ``Fuse`` / ``Strip`` / a
+        ``Sequence`` of them.
+
+    Encoding: the added tokens are split out of the raw text first
+    (leftmost-longest); each other segment is normalized, pre-tokenized
+    (``Metaspace`` with ``first`` prepends only to a segment at the start of
+    the text) and every piece merged by rank, lowest first and leftmost on a
+    tie, as the library's priority queue does. Decoding drops the added
+    tokens flagged special when asked, then runs the decoder.
+    """
+
+    def __init__(self, json_path):
+        with open(json_path, encoding="utf-8") as f:
+            spec = json.load(f)
+        where = str(json_path)
+        model = spec["model"]
+        if model.get("type") != "BPE" or model.get("dropout") \
+                or model.get("continuing_subword_prefix") \
+                or model.get("end_of_word_suffix"):
+            raise ValueError(f"{where}: not a BPE model this reader runs "
+                             f"(no dropout, no subword affixes)")
+        self.vocab: Dict[str, int] = dict(model["vocab"])
+        self.ranks = {}
+        for r, m in enumerate(model["merges"]):
+            pair = tuple(m.split(" ", 1) if isinstance(m, str) else m)
+            self.ranks[pair] = (r, pair[0] + pair[1])
+        self.unk_token = model.get("unk_token")
+        self.byte_fallback = bool(model.get("byte_fallback"))
+        self.fuse_unk = bool(model.get("fuse_unk"))
+        self.ignore_merges = bool(model.get("ignore_merges"))
+        self._normalize = self._normalizer(spec.get("normalizer"), where)
+        self._pre = self._pre_tokenizer(spec.get("pre_tokenizer"), where)
+        self._decoders = self._decoder(spec.get("decoder"), where)
+        # added tokens: content -> (id, special, normalized)
+        self.added: Dict[str, Tuple[int, bool, bool]] = {}
+        for t in spec.get("added_tokens", []):
+            if t.get("lstrip") or t.get("rstrip") or t.get("single_word"):
+                raise ValueError(f"{where}: added token {t['content']!r} "
+                                 f"strips or matches single words, which "
+                                 f"this reader does not do")
+            self.added[t["content"]] = (t["id"], bool(t.get("special")),
+                                        bool(t.get("normalized")))
+        self._byte_enc = bytes_to_unicode()
+        self._byte_dec = {c: b for b, c in self._byte_enc.items()}
+        self._piece_ids = functools.lru_cache(maxsize=65536)(self._bpe)
+        self._refresh()
+
+    # ------------------------------------------------------------ parts
+    @staticmethod
+    def _normalizer(spec, where):
+        if spec is None:
+            return None
+        parts = spec["normalizers"] if spec["type"] == "Sequence" else [spec]
+        steps = []
+        for p in parts:
+            if p["type"] == "Prepend":
+                pre = p["prepend"]
+                steps.append(lambda s, pre=pre: pre + s if s else s)
+            elif p["type"] == "Replace":
+                old = _string_pattern(p, where)
+                steps.append(lambda s, old=old, new=p["content"]:
+                             s.replace(old, new))
+            else:
+                raise ValueError(f"{where}: normalizer {p['type']} is not "
+                                 f"read (Prepend, Replace, Sequence)")
+
+        def normalize(s):
+            for step in steps:
+                s = step(s)
+            return s
+        return normalize
+
+    def _pre_tokenizer(self, spec, where):
+        if spec is None:
+            return lambda s, at_start: [s]
+        kind = spec["type"]
+        if kind == "ByteLevel":
+            if spec.get("add_prefix_space") or not spec.get("use_regex",
+                                                            True):
+                raise ValueError(f"{where}: ByteLevel is read with the "
+                                 f"GPT-2 split and no prefix space only")
+            return lambda s, at_start: [
+                "".join(self._byte_enc[b] for b in piece.encode("utf-8"))
+                for piece in gpt2_split(s)]
+        if kind == "Whitespace":
+            return lambda s, at_start: _whitespace_split(s)
+        if kind == "Metaspace":
+            rep = spec.get("replacement", "▁")
+            scheme = spec.get("prepend_scheme") or (
+                "always" if spec.get("add_prefix_space", True) else "never")
+            split = spec.get("split", True)
+
+            def metaspace(s, at_start):
+                s = s.replace(" ", rep)
+                if not s.startswith(rep) and (
+                        scheme == "always" or (scheme == "first"
+                                               and at_start)):
+                    s = rep + s
+                return _metaspace_split(s, rep) if split else [s]
+            return metaspace
+        raise ValueError(f"{where}: pre-tokenizer {kind} is not read "
+                         f"(ByteLevel, Whitespace, Metaspace)")
+
+    def _decoder(self, spec, where):
+        """The decoder as a chain of steps over the token strings."""
+        if spec is None:
+            return None
+        parts = spec["decoders"] if spec["type"] == "Sequence" else [spec]
+        steps = []
+        for p in parts:
+            kind = p["type"]
+            if kind == "ByteLevel":
+                steps.append(self._byte_level_decode)
+            elif kind == "Replace":
+                old = _string_pattern(p, where)
+                steps.append(lambda toks, old=old, new=p["content"]:
+                             [t.replace(old, new) for t in toks])
+            elif kind == "ByteFallback":
+                steps.append(_byte_fallback_decode)
+            elif kind == "Fuse":
+                steps.append(lambda toks: ["".join(toks)])
+            elif kind == "Strip":
+                steps.append(lambda toks, c=p["content"], a=p["start"],
+                             b=p["stop"]: [_strip(t, c, a, b) for t in toks])
+            else:
+                raise ValueError(f"{where}: decoder {kind} is not read "
+                                 f"(ByteLevel, Replace, ByteFallback, Fuse, "
+                                 f"Strip, Sequence)")
+        return steps
+
+    # --------------------------------------------------------- vocabulary
+    def _refresh(self):
+        self._id_to_token = {i: t for t, i in self.vocab.items()}
+        self._id_to_token.update({i: t for t, (i, _, _) in
+                                  self.added.items()})
+        self._special_ids = {i for i, s, _ in self.added.values() if s}
+
+        def matcher(normalized):
+            toks = sorted((t for t, (_, _, n) in self.added.items()
+                           if n == normalized), key=len, reverse=True)
+            return re.compile("|".join(map(re.escape, toks))) if toks \
+                else None
+        self._raw_re, self._norm_re = matcher(False), matcher(True)
+
+    def __len__(self) -> int:
+        return len(set(self.vocab) | set(self.added))
+
+    def token_to_id(self, tok: str) -> Optional[int]:
+        if tok in self.added:
+            return self.added[tok][0]
+        return self.vocab.get(tok)
+
+    def add_special_tokens(self, tokens: Sequence[str]):
+        """Add ``tokens`` as special added tokens (never normalized or split),
+        as the library does: a token already known keeps its id, a new one
+        takes the next, which is the model's vocabulary size unless an added
+        id already reaches past it."""
+        for tok in tokens:
+            tid = self.token_to_id(tok)
+            if tid is None:
+                n = len(self.vocab)
+                top = max((i for i, _, _ in self.added.values()), default=None)
+                tid = n if top is None or (n and top < n) else top + 1
+            self.added[tok] = (tid, True, False)
+        self._refresh()
+
+    # ------------------------------------------------------------- encode
+    def _symbols(self, word: str) -> List[str]:
+        """The word's characters as vocabulary entries: a missing one is
+        its UTF-8 bytes' ``<0xNN>`` entries (byte_fallback) or the unk
+        token (consecutive ones fused under fuse_unk)."""
+        out: List[str] = []
+        unk = None          # a pending run of unknown characters
+        for c in word:
+            if c in self.vocab:
+                if unk is not None:
+                    out.append(self.unk_token)
+                    unk = None
+                out.append(c)
+                continue
+            if self.byte_fallback:
+                codes = [f"<0x{b:02X}>" for b in c.encode("utf-8")]
+                if all(t in self.vocab for t in codes):
+                    out.extend(codes)
+                    continue
+            if self.unk_token is None:
+                raise ValueError(f"{c!r} is not in the vocabulary and the "
+                                 f"model has no unk token")
+            if unk is not None and not self.fuse_unk:
+                out.append(self.unk_token)
+            unk = True
+        if unk is not None:
+            out.append(self.unk_token)
+        return out
+
+    def _bpe(self, word: str) -> Tuple[int, ...]:
+        """Ids of one pre-token: its symbols merged by rank (lowest first,
+        leftmost on a tie, as a priority queue of (rank, position))."""
+        if not word:
+            return ()
+        if self.ignore_merges and word in self.vocab:
+            return (self.vocab[word],)
+        sym = self._symbols(word)
+        n = len(sym)
+        nxt = list(range(1, n + 1))
+        prv = list(range(-1, n - 1))
+        alive = [True] * n
+        ranks = self.ranks
+        heap = []
+        for i in range(n - 1):
+            m = ranks.get((sym[i], sym[i + 1]))
+            if m is not None:
+                heap.append((m[0], i, m[1]))
+        heapq.heapify(heap)
+        while heap:
+            _, i, new = heapq.heappop(heap)
+            j = nxt[i]
+            if not alive[i] or j >= n:
+                continue
+            m = ranks.get((sym[i], sym[j]))
+            if m is None or m[1] != new:
+                continue                       # a stale entry
+            sym[i] = new
+            alive[j] = False
+            nxt[i] = nxt[j]
+            if nxt[j] < n:
+                prv[nxt[j]] = i
+            if prv[i] >= 0:
+                m = ranks.get((sym[prv[i]], new))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], prv[i], m[1]))
+            if nxt[i] < n:
+                m = ranks.get((new, sym[nxt[i]]))
+                if m is not None:
+                    heapq.heappush(heap, (m[0], i, m[1]))
+        vocab = self.vocab
+        return tuple(vocab[s] for s, a in zip(sym, alive) if a)
+
+    def _encode_segment(self, text: str, at_start: bool, out: List[int]):
+        if self._normalize is not None:
+            text = self._normalize(text)
+        for seg, added in self._split(self._norm_re, text):
+            if added:
+                out.append(self.added[seg][0])
+                continue
+            for piece in self._pre(seg, at_start):
+                out.extend(self._piece_ids(piece))
+
+    @staticmethod
+    def _split(pattern, text: str):
+        """(segment, is an added token) over ``text``, split on the added
+        tokens ``pattern`` matches (longest first at each position)."""
+        pos = 0
+        if pattern is not None:
+            for m in pattern.finditer(text):
+                if m.start() > pos:
+                    yield text[pos:m.start()], False
+                yield m.group(), True
+                pos = m.end()
+        if pos < len(text):
+            yield text[pos:], False
+
+    def encode(self, text: str) -> List[int]:
+        ids: List[int] = []
+        pos = 0
+        for seg, added in self._split(self._raw_re, text):
+            if added:
+                ids.append(self.added[seg][0])
+            else:
+                self._encode_segment(seg, pos == 0, ids)
+            pos += len(seg)
+        return ids
+
+    # ------------------------------------------------------------- decode
+    def _byte_level_decode(self, toks: List[str]) -> List[str]:
+        out = bytearray()
+        for tok in toks:
+            if all(c in self._byte_dec for c in tok):
+                out.extend(self._byte_dec[c] for c in tok)
+            else:
+                out.extend(tok.encode("utf-8"))
+        return [out.decode("utf-8", errors="replace")]
+
+    def decode(self, ids: Sequence[int], skip_special_tokens=True) -> str:
+        toks = []
+        for t in ids:
+            t = int(t)
+            if t not in self._id_to_token or (skip_special_tokens
+                                              and t in self._special_ids):
+                continue
+            toks.append(self._id_to_token[t])
+        if self._decoders is None:
+            return " ".join(toks)
+        for step in self._decoders:
+            toks = step(toks)
+        return "".join(toks)
+
+
+def _byte_fallback_decode(toks: List[str]) -> List[str]:
+    """Runs of ``<0xNN>`` tokens become their UTF-8 text (or one U+FFFD per
+    byte when the run is not valid UTF-8)."""
+    out, run = [], bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("�" for _ in run)
+            run.clear()
+    for t in toks:
+        if len(t) == 6 and t.startswith("<0x") and t.endswith(">"):
+            try:
+                run.append(int(t[3:5], 16))
+                continue
+            except ValueError:
+                pass
+        flush()
+        out.append(t)
+    flush()
+    return out
+
+
+def _strip(tok: str, c: str, start: int, stop: int) -> str:
+    a = 0
+    while a < min(start, len(tok)) and tok[a] == c:
+        a += 1
+    b = len(tok)
+    while len(tok) - b < stop and b > a and tok[b - 1] == c:
+        b -= 1
+    return tok[a:b]
+
+
+class BPETokenizer(TokenizerFile):
+    """The vendored byte-level BPE (the JAX package's ``BPETokenizer``), in
+    plain Python.
 
     The file (``bpe_nav.json``: 1016 vocab entries, 751 merges, 9 added
     tokens) has no normalizer, a ByteLevel pre-tokenizer (GPT-2 split, no
-    prefix space) and a BPE model without dropout or unk. Encoding: the
-    added tokens are split out of the text first, literally (longest
-    first; they are never normalized or split); every other segment is
-    split by ``gpt2_split``, each piece's UTF-8 bytes are mapped through
-    ``bytes_to_unicode`` and merged by rank (lowest first), with a
-    per-piece cache. Decoding maps the tokens' characters back to bytes
-    (lossy UTF-8, as the ByteLevel decoder) and skips the special ids
-    when asked.
-
-    Id layout comes from the file: <unk>=0 <s>=1 </s>=2 <PAD>=3, the 5
-    schema specials, then the byte alphabet and the merges.
+    prefix space) and a BPE model without dropout or unk. Id layout comes
+    from the file: <unk>=0 <s>=1 </s>=2 <PAD>=3, the 5 schema specials,
+    then the byte alphabet and the merges.
     """
 
     def __init__(self, json_path: Optional[str] = None):
         if json_path is None:
             json_path = os.path.join(os.path.dirname(__file__),
                                      "bpe_nav.json")
-        with open(json_path, encoding="utf-8") as f:
-            spec = json.load(f)
-        model = spec["model"]
-        if model.get("type") != "BPE" or model.get("dropout") \
-                or spec["pre_tokenizer"].get("type") != "ByteLevel" \
-                or spec["pre_tokenizer"].get("add_prefix_space") \
-                or spec.get("normalizer") is not None:
-            raise ValueError(f"{json_path}: not the byte-level BPE layout "
-                             f"this tokenizer implements")
-        self.vocab: Dict[str, int] = dict(model["vocab"])
-        self.ranks = {tuple(m.split(" ") if isinstance(m, str) else m): r
-                      for r, m in enumerate(model["merges"])}
-        self.added = {t["content"]: t["id"] for t in spec["added_tokens"]}
-        self._special_ids = {t["id"] for t in spec["added_tokens"]
-                             if t.get("special")}
-        self._id_to_token = {i: t for t, i in self.vocab.items()}
-        self._id_to_token.update({i: t for t, i in self.added.items()})
-        self._byte_enc = bytes_to_unicode()
-        self._byte_dec = {c: b for b, c in self._byte_enc.items()}
-        self._added_re = re.compile("|".join(
-            re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
-        self._piece_ids = functools.lru_cache(maxsize=65536)(self._bpe)
-
+        super().__init__(json_path)
         tid = self.token_to_id
         self.unk_id, self.bos_id = tid("<unk>"), tid("<s>")
         self.eos_id, self.pad_id = tid("</s>"), tid("<PAD>")
         self._special = {t: tid(t) for t in SPECIAL_TOKENS}
         self._special.update({"<s>": self.bos_id, "</s>": self.eos_id,
                               "<PAD>": self.pad_id})
-        self.true_vocab_size = len(self._id_to_token)
+        self.true_vocab_size = len(self)
         self.bos_token, self.eos_token, self.pad_token = "<s>", "</s>", "<PAD>"
-
-    def token_to_id(self, tok: str) -> int:
-        return self.added[tok] if tok in self.added else self.vocab[tok]
-
-    def _bpe(self, piece: str) -> Tuple[int, ...]:
-        """Ids of one pre-token: its byte characters merged by rank."""
-        word = [self._byte_enc[b] for b in piece.encode("utf-8")]
-        ranks = self.ranks
-        while len(word) > 1:
-            best = min(range(len(word) - 1),
-                       key=lambda j: ranks.get((word[j], word[j + 1]),
-                                               len(ranks)))
-            pair = (word[best], word[best + 1])
-            if pair not in ranks:
-                break
-            merged, j = [], 0
-            while j < len(word):
-                if j < len(word) - 1 and (word[j], word[j + 1]) == pair:
-                    merged.append(pair[0] + pair[1])
-                    j += 2
-                else:
-                    merged.append(word[j])
-                    j += 1
-            word = merged
-        return tuple(self.vocab[t] for t in word)
-
-    def _encode_segment(self, text: str, out: List[int]):
-        for piece in gpt2_split(text):
-            out.extend(self._piece_ids(piece))
-
-    def encode(self, text: str) -> List[int]:
-        ids: List[int] = []
-        pos = 0
-        for m in self._added_re.finditer(text):
-            if m.start() > pos:
-                self._encode_segment(text[pos:m.start()], ids)
-            ids.append(self.added[m.group()])
-            pos = m.end()
-        if pos < len(text):
-            self._encode_segment(text[pos:], ids)
-        return ids
-
-    def decode(self, ids: Sequence[int], skip_special_tokens=True) -> str:
-        out = bytearray()
-        for t in ids:
-            t = int(t)
-            if skip_special_tokens and t in self._special_ids:
-                continue
-            tok = self._id_to_token[t]
-            if all(c in self._byte_dec for c in tok):
-                out.extend(self._byte_dec[c] for c in tok)
-            else:
-                out.extend(tok.encode("utf-8"))
-        return out.decode("utf-8", errors="replace")
 
     def special_token_id(self, tok: str) -> int:
         return self._special[tok]
+
+
+# the special-token attributes of tokenizer_config.json, in transformers'
+# order (its tokenizer adds those not yet added tokens at load time)
+_SPECIAL_ATTRS = ("bos_token", "eos_token", "unk_token", "sep_token",
+                  "pad_token", "cls_token", "mask_token")
+_LLAMA_CLASSES = ("LlamaTokenizer", "LlamaTokenizerFast")
+
+
+def _token_content(tok) -> Optional[str]:
+    return tok.get("content") if isinstance(tok, dict) else tok
+
+
+class HFTokenizer:
+    """An HF fast-tokenizer directory (``tokenizer.json`` and
+    ``tokenizer_config.json``) with the schema special tokens: the port's
+    twin of the JAX package's ``HFTokenizer``, which loads the same
+    directory through ``transformers.AutoTokenizer`` (use_fast, left
+    padding and truncation).
+
+    As that does: the config's special tokens (bos, eos, unk, pad, ...) not
+    yet added tokens are added as special ones; ``SPECIAL_TOKENS`` are added
+    as additional special tokens (a token already in the vocabulary keeps
+    its id, a new one takes the next); ``<PAD>`` is added when the config
+    names no pad token. ``unk_id`` falls back to ``pad_id`` when there is no
+    unk token; ``true_vocab_size`` counts the added tokens. ``encode`` adds
+    no special tokens; ``decode`` drops the special ones when asked and does
+    not clean up spaces.
+    """
+
+    def __init__(self, pretrained_model_name_or_path):
+        path = Path(pretrained_model_name_or_path)
+        if not (path / "tokenizer.json").exists():
+            if (path / "tokenizer.model").exists():
+                raise NotImplementedError(
+                    f"{path} holds a sentencepiece tokenizer.model and no "
+                    f"tokenizer.json: reading tokenizer.model is not ported "
+                    f"(ROADMAP A13); convert it to tokenizer.json first")
+            raise FileNotFoundError(f"no tokenizer.json in {path}")
+        conf: Dict[str, object] = {}
+        for name in ("special_tokens_map.json", "tokenizer_config.json"):
+            if (path / name).exists():
+                conf.update(json.loads((path / name).read_text()))
+        if conf.get("tokenizer_class") in _LLAMA_CLASSES:
+            for k, v in (("bos_token", "<s>"), ("eos_token", "</s>"),
+                         ("unk_token", "<unk>")):
+                conf.setdefault(k, v)
+        named = {k: _token_content(conf.get(k)) for k in _SPECIAL_ATTRS}
+        extra = [_token_content(t) for t in
+                 conf.get("additional_special_tokens") or []]
+        self.tok = TokenizerFile(path / "tokenizer.json")
+        self.tok.add_special_tokens([
+            t for t in [*named.values(), *extra]
+            if t is not None and t not in self.tok.added])
+        self.tok.add_special_tokens(SPECIAL_TOKENS)
+        if named["pad_token"] is None:
+            self.tok.add_special_tokens(["<PAD>"])
+            named["pad_token"] = "<PAD>"
+
+        def tid(tok):
+            return None if tok is None else self.tok.token_to_id(tok)
+        self.bos_id = tid(named["bos_token"])
+        self.eos_id = tid(named["eos_token"])
+        self.pad_id = tid(named["pad_token"])
+        unk = tid(named["unk_token"])
+        self.unk_id = unk if unk is not None else self.pad_id
+        self.true_vocab_size = len(self.tok)
+        self.bos_token = named["bos_token"]
+        self.eos_token = named["eos_token"]
+        self.pad_token = named["pad_token"]
+
+    def encode(self, text: str) -> List[int]:
+        return self.tok.encode(text)
+
+    def decode(self, ids, skip_special_tokens=True) -> str:
+        return self.tok.decode(ids, skip_special_tokens=skip_special_tokens)
+
+    def special_token_id(self, tok: str) -> int:
+        return self.tok.token_to_id(tok)
 
 
 class NavTokenizer:
@@ -301,7 +691,8 @@ class NavTokenizer:
     _ENCODE_CACHE_MAX_CHARS = 4096
 
     def __init__(self,
-                 backend: Union[ByteTokenizer, BPETokenizer, None] = None,
+                 backend: Union[ByteTokenizer, BPETokenizer, HFTokenizer,
+                                None] = None,
                  max_length: int = 1024, pad_to_multiple: int = 64):
         self.backend = backend or ByteTokenizer()
         self.max_length = max_length
@@ -326,10 +717,9 @@ class NavTokenizer:
 
     @classmethod
     def from_pretrained(cls, path: str, **kw) -> "NavTokenizer":
-        raise NotImplementedError(
-            "NavTokenizer.from_pretrained needs the HF tokenizer "
-            "(transformers), which the port does not have yet; use the byte "
-            "tokenizer, NavTokenizer()")
+        """An HF fast-tokenizer directory (``tokenizer.json``), read by
+        HFTokenizer."""
+        return cls(HFTokenizer(path), **kw)
 
     @classmethod
     def bpe(cls, json_path: Optional[str] = None, **kw) -> "NavTokenizer":

@@ -1,4 +1,4 @@
-"""Checkpointing: save and restore the model's parameters and AdamW state.
+"""Checkpointing: save and restore the model's parameters and optimizer state.
 
 Twin of navillm_tpu/training/checkpoints.py (reference tools/optims.py:
 7-32, 65-78): a checkpoint holds {params [, optimizer state, epoch]};
@@ -9,10 +9,12 @@ saved epoch + 1.
 Every tensor is stored under the JAX package's flat key: ``params/`` + the
 parameter's path with "/" for "." (``params/llm/layers/wq``), and the
 optimizer state under the flat names of the optax state that
-``make_optimizer`` builds (chain(clip_by_global_norm, adamw)):
-``opt/1/0/.count``, ``opt/1/0/.mu/<path>``, ``opt/1/0/.nu/<path>`` and
-the schedule's ``opt/1/2/.count``. So a checkpoint one package writes
-restores into the other, AdamW moments and step count included.
+``make_optimizer`` builds (chain(clip_by_global_norm, chain(moment store,
+add_decayed_weights, scale_by_learning_rate))): ``opt/1/0/.count``, the
+moment store's fields ``opt/1/0/.<field>/<path>`` (AdamW's ``mu`` and
+``nu``; the 8-bit store's ``qm``, ``ms``, ``qv`` and ``vs``) and the
+schedule's ``opt/1/2/.count``. So a checkpoint one package writes restores
+into the other, moments and step count included.
 
 Backends, behind one API, each written to a temporary file renamed into
 place, beside a JSON header {"epoch", "backend", "has_opt"}:
@@ -35,10 +37,10 @@ import torch
 
 SEP = "/"
 TORCH_THRESHOLD_BYTES = 1 << 30
-# optax's chain(clip_by_global_norm, adamw(schedule)) state, flattened
+# optax's chain(clip_by_global_norm, adamw(schedule)) state, flattened (the
+# moment store's fields are under OPT_STATE + field)
 OPT_COUNT = "opt/1/0/.count"
-OPT_MU = "opt/1/0/.mu"
-OPT_NU = "opt/1/0/.nu"
+OPT_STATE = "opt/1/0/."
 OPT_SCHEDULE_COUNT = "opt/1/2/.count"
 SUFFIXES = (".npz", ".pt", ".json")
 
@@ -61,9 +63,9 @@ def flat_state(params, opt_state=None) -> Dict[str, torch.Tensor]:
     if opt_state is not None:
         count = torch.tensor(opt_state.count, dtype=torch.int32)
         flat[OPT_COUNT] = flat[OPT_SCHEDULE_COUNT] = count
-        for prefix, moments in ((OPT_MU, opt_state.mu),
-                                (OPT_NU, opt_state.nu)):
-            flat.update({_key(prefix, n): m for n, m in moments.items()})
+        for field, tree in opt_state.state_trees().items():
+            flat.update({_key(OPT_STATE + field, n): m
+                         for n, m in tree.items()})
     return flat
 
 
@@ -77,7 +79,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 def save_checkpoint(path, params, opt_state=None, epoch: Optional[int] = None,
                     backend: str = "auto"):
     """Write ``path``.npz or ``path``.pt and ``path``.json. ``params``: a
-    ParamTree or {dotted name: tensor}; ``opt_state``: the port's AdamW."""
+    ParamTree or {dotted name: tensor}; ``opt_state``: the port's AdamW or
+    AdamQ8."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     if backend == "auto":
@@ -106,11 +109,12 @@ def save_checkpoint(path, params, opt_state=None, epoch: Optional[int] = None,
 def _as_tensor(x) -> torch.Tensor:
     if torch.is_tensor(x):
         return x
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape
+    a = np.ascontiguousarray(x).reshape(x.shape)
     if x.dtype.kind == "V" and x.dtype.itemsize == 2:
         # a legacy JAX npz leaf: bf16 bits that np.savez wrote as void
-        return torch.from_numpy(np.ascontiguousarray(x).view(np.int16)) \
-            .view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(x))
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _restore_into(live: Dict[str, torch.Tensor], flat, prefix: str,
@@ -137,7 +141,7 @@ def _restore_into(live: Dict[str, torch.Tensor], flat, prefix: str,
 
 def load_checkpoint(path, params, opt_state=None, logger=None
                     ) -> Tuple[Any, Any, int]:
-    """Restore into ``params`` (and the AdamW ``opt_state``) in place.
+    """Restore into ``params`` (and the optimizer's ``opt_state``) in place.
     Returns (params, opt_state, resume_from_epoch)."""
     path = Path(path)
     header = {}
@@ -165,8 +169,8 @@ def load_checkpoint(path, params, opt_state=None, logger=None
     _restore_into(_named(params), flat, "params", logger)
     if opt_state is not None and OPT_COUNT in flat:
         opt_state.count = int(_as_tensor(flat[OPT_COUNT]))
-        _restore_into(opt_state.mu, flat, OPT_MU, logger)
-        _restore_into(opt_state.nu, flat, OPT_NU, logger)
+        for field, tree in opt_state.state_trees().items():
+            _restore_into(tree, flat, OPT_STATE + field, logger)
     epoch = header.get("epoch")
     return params, opt_state, (epoch + 1) if epoch is not None else 0
 

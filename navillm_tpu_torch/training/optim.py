@@ -1,28 +1,45 @@
-"""Optimizer: global-norm clip, AdamW and a constant-with-warmup LR.
+"""Optimizer: global-norm clip, AdamW (or 8-bit Adam moments) and a
+constant-with-warmup LR.
 
-Torch twin of navillm_tpu/training/optim.py::make_optimizer without the
-8-bit moments: the optax chain clip_by_global_norm(max) -> adamw(b1 0.9,
-b2 0.999, eps 1e-8 outside the square root, bias correction, decoupled
-weight decay) with the schedule constant_with_warmup. As optax's
-scale_by_adam does for bf16 parameters, the moments are kept in each
-parameter's dtype. Parameters, moments and gradients are updated in
-place, one leaf at a time, so a step's scratch is two tensors the size of
-the largest leaf (where the JAX step donates its buffers).
+Torch twin of navillm_tpu/training/optim.py::make_optimizer: the optax chain
+clip_by_global_norm(max) -> adamw(b1 0.9, b2 0.999, eps 1e-8 outside the
+square root, bias correction, decoupled weight decay) with the schedule
+constant_with_warmup. As optax's scale_by_adam does for bf16 parameters,
+AdamW keeps the moments in each parameter's dtype. Parameters, moments and
+gradients are updated in place, one leaf at a time, so a step's scratch is
+two tensors the size of the largest leaf (where the JAX step donates its
+buffers).
+
+``moments_8bit=True`` swaps AdamW's moment store for the blockwise 8-bit one
+of ``scale_by_adam_q8`` (8-bit Adam, Dettmers et al. 2021), with the JAX
+package's codes: leaves with ndim >= 2 and at least ``_MIN_QUANT_SIZE``
+elements keep int8 ``m`` and uint8 square-root-domain ``v`` in the
+parameter's shape with f32 scales per ``_GROUP`` elements of the last axis;
+smaller leaves keep exact f32 moments. The update math runs in f32:
+dequantize, EMA, bias-correct, ``m_hat / (sqrt(v_hat) + eps)``, requantize,
+then weight decay and the learning rate, after clipping, in optax's order.
+The port's layer weights are stacked ``[L, ...]`` (at 7B ``w_gate`` is
+1.44 G elements), so a leaf is updated in slices of whole rows of its last
+axis, ``_SLICE_ELEMENTS`` at a time, and the f32 transients stay at a few
+slices (~64 MB each) whatever the leaf's size.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 
 def constant_with_warmup(lr: float, num_warmup_steps: int
                          ) -> Callable[[int], float]:
-    """LR at optimizer step ``step`` (counted from 0)."""
+    """LR at optimizer step ``step`` (counted from 0), computed in f32 as the
+    JAX schedule computes it."""
     def sched(step: int) -> float:
         if num_warmup_steps <= 0:
             return lr
-        return lr * min((step + 1.0) / max(1, num_warmup_steps), 1.0)
+        frac = np.float32(step + 1.0) / np.float32(max(1, num_warmup_steps))
+        return float(np.float32(lr) * np.minimum(frac, np.float32(1.0)))
     return sched
 
 
@@ -51,8 +68,20 @@ class AdamW:
         self.weight_decay = weight_decay
         self.count = 0
         with torch.no_grad():
-            self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
-            self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+            self._init_moments()
+
+    def _init_moments(self):
+        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    def state_trees(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The moment store under the field names of optax's state
+        (training/checkpoints.py saves it under them)."""
+        return {"mu": self.mu, "nu": self.nu}
+
+    def moment_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for tree in
+                   self.state_trees().values() for t in tree.values())
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -77,10 +106,159 @@ class AdamW:
         return norm
 
 
+# ---------------------------------------------------------------------------
+# Blockwise 8-bit Adam moments
+# ---------------------------------------------------------------------------
+
+# leaves smaller than this keep exact f32 moments; 1-D leaves (biases,
+# layernorm gains) always do, whatever their size
+_MIN_QUANT_SIZE = 4096
+_GROUP = 256
+# elements per slice of the 8-bit update (whole rows of the last axis)
+_SLICE_ELEMENTS = 1 << 24
+
+
+def _group_size(last_dim: int) -> int:
+    """Quantization group along the last axis; the whole axis when the dim
+    does not divide."""
+    return _GROUP if last_dim % _GROUP == 0 else last_dim
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root (IEEE, as XLA's and the card's
+    are; the CPU's vectorized f32 sqrt is not: it goes through f64 there)."""
+    if x.device.type == "cpu":
+        return x.double().sqrt().float()
+    return x.sqrt()
+
+
+def quantize_signed(x: torch.Tensor, group: int):
+    """x f32 [..., L] -> (int8 codes [..., L], f32 scales [..., L/g]).
+    Symmetric linear per group; zero groups get scale 1 (codes 0)."""
+    xb = x.reshape(*x.shape[:-1], x.shape[-1] // group, group)
+    s = xb.abs().amax(dim=-1) / 127.0
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    q = torch.round(xb / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q.reshape(x.shape), s
+
+
+def dequantize_signed(q: torch.Tensor, s: torch.Tensor, group: int):
+    xb = q.reshape(*q.shape[:-1], q.shape[-1] // group, group).float()
+    return (xb * s[..., None]).reshape(q.shape)
+
+
+def quantize_sqrt(v: torch.Tensor, group: int):
+    """Second moment, v >= 0: linear uint8 codes in the sqrt domain, which
+    keeps the small entries of a group with one large entry resolved."""
+    r = _sqrt(v)
+    rb = r.reshape(*r.shape[:-1], r.shape[-1] // group, group)
+    s = rb.amax(dim=-1) / 255.0
+    s = torch.where(s > 0, s, torch.ones_like(s))
+    q = torch.round(rb / s[..., None]).clamp(0, 255).to(torch.uint8)
+    return q.reshape(v.shape), s
+
+
+def dequantize_sqrt(q: torch.Tensor, s: torch.Tensor, group: int):
+    rb = q.reshape(*q.shape[:-1], q.shape[-1] // group, group).float()
+    r = (rb * s[..., None]).reshape(q.shape)
+    return r * r
+
+
+def _quantized_leaf(p: torch.Tensor) -> bool:
+    return p.dim() >= 2 and p.numel() >= _MIN_QUANT_SIZE
+
+
+class AdamQ8(AdamW):
+    """clip_by_global_norm -> scale_by_adam_q8 -> add_decayed_weights ->
+    scale_by_learning_rate (the chain JAX's make_optimizer(moments_8bit=
+    True) builds), with AdamW's interface. The state, under optax's field
+    names: ``qm`` (int8 codes, or f32 moments for a small leaf), ``ms``
+    (f32 group scales, or a 0-d zero), ``qv`` (uint8 codes or f32) and
+    ``vs``."""
+
+    def _init_moments(self):
+        self.qm, self.ms, self.qv, self.vs = {}, {}, {}, {}
+        for n, p in self.params.items():
+            kw = dict(device=p.device)
+            if _quantized_leaf(p):
+                g = _group_size(p.shape[-1])
+                scales = (*p.shape[:-1], p.shape[-1] // g)
+                self.qm[n] = torch.zeros(p.shape, dtype=torch.int8, **kw)
+                self.qv[n] = torch.zeros(p.shape, dtype=torch.uint8, **kw)
+                self.ms[n] = torch.ones(scales, **kw)
+                self.vs[n] = torch.ones(scales, **kw)
+            else:
+                self.qm[n] = torch.zeros(p.shape, **kw)
+                self.qv[n] = torch.zeros(p.shape, **kw)
+                self.ms[n] = torch.zeros((), **kw)
+                self.vs[n] = torch.zeros((), **kw)
+
+    def state_trees(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        return {"qm": self.qm, "ms": self.ms, "qv": self.qv, "vs": self.vs}
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        norm = global_norm(grads[n] for n in self.params)
+        clip = norm < self.grad_clip_norm
+        scale = np.float32(-self.lr_schedule(self.count))
+        lr_scale = {dt: torch.tensor(scale, dtype=dt, device=norm.device)
+                    for dt in {p.dtype for p in self.params.values()}}
+        self.count += 1
+        # 1 - b ** count in f32, as the JAX update computes it
+        bc1, bc2 = (float(np.float32(1.0) - np.float32(b)
+                          ** np.float32(self.count))
+                    for b in (self.b1, self.b2))
+        for n, p in self.params.items():
+            g = grads[n]
+            last = p.shape[-1] if p.dim() else 1
+            rows = p.numel() // max(last, 1)
+            step = max(1, _SLICE_ELEMENTS // max(last, 1))
+            # views: the slices are written in place
+            flat = [t.view(rows, -1) if t.dim() else t.view(1, 1)
+                    for t in (p, g, self.qm[n], self.qv[n])]
+            coded = self.qm[n].dtype == torch.int8
+            if coded:
+                gsz = _group_size(last)
+                ms, vs = (self.ms[n].view(rows, -1),
+                          self.vs[n].view(rows, -1))
+            for r in range(0, rows, step):
+                pr, gr, qm, qv = (t[r:r + step] for t in flat)
+                # optax's clip: t, or (t / norm) * max, in the grad's dtype
+                gr = torch.where(clip, gr, (gr / norm.to(gr.dtype))
+                                 * self.grad_clip_norm)
+                gf = gr.float()
+                if coded:
+                    m = dequantize_signed(qm, ms[r:r + step], gsz)
+                    v = dequantize_sqrt(qv, vs[r:r + step], gsz)
+                else:
+                    m, v = qm, qv
+                m = self.b1 * m + (1.0 - self.b1) * gf
+                v = self.b2 * v + (1.0 - self.b2) * gf * gf
+                upd = (m / bc1) / (_sqrt(v / bc2) + self.eps)
+                if coded:
+                    q, s = quantize_signed(m, gsz)
+                    qm.copy_(q)
+                    ms[r:r + step].copy_(s)
+                    q, s = quantize_sqrt(v, gsz)
+                    qv.copy_(q)
+                    vs[r:r + step].copy_(s)
+                else:
+                    qm.copy_(m)
+                    qv.copy_(v)
+                upd = upd.to(gr.dtype)
+                if self.weight_decay:
+                    upd = upd + self.weight_decay * pr
+                pr.add_(lr_scale[upd.dtype] * upd)
+        return norm
+
+
 def make_optimizer(params: Dict[str, torch.Tensor], lr: float = 1e-5,
                    num_warmup_steps: int = 0, grad_clip_norm: float = 40.0,
-                   weight_decay: float = 0.0) -> AdamW:
-    """Twin of make_optimizer (moments_8bit and optax.MultiSteps are not
-    ported: train_one_epoch accumulates gradients itself)."""
-    return AdamW(params, constant_with_warmup(lr, num_warmup_steps),
-                 grad_clip_norm=grad_clip_norm, weight_decay=weight_decay)
+                   weight_decay: float = 0.0,
+                   moments_8bit: bool = False) -> AdamW:
+    """Twin of make_optimizer (optax.MultiSteps is not ported:
+    train_one_epoch accumulates gradients itself). ``moments_8bit`` keeps
+    the moments in the 8-bit store (AdamQ8)."""
+    cls = AdamQ8 if moments_8bit else AdamW
+    return cls(params, constant_with_warmup(lr, num_warmup_steps),
+               grad_clip_norm=grad_clip_norm, weight_decay=weight_decay)

@@ -2,17 +2,23 @@
 
 Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
 33-294):
-  - ``build_runner``: the tokenizer and the model (when no pretrained path
-    is given, the JAX package's tiny configuration, on the card widened to
-    what the attention kernels take; random weights on the port's
-    initialiser from ``args.seed``) on ``args.device``;
+  - ``build_runner``: the tokenizer and the model on ``args.device``. With
+    --pretrained_model_name_or_path, an HF-layout directory: its
+    tokenizer.json and its Llama weights (models/convert.py:load_vicuna,
+    int8/int4 with --quantize_llm), or, with --from_scratch or
+    --resume_from_checkpoint, its config.json's architecture with random
+    weights (the checkpoint fills them); the full panorama encoder.
+    Without one, the byte tokenizer and the JAX package's tiny
+    configuration, on the card widened to what the attention kernels take.
+    Random weights come from ``args.seed``;
   - ``build_world_and_data`` / ``build_agents``: the world, the stage's
     loaders (with the view and object feature DBs: ``mp3d``, ``scan_qa``
     and ``coco`` views, REVERIE and SOON objects) and the task agents from
     the config (every task of configs/multi.yaml);
   - ``train_one_epoch``: gradients accumulate in the parameters' .grad
     (runner.zero_grads / take_grads), and every gradient_accumulation_step
-    batches one optimizer step applies clip + AdamW. The loss of batch N
+    batches one optimizer step applies clip + AdamW (8-bit moments with
+    --adam_8bit). The loss of batch N
     is read on the host only after batch N+1 has been dispatched (one-step
     lag), so the card works through N's backward while the host simulates
     N+1;
@@ -30,6 +36,7 @@ Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from pathlib import Path
 from typing import Any, Dict
@@ -43,6 +50,7 @@ from ..convert import init_nav_params
 from ..data.feature_db import create_feature_db, create_object_feature_db
 from ..data.loaders import NAME_OF, MetaLoader, create_dataloaders
 from ..models import llama as L
+from ..models.convert import config_from_hf, load_vicuna, read_hf_config
 from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import PanoConfig
 from ..models.tokenization import NavTokenizer
@@ -141,7 +149,8 @@ def tiny_config(args, vocab_size: int, device) -> NavModelConfig:
     package's tiny configuration (2-layer f32 LLM, hidden 128 over 4 heads,
     tiny panorama encoder, its object branch with --enable_og), f32
     whatever --precision says, as in JAX; --fuse_obj fuses the objects into
-    the encoder (the JAX package reads it only on its pretrained path). On
+    the encoder with --enable_og (the JAX package reads it only on its
+    pretrained path, where full_config takes it as given). On
     the card every LLM layer runs through the attention kernels, which take
     bf16 and head_dim 64 or 128 (ops/attention.py), so there the LLM is
     hidden 256 over 4 heads (head_dim 64, MLP 512) and the LLM and the
@@ -164,10 +173,29 @@ def tiny_config(args, vocab_size: int, device) -> NavModelConfig:
                           angle_feat_size=args.angle_feat_size)
 
 
+def full_config(args, llm_cfg: L.LlamaConfig) -> NavModelConfig:
+    """The pretrained path's model (JAX build_runner): the LLM of the
+    checkpoint and the full panorama encoder, its object branch with
+    --enable_og and --fuse_obj as given, in the dtype of --precision."""
+    pano_cfg = PanoConfig(
+        image_feat_size=args.image_feat_size,
+        obj_feat_size=args.obj_feat_size,
+        angle_feat_size=args.angle_feat_size,
+        num_pano_layers=args.num_pano_layers,
+        output_size=llm_cfg.hidden_size,
+        use_obj=args.enable_og,
+        fuse_obj=args.fuse_obj,
+        dtype=llm_cfg.dtype)
+    return NavModelConfig(llm=llm_cfg, pano=pano_cfg,
+                          angle_feat_size=args.angle_feat_size)
+
+
 def build_runner(args, cfg, logger=None) -> NavModelRunner:
-    """Tokenizer + model on ``args.device``. Without a pretrained path:
-    the byte tokenizer and tiny_config, with random weights from
-    ``args.seed``."""
+    """Tokenizer + model on ``args.device``. With a pretrained path: its
+    tokenizer and its weights (or, with --from_scratch or
+    --resume_from_checkpoint, its architecture with random weights) and
+    full_config; without one, the byte tokenizer and tiny_config. Random
+    weights come from ``args.seed``."""
     if args.quantize_llm and args.mode != "test":
         raise ValueError("--quantize_llm is eval-only: int8 weights are "
                          "not differentiable (models/quant.py)")
@@ -175,18 +203,37 @@ def build_runner(args, cfg, logger=None) -> NavModelRunner:
         raise ValueError("--act_int8 needs --quantize_llm: int8 "
                          "activations run against quantized weights "
                          "(models/llama.py:_mm)")
-    if args.pretrained_model_name_or_path:
-        raise NotImplementedError(
-            "loading a pretrained (HF-layout) Vicuna checkpoint is not "
-            "ported yet (ROADMAP A4, HF-layout weight conversion)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port trains on the card; "
                            "pass --device cpu to run on the CPU")
-    tok = NavTokenizer()
-    nav_cfg = tiny_config(args, tok.vocab_size, device)
+    llm_params = None
+    path = args.pretrained_model_name_or_path
+    if path:
+        if device.type == "cuda" and args.precision != "bf16":
+            raise ValueError(f"--precision {args.precision}: the attention "
+                             f"kernels run bf16 only; run f32 on the CPU "
+                             f"(--device cpu)")
+        dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+        tok = NavTokenizer.from_pretrained(path)
+        if args.from_scratch or args.resume_from_checkpoint:
+            # the architecture only; the checkpoint fills the weights
+            llm_cfg = config_from_hf(read_hf_config(path),
+                                     vocab_size=tok.vocab_size, dtype=dtype)
+        else:
+            llm_cfg, llm_params = load_vicuna(
+                path, tok.vocab_size, dtype=dtype,
+                quantize=args.quantize_llm, quant_bits=args.quant_bits,
+                device=device)
+        if args.act_int8:
+            llm_cfg = dataclasses.replace(llm_cfg, act_int8=True)
+        nav_cfg = full_config(args, llm_cfg)
+    else:
+        tok = NavTokenizer()
+        nav_cfg = tiny_config(args, tok.vocab_size, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = NavModel(nav_cfg, init_nav_params(nav_cfg, gen, device=device))
+    model = NavModel(nav_cfg, init_nav_params(nav_cfg, gen, device=device,
+                                              llm=llm_params))
     if logger is not None:
         n = sum(p.numel() for p in model.parameters())
         logger.info("model initialized with %.2f M parameters" % (n / 1e6))
@@ -310,7 +357,7 @@ def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
         dict(runner.model.named_parameters()), lr=args.lr,
         num_warmup_steps=max(args.num_warmup_steps //
                              max(args.gradient_accumulation_step, 1), 0),
-        grad_clip_norm=args.grad_clip_norm)
+        grad_clip_norm=args.grad_clip_norm, moments_8bit=args.adam_8bit)
 
     resume_from_epoch = 0
     if args.resume_from_checkpoint and \

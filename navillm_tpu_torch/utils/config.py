@@ -140,7 +140,8 @@ class TrainArgs:
     act_int8: bool = False
     # int8 prefix cache (not ported: ROADMAP A9)
     kv_int8: bool = False
-    # 8-bit Adam moments (not ported: ROADMAP A5)
+    # 8-bit Adam moments (training/optim.py:AdamQ8): int8/uint8 codes in
+    # the parameter's shape with f32 group scales, f32 update math
     adam_8bit: bool = False
     # ZeRO-1 over the data axis (not ported: ROADMAP A10)
     zero1: bool = True
@@ -194,9 +195,6 @@ class TrainArgs:
 # item that ports what reads it (the data/tensor-parallel sizes:
 # train_loop.check_single_card)
 UNPORTED = {
-    "from_scratch": "the pretrained-weight loader is not ported (ROADMAP A4, "
-                    "HF-layout weight conversion)",
-    "adam_8bit": "8-bit Adam moments are not ported (ROADMAP A5)",
     "dagger_pipeline": "the interleaved per-step DAgger, which runs only "
                        "without fused_dagger, is not ported (ROADMAP A8)",
     "zero1": "ZeRO-1 over the data axis is not ported (ROADMAP A10)",

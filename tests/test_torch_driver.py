@@ -422,8 +422,10 @@ def test_build_runner_and_the_cli(tmp_path, monkeypatch):
         lambda x: tuple(x.shape),
         JNM.init_nav_params(jax.random.PRNGKey(0), jtiny)))
     assert shapes == want
+    # a pretrained path is read (tests/test_torch_pretrained.py); one with
+    # no tokenizer.json raises
     for kw, err, match in ((dict(pretrained_model_name_or_path="x"),
-                            NotImplementedError, "A4"),
+                            FileNotFoundError, "tokenizer.json"),
                            (dict(quantize_llm=True), ValueError,
                             "eval-only")):
         with pytest.raises(err, match=match):

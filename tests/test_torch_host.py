@@ -288,11 +288,17 @@ def test_tokenizer_matches(max_length, multiple):
                      jt.decode(ids, skip_special_tokens=False))
 
 
-def test_tokenizer_subword_backends_raise():
-    """The HF backend still raises (no transformers on the card); the
-    vendored BPE is the port's own (tests/test_torch_tokenizer.py)."""
-    with pytest.raises(NotImplementedError, match="byte tokenizer"):
-        PT.NavTokenizer.from_pretrained("vicuna")
+def test_tokenizer_subword_backends_raise(tmp_path):
+    """A directory with only a sentencepiece tokenizer.model raises, naming
+    its ROADMAP item, and one with no tokenizer at all raises too (the
+    fast-tokenizer reader is held against HF's in
+    tests/test_torch_pretrained.py); the vendored BPE is the port's own
+    (tests/test_torch_tokenizer.py)."""
+    (tmp_path / "tokenizer.model").write_bytes(b"\0")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        PT.NavTokenizer.from_pretrained(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+        PT.NavTokenizer.from_pretrained(str(tmp_path / "vicuna"))
     assert isinstance(PT.NavTokenizer.bpe().backend, PT.BPETokenizer)
 
 

@@ -27,7 +27,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "yaml", "ml_dtypes", "tokenizers", "transformers",
-          "h5py")
+          "safetensors", "h5py")
 
 SLICE = """
 import sys, tempfile
@@ -433,6 +433,67 @@ Optim:
 MIX = "MIX_CFG = %r\n" % MIX_CFG + MIX
 
 
+# the pretrained path: an HF-layout directory written by the port's own
+# writer (sharded safetensors, config.json) with the bpe_nav tokenizer as its
+# tokenizer.json; run_training from it at stage multi with 8-bit Adam
+# moments, then eval_r2r.sh's shape (--mode test --resume_from_checkpoint)
+# and the int4 evaluation (--quantize_llm --quant_bits 4)
+PRETRAINED = """
+import json, os, shutil, sys, tempfile
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.convert import init_llama_params
+from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
+from navillm_tpu_torch.models import llama as L
+from navillm_tpu_torch.models.convert import save_vicuna
+from navillm_tpu_torch.models.quant import weight_bits
+from navillm_tpu_torch.training import train_loop as TTL
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+
+torch.set_num_threads(1)
+built = []
+build = TTL.build_runner
+TTL.build_runner = lambda *a, **kw: built.append(build(*a, **kw)) or built[-1]
+with tempfile.TemporaryDirectory() as tmp:
+    vic = tmp + "/vicuna"
+    cfg = L.LlamaConfig.tiny(vocab_size=1024)
+    save_vicuna(vic, init_llama_params(cfg, torch.Generator().manual_seed(0),
+                                       device="cpu"),
+                cfg, vocab_rows=1016, shard_bytes=200_000)
+    shutil.copy(os.path.join(os.path.dirname(L.__file__), "bpe_nav.json"),
+                vic + "/tokenizer.json")
+    with open(vic + "/tokenizer_config.json", "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>", "pad_token": "<PAD>"}, f)
+    run = tmp + "/run"
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="train")
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="val", seed=1)
+    ycfg = load_yaml_text(RUN_CFG)
+    feats = {"mp3d": SyntheticImageFeaturesDB(32)}
+    common = dict(data_dir=run, device="cpu", precision="fp32",
+                  pretrained_model_name_or_path=vic, num_epochs=1,
+                  num_steps_per_epoch=2, batch_size=2, fused_rows_per_call=4,
+                  num_pano_layers=1)
+    args = TrainArgs(output_dir=run + "/out", adam_8bit=True,
+                     max_saved_checkpoints=1, **common)
+    args.sync_from_config(ycfg)
+    res = TTL.run_training(args, ycfg, feat_dbs=feats)
+    assert "sr" in res["R2R"] and built[-1].cached_steps > 0, res
+    for extra in (dict(resume_from_checkpoint=run + "/out/epoch_0"),
+                  dict(quantize_llm=True, quant_bits=4)):
+        a = TrainArgs(output_dir=run + "/eval", mode="test", **common,
+                      **extra)
+        a.sync_from_config(ycfg)
+        res = TTL.run_training(a, ycfg, feat_dbs=feats)
+        assert "sr" in res["R2R"], res
+    assert weight_bits(built[-1].model) == 4
+    print("pretrained", res["R2R"])
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+PRETRAINED = "RUN_CFG = %r\n" % RUN_CFG + PRETRAINED
+
+
 def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -463,6 +524,11 @@ def test_port_runs_the_task_mix_without_jax():
     assert "run_training multi" in out and "run_training pretrain" in out
 
 
+def test_port_runs_the_pretrained_path_without_jax():
+    out = _fresh(PRETRAINED)
+    assert "pretrained" in out
+
+
 def test_train_entry_point_help_without_jax():
     out = _fresh(CLI_HELP)
     assert "--dagger_prefix_cache" in out and "--device" in out
@@ -491,6 +557,19 @@ def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
     hits = [str(f) for f in _port_sources() if pat.search(f.read_text())]
     assert not hits, hits
+
+
+def test_port_sources_never_import_hf_packages():
+    """The pretrained path reads HF's layouts itself: the card's machine has
+    neither transformers, safetensors nor tokenizers."""
+    pat = re.compile(r"^\s*(import|from)\s+(transformers|safetensors|"
+                     r"tokenizers)\b", re.M)
+    files = _port_sources()
+    assert ROOT / "navillm_tpu_torch/models/convert.py" in files
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert not hits, hits
+    assert pat.search("from safetensors import safe_open") \
+        and pat.search("import tokenizers\n")
 
 
 def test_port_sources_never_import_navillm_tpu():

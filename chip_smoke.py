@@ -245,6 +245,30 @@ phases 34 and 35 after phase 25 (the bf16 model freed):
      tree equal to phase 9's byte for byte on the checkpoint's vocabulary,
      and phase 9's evaluation replayed on it (phase 9's tokenizer,
      panorama and heads) giving phase 9's trajectories.
+The per-step paths, bf16 at 7B width, after phase 32 (each prints the
+agent's per-stage host timer, agent.timer.report()):
+ 36. train_one_epoch at stage multi through the per-step rollouts
+     (--no-fused_teacher --no-fused_dagger --dagger_streams 1): a warm-up
+     epoch, then 4 batches of 8 (AdamW, 2 optimizer steps); K1 64 and K2,
+     K3 32 per grad call; then one teacher batch, dropout off, per-step
+     against the fused teacher (trajectories, loss within
+     DAGGER_AB_LOSS_REL, whole-gradient cosine >= 0.999);
+ 37. the per-step DAgger half with --dagger_pipeline, 2 streams
+     interleaved against the same streams drained in sequence (dropout
+     off; whole-gradient cosine >= 0.999), both wall times and the
+     timer's nav_dispatch / nav_sync;
+ 38. run_training --mode test --no-streaming_eval: batched validation of
+     32 R2R and 16 EQA episodes (trie, oracle pass), K1 32 per navigation
+     forward and generate call, the trajectories against
+     validate_streaming's under the near-tie rule (where they part, the
+     reference's top-2 margin within logit_tol's bound);
+ 39. a runner with device_memory=False against the device-memory runner:
+     one fused teacher batch, one fused DAgger batch (the device runner's
+     own draws forced), streaming eval of 8 episodes; losses within
+     DAGGER_AB_LOSS_REL, cosine >= 0.999, trajectories under the near-tie
+     rule;
+ 40. training on EQA batches: the fused teacher, the per-step teacher and
+     the fused DAgger, each running the answer head's grad call.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -1766,19 +1790,21 @@ def zero_counters(runner):
     matmul_q4.launches = matmul_q4.int8_launches = 0
     runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
     runner.grad_calls = runner.gen_grad_calls = runner.generate_calls = 0
-    runner.og_calls = runner.og_grad_calls = 0
+    runner.og_calls = runner.og_grad_calls = runner.forward_calls = 0
     runner.llm_token_units = 0.0
 
 
 def check_launches(tag, runner, layers):
     """K1 once per layer of every prefill (the prefix cache's and each
-    generate call's), uncached step, object-grounding forward and grad
-    call's forward, and once more under remat (the recomputed forward); K2
-    and K3 once per layer of every grad call, the generation and OG heads'
-    included. Returns the launches."""
+    generate call's), uncached step, object-grounding forward, other
+    forward without a gradient (the host-memory and batched evaluation
+    steps: runner.forward_calls) and grad call's forward, and once more
+    under remat (the recomputed forward); K2 and K3 once per layer of every
+    grad call, the generation and OG heads' included. Returns the
+    launches."""
     launches = {k: fn.launches for k, fn in COUNTERS.items()}
     passes = runner.prefill_calls + runner.eval_steps + runner.generate_calls \
-        + runner.og_calls
+        + runner.og_calls + runner.forward_calls
     calls = runner.grad_calls
     fwd_per_call = 2 if runner.cfg.llm.remat else 1
     want = {"fwd": layers * (passes + fwd_per_call * calls),
@@ -1788,7 +1814,8 @@ def check_launches(tag, runner, layers):
                            f"({runner.prefill_calls} prefills + "
                            f"{runner.eval_steps} uncached steps + "
                            f"{runner.generate_calls} generate calls + "
-                           f"{runner.og_calls} OG calls, {calls} grad "
+                           f"{runner.og_calls} OG calls + "
+                           f"{runner.forward_calls} forwards, {calls} grad "
                            f"calls, {layers} layers)")
     return launches
 
@@ -3864,6 +3891,628 @@ def phase_cli_mix(tmp, stage):
     return launches
 
 
+# --------------------------------------------- the per-step paths (36-40) --- #
+# phase 38: run_training's batched validation (--no-streaming_eval) of
+# N_EPISODES R2R episodes and BATCHED_EQA_EPISODES EQA ones with the oracle
+# pass; phase 39: the host-memory runner's streaming eval of HOSTMEM_EPISODES
+# episodes; phase 40: one EQA training batch of TRAIN_BATCH per rollout
+BATCHED_EQA_EPISODES = 16
+HOSTMEM_EPISODES = 8
+
+
+def perstep_runner(bpe, cfg, model, args, dropout=True, device_memory=True):
+    """A runner on DAGGER_DIMS for the per-step phases; without dropout (the
+    A/B runs) neither the features nor the panorama's hidden states drop."""
+    if not dropout:
+        cfg = dataclasses.replace(cfg, pano=dataclasses.replace(
+            cfg.pano, hidden_dropout_prob=0.0))
+    return NavModelRunner(cfg, model, bpe, dims=DAGGER_DIMS,
+                          feat_dropout=args.feat_dropout if dropout else 0.0,
+                          seed=args.seed, device_memory=device_memory)
+
+
+def perstep_args(cfg, **flags):
+    """Stage multi, batches of TRAIN_BATCH in chunks of ROWS_PER_CALL rows,
+    gradient accumulation 2, and ``flags``."""
+    return TrainArgs(stage="multi", image_feat_size=cfg.pano.image_feat_size,
+                     fused_rows_per_call=ROWS_PER_CALL,
+                     gradient_accumulation_step=2, seed=0, **flags)
+
+
+def grads_of(model):
+    """A copy of every parameter's accumulated gradient."""
+    return [p.grad.detach().clone() for p in model.parameters()]
+
+
+def grad_cosine(saved, model) -> float:
+    """Cosine of the whole gradient (every leaf, in f32 slices of 2^26
+    elements) between ``saved`` and the model's .grad."""
+    dot = na = nb = 0.0
+    for a, p in zip(saved, model.parameters()):
+        a, b = a.flatten(), p.grad.detach().flatten()
+        for s in range(0, a.numel(), 1 << 26):
+            x, y = a[s: s + (1 << 26)].float(), b[s: s + (1 << 26)].float()
+            dot += float((x * y).sum())
+            na += float((x * x).sum())
+            nb += float((y * y).sum())
+    return dot / math.sqrt(na * nb)
+
+
+def per_grad_call(launches, calls):
+    return {k: round(v / max(calls, 1), 2) for k, v in launches.items()}
+
+
+def phase_perstep_train(bpe, cfg, model, tmp):
+    """Phase 36: train_one_epoch at stage multi through the per-step
+    rollouts (--no-fused_teacher --no-fused_dagger --dagger_streams 1: one
+    grad call per step, the DAgger's actions drawn on the host), a warm-up
+    epoch, then 4 batches of TRAIN_BATCH (2 teacher, 2 DAgger; AdamW, 2
+    optimizer steps). Gates: losses finite and below MAX_LOSS, gradient
+    norms finite and above 0, no eval step (the per-step path's DAgger
+    draws on the host), K1 64 and K2, K3 32 per grad call. Then
+    phase_perstep_ab. Returns the measured run's launches."""
+    args = perstep_args(cfg, fused_teacher=False, fused_dagger=False,
+                        dagger_streams=1)
+    runner = perstep_runner(bpe, cfg, model, args)
+    layers = cfg.llm.num_layers
+    rec = {"teacher_s": [], "dagger_s": [], "losses": []}
+    config = T.train_config(MAX_ACTION_LEN)
+    tx = make_optimizer(dict(model.named_parameters()), lr=args.lr,
+                        num_warmup_steps=args.num_warmup_steps,
+                        grad_clip_norm=args.grad_clip_norm)
+    agents = []
+
+    def epoch(root, n_episodes, seed):
+        anno = T.make_r2r_world(root, n_episodes=n_episodes, seed=seed,
+                                split="train")
+        agent, ds, loader = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+        agents.append(agent)
+        train = agent.train
+
+        def recorded_train(name, batch, a, config, dataset, step=0, **kw):
+            sink = rec["dagger_s"] if step % 2 else rec["teacher_s"]
+            loss = cuda_timed(train, sink)(name, batch, a, config, dataset,
+                                           step=step, **kw)
+            rec["losses"].append(loss)
+            return loss
+
+        agent.train = recorded_train
+        return train_one_epoch(
+            args, config, runner, tx, make_opt_step(tx),
+            MetaLoader({"R2R": (loader, 1.0)}), {"R2R": agent},
+            {"R2R": ds}, 0, None, num_batches=len(loader))
+
+    epoch(f"{tmp}/warm", 2 * TRAIN_BATCH, seed=1)
+    for v in rec.values():
+        v.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    t0 = time.perf_counter()
+    avg_loss, norms = epoch(f"{tmp}/main", TRAIN_EPISODES, seed=0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = check_launches(36, runner, layers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_batches = TRAIN_EPISODES // TRAIN_BATCH
+    losses = [float(x) for x in rec["losses"]]
+    if len(losses) != n_batches or not all(
+            math.isfinite(x) and 0 < x < MAX_LOSS for x in losses):
+        raise RuntimeError(f"[36] losses {losses}: not all finite and in "
+                           f"(0, {MAX_LOSS})")
+    norms = [float(n) for n in norms]
+    if len(norms) != n_batches // args.gradient_accumulation_step or not all(
+            math.isfinite(n) and n > 0 for n in norms):
+        raise RuntimeError(f"[36] global gradient norms {norms}")
+    if runner.eval_steps or runner.cached_steps or runner.forward_calls \
+            or not runner.grad_calls:
+        raise RuntimeError(f"[36] the per-step rollouts took another path: "
+                           f"{runner.eval_steps} eval steps, "
+                           f"{runner.cached_steps} cached, "
+                           f"{runner.forward_calls} forwards, "
+                           f"{runner.grad_calls} grad calls")
+    timer = agents[-1].timer
+    print(f"[36] stage multi through the per-step rollouts, "
+          f"{TRAIN_EPISODES} episodes in {dt:.3f} s = "
+          f"{TRAIN_EPISODES / dt:.3f} episodes/s, {len(norms)} optimizer "
+          f"steps; teacher batch "
+          f"{[round(1e3 * x, 1) for x in rec['teacher_s']]} ms, DAgger batch "
+          f"{[round(1e3 * x, 1) for x in rec['dagger_s']]} ms; "
+          f"{runner.grad_calls} grad calls of {TRAIN_BATCH} rows (one per "
+          f"step), launches per grad call "
+          f"{per_grad_call(launches, runner.grad_calls)}; peak memory "
+          f"{peak:.2f} GiB; losses {[round(x, 4) for x in losses]} (mean "
+          f"{avg_loss:.4f}); grad norms {[round(n, 4) for n in norms]}; "
+          f"launches {launches}")
+    print(f"[36] {timer.report()}")
+    del tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_perstep_ab(bpe, cfg, model, tmp)
+    return launches
+
+
+def phase_perstep_ab(bpe, cfg, model, tmp):
+    """Phase 36's A/B: one teacher batch of TRAIN_BATCH, dropout off and the
+    candidates in graph order, through the per-step rollout and through the
+    fused teacher (the twin of tests/test_fused_teacher.py's
+    per-step-against-fused check): the same trajectories, the losses within
+    DAGGER_AB_LOSS_REL, the whole gradients within MIN_GRAD_COSINE."""
+    args = perstep_args(cfg)
+    runner = perstep_runner(bpe, cfg, model, args, dropout=False)
+    anno = T.make_r2r_world(f"{tmp}/perstep_ab", n_episodes=TRAIN_BATCH,
+                            seed=3, split="train")
+    agent, ds, _ = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+    optim = T.train_config(MAX_ACTION_LEN).Optim
+    res = {}
+    for kind in ("perstep", "fused"):
+        agent.np_rng = IdentityPermutation()
+        batch = next(iter(Dataloader(ds, TRAIN_BATCH, shuffle=False)))
+        runner.zero_grads()
+        zero_counters(runner)
+        t = []
+        if kind == "perstep":
+            loss, traj = cuda_timed(agent.rollout, t)(
+                args, "R2R", optim, batch, dataset=ds, feedback="teacher",
+                train_ml=1.0)
+            saved = grads_of(model)
+        else:
+            loss, traj = cuda_timed(FT.rollout_teacher_fused, t)(
+                agent, args, "R2R", optim, batch, dataset=ds, train_ml=1.0)
+        res[kind] = (float(loss), [x["path"] for x in traj], t[0],
+                     runner.grad_calls)
+    cos = grad_cosine(saved, model)
+    del saved
+    (lp, pp, tp, cp), (lf, pf, tf, cf) = res["perstep"], res["fused"]
+    rel = abs(lp - lf) / abs(lf)
+    print(f"[36] one teacher batch of {TRAIN_BATCH}, dropout off: per-step "
+          f"{1e3 * tp:.1f} ms in {cp} grad calls, fused {1e3 * tf:.1f} ms in "
+          f"{cf}; loss per-step {lp:.6f} fused {lf:.6f} (rel {rel:.3e}); "
+          f"whole-gradient cosine {cos:.6f}")
+    if pp != pf:
+        raise RuntimeError("[36] the per-step and fused teacher "
+                           "trajectories differ")
+    if not rel <= DAGGER_AB_LOSS_REL or not cos >= MIN_GRAD_COSINE:
+        raise RuntimeError(f"[36] per-step against fused: loss rel {rel} "
+                           f"(limit {DAGGER_AB_LOSS_REL}), gradient cosine "
+                           f"{cos} (limit {MIN_GRAD_COSINE})")
+
+
+def phase_pipeline(bpe, cfg, model, tmp):
+    """Phase 37: the per-step DAgger half with --dagger_pipeline over 2
+    streams of TRAIN_BATCH // 2 (rollout_interleaved: one stream's host work
+    while the other's grad call runs) against draining the same streams in
+    sequence, with the same stream RandomStates and dropout off, after a
+    warm-up run. Gates: the same trajectories, the whole gradients within
+    MIN_GRAD_COSINE, K1-K3 per grad call. Prints both wall times and the
+    timer's nav_dispatch / nav_sync. Returns the interleaved run's
+    launches."""
+    from navillm_tpu_torch.agents.mp3d_agent import _split_batch_dict
+    args = perstep_args(cfg, fused_dagger=False, dagger_pipeline=True,
+                        dagger_streams=2)
+    runner = perstep_runner(bpe, cfg, model, args, dropout=False)
+    anno = T.make_r2r_world(f"{tmp}/pipeline", n_episodes=TRAIN_BATCH,
+                            seed=6, split="train")
+    agent, ds, _ = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+    optim = T.train_config(MAX_ACTION_LEN).Optim
+    layers = cfg.llm.num_layers
+    out = {}
+    for kind in ("warm-up", "interleaved", "sequential"):
+        batch = next(iter(Dataloader(ds, TRAIN_BATCH, shuffle=False)))
+        halves = _split_batch_dict(batch, args.dagger_streams)
+        rngs = [np.random.RandomState(100 + k) for k in range(len(halves))]
+        agent.timer.reset()
+        runner.zero_grads()
+        zero_counters(runner)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "sequential":
+            loss, traj = 0.0, []
+            for h, rng in zip(halves, rngs):
+                part, tr = agent.rollout(args, "R2R", optim, h, dataset=ds,
+                                         feedback="sample", train_ml=1.0,
+                                         loss_denom=TRAIN_BATCH, np_rng=rng)
+                loss, traj = loss + part, traj + tr
+        else:
+            loss, traj = agent.rollout_interleaved(
+                args, "R2R", optim, halves, dataset=ds, feedback="sample",
+                train_ml=1.0, stream_rngs=rngs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = check_launches(37, runner, layers)
+        out[kind] = (float(loss), [x["path"] for x in traj], dt,
+                     agent.timer.summary(), runner.grad_calls, launches)
+        if kind == "interleaved":
+            saved = grads_of(model)
+    cos = grad_cosine(saved, model)
+    del saved
+    (li, pi, ti, si, ci, launches), (ls, ps, ts, ss, cs, _) = \
+        out["interleaved"], out["sequential"]
+
+    def stages(s):
+        return {k: (s[k]["count"], round(1e3 * s[k]["total_s"], 1))
+                for k in ("nav_dispatch", "nav_sync")}
+
+    print(f"[37] one DAgger batch of {TRAIN_BATCH} in {len(pi)} episodes of 2 "
+          f"streams: interleaved {1e3 * ti:.1f} ms, sequential "
+          f"{1e3 * ts:.1f} ms ({ci} / {cs} grad calls); (calls, total ms) "
+          f"interleaved {stages(si)}, sequential {stages(ss)}; loss "
+          f"{li:.6f} / {ls:.6f}; whole-gradient cosine {cos:.6f}; launches "
+          f"per grad call {per_grad_call(launches, ci)}")
+    if pi != ps or ci != cs:
+        raise RuntimeError("[37] interleaved and sequential streams took "
+                           "other trajectories")
+    if not cos >= MIN_GRAD_COSINE:
+        raise RuntimeError(f"[37] interleaved against sequential gradient "
+                           f"cosine {cos} < {MIN_GRAD_COSINE}")
+    return launches
+
+
+class StepLogits(contextlib.AbstractContextManager):
+    """{(instr_id, step): the logits row [G] (f32, host)} of every
+    navigation step of the runs inside the block: nav_gmap_inputs names the
+    rows of the step (their episode, and the step from the graph map's step
+    id) whose logits the runner's navigation or eval_step returns next. The
+    first entry of a key stays (an ended row's stale repeats, an oracle
+    pass's, come later)."""
+
+    def __init__(self, runner):
+        self.runner, self.rows, self.logits = runner, [], {}
+
+    def __enter__(self):
+        self.gmap_inputs = R2RAgent.nav_gmap_inputs
+        self.navigation = self.runner.navigation
+        self.eval_step = self.runner.eval_step
+        log = self
+
+        def nav_gmap_inputs(agent, obs, gmaps, *a, **kw):
+            log.rows = [(ob["instr_id"],
+                         g.node_step_ids.get(ob["viewpoint"], 0) - 1)
+                        for ob, g in zip(obs, gmaps)]
+            return log.gmap_inputs(agent, obs, gmaps, *a, **kw)
+
+        def keep(logits):
+            rows = torch.as_tensor(np.asarray(logits.cpu()
+                                              if torch.is_tensor(logits)
+                                              else logits)).float()
+            for key, row in zip(self.rows, rows):
+                self.logits.setdefault(key, row)
+
+        def navigation(batch, *a, **kw):
+            out = log.navigation(batch, *a, **kw)
+            keep(out[0])
+            return out
+
+        def eval_step(*a, **kw):
+            out = log.eval_step(*a, **kw)
+            keep(out[2])
+            return out
+
+        R2RAgent.nav_gmap_inputs = nav_gmap_inputs
+        self.runner.navigation, self.runner.eval_step = navigation, eval_step
+        return self
+
+    def __exit__(self, *exc):
+        R2RAgent.nav_gmap_inputs = self.gmap_inputs
+        self.runner.navigation = self.navigation
+        self.runner.eval_step = self.eval_step
+
+
+def near_tie_parts(tag, got, want, logits):
+    """The near-tie rule: where ``got``'s trajectory (instr_id -> path)
+    parts from ``want``'s, the step at which it parts must have, in want's
+    logits, a top-2 margin within logit_tol's bf16 bound (phase 15's
+    CACHED_LOGIT_*). Returns [(instr_id, step, margin, limit)]."""
+    if got.keys() != want.keys():
+        raise RuntimeError(f"[{tag}] other episodes: {sorted(got)} against "
+                           f"{sorted(want)}")
+    parted = []
+    for k, w in want.items():
+        g = got[k]
+        if g == w:
+            continue
+        n = min(len(g), len(w))
+        j = next((i for i in range(n) if g[i] != w[i]), n)
+        row = logits.get((k, j - 1))
+        if row is None:
+            raise RuntimeError(f"[{tag}] {k} parts at step {j - 1}, which "
+                               f"has no logits")
+        tol, _ = logit_tol(row[None])
+        top = row.topk(2)
+        margin = (top.values[0] - top.values[1]).item()
+        limit = tol[0, top.indices].sum().item()
+        if margin > limit:
+            raise RuntimeError(f"[{tag}] {k} parts at step {j - 1} on a "
+                               f"top-2 margin {margin:.4f} above the bf16 "
+                               f"limit {limit:.4f}")
+        parted.append((k, j - 1, round(margin, 5), round(limit, 5)))
+    return parted
+
+
+def graph_order_agents(captured):
+    """A TTL.build_agents that gives each agent the candidates in graph
+    order and records what its validate returns in ``captured`` (task ->
+    (predictions, agent, dataset))."""
+    build_agents = TTL.build_agents
+
+    def build(*a, **kw):
+        agents = build_agents(*a, **kw)
+        for name, agent in agents.items():
+            agent.np_rng = IdentityPermutation()
+
+            def validate(*va, _name=name, _agent=agent,
+                         _validate=agent.validate, **vkw):
+                preds = _validate(*va, **vkw)
+                captured[_name] = (preds, _agent, vkw["dataset"])
+                return preds
+
+            agent.validate = validate
+        return agents
+    return build
+
+
+def phase_batched_eval(bpe, cfg, model, tmp):
+    """Phase 38: run_training --mode test --no-streaming_eval (the agents'
+    batched validate, batches of N_SLOTS) on the 7B-width runner: R2R over
+    N_EPISODES episodes, EQA over BATCHED_EQA_EPISODES with the trie and the
+    oracle pass; candidates in graph order. Gates: K1 once per layer of
+    every navigation forward and generate call, no eval step, metrics
+    finite, EQA's answers in the vocabulary, and the trajectories against
+    validate_streaming's on the same weights and episodes under the
+    near-tie rule. Returns the launches by task."""
+    layers, feat = cfg.llm.num_layers, cfg.pano.image_feat_size
+    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+    build_agents = TTL.build_agents
+    out = {}
+    for task, n, yaml in (("R2R", N_EPISODES,
+                           run_yaml("{image_feat_size: 1024, "
+                                    "angle_feat_size: 4}")),
+                          ("EQA", BATCHED_EQA_EPISODES,
+                           RUN_GEN_YAML % {"len": MAX_ACTION_LEN})):
+        root = f"{tmp}/batched_{task}"
+        # run_training reads the train split's annotations in test mode too
+        T.make_r2r_world(root, n_episodes=2, seed=10, split="train")
+        T.make_r2r_world(root, n_episodes=n, seed=11, split="val")
+        ycfg = load_yaml_text(yaml)
+        args = TrainArgs(data_dir=root, output_dir=f"{root}/out",
+                         mode="test", streaming_eval=False,
+                         val_batch_size=N_SLOTS, test_datasets=[task],
+                         seed=0)
+        args.sync_from_config(ycfg)
+        captured = {}
+        TTL.build_agents = graph_order_agents(captured)
+        try:
+            torch.cuda.synchronize()
+            zero_counters(runner)
+            t0 = time.perf_counter()
+            res = TTL.run_training(args, ycfg, feat_dbs={
+                "mp3d": SyntheticImageFeaturesDB(feat)}, runner=runner)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            TTL.build_agents = build_agents
+        launches = check_launches(38, runner, layers)
+        calls = (runner.forward_calls, runner.generate_calls)
+        if runner.eval_steps or runner.cached_steps \
+                or not runner.forward_calls:
+            raise RuntimeError(f"[38] {task}: the batched validate took "
+                               f"another path: {runner.eval_steps} eval "
+                               f"steps, {calls} forwards and generate calls")
+        got, agent, ds = captured[task]
+        timer = agent.timer.report()
+        metrics = res[task]
+        if len(got) != len(ds) or not all(math.isfinite(float(v))
+                                          for v in metrics.values()):
+            raise RuntimeError(f"[38] {task}: {len(got)} predictions for "
+                               f"{len(ds)} episodes, metrics {metrics}")
+        if task == "EQA":
+            vocab = set(ds.answer_vocab)
+            off = [p["instr_id"] for p in got if p["pred_answer"] not in
+                   vocab or p["oracle_pred_answer"] not in vocab]
+            if off:
+                raise RuntimeError(f"[38] answers outside the vocabulary: "
+                                   f"{off}")
+        # the reference: streaming evaluation of the same episodes
+        agent.np_rng = IdentityPermutation()
+        with StepLogits(runner) as log, torch.inference_mode():
+            want = agent.validate_streaming(
+                task, dataclasses.replace(args, streaming_eval=True), ycfg,
+                Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
+        g = {p["instr_id"]: p["trajectory"] for p in got}
+        parted = near_tie_parts(38, g, {p["instr_id"]: p["trajectory"]
+                                        for p in want}, log.logits)
+        print(f"[38] {task} batched validation (--no-streaming_eval) of "
+              f"{len(ds)} episodes in batches of {N_SLOTS} through "
+              f"run_training in {dt:.3f} s: "
+              f"{({k: round(float(v), 2) for k, v in metrics.items()})}; "
+              f"{calls[0]} navigation forwards, {calls[1]} generate calls; "
+              f"launches {launches} = {layers} x (forwards + generate "
+              f"calls); trajectories against validate_streaming: "
+              f"{len(g) - len(parted)} of {len(g)} equal, parted on "
+              f"near-ties (instr_id, step, top-2 margin, limit): {parted}")
+        print(f"[38] {timer}")
+        out[task] = launches
+    return out
+
+
+def phase_hostmem(bpe, cfg, model, tmp):
+    """Phase 39: a runner with device_memory=False (graph memory and
+    history on the host: the panorama comes down, each step uploads the
+    node and history embeddings) against the device-memory runner on the
+    same weights, dropout off, candidates in graph order: one fused teacher
+    batch of TRAIN_BATCH; one fused DAgger batch in one group, its actions
+    forced to those the device-memory runner drew for it on the card; and
+    streaming evaluation of HOSTMEM_EPISODES episodes. Gates: the same
+    training trajectories, losses within DAGGER_AB_LOSS_REL, whole
+    gradients within MIN_GRAD_COSINE, the evaluation's trajectories under
+    the near-tie rule, K1-K3 as the path implies (no eval step on the host
+    memory). Returns the host-memory runs' launches."""
+    layers, feat = cfg.llm.num_layers, cfg.pano.image_feat_size
+    args = perstep_args(cfg, dagger_streams=1)
+    runners = {mem: perstep_runner(bpe, cfg, model, args, dropout=False,
+                                   device_memory=mem == "device")
+               for mem in ("device", "host")}
+    anno = T.make_r2r_world(f"{tmp}/hostmem", n_episodes=TRAIN_BATCH,
+                            seed=12, split="train")
+    optim = T.train_config(MAX_ACTION_LEN).Optim
+    launches = {k: 0 for k in COUNTERS}
+
+    def run(mem, kind, forced=None):
+        runner = runners[mem]
+        agent, ds, _ = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+        agent.np_rng = IdentityPermutation()
+        batch = next(iter(Dataloader(ds, TRAIN_BATCH, shuffle=False)))
+        runner.zero_grads()
+        zero_counters(runner)
+        t = []
+        if kind == "teacher":
+            loss, traj = cuda_timed(FT.rollout_teacher_fused, t)(
+                agent, args, "R2R", optim, batch, dataset=ds, train_ml=1.0)
+        else:
+            loss, traj = cuda_timed(FT.rollout_dagger_fused, t)(
+                agent, args, "R2R", optim, batch, dataset=ds, train_ml=1.0,
+                forced_actions=forced, np_rng=IdentityPermutation())
+        got = check_launches(39, runner, layers)
+        if mem == "host":
+            if runner.eval_steps or runner.cached_steps:
+                raise RuntimeError(f"[39] the host-memory {kind} took a "
+                                   f"device-memory step")
+            for k in launches:
+                launches[k] += got[k]
+        return float(loss), [x["path"] for x in traj], t[0], agent.timer
+
+    # the actions the device-memory runner draws on the card
+    steps_of = []
+    loss_pass = FT._fused_trajectory_train
+
+    def capture(agent, a, *, steps, **kw):
+        steps_of.append(steps)
+        return loss_pass(agent, a, steps=steps, **kw)
+
+    FT._fused_trajectory_train = capture
+    try:
+        run("device", "dagger")
+    finally:
+        FT._fused_trajectory_train = loss_pass
+    sampled, = steps_of
+    forced = [s["actions"] for s in sampled]
+    for kind in ("teacher", "dagger"):
+        res = {}
+        for mem in ("device", "host"):
+            res[mem] = run(mem, kind, forced)
+            if mem == "device":
+                saved = grads_of(model)
+        cos = grad_cosine(saved, model)
+        del saved
+        (ld, pd, td, _), (lh, ph, th, timer) = res["device"], res["host"]
+        rel = abs(lh - ld) / abs(ld)
+        print(f"[39] fused {kind} batch of {TRAIN_BATCH}, host memory "
+              f"against device memory: {1e3 * th:.1f} against "
+              f"{1e3 * td:.1f} ms; loss {lh:.6f} / {ld:.6f} (rel "
+              f"{rel:.3e}); whole-gradient cosine {cos:.6f}")
+        print(f"[39] {timer.report()}")
+        if ph != pd:
+            raise RuntimeError(f"[39] the host-memory {kind} took other "
+                               f"trajectories")
+        if not rel <= DAGGER_AB_LOSS_REL or not cos >= MIN_GRAD_COSINE:
+            raise RuntimeError(f"[39] {kind}: loss rel {rel} (limit "
+                               f"{DAGGER_AB_LOSS_REL}), gradient cosine "
+                               f"{cos} (limit {MIN_GRAD_COSINE})")
+    # streaming evaluation on both memories
+    val = T.make_r2r_world(f"{tmp}/hostmem_val", n_episodes=HOSTMEM_EPISODES,
+                           seed=13)
+    preds, dts = {}, {}
+    for mem in ("device", "host"):
+        runner = runners[mem]
+        agent, ds, eargs = T.r2r_eval(val, runner, N_SLOTS, feat)
+        agent.np_rng = IdentityPermutation()
+        zero_counters(runner)
+        with StepLogits(runner) as log, torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = agent.validate_streaming(
+                "R2R", eargs, T.eval_config(MAX_ACTION_LEN),
+                Dataloader(ds, N_SLOTS, shuffle=False), dataset=ds)
+            torch.cuda.synchronize()
+            dts[mem] = time.perf_counter() - t0
+        preds[mem] = {p["instr_id"]: p["trajectory"] for p in out}
+        got = check_launches(39, runner, layers)
+        if mem == "device":
+            ref_log = log.logits
+        else:
+            for k in launches:
+                launches[k] += got[k]
+            n_steps = runner.forward_calls
+            if runner.eval_steps:
+                raise RuntimeError("[39] the host-memory evaluation took a "
+                                   "device-memory step")
+    parted = near_tie_parts(39, preds["host"], preds["device"], ref_log)
+    print(f"[39] streaming eval of {HOSTMEM_EPISODES} episodes, host memory "
+          f"(one slot group, {n_steps} steps) against device memory: "
+          f"{1e3 * dts['host']:.1f} against {1e3 * dts['device']:.1f} ms; "
+          f"trajectories {len(preds['host']) - len(parted)} of "
+          f"{len(preds['host'])} equal, parted on near-ties (instr_id, step, "
+          f"top-2 margin, limit): {parted}")
+    print(f"[39] {agent.timer.report()}")
+    return launches
+
+
+def phase_eqa_train(bpe, cfg, model, tmp):
+    """Phase 40: training on EQA batches of TRAIN_BATCH: one through the
+    fused teacher, one through the per-step teacher rollout and one through
+    the fused DAgger. Gates: each runs the answer head at its final step (a
+    generation-loss grad call), the loss finite and below MAX_LOSS, K1-K3
+    as the path implies (K2 and K3 32 per grad call, the head's included).
+    Returns the launches summed over the three."""
+    from navillm_tpu_torch.agents import load_agent
+    from navillm_tpu_torch.data.datasets import load_dataset
+    from navillm_tpu_torch.sim import WorldModel
+    layers, feat = cfg.llm.num_layers, cfg.pano.image_feat_size
+    root = f"{tmp}/eqa_train"
+    T.make_r2r_world(root, n_episodes=TRAIN_BATCH, seed=14, split="train")
+    ycfg = load_yaml_text(RUN_GEN_YAML % {"len": MAX_ACTION_LEN})
+    args = perstep_args(cfg, data_dir=root)
+    args.sync_from_config(ycfg)
+    runner = perstep_runner(bpe, cfg, model, args)
+    world = WorldModel(f"{root}/connectivity")
+    ds = load_dataset("eqa", args, ycfg, training=True, source="EQA",
+                      world=world)
+    ds.init_feat_db(SyntheticImageFeaturesDB(feat))
+    agent = load_agent("eqa", args, world, runner)
+    launches = {k: 0 for k in COUNTERS}
+    for kind in ("fused teacher", "per-step teacher", "fused DAgger"):
+        batch = next(iter(Dataloader(ds, TRAIN_BATCH, shuffle=False)))
+        runner.zero_grads()
+        zero_counters(runner)
+        t = []
+        if kind == "fused teacher":
+            loss, _ = cuda_timed(FT.rollout_teacher_fused, t)(
+                agent, args, "EQA", ycfg.Optim, batch, dataset=ds,
+                train_ml=1.0)
+        elif kind == "per-step teacher":
+            loss, _ = cuda_timed(agent.rollout, t)(
+                args, "EQA", ycfg.Optim, batch, dataset=ds,
+                feedback="teacher", train_ml=1.0)
+        else:
+            loss, _ = cuda_timed(FT.rollout_dagger_fused, t)(
+                agent, args, "EQA", ycfg.Optim, batch, dataset=ds,
+                train_ml=1.0)
+        got = check_launches(40, runner, layers)
+        for k in launches:
+            launches[k] += got[k]
+        loss = float(loss)
+        if runner.gen_grad_calls < 1 or not (math.isfinite(loss)
+                                             and 0 < loss < MAX_LOSS):
+            raise RuntimeError(f"[40] EQA {kind}: {runner.gen_grad_calls} "
+                               f"answer-head calls, loss {loss}")
+        print(f"[40] EQA {kind} batch of {TRAIN_BATCH}: {1e3 * t[0]:.1f} ms, "
+              f"loss {loss:.4f}, {runner.grad_calls} grad calls "
+              f"({runner.gen_grad_calls} of the answer head); launches {got}"
+              f", per grad call {per_grad_call(got, runner.grad_calls)}")
+    print(f"[40] {agent.timer.report()}")
+    return launches
+
+
 # ------------------------------------------- the pretrained path (33-35) --- #
 class RSSPeak(contextlib.AbstractContextManager):
     """The process's resident set sampled every 20 ms while the block runs:
@@ -4318,6 +4967,15 @@ def main():
     for stage in ("pretrain", "multi"):
         with tempfile.TemporaryDirectory() as tmp:
             cli_mix[stage] = phase_cli_mix(tmp, stage)
+    # the per-step paths at 7B width: the per-step rollouts, the
+    # interleaved DAgger streams, batched validation, the host-memory runner
+    # and training on EQA batches
+    perstep = {}
+    for tag, fn in (("36", phase_perstep_train), ("37", phase_pipeline),
+                    ("38", phase_batched_eval), ("39", phase_hostmem),
+                    ("40", phase_eqa_train)):
+        with tempfile.TemporaryDirectory() as tmp:
+            perstep[tag] = fn(bpe, cfg, model, tmp)
     # the pretrained path: the model's LLM written as an HF-layout
     # checkpoint and read back through build_runner; the directory serves
     # phases 34 and 35 too
@@ -4393,6 +5051,10 @@ def main():
                 "29_cached": cvdn[1]["launches"][key],
                 "30": scanqa["launches"][key], "31": mix_launches[key],
                 **{f"32_{st}": cli_mix[st][key] for st in cli_mix},
+                "36": perstep["36"][key], "37": perstep["37"][key],
+                **{f"38_{t.lower()}": n[key]
+                   for t, n in perstep["38"].items()},
+                "39": perstep["39"][key], "40": perstep["40"][key],
                 "33": load_launches[key],
                 **{ph: n[key] for ph, n in pre_launches.items()},
                 **{ph: n[key] for ph, n in int4_launches.items()}}

@@ -1,24 +1,27 @@
 """The navigation agents (R2R, CVDN, REVERIE, SOON, EQA and the augmented
-R2R and REVERIE sets): streaming evaluation and fused training.
+R2R and REVERIE sets): evaluation and training.
 
-Torch twin of navillm_tpu/agents/mp3d_agent.py on two paths: streaming
-evaluation (device graph memory, argmax or sampled actions, uncached or
-with the prompt-prefix KV cache; for REVERIE and SOON with enable_og an
-object-grounding queue, for EQA and test-mode summarization a generation
-queue, and for EQA the oracle pass) and ``train`` through the fused
-trainer (agents/fused_teacher.py): teacher forcing with the
-object-grounding, summarization and FGR2R heads
-(``_object_grounding_step``, ``_generation_step``), and on the odd steps
-of stage multi the fused DAgger half. It carries the fixed-shape input
-assembly of the JAX agent (``panorama_inputs``, ``nav_gmap_inputs``,
-``nav_vp_inputs``, ``local_match_slots``, ``cand_order_and_prompts``,
-and for the cache ``_cached_prompt_windows``, ``_window_arrays`` and
-``prefill_rows``), its experts (``teacher_action``, ``teacher_object``)
-and its sim step (``make_equiv_action``), which are host numpy code,
-copied because the JAX agent module imports jax. The rest of the JAX agent
-(the per-step and batched rollouts and the interleaved DAgger pipeline,
-the int8 prefix cache) is not ported: asking for it raises
-NotImplementedError naming its ROADMAP item.
+Torch twin of navillm_tpu/agents/mp3d_agent.py on every path:
+streaming evaluation (``validate_streaming``: device graph memory, argmax
+or sampled actions, uncached or with the prompt-prefix KV cache; for
+REVERIE and SOON with enable_og an object-grounding queue, for EQA and
+test-mode summarization a generation queue, and for EQA the oracle pass;
+with a runner built with device_memory=False the host-memory step),
+batched evaluation (``validate`` over the per-step ``rollout``), and
+``train``: the fused trainer (agents/fused_teacher.py) or, without
+fused_teacher / fused_dagger, the per-step rollout (``_rollout_gen``,
+with the interleaved DAgger streams of ``rollout_interleaved``), with the
+object-grounding, summarization, FGR2R and EQA heads
+(``_object_grounding_step``, ``_generation_step``). It carries the
+fixed-shape input assembly of the JAX agent (``panorama_inputs``,
+``nav_gmap_inputs``, ``nav_vp_inputs``, ``local_match_slots``,
+``cand_order_and_prompts``, and for the cache ``_cached_prompt_windows``,
+``_window_arrays`` and ``prefill_rows``), its experts (``teacher_action``,
+``teacher_object``) and its sim step (``make_equiv_action``), which are
+host numpy code, copied because the JAX agent module imports jax. Every
+path times its stages in the agent's StageTimer (``agent.timer``) under
+JAX's stage names. The int8 prefix cache is not ported (ROADMAP A9):
+asking for it raises NotImplementedError naming the item.
 """
 from __future__ import annotations
 
@@ -31,10 +34,11 @@ import torch
 from ..models.decoding import decode_to_text
 from ..models.trie import DenseTrie
 from ..utils.config import TrainArgs
+from ..utils.profiling import StageTimer
 from ..utils.registry import AGENTS
 from . import prompts as P
 from .graph_map import GraphMap
-from .runner import HostCopy, NavModelRunner, RolloutDims
+from .runner import MEM_CAPACITY, HostCopy, NavModelRunner, RolloutDims
 
 CLS_TOKEN_TEXT = "<cls_1>"
 
@@ -47,10 +51,12 @@ SUMMARIZED_TYPES = ("r2r", "soon", "reverie", "r2r_aug", "reverie_aug")
 EvalArgs = TrainArgs
 
 
-def get_results(pred_results: Dict[str, dict]) -> List[dict]:
+def get_results(pred_results: Dict[str, dict],
+                detailed_output: bool = False) -> List[dict]:
     """Flatten per-episode results; a generated answer (EQA, or a
     test-mode summary) comes with its oracle answer and ground truth, a
-    grounded object with its direction (SOON; None for REVERIE)."""
+    grounded object with its direction (SOON; None for REVERIE).
+    detailed_output is taken and unused, as in JAX."""
     out = []
     for k, v in pred_results.items():
         ret = {"instr_id": k, "trajectory": v["path"]}
@@ -85,6 +91,8 @@ class R2RAgent:
         # (batch rows, max_prefix), and its mid-batch fallbacks
         self._dagger_cache_pool: List[Any] = []
         self.dagger_bailouts = 0
+        # host wall time per named stage of every rollout path
+        self.timer = StageTimer()
 
     def get_prompt(self, task, *a, **kw):
         kind = {"navigation": P.navigation_prompt,
@@ -177,11 +185,16 @@ class R2RAgent:
                         "obj_ids": obj_ids})
         return ret
 
-    def nav_gmap_inputs(self, obs, gmaps: List[GraphMap]) -> Dict[str, Any]:
-        """Graph-node bookkeeping; the node embeddings stay on the device."""
+    def nav_gmap_inputs(self, obs, gmaps: List[GraphMap],
+                        fill_embeds: bool = False) -> Dict[str, Any]:
+        """Graph-node bookkeeping. The node embeddings stay on the device,
+        or with fill_embeds (the host-memory path) come from the graph maps
+        as gmap_img_embeds [B, G, H] f32."""
         G = self.dims.max_gmap_nodes
         b = len(obs)
         A = self.args.angle_feat_size
+        img = np.zeros((b, G, self.runner.cfg.hidden_size), np.float32) \
+            if fill_embeds else None
         step_ids = np.zeros((b, G), np.int32)
         pos_fts = np.zeros((b, G, A + 3), np.float32)
         masks = np.zeros((b, G), bool)
@@ -205,17 +218,25 @@ class R2RAgent:
             masks[i, :n] = True
             visited[i, :n] = vmask
             step_ids[i, :n] = [gmap.node_step_ids.get(vp, 0) for vp in vpids]
+            if fill_embeds:
+                for k, vp in enumerate(vpids):
+                    if k > 0 and gmap.has_node_embed(vp):
+                        img[i, k] = gmap.get_node_embed(vp)
             pos_fts[i, :n] = gmap.get_pos_fts(obs[i]["viewpoint"], vpids,
                                               obs[i]["heading"],
                                               obs[i]["elevation"], A)
-        return {"gmap_step_ids": step_ids, "gmap_pos_fts": pos_fts,
-                "gmap_masks": masks, "gmap_visited_masks": visited,
-                "gmap_vpids": gmap_vpids, "no_vp_left": no_vp_left}
+        ret = {"gmap_step_ids": step_ids, "gmap_pos_fts": pos_fts,
+               "gmap_masks": masks, "gmap_visited_masks": visited,
+               "gmap_vpids": gmap_vpids, "no_vp_left": no_vp_left}
+        if fill_embeds:
+            ret["gmap_img_embeds"] = img
+        return ret
 
-    def nav_vp_inputs(self, obs, gmaps, pano_masks, cand_vpids
-                      ) -> Dict[str, Any]:
-        """[stop] + panorama views, with 14-dim pos features (the stop
-        row's embedding is prepended on the device)."""
+    def nav_vp_inputs(self, obs, gmaps, pano_masks, cand_vpids,
+                      pano_embeds=None) -> Dict[str, Any]:
+        """[stop] + panorama views, with 14-dim pos features. The stop row's
+        embedding is prepended on the device, or with pano_embeds [B, V, H]
+        (the host-memory path) here, as vp_img_embeds [B, V+1, H] f32."""
         b, V = pano_masks.shape
         A = self.args.angle_feat_size
         masks = np.zeros((b, V + 1), bool)
@@ -229,8 +250,13 @@ class R2RAgent:
             cand = gmap.get_pos_fts(obs[i]["viewpoint"], cand_vpids[i],
                                     obs[i]["heading"], obs[i]["elevation"], A)
             pos[i, 1: len(cand_vpids[i]) + 1, A + 3:] = cand
-        return {"vp_pos_fts": pos, "pano_masks": masks,
-                "vp_cand_vpids": [[None] + list(x) for x in cand_vpids]}
+        ret = {"vp_pos_fts": pos, "pano_masks": masks,
+               "vp_cand_vpids": [[None] + list(x) for x in cand_vpids]}
+        if pano_embeds is not None:
+            vp_img = np.zeros((b, V + 1, pano_embeds.shape[-1]), np.float32)
+            vp_img[:, 1:] = pano_embeds
+            ret["vp_img_embeds"] = vp_img
+        return ret
 
     def local_match_slots(self, gmap_vpids, vp_cand_vpids, gmaps,
                           width: int) -> np.ndarray:
@@ -396,8 +422,61 @@ class R2RAgent:
                 valid[j] = True
             for j in range(len(chunk), bp):
                 rows[j] = spare[j - len(chunk)]
-            cache = self.runner.prefill(cache, ids, mask, rows, valid)
+            with self.timer.stage("prefill_dispatch"):
+                cache = self.runner.prefill(cache, ids, mask, rows, valid)
         return cache
+
+    def _memory_ids(self, gmaps, obs, cand_vpids, skip):
+        """The ids of a device memory update: cur_ids [B], the current
+        viewpoint's node, and cand_ids [B, V], the node each unvisited
+        candidate view pools into (-1: none; rows in ``skip`` and nodes past
+        the memory's capacity take none)."""
+        b = len(gmaps)
+        cur_ids = np.full(b, -1, np.int32)
+        cand_ids = np.full((b, self.dims.max_views), -1, np.int32)
+        for i, gmap in enumerate(gmaps):
+            if skip[i]:
+                continue
+            gidx = gmap.graph.index
+            cid = gidx.get(obs[i]["viewpoint"], -1)
+            cur_ids[i] = cid if cid < MEM_CAPACITY else -1
+            for j, cvp in enumerate(cand_vpids[i]):
+                if not gmap.visited(cvp):
+                    nid = gidx.get(cvp, -1)
+                    if 0 <= nid < MEM_CAPACITY:
+                        cand_ids[i, j] = nid
+        return cur_ids, cand_ids
+
+    @staticmethod
+    def _slot_ids(gmap_in, gmaps) -> np.ndarray:
+        """[B, G]: the memory node of each gmap slot (-1: the stop slot,
+        padding, nodes past the memory's capacity)."""
+        slot_ids = np.full(gmap_in["gmap_masks"].shape, -1, np.int32)
+        for i, gmap in enumerate(gmaps):
+            gidx = gmap.graph.index
+            for k, vp in enumerate(gmap_in["gmap_vpids"][i]):
+                if k > 0 and vp is not None:
+                    nid = gidx.get(vp, -1)
+                    if 0 <= nid < MEM_CAPACITY:
+                        slot_ids[i, k] = nid
+        return slot_ids
+
+    @staticmethod
+    def _pool_node_embeds(gmaps, obs, pano_embeds, pano_masks, cand_vpids,
+                          skip):
+        """The host graph memory's update (the host-memory path): the
+        current node's embedding becomes the mean of its views, each
+        unvisited candidate node pools its view; rows in ``skip`` are
+        left alone."""
+        denom = np.maximum(pano_masks.sum(1, keepdims=True), 1)
+        avg = (pano_embeds * pano_masks[..., None]).sum(1) / denom
+        for i, gmap in enumerate(gmaps):
+            if skip[i]:
+                continue
+            gmap.update_node_embed(obs[i]["viewpoint"], avg[i], rewrite=True)
+            for j, cvp in enumerate(cand_vpids[i]):
+                if not gmap.visited(cvp):
+                    gmap.update_node_embed(cvp, pano_embeds[i, j])
 
     def hist_arrays(self, hist_vis) -> np.ndarray:
         """[B, max_hist, H] f32: each row's last max_hist history embeds."""
@@ -672,34 +751,95 @@ class R2RAgent:
 
     # ---------------- training ------------------------------------------ #
     def train(self, name, batch, args, config, dataset, step=0, **kwargs):
-        """One training batch (twin of MP3DAgent.train): teacher forcing
-        through the fused teacher at stage pretrain and on even steps,
-        the fused DAgger on odd steps of stage multi (``kwargs``, such as
-        forced_actions and np_rng, go to it). Returns the loss (a device
-        scalar) times gradient_accumulation_step, as the JAX agent does."""
+        """One training batch (twin of MP3DAgent.train). At stage pretrain
+        and on even steps teacher forcing: the fused teacher
+        (fused_teacher), else the per-step rollout. On odd steps of stage
+        multi the DAgger half: the fused DAgger (fused_dagger), else the
+        per-step sampled rollout, split into dagger_streams streams driven
+        by rollout_interleaved when dagger_pipeline is on, the runner keeps
+        its memory on the device, dagger_streams >= 2 and the batch has at
+        least 4 episodes (dagger_streams 1 is the serial baseline).
+        ``kwargs`` (forced_actions and np_rng of the fused DAgger, np_rng of
+        the per-step rollouts) go to the rollout. Returns the loss (a
+        device scalar or a float) times gradient_accumulation_step, as the
+        JAX agent does."""
         stage_cfg = config.Pretrain if args.stage == "pretrain" \
             else config.Multi
         loss_coef = (getattr(stage_cfg, "LOSS_COEF", None) or {}) \
             .get(name, 1.0)
         from . import fused_teacher as FT
         if args.stage == "pretrain" or step % 2 == 0:
-            if not args.fused_teacher:
-                raise NotImplementedError(
-                    "the per-step teacher rollout is not ported (ROADMAP "
-                    "A8): keep fused_teacher=True")
-            loss, _ = FT.rollout_teacher_fused(
-                self, args, name, config.Optim, batch, dataset=dataset,
-                train_ml=loss_coef * args.teacher_forcing_coef, **kwargs)
-        else:
-            if not getattr(args, "fused_dagger", True):
-                raise NotImplementedError(
-                    "the per-step and interleaved DAgger rollouts are not "
-                    "ported (ROADMAP A8): keep fused_dagger=True")
+            train_ml = loss_coef * args.teacher_forcing_coef
+            if args.fused_teacher:
+                loss, _ = FT.rollout_teacher_fused(
+                    self, args, name, config.Optim, batch, dataset=dataset,
+                    train_ml=train_ml, **kwargs)
+            else:
+                loss, _ = self.rollout(args, name, config.Optim, batch,
+                                       dataset=dataset, feedback="teacher",
+                                       train_ml=train_ml, **kwargs)
+        elif args.fused_dagger:
             # the DAgger half's coefficient is LOSS_COEF alone, as in JAX
             loss, _ = FT.rollout_dagger_fused(
                 self, args, name, config.Optim, batch, dataset=dataset,
                 train_ml=loss_coef, **kwargs)
+        else:
+            n_streams = max(1, int(args.dagger_streams))
+            if args.dagger_pipeline and self.runner.device_memory \
+                    and n_streams >= 2 and len(batch["observations"]) >= 4:
+                loss, _ = self.rollout_interleaved(
+                    args, name, config.Optim,
+                    _split_batch_dict(batch, n_streams), dataset=dataset,
+                    feedback="sample", train_ml=loss_coef, **kwargs)
+            else:
+                loss, _ = self.rollout(args, name, config.Optim, batch,
+                                       dataset=dataset, feedback="sample",
+                                       train_ml=loss_coef, **kwargs)
         return loss * args.gradient_accumulation_step
+
+    def _eqa_trie(self, name, dataset) -> Optional[DenseTrie]:
+        """EQA's answer vocabulary as a trie (the constraint of its
+        generated answers); None for the other tasks."""
+        if name != "EQA":
+            return None
+        return DenseTrie([self.runner.tok.encode(w, add_bos=True)
+                          for w in dataset.answer_vocab],
+                         eos_id=self.runner.tok.eos_id,
+                         device=self.runner.device)
+
+    # ---------------- batched evaluation -------------------------------- #
+    def validate(self, name, args, config, loader, dataset=None, **kwargs):
+        """Batched evaluation (twin of MP3DAgent.validate): each loader
+        batch rolls out together (rollout, argmax or with do_sample sampled
+        on the host) until its last episode ends. On EQA the answers come
+        from trie-constrained generation at the final step, and the batch
+        rolls out again under the expert's actions (the oracle pass) for
+        oracle_pred_answer. Stops after the first batch that repeats an
+        episode. Returns get_results."""
+        results: Dict[str, dict] = {}
+        trie = self._eqa_trie(name, dataset)
+        looped = False
+        for batch in loader:
+            _, traj = self.rollout(
+                args, name, config.Optim, batch, dataset=dataset,
+                feedback="sample" if args.do_sample else "argmax",
+                train_ml=None, validate=True, trie=trie, **kwargs)
+            for s in traj:
+                if s["instr_id"] in results:
+                    looped = True
+                else:
+                    results[s["instr_id"]] = s
+            if name == "EQA":
+                _, oracle_traj = self.rollout(
+                    args, name, config.Optim, batch, dataset=dataset,
+                    feedback="teacher", train_ml=1, validate=True,
+                    trie=trie, **kwargs)
+                for s in oracle_traj:
+                    results[s["instr_id"]]["oracle_pred_answer"] = \
+                        s.get("generated_sentences", "")
+            if looped:
+                break
+        return get_results(results)
 
     # ---------------- continuous-refill streaming evaluation ----------- #
     def validate_streaming(self, name, args, config, loader, dataset=None):
@@ -733,13 +873,16 @@ class R2RAgent:
 
         With args.do_sample each step draws its action on the card at
         args.temperature (device_memory.sample_actions, a generator seeded
-        from the runner's), uncached or cached; oracle rows stay forced."""
-        trie = None
-        if name == "EQA":
-            trie = DenseTrie([self.runner.tok.encode(w, add_bos=True)
-                              for w in dataset.answer_vocab],
-                             eos_id=self.runner.tok.eos_id,
-                             device=self.runner.device)
+        from the runner's), uncached or cached; oracle rows stay forced.
+
+        A runner without device memory (device_memory=False) runs one slot
+        group on the host path: each step the panorama comes down
+        (runner.panorama), the graph maps pool the node embeddings, the
+        step uploads them with the history (runner.navigation, whose
+        logits come down), and the action is the argmax or a draw on the
+        host from the agent's RandomState, as the per-step rollout's."""
+        trie = self._eqa_trie(name, dataset)
+        use_mem = self.runner.device_memory
 
         def needs_generation(sl):
             # summarization only under argmax, never under sampling (the
@@ -776,13 +919,14 @@ class R2RAgent:
 
         class Slot:
             __slots__ = ("ob", "env", "item", "data_type", "gmap", "traj",
-                         "history", "t", "active", "instruction", "oracle",
-                         "cache_ids", "needs_prefill")
+                         "history", "hist_vis", "t", "active", "instruction",
+                         "oracle", "cache_ids", "needs_prefill")
 
         def init_episode(slot):
             slot.gmap = GraphMap(slot.ob["viewpoint"])
             slot.gmap.update_graph(slot.ob)
             slot.history = []
+            slot.hist_vis = []
             slot.t = 0
             slot.active = True
             slot.instruction = slot.ob["instruction"]
@@ -822,12 +966,16 @@ class R2RAgent:
         n_streams = max(1, int(getattr(args, "eval_streams", 0) or 2))
         use_cache = args.prefix_cache and self.runner.prefix_cache_enabled(
             num_slots, self.dims.max_prefix, n_caches=n_streams)
+        # the host path waits for the whole logits in its step, so it has
+        # nothing to overlap: one slot group
+        if not use_mem:
+            n_streams = 1
 
         class Stream:
             __slots__ = ("slots", "mem_state", "reset_rows", "pending",
                          "pano_inputs", "gmap_in", "nav_batch", "cur_ids",
                          "cand_ids", "real_mask", "a_t_override", "a_t",
-                         "cache", "prefill_items")
+                         "fuse_embeds", "cache", "prefill_items")
 
         streams: List[Stream] = []
         for _ in range(n_streams):
@@ -839,7 +987,8 @@ class R2RAgent:
                     st.slots.append(sl)
             if not st.slots:
                 break
-            st.mem_state = self.runner.memory_init(len(st.slots))
+            st.mem_state = (self.runner.memory_init(len(st.slots))
+                            if use_mem else None)
             st.cache = (self.runner.prefix_cache_init(len(st.slots),
                                                       self.dims.max_prefix)
                         if use_cache else None)
@@ -882,64 +1031,71 @@ class R2RAgent:
                 if sl.active:
                     sl.gmap.node_step_ids[sl.ob["viewpoint"]] = sl.t + 1
 
-            pano_inputs = self.panorama_inputs(obs)
-            host_pano_masks = (np.arange(self.dims.max_views)[None, :]
-                               < pano_inputs["view_lens"][:, None])
-            M = st.mem_state["mem_sum"].shape[1]
-            st.cur_ids = np.full(n, -1, np.int32)
-            st.cand_ids = np.full((n, self.dims.max_views), -1, np.int32)
-            for i, sl in enumerate(active):
-                if not sl.active:
-                    continue
-                gidx = sl.gmap.graph.index
-                cid = gidx.get(sl.ob["viewpoint"], -1)
-                st.cur_ids[i] = cid if cid < M else -1
-                for j, cvp in enumerate(pano_inputs["cand_vpids"][i]):
-                    if not sl.gmap.visited(cvp):
-                        nid = gidx.get(cvp, -1)
-                        if 0 <= nid < M:
-                            st.cand_ids[i, j] = nid
-
-            gmap_in = self.nav_gmap_inputs(obs, gmaps)
-            vp_in = self.nav_vp_inputs(obs, gmaps, host_pano_masks,
-                                       pano_inputs["cand_vpids"])
-            match = self.local_match_slots(
-                gmap_in["gmap_vpids"], vp_in["vp_cand_vpids"], gmaps,
-                width=host_pano_masks.shape[1] + 1)
-            order, prompts, cand_nums = self.cand_order_and_prompts(
-                gmap_in, [sl.instruction for sl in active],
-                [sl.history for sl in active])
-            if use_cache:
-                C = self.dims.max_cands
-
-                def probe_fn(i):
-                    return self.get_prompt(
-                        "navigation", instruction=active[i].instruction,
-                        hist_num=len(active[i].history) + 1,
-                        cand_num=min(cand_nums[i], C + 1),
-                        cls_token=CLS_TOKEN_TEXT)
-
-                app_l, suf_l, st.prefill_items = self._cached_prompt_windows(
-                    active, prompts, probe_fn, self.dims.max_prefix)
-                tok = self.runner.tok
-                text = self._window_arrays(app_l, suf_l, tok.cand_id,
-                                           tok.hist_id, tok.cls_ids[0], C)
+            with self.timer.stage("pano_assemble"):
+                pano_inputs = self.panorama_inputs(obs)
+                host_pano_masks = (np.arange(self.dims.max_views)[None, :]
+                                   < pano_inputs["view_lens"][:, None])
+            pano_embeds = None
+            if use_mem:
+                # ids of the on-card memory update (which runs inside the
+                # fused eval step)
+                st.cur_ids, st.cand_ids = self._memory_ids(
+                    gmaps, obs, pano_inputs["cand_vpids"],
+                    ~st.real_mask)
             else:
-                tok_batch, cand_pos, hist_pos, cls_pos = \
-                    self.runner.tokenize_with_positions(prompts)
-                text = {"cand_positions": cand_pos,
-                        "hist_positions": hist_pos,
-                        "input_ids": tok_batch.input_ids,
-                        "attention_mask": tok_batch.attention_mask,
-                        "cls_pos": cls_pos}
-            slot_ids = np.full(gmap_in["gmap_masks"].shape, -1, np.int32)
-            for i, sl in enumerate(active):
-                gidx = sl.gmap.graph.index
-                for k, vp in enumerate(gmap_in["gmap_vpids"][i]):
-                    if k > 0 and vp is not None:
-                        nid = gidx.get(vp, -1)
-                        if 0 <= nid < M:
-                            slot_ids[i, k] = nid
+                with self.timer.stage("pano_device"):
+                    pano_out = self.runner.panorama(pano_inputs,
+                                                    deterministic=True)
+                pano_embeds = pano_out["pano_embeds"]
+                host_pano_masks = pano_out["pano_masks"]
+                self._pool_node_embeds(gmaps, obs, pano_embeds,
+                                       host_pano_masks,
+                                       pano_inputs["cand_vpids"],
+                                       ~st.real_mask)
+
+            with self.timer.stage("nav_assemble"):
+                with self.timer.stage("na_gmap"):
+                    gmap_in = self.nav_gmap_inputs(obs, gmaps,
+                                                   fill_embeds=not use_mem)
+                with self.timer.stage("na_vp"):
+                    vp_in = self.nav_vp_inputs(obs, gmaps, host_pano_masks,
+                                               pano_inputs["cand_vpids"],
+                                               pano_embeds)
+                    match = self.local_match_slots(
+                        gmap_in["gmap_vpids"], vp_in["vp_cand_vpids"], gmaps,
+                        width=host_pano_masks.shape[1] + 1)
+                with self.timer.stage("na_prompts"):
+                    order, prompts, cand_nums = self.cand_order_and_prompts(
+                        gmap_in, [sl.instruction for sl in active],
+                        [sl.history for sl in active])
+                with self.timer.stage("na_tok"):
+                    if use_cache:
+                        C = self.dims.max_cands
+
+                        def probe_fn(i):
+                            return self.get_prompt(
+                                "navigation",
+                                instruction=active[i].instruction,
+                                hist_num=len(active[i].history) + 1,
+                                cand_num=min(cand_nums[i], C + 1),
+                                cls_token=CLS_TOKEN_TEXT)
+
+                        app_l, suf_l, st.prefill_items = \
+                            self._cached_prompt_windows(
+                                active, prompts, probe_fn,
+                                self.dims.max_prefix)
+                        tok = self.runner.tok
+                        text = self._window_arrays(
+                            app_l, suf_l, tok.cand_id, tok.hist_id,
+                            tok.cls_ids[0], C)
+                    else:
+                        tok_batch, cand_pos, hist_pos, cls_pos = \
+                            self.runner.tokenize_with_positions(prompts)
+                        text = {"cand_positions": cand_pos,
+                                "hist_positions": hist_pos,
+                                "input_ids": tok_batch.input_ids,
+                                "attention_mask": tok_batch.attention_mask,
+                                "cls_pos": cls_pos}
             st.nav_batch = {
                 "gmap_step_ids": gmap_in["gmap_step_ids"],
                 "gmap_pos_fts": gmap_in["gmap_pos_fts"],
@@ -950,8 +1106,15 @@ class R2RAgent:
                 "local_match_slot": match,
                 "cand_order": order,
                 **text,
-                "slot_ids": slot_ids,
             }
+            if use_mem:
+                st.nav_batch["slot_ids"] = self._slot_ids(gmap_in, gmaps)
+            else:
+                st.nav_batch.update({
+                    "gmap_img_embeds": gmap_in["gmap_img_embeds"],
+                    "vp_img_embeds": vp_in["vp_img_embeds"],
+                    "hist_embeds": self.hist_arrays(
+                        [sl.hist_vis for sl in active])})
             # oracle slots follow the expert (a host shortest-path argmin)
             st.a_t_override = np.full(n, -1, np.int32)
             for i, sl in enumerate(active):
@@ -976,25 +1139,44 @@ class R2RAgent:
                 if items:
                     st.cache = self.prefill_rows(st.cache, items,
                                                  len(st.slots))
-                st.mem_state, st.cache, a_t, _ = self.runner.eval_step_cached(
-                    st.mem_state, st.cache, st.pano_inputs, st.nav_batch,
-                    st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
-                    st.a_t_override, do_sample=do_sample,
-                    temperature=args.temperature, sync=False)
+                with self.timer.stage("nav_dispatch"):
+                    st.mem_state, st.cache, a_t, _ = \
+                        self.runner.eval_step_cached(
+                            st.mem_state, st.cache, st.pano_inputs,
+                            st.nav_batch, st.reset_rows, st.cur_ids,
+                            st.cand_ids, st.real_mask, st.a_t_override,
+                            do_sample=do_sample,
+                            temperature=args.temperature, sync=False)
+                    st.a_t = HostCopy(a_t)
+            elif use_mem:
+                with self.timer.stage("nav_dispatch"):
+                    st.mem_state, a_t, _ = self.runner.eval_step(
+                        st.mem_state, st.pano_inputs, st.nav_batch,
+                        st.reset_rows, st.cur_ids, st.cand_ids,
+                        st.real_mask, st.a_t_override, do_sample=do_sample,
+                        temperature=args.temperature, sync=False)
+                    st.a_t = HostCopy(a_t)
             else:
-                st.mem_state, a_t, _ = self.runner.eval_step(
-                    st.mem_state, st.pano_inputs, st.nav_batch,
-                    st.reset_rows, st.cur_ids, st.cand_ids, st.real_mask,
-                    st.a_t_override, do_sample=do_sample,
-                    temperature=args.temperature, sync=False)
-            st.a_t = HostCopy(a_t)
+                with self.timer.stage("nav_device"):
+                    logits, st.fuse_embeds, _ = \
+                        self.runner.navigation(st.nav_batch)
+                if do_sample:
+                    probs = _softmax(logits / max(args.temperature, 1e-6))
+                    a_t = np.array([self.np_rng.choice(
+                        len(p), p=(p / p.sum()).astype(np.float64))
+                        for p in probs.astype(np.float64)])
+                else:
+                    a_t = logits.argmax(1)
+                st.a_t = np.where(st.a_t_override >= 0, st.a_t_override,
+                                  a_t)
             st.pending = True
 
         def _post(st: Stream):
             """Retire st's in-flight step: wait for a_t only, then run the
             per-slot host work (stop handling, refill, env step)."""
             st.pending = False
-            a_t = st.a_t.result()
+            with self.timer.stage("nav_sync"):
+                a_t = st.a_t.result() if use_mem else st.a_t
             st.a_t = None
             nav_vpids = st.gmap_in["gmap_vpids"]
             st.reset_rows = np.zeros(len(st.slots), bool)
@@ -1002,6 +1184,8 @@ class R2RAgent:
                 if not sl.active:
                     continue
                 sl.history.append("<hist>")
+                if not use_mem:
+                    sl.hist_vis.append(st.fuse_embeds[i, a_t[i]])
                 sl.t += 1
                 stop = (a_t[i] == 0) or st.gmap_in["no_vp_left"][i] \
                     or sl.t >= max_action_len
@@ -1010,13 +1194,17 @@ class R2RAgent:
                         and args.enable_og and not sl.oracle
                     need_gen = needs_generation(sl)
                     if need_og or need_gen:
-                        # the heads read the history values: one download
-                        # of this row of the device history buffer
-                        buf = st.mem_state["hist_buf"][i].cpu().numpy()
-                        cnt = int(st.mem_state["hist_cnt"][i])
+                        if use_mem:
+                            # the heads read the history values: one
+                            # download of this row of the history buffer
+                            buf = st.mem_state["hist_buf"][i].cpu().numpy()
+                            cnt = int(st.mem_state["hist_cnt"][i])
+                            hist_vis = list(buf[: min(cnt, len(buf))])
+                        else:
+                            hist_vis = list(sl.hist_vis)
                         snap = {
                             "ob": sl.ob, "history": list(sl.history),
-                            "hist_vis": list(buf[: min(cnt, len(buf))]),
+                            "hist_vis": hist_vis,
                             "instruction": sl.instruction, "traj": sl.traj,
                             "oracle": sl.oracle,
                             "data_type": sl.data_type}
@@ -1035,10 +1223,12 @@ class R2RAgent:
                     st.reset_rows[i] = True
                 else:
                     action = nav_vpids[i][a_t[i]]
-                    self.make_equiv_action([action], [sl.gmap], [sl.ob],
-                                           [sl.traj], [sl.env])
-                    sl.ob = dataset.get_obs(items=[sl.item], env=sl.env,
-                                            data_type=sl.data_type)[0]
+                    with self.timer.stage("env_step"):
+                        self.make_equiv_action([action], [sl.gmap], [sl.ob],
+                                               [sl.traj], [sl.env])
+                    with self.timer.stage("get_obs"):
+                        sl.ob = dataset.get_obs(items=[sl.item], env=sl.env,
+                                                data_type=sl.data_type)[0]
                     self.update_scanvp_cands([sl.ob])
                     sl.gmap.update_graph(sl.ob)
 
@@ -1063,6 +1253,356 @@ class R2RAgent:
         flush_og(force=True)
         flush_gen(force=True)
         return get_results(results)
+
+    # ---------------- the per-step rollout ------------------------------ #
+    def rollout(self, args, name, optim_cfg, batch_dict, dataset, feedback,
+                train_ml, validate=False, trie=None, **kwargs):
+        """The per-step rollout of one batch (twin of MP3DAgent.rollout):
+        _rollout_gen drained in one stream. Returns (loss, trajectories)."""
+        gen = self._rollout_gen(args, name, optim_cfg, batch_dict, dataset,
+                                feedback, train_ml, validate=validate,
+                                trie=trie, **kwargs)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as e:
+                return e.value
+
+    def rollout_interleaved(self, args, name, optim_cfg, halves, dataset,
+                            feedback, train_ml, **kwargs):
+        """The per-step DAgger rollout over the streams of one batch
+        (_split_batch_dict), advanced in lockstep: while one stream's step
+        (forward, backward and the panorama's backward) runs on the card,
+        the others do their host work (action draw, env step, observations,
+        prompts). Every loss term divides by the whole batch's size, so
+        the gradients are those of draining the same streams in sequence,
+        up to the order of accumulation. Each stream draws its candidate
+        permutations and actions from its own RandomState (stream_rngs, or
+        seeded from the agent's), so the interleaving order moves no draw.
+        Returns (loss, trajectories in stream order)."""
+        denom = sum(len(h["observations"]) for h in halves)
+        stream_rngs = kwargs.pop("stream_rngs", None)
+        if stream_rngs is None:
+            stream_rngs = [np.random.RandomState(
+                int(self.np_rng.randint(0, 2 ** 31 - 1))) for _ in halves]
+        gens = [self._rollout_gen(args, name, optim_cfg, h, dataset,
+                                  feedback, train_ml, loss_denom=denom,
+                                  np_rng=srng, **kwargs)
+                for h, srng in zip(halves, stream_rngs)]
+        results: List[Optional[tuple]] = [None] * len(gens)
+        live = list(range(len(gens)))
+        while live:
+            for gi in list(live):
+                try:
+                    next(gens[gi])
+                except StopIteration as e:
+                    results[gi] = e.value
+                    live.remove(gi)
+        loss = sum(r[0] for r in results)
+        traj = [t for r in results for t in r[1]]
+        return loss, traj
+
+    def _rollout_gen(self, args, name, optim_cfg, batch_dict, dataset,
+                     feedback, train_ml, validate=False, trie=None,
+                     loss_denom=None, np_rng=None, **kwargs):
+        """The per-step rollout as a generator (twin of _rollout_gen): per
+        step the panorama, the graph memory's update, the navigation step
+        (with its loss and gradient when training), the action (the
+        expert's under teacher feedback, a draw on the host under sample,
+        the argmax under argmax), the history, and on the final step the
+        sub-task heads, then the env step.
+
+        Training with device memory runs each step as one grad call on the
+        card's memory (runner.pano_mem_navigation_train) and yields between
+        dispatching it and downloading its logits: rollout_interleaved
+        runs the other streams' host work there. Otherwise the panorama
+        comes down (runner.panorama) and the graph maps pool the node
+        embeddings; training then recomputes the panorama in its grad call
+        with the same seed (runner.pano_navigation_train), so the memory's
+        copy and the differentiated one draw the same dropout, and
+        evaluation runs runner.navigation. Memory and history leave the
+        graph: no step's gradient reaches an earlier one.
+
+        loss_denom divides every loss term (the whole batch's size under
+        rollout_interleaved); np_rng replaces the agent's RandomState for
+        the candidate permutations and the draws. Returns (loss, a device
+        scalar or a float, and the trajectories) as StopIteration's
+        value."""
+        runner = self.runner
+        obs = list(batch_dict["observations"])
+        envs = batch_dict["env"]
+        items = batch_dict["item"]
+        data_type = batch_dict["data_type"]
+        batch_size = len(obs)
+        training = train_ml is not None and not validate
+        loss_den = loss_denom if loss_denom is not None else batch_size
+        rng_local = np_rng if np_rng is not None else self.np_rng
+        max_action_len = optim_cfg.val_max_action_len[name] if validate \
+            else optim_cfg.train_max_action_len[name]
+        assert max_action_len <= self.dims.max_hist, (
+            f"max_action_len {max_action_len} exceeds history capacity "
+            f"{self.dims.max_hist}: hist_append would overwrite the last "
+            f"slot; raise RolloutDims.max_hist")
+
+        self.update_scanvp_cands(obs)
+        gmaps = [GraphMap(ob["viewpoint"]) for ob in obs]
+        for i, ob in enumerate(obs):
+            gmaps[i].update_graph(ob)
+        traj = [{"instr_id": ob["instr_id"], "path": [[ob["viewpoint"]]],
+                 "details": {}} for ob in obs]
+        ended = np.zeros(batch_size, bool)
+        instructions = [ob["instruction"] for ob in obs]
+        history: List[List[str]] = [[] for _ in range(batch_size)]
+        hist_vis: List[List[np.ndarray]] = [[] for _ in range(batch_size)]
+        ml_loss = 0.0
+        flag = False
+        use_mem_train = training and runner.device_memory
+        mem_state = runner.memory_init(batch_size) if use_mem_train \
+            else None
+
+        for t in range(max_action_len):
+            if ended.all() or t == max_action_len - 1:
+                flag = True
+            for i, gmap in enumerate(gmaps):
+                if not ended[i]:
+                    gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
+
+            # one seed for the step's panorama: the host copy of the
+            # memory path and the grad call's recompute draw the same
+            # dropout
+            step_seed = runner.next_seed()
+            with self.timer.stage("pano_assemble"):
+                pano_inputs = self.panorama_inputs(obs)
+            if use_mem_train:
+                # the memory update runs inside the grad call; here only
+                # its ids
+                pano_embeds = None
+                pano_masks = (np.arange(self.dims.max_views)[None, :]
+                              < pano_inputs["view_lens"][:, None])
+                cur_ids, cand_ids = self._memory_ids(
+                    gmaps, obs, pano_inputs["cand_vpids"], ended)
+            else:
+                with self.timer.stage("pano_device"):
+                    pano_out = runner.panorama(
+                        pano_inputs, deterministic=not training,
+                        seed=step_seed)
+                pano_embeds = pano_out["pano_embeds"]
+                pano_masks = pano_out["pano_masks"]
+                self._pool_node_embeds(gmaps, obs, pano_embeds, pano_masks,
+                                       pano_inputs["cand_vpids"], ended)
+
+            with self.timer.stage("nav_assemble"):
+                gmap_in = self.nav_gmap_inputs(obs, gmaps,
+                                               fill_embeds=not use_mem_train)
+            with self.timer.stage("nav_assemble"):
+                vp_in = self.nav_vp_inputs(obs, gmaps, pano_masks,
+                                           pano_inputs["cand_vpids"],
+                                           pano_embeds)
+                match = self.local_match_slots(
+                    gmap_in["gmap_vpids"], vp_in["vp_cand_vpids"], gmaps,
+                    width=pano_masks.shape[1] + 1)
+                order, prompts, cand_nums = self.cand_order_and_prompts(
+                    gmap_in, instructions, history, rng=rng_local)
+                tok_batch, cand_pos, hist_pos, cls_pos = \
+                    runner.tokenize_with_positions(prompts)
+            nav_batch = {
+                "gmap_step_ids": gmap_in["gmap_step_ids"],
+                "gmap_pos_fts": gmap_in["gmap_pos_fts"],
+                "gmap_masks": gmap_in["gmap_masks"],
+                "gmap_visited_masks": gmap_in["gmap_visited_masks"],
+                "vp_pos_fts": vp_in["vp_pos_fts"],
+                "pano_masks": vp_in["pano_masks"],
+                "local_match_slot": match,
+                "cand_order": order,
+                "cand_positions": cand_pos,
+                "hist_positions": hist_pos,
+                "input_ids": tok_batch.input_ids,
+                "attention_mask": tok_batch.attention_mask,
+                "cls_pos": cls_pos,
+            }
+            if not use_mem_train:
+                nav_batch["gmap_img_embeds"] = gmap_in["gmap_img_embeds"]
+                nav_batch["vp_img_embeds"] = vp_in["vp_img_embeds"]
+                nav_batch["hist_embeds"] = self.hist_arrays(hist_vis)
+
+            nav_vpids = gmap_in["gmap_vpids"]
+            nav_targets = None
+            if train_ml is not None:
+                nav_targets = self.teacher_action(
+                    obs, nav_vpids, ended,
+                    visited_masks=gmap_in["gmap_visited_masks"],
+                    imitation_learning=(feedback == "teacher"), t=t)
+            coef = (train_ml or 0.0) / loss_den / \
+                args.gradient_accumulation_step
+            if use_mem_train:
+                nav_batch["cur_ids"] = cur_ids
+                nav_batch["cand_ids"] = cand_ids
+                nav_batch["slot_ids"] = self._slot_ids(gmap_in, gmaps)
+                with self.timer.stage("nav_dispatch"):
+                    mem_state, logits, fuse_dev, step_loss = \
+                        runner.pano_mem_navigation_train(
+                            mem_state, step_seed, pano_inputs, nav_batch,
+                            nav_targets, coef, sync=False)
+                    # the download starts now and is waited for after the
+                    # yield: nothing here waits for the card
+                    logits = HostCopy(logits)
+                fuse_embeds = None
+                # a peer stream's host work runs here while the card runs
+                # this step (rollout_interleaved)
+                yield
+                with self.timer.stage("nav_sync"):
+                    logits = logits.result()
+            elif training:
+                with self.timer.stage("nav_device"):
+                    del nav_batch["vp_img_embeds"]
+                    logits, fuse_embeds, _, _, step_loss = \
+                        runner.pano_navigation_train(
+                            pano_inputs, step_seed, nav_batch, nav_targets,
+                            coef, need_outputs=True)
+            else:
+                with self.timer.stage("nav_device"):
+                    logits, fuse_embeds, step_loss = runner.navigation(
+                        nav_batch, targets=nav_targets, coef=coef,
+                        train=training)
+            ml_loss = ml_loss + step_loss
+
+            # -- action selection --
+            if feedback == "teacher":
+                a_t = nav_targets.copy()
+            elif feedback == "sample":
+                a_t = np.zeros(batch_size, np.int64)
+                probs = _softmax(logits / max(args.temperature, 1e-6))
+                for i in range(batch_size):
+                    p = probs[i].astype(np.float64)
+                    a_t[i] = rng_local.choice(len(p), p=p / p.sum())
+            elif feedback == "argmax":
+                a_t = logits.argmax(1)
+            else:
+                raise NotImplementedError(feedback)
+
+            # the history follows every row whose action is not ignoreid
+            if use_mem_train:
+                mem_state = runner.history_append(mem_state, fuse_dev,
+                                                  a_t.astype(np.int64))
+                for i in range(batch_size):
+                    if a_t[i] != self.args.ignoreid:
+                        history[i].append("<hist>")
+            else:
+                for i in range(batch_size):
+                    if a_t[i] == self.args.ignoreid:
+                        continue
+                    history[i].append("<hist>")
+                    hist_vis[i].append(fuse_embeds[i, a_t[i]])
+
+            if not validate:
+                a_t_stop = [ob["viewpoint"] == ob["gt_path"][-1]
+                            for ob in obs]
+            else:
+                a_t_stop = (a_t == 0)
+
+            # -- the sub-task heads on the final step --
+            if use_mem_train and flag:
+                # the heads read the history values: one download
+                buf = mem_state["hist_buf"].cpu().numpy()
+                cnt = mem_state["hist_cnt"].cpu().numpy()
+                hist_vis = [list(buf[i, : min(int(cnt[i]), buf.shape[1])])
+                            for i in range(batch_size)]
+            if data_type[0] in ("soon", "reverie") and args.enable_og \
+                    and flag:
+                ml_loss = ml_loss + self._object_grounding_step(
+                    args, obs, instructions, history, hist_vis, traj,
+                    training=training, loss_denom=loss_den)
+
+            if (feedback == "teacher" and not flag and not a_t_stop[0]
+                    and data_type[0] == "r2r" and not validate
+                    and "fg_instruction" in obs[0] and args.enable_fgr2r):
+                ml_loss = ml_loss + self._generation_step(
+                    args, obs, history=[[] for _ in obs],
+                    hist_vis=[[] for _ in obs],
+                    instructions=["where are we going with direction ({}) ?"
+                                  .format(int(idx)) for idx in nav_targets],
+                    answers=[ob["fg_instruction"][ob["fg_view"][t]]
+                             for ob in obs],
+                    mode="embodied_qa", training=training, traj=traj,
+                    loss_denom=loss_den)
+
+            # EQA answers at the final step under any feedback; the
+            # summaries under teacher or argmax, in evaluation only in
+            # test mode
+            if data_type[0] == "eqa":
+                enable_summarize = flag
+            elif data_type[0] in SUMMARIZED_TYPES:
+                enable_summarize = (feedback in ("teacher", "argmax")
+                                    and flag and args.enable_summarize
+                                    and (not validate or args.mode == "test"))
+            else:
+                enable_summarize = False
+            if enable_summarize:
+                is_eqa = data_type[0] == "eqa"
+                ml_loss = ml_loss + self._generation_step(
+                    args, obs, history=history, hist_vis=hist_vis,
+                    instructions=instructions,
+                    answers=[ob.get("answer", "") if is_eqa
+                             else ob["instruction"] for ob in obs],
+                    mode="embodied_qa" if is_eqa else "summarization",
+                    training=training, traj=traj, trie=trie,
+                    loss_denom=loss_den)
+
+            # -- the environment's step --
+            cpu_a_t: List[Optional[str]] = []
+            for i in range(batch_size):
+                if a_t_stop[i] or ended[i] or gmap_in["no_vp_left"][i] \
+                        or t == max_action_len - 1:
+                    cpu_a_t.append(None)
+                else:
+                    cpu_a_t.append(nav_vpids[i][a_t[i]])
+            with self.timer.stage("env_step"):
+                self.make_equiv_action(cpu_a_t, gmaps, obs, traj, envs)
+            with self.timer.stage("get_obs"):
+                obs = [dataset.get_obs(items=[items[i]], env=envs[i],
+                                       data_type=data_type[i])[0]
+                       for i in range(batch_size)]
+            self.update_scanvp_cands(obs)
+            for i, ob in enumerate(obs):
+                if not ended[i]:
+                    gmaps[i].update_graph(ob)
+            ended = np.logical_or(ended,
+                                  np.array([x is None for x in cpu_a_t]))
+            if flag:
+                break
+
+        return ml_loss, traj
+
+
+def _softmax(x: np.ndarray) -> np.ndarray:
+    x = x - x.max(axis=-1, keepdims=True)
+    e = np.exp(x)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def _split_batch_dict(batch_dict: dict, n_streams: int = 2) -> List[dict]:
+    """Split a loader batch into ``n_streams`` contiguous sub-batches (the
+    streams of rollout_interleaved): per-episode lists and arrays are
+    sliced, other entries shared, batch_size recomputed; never an empty
+    stream."""
+    n = len(batch_dict["observations"])
+    n_streams = max(1, min(n_streams, n))
+
+    def cut(sl: slice) -> dict:
+        out = {}
+        for k, v in batch_dict.items():
+            if k == "batch_size":
+                continue
+            if isinstance(v, (list, tuple, np.ndarray)) and len(v) == n:
+                out[k] = v[sl]
+            else:
+                out[k] = v
+        out["batch_size"] = len(out["observations"])
+        return out
+
+    bounds = [round(i * n / n_streams) for i in range(n_streams + 1)]
+    return [cut(slice(bounds[i], bounds[i + 1])) for i in range(n_streams)
+            if bounds[i] < bounds[i + 1]]
 
 
 @AGENTS.register("r2r_aug")

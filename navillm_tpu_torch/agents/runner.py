@@ -8,8 +8,13 @@ evaluation and fused training (teacher and DAgger) use: ``cfg``,
 ``llm_token_units`` counter, ``panorama`` (its outputs on the host: the
 3D-QA evaluation), for training ``zero_grads`` / ``take_grads``,
 ``panorama_dev_dict``, ``replay_fuse_scan`` and
-``pano_navigation_train``, for generation the special-token logit mask,
-``gen_embeds``, ``generate`` and ``pano_generation_train`` (the
+``pano_navigation_train``, for the per-step rollout and the host-memory
+path (``device_memory=False``) ``navigation``, ``generation``,
+``panorama_device``, ``memory_update``, ``memory_reset_slots``,
+``navigation_from_memory``, ``pano_mem_navigation_train``,
+``history_append`` and ``fuse_embeds_only``, for generation the
+special-token logit mask, ``gen_embeds``, ``generate`` and
+``pano_generation_train`` (the
 summarization / EQA / FGR2R heads and the ScanQA / LLaVA loss), and for
 object grounding (REVERIE, SOON) ``object_grounding`` and
 ``pano_og_train``. Host arrays go up through pinned buffers with
@@ -83,6 +88,13 @@ class HostCopy:
         return self.buf.numpy()
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host, float ones in f32 (numpy has no
+    bf16)."""
+    t = t.detach()
+    return HostCopy(t.float() if t.is_floating_point() else t).result()
+
+
 class NavModelRunner:
     PANO_KEYS = ("view_img_fts", "view_lens", "loc_fts", "nav_types",
                  "obj_img_fts", "obj_lens", "obj_loc_fts")
@@ -91,7 +103,7 @@ class NavModelRunner:
                  tokenizer: NavTokenizer, dims: RolloutDims = RolloutDims(),
                  device: Optional[torch.device] = None,
                  feat_dropout: float = 0.4, ignore_id: int = -100,
-                 seed: int = 0):
+                 seed: int = 0, device_memory: bool = True):
         if cfg.llm.act_int8 and not is_quantized(model):
             raise ValueError("act_int8 needs a quantized LLM: int8 "
                              "activations only run against quantized "
@@ -102,7 +114,10 @@ class NavModelRunner:
         self.dims = dims
         self.device = torch.device(device) if device is not None \
             else next(model.parameters()).device
-        self.device_memory = True
+        # graph memory and history on the device (the fused eval and
+        # training steps), or on the host (graph maps hold the node
+        # embeddings, each step uploads them: runner.navigation)
+        self.device_memory = device_memory
         self.feat_dropout = feat_dropout
         self.ignore_id = ignore_id
         self.rng = torch.Generator().manual_seed(seed)
@@ -139,6 +154,11 @@ class NavModelRunner:
         # layer once), and of the grad calls those of the OG head
         self.og_calls = 0
         self.og_grad_calls = 0
+        # the other LLM forwards without a gradient (each runs every LLM
+        # layer once over the prompt): navigation and navigation_from_memory
+        # (the host-memory and batched evaluation steps) and generation's
+        # loss without training
+        self.forward_calls = 0
 
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
@@ -203,8 +223,7 @@ class NavModelRunner:
         """panorama_dev_dict, downloaded: every output on the host, float
         outputs in f32 (numpy has no bf16)."""
         out = self.panorama_dev_dict(pano_inputs, deterministic, seed)
-        return {k: HostCopy(v.float() if v.is_floating_point() else v)
-                .result() for k, v in out.items()}
+        return {k: _host(v) for k, v in out.items()}
 
     def panorama_dev_dict(self, pano_inputs, deterministic: bool,
                           seed: Optional[int] = None
@@ -241,33 +260,43 @@ class NavModelRunner:
         return (gmap_seq.reshape(t_pad * b, -1, h),
                 hist_seq.reshape(t_pad * b, -1, h), final)
 
+    def _dev_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """A batch of host arrays and device tensors, all on the device."""
+        return {k: (v if torch.is_tensor(v) else self.upload(v))
+                for k, v in batch.items()}
+
     def pano_navigation_train(self, pano_inputs, seed: int, batch, targets,
-                              coef: float) -> torch.Tensor:
+                              coef: float, need_outputs: bool = False):
         """One navigation loss+grad call, one autograd graph: panorama
         with dropout (seeded by ``seed``) -> forward_navigation ->
         navigation_loss * coef -> backward into the params' .grad.
         batch holds host arrays and device tensors (gmap_img_embeds,
         hist_embeds); the stop row is prepended to the pano embeds here.
-        Returns the loss as a device scalar: no host sync."""
+        Returns the loss as a device scalar: no host sync. With
+        need_outputs (the per-step host-memory rollout) JAX's tuple
+        instead: (logits [B, G], fuse_embeds [B, G, H], pano_embeds,
+        pano_masks, all on the host in f32, and the loss as a float)."""
         if not self.grads_open:
             raise RuntimeError("call zero_grads() before a training call")
         self.llm_token_units += 3.0 * float(
             np.asarray(batch["attention_mask"]).sum())
         self.grad_calls += 1
         pano_dev = self._pano_dev_inputs(pano_inputs)
-        dev = {k: (v if torch.is_tensor(v) else self.upload(v))
-               for k, v in batch.items()}
+        dev = self._dev_batch(batch)
         with torch.enable_grad():
-            pe = self.pano_apply(pano_dev, self.generator(seed),
-                                 False)["pano_embeds"]
+            po = self.pano_apply(pano_dev, self.generator(seed), False)
+            pe = po["pano_embeds"]
             stop = pe.new_zeros((pe.shape[0], 1, pe.shape[2]))
             dev["vp_img_embeds"] = torch.cat([stop, pe], dim=1)
-            logits = NM.forward_navigation(self.model, self.cfg,
-                                           dev)["fuse_logits"]
-            loss = NM.navigation_loss(logits, self.upload(targets),
+            out = NM.forward_navigation(self.model, self.cfg, dev)
+            loss = NM.navigation_loss(out["fuse_logits"],
+                                      self.upload(targets),
                                       self.ignore_id) * coef
             loss.backward()
-        return loss.detach()
+        if not need_outputs:
+            return loss.detach()
+        return (_host(out["fuse_logits"]), _host(out["fuse_embeds"]),
+                _host(pe), _host(po["pano_masks"]), float(loss.detach()))
 
     def pano_generation_train(self, pano_inputs, seed: int, batch,
                               coef: float) -> torch.Tensor:
@@ -505,6 +534,149 @@ class NavModelRunner:
                 self.upload(np.asarray(a_t_override, np.int32)),
                 **self._sampling(do_sample, temperature))
         return state, (HostCopy(a_t).result() if sync else a_t), logits
+
+    # ------------------- the per-step and host-memory paths ------------ #
+    def _tokens(self, batch) -> float:
+        return float(np.asarray(batch["attention_mask"]).sum())
+
+    def navigation(self, batch, targets=None, coef: float = 1.0,
+                   train: bool = False):
+        """forward_navigation on a batch that carries its embeddings
+        (gmap_img_embeds, vp_img_embeds, hist_embeds: the host-memory step
+        and the batched evaluation). train: navigation_loss * coef
+        backpropagates into the params' .grad. Returns (fuse_logits [B, G],
+        fuse_embeds [B, G, H], both on the host in f32, and the loss as a
+        float, 0.0 without train)."""
+        dev = self._dev_batch(batch)
+        if train:
+            if not self.grads_open:
+                raise RuntimeError("call zero_grads() before a training "
+                                   "call")
+            self.llm_token_units += 3.0 * self._tokens(batch)
+            self.grad_calls += 1
+            with torch.enable_grad():
+                out = NM.forward_navigation(self.model, self.cfg, dev)
+                loss = NM.navigation_loss(out["fuse_logits"],
+                                          self.upload(targets),
+                                          self.ignore_id) * coef
+                loss.backward()
+            return (_host(out["fuse_logits"]), _host(out["fuse_embeds"]),
+                    float(loss.detach()))
+        self.llm_token_units += self._tokens(batch)
+        self.forward_calls += 1
+        with torch.inference_mode():
+            out = NM.forward_navigation(self.model, self.cfg, dev)
+        return _host(out["fuse_logits"]), _host(out["fuse_embeds"]), 0.0
+
+    def generation(self, batch, coef: float = 1.0,
+                   train: bool = False) -> float:
+        """forward_generation_loss on a batch that carries vp_img_embeds
+        (no panorama in the graph: see pano_generation_train). train: the
+        loss * coef backpropagates into the params' .grad. Returns the loss
+        as a float."""
+        dev = self._dev_batch(batch)
+        dev["special_token_mask"] = self.special_mask
+        if not train:
+            self.llm_token_units += self._tokens(batch)
+            self.forward_calls += 1
+            with torch.inference_mode():
+                return float(NM.forward_generation_loss(
+                    self.model, self.cfg, dev)["loss"])
+        if not self.grads_open:
+            raise RuntimeError("call zero_grads() before a training call")
+        self.llm_token_units += 3.0 * self._tokens(batch)
+        self.grad_calls += 1
+        self.gen_grad_calls += 1
+        with torch.enable_grad():
+            loss = NM.forward_generation_loss(self.model, self.cfg,
+                                              dev)["loss"] * coef
+            loss.backward()
+        return float(loss.detach())
+
+    def panorama_device(self, pano_inputs, deterministic: bool):
+        """The panorama encoder's (pano_embeds, pano_masks), left on the
+        device without a graph; dropout (not deterministic) from a fresh
+        seed."""
+        out = self.panorama_dev_dict(pano_inputs, deterministic)
+        return out["pano_embeds"], out["pano_masks"]
+
+    def memory_update(self, state, pano_embeds, pano_masks, cur_ids,
+                      cand_ids):
+        with torch.no_grad():
+            return DM.memory_update(state, pano_embeds, pano_masks,
+                                    self.upload(cur_ids),
+                                    self.upload(cand_ids))
+
+    def memory_reset_slots(self, state, reset_mask):
+        return DM.reset_slots(state, self.upload(reset_mask))
+
+    def navigation_from_memory(self, state, batch, pano_embeds):
+        """A navigation forward whose gmap, vp and history embeddings come
+        from the device memory (device_memory.nav_step_from_memory).
+        Returns (fuse_logits [B, G] on the host, fuse_embeds on the
+        device)."""
+        self.llm_token_units += self._tokens(batch)
+        self.forward_calls += 1
+        with torch.inference_mode():
+            logits, fuse = DM.nav_step_from_memory(
+                self.model, self.cfg, state, self._dev_batch(batch),
+                pano_embeds)
+        return _host(logits), fuse
+
+    def pano_mem_navigation_train(self, state, seed: int, pano_inputs, batch,
+                                  targets, coef: float, sync: bool = True):
+        """The per-step training step on the device memory, one autograd
+        graph: panorama with dropout (seeded by ``seed``) -> memory update
+        from the detached embeddings -> gmap / vp / history assembly ->
+        forward_navigation -> navigation_loss * coef -> backward into the
+        params' .grad (the panorama encoder's through the vp embeddings).
+        batch holds the fusion and prompt arrays plus cur_ids, cand_ids
+        and slot_ids. Returns (new_state, logits [B, G], fuse_embeds on the
+        device, loss). Memory and history leave the graph: nothing of one
+        step is differentiated through the next. With sync (the default)
+        logits come to the host and the loss is a float; sync=False keeps
+        both on the device, so the caller can run other host work before
+        it waits (rollout_interleaved)."""
+        if not self.grads_open:
+            raise RuntimeError("call zero_grads() before a training call")
+        self.llm_token_units += 3.0 * self._tokens(batch)
+        self.grad_calls += 1
+        pano_dev = self._pano_dev_inputs(pano_inputs)
+        dev = self._dev_batch(batch)
+        ids = {k: dev.pop(k) for k in ("cur_ids", "cand_ids", "slot_ids")}
+        with torch.enable_grad():
+            po = self.pano_apply(pano_dev, self.generator(seed), False)
+            pe, pm = po["pano_embeds"], po["pano_masks"]
+            state = DM.memory_update(state, pe.detach(), pm, ids["cur_ids"],
+                                     ids["cand_ids"])
+            dev["gmap_img_embeds"], dev["vp_img_embeds"] = \
+                DM.assemble_from_memory(state, ids["slot_ids"], pe)
+            dev["hist_embeds"] = state["hist_buf"]
+            out = NM.forward_navigation(self.model, self.cfg, dev)
+            loss = NM.navigation_loss(out["fuse_logits"],
+                                      self.upload(targets),
+                                      self.ignore_id) * coef
+            loss.backward()
+        logits, fuse = out["fuse_logits"].detach(), \
+            out["fuse_embeds"].detach()
+        if not sync:
+            return state, logits, fuse, loss.detach()
+        return state, _host(logits), fuse, float(loss.detach())
+
+    def history_append(self, state, fuse_embeds, a_t):
+        """Append fuse_embeds[b, a_t[b]] to each row's history (a_t < 0:
+        none)."""
+        return DM.hist_append(state, fuse_embeds.detach(),
+                              self.upload(np.asarray(a_t, np.int64)))
+
+    def fuse_embeds_only(self, batch) -> np.ndarray:
+        """Graph/local fusion without the LLM (the history embeddings of
+        the fused trainer's host-memory path). Returns [B, G, H] f32 on the
+        host."""
+        with torch.inference_mode():
+            fuse, _ = NM.fuse_gmap_local(self.model, self.cfg,
+                                         self._dev_batch(batch))
+        return _host(fuse)
 
     def tokenize_with_positions(self, texts, max_cands: Optional[int] = None,
                                 max_hist: Optional[int] = None):

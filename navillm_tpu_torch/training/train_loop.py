@@ -23,9 +23,9 @@ Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
     lag), so the card works through N's backward while the host simulates
     N+1;
   - ``val_one_epoch``: streaming validation per navigation task (greedy,
-    or sampled under --do_sample), ScanQA's generated answers through its
-    agent's validate, the predictions gathered (single process) and
-    scored;
+    or sampled under --do_sample; batched, the agent's validate, under
+    --no-streaming_eval), ScanQA's generated answers through its agent's
+    validate, the predictions gathered (single process) and scored;
   - ``calc_overall_score``: task-weighted SPL model selection;
   - ``run_training``: the epoch loop with best-score checkpoint retention
     (max_saved_checkpoints), pretrain-stage periodic saves, latest-state
@@ -272,8 +272,9 @@ def build_agents(args, sources, world, runner) -> Dict[str, Any]:
 
 def val_one_epoch(args, cfg, runner, val_loaders, agents, datasets, epoch,
                   logger) -> Dict[str, Dict[str, float]]:
-    """Per task: streaming validation (the 3D-QA agent, which has none:
-    its validate), predictions gathered, scored on rank 0 (and saved with
+    """Per task: streaming validation, or with --no-streaming_eval (and for
+    the 3D-QA agent, which has no streaming) the agent's validate;
+    predictions gathered, scored on rank 0 (and saved with
     save_pred_results)."""
     task_results: Dict[str, Dict[str, float]] = {}
     for name, (loader, _ratio) in val_loaders.items():
@@ -281,15 +282,8 @@ def val_one_epoch(args, cfg, runner, val_loaders, agents, datasets, epoch,
             logger.info("***** validate %s split on %s task *****"
                         % (args.validation_split, name))
         agent = agents[name]
-        if hasattr(agent, "validate_streaming"):
-            if not args.streaming_eval:
-                raise NotImplementedError("the batched validate loop of the "
-                                          "navigation agents is not ported "
-                                          "(ROADMAP A8): keep streaming_eval "
-                                          "on")
-            validate = agent.validate_streaming
-        else:
-            validate = agent.validate
+        validate = agent.validate_streaming if args.streaming_eval and \
+            hasattr(agent, "validate_streaming") else agent.validate
         preds = validate(name, args, cfg, loader, dataset=datasets[name])
         all_preds = merge_dist_results(all_gather_objects(preds))
         if args.rank == 0 and not args.validation_split.startswith("test"):

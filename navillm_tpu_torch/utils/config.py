@@ -147,7 +147,8 @@ class TrainArgs:
     zero1: bool = True
     # fused whole-trajectory teacher forcing
     fused_teacher: bool = True
-    # the interleaved per-step DAgger pipeline (not ported: ROADMAP A8)
+    # the per-step DAgger (without fused_dagger) in dagger_streams streams
+    # (rollout_interleaved)
     dagger_pipeline: bool = True
     # fused-DAgger sampling slot groups
     dagger_streams: int = 2
@@ -195,8 +196,6 @@ class TrainArgs:
 # item that ports what reads it (the data/tensor-parallel sizes:
 # train_loop.check_single_card)
 UNPORTED = {
-    "dagger_pipeline": "the interleaved per-step DAgger, which runs only "
-                       "without fused_dagger, is not ported (ROADMAP A8)",
     "zero1": "ZeRO-1 over the data axis is not ported (ROADMAP A10)",
     "workers": "the loaders have no worker processes (neither has the JAX "
                "package's)",

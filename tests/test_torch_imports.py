@@ -9,8 +9,11 @@ paths (REVERIE and SOON streaming evaluation with enable_og, sampled and
 prefix-cached, and run_training over R2R, REVERIE and SOON with the OG,
 summarization and FGR2R heads), the rest of the task mix (CVDN streaming
 evaluation, ScanQA evaluation, and run_training over configs/multi.yaml's
-sources at stage multi and, with the augmented sets, at stage pretrain)
-and ``python -m navillm_tpu_torch.train --help`` run on the CPU.
+sources at stage multi and, with the augmented sets, at stage pretrain),
+the per-step paths (the per-step teacher and the interleaved DAgger
+through run_training with batched validation, batched EQA validation, the
+host-memory runner, the stage timer and the profiler trace) and
+``python -m navillm_tpu_torch.train --help`` run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -494,6 +497,85 @@ print("loaded", sorted(m for m in sys.modules if m in %r
 PRETRAINED = "RUN_CFG = %r\n" % RUN_CFG + PRETRAINED
 
 
+# the per-step paths: the per-step teacher and the interleaved DAgger
+# streams through run_training (stage multi, --no-fused_teacher
+# --no-fused_dagger --dagger_pipeline, batched validation under
+# --no-streaming_eval), batched EQA validation, the host-memory runner
+# under streaming evaluation and the fused trainers, the stage timer and
+# the profiler trace
+PERSTEP = """
+import os, sys, tempfile
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents import fused_teacher as FT
+from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
+from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
+from navillm_tpu_torch.data.loaders import Dataloader
+from navillm_tpu_torch.training import train_loop as TTL
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+from navillm_tpu_torch.utils.profiling import trace
+
+torch.set_num_threads(1)
+with tempfile.TemporaryDirectory() as tmp:
+    run = tmp + "/run"
+    T.make_r2r_world(run, n_episodes=4, rows=3, cols=3, split="train")
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="val", seed=1)
+    cfg = load_yaml_text(RUN_CFG)
+    args = TrainArgs(data_dir=run, output_dir=run + "/out", device="cpu",
+                     num_epochs=1, num_steps_per_epoch=2, batch_size=4,
+                     fused_teacher=False, fused_dagger=False,
+                     dagger_pipeline=True, dagger_streams=2,
+                     streaming_eval=False)
+    args.sync_from_config(cfg)
+    built, calls = [], []
+    build = TTL.build_runner
+    TTL.build_runner = lambda *a, **k: built.append(build(*a, **k)) or built[-1]
+    from navillm_tpu_torch.agents.mp3d_agent import R2RAgent
+    for name in ("rollout", "rollout_interleaved", "validate"):
+        def spy(self, *a, _name=name, _fn=getattr(R2RAgent, name), **k):
+            calls.append(_name)
+            return _fn(self, *a, **k)
+        setattr(R2RAgent, name, spy)
+    with trace(None):
+        res = TTL.run_training(args, cfg, feat_dbs={
+            "mp3d": SyntheticImageFeaturesDB(args.image_feat_size)})
+    assert "sr" in res["R2R"], res
+    assert calls[:2] == ["rollout", "rollout_interleaved"], calls
+    assert "validate" in calls and built[-1].eval_steps == 0, calls
+    print("run_training per-step", res["R2R"])
+
+    runner = NavModelRunner(built[-1].cfg, built[-1].model, built[-1].tok,
+                            dims=RolloutDims.tiny(), device_memory=False)
+    agent, ds, eargs = T.eqa_eval(run, "val", runner, 2,
+                                  args.image_feat_size)
+    preds = agent.validate("EQA", eargs, T.eval_config(4, "EQA"),
+                           Dataloader(ds, 2, False), dataset=ds)
+    assert len(preds) == 2 and all(p["pred_answer"] in ds.answer_vocab
+                                   for p in preds), preds
+    preds = agent.validate_streaming("EQA", eargs, T.eval_config(4, "EQA"),
+                                     Dataloader(ds, 2, False), dataset=ds)
+    assert len(preds) == 2 and runner.eval_steps == 0, preds
+    targs = TrainArgs(image_feat_size=args.image_feat_size, device="cpu",
+                      fused_rows_per_call=4)
+    tagent, tds, loader = T.r2r_train(run + "/R2R/annotations/train.json",
+                                      runner, targs, 4, shuffle=False)
+    runner.zero_grads()
+    for fn in (FT.rollout_teacher_fused, FT.rollout_dagger_fused):
+        loss, _ = fn(tagent, targs, "R2R", T.train_config(4).Optim,
+                     next(iter(loader)), dataset=tds, train_ml=1.0)
+        assert torch.isfinite(loss), loss
+    report = tagent.timer.report()
+    assert "fuse_device" in report and "dagger_sample" in report, report
+    with trace(tmp + "/trace"):
+        torch.ones(8).sum()
+    assert os.path.exists(tmp + "/trace/trace.json")
+    print("host memory", report.splitlines()[0])
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+PERSTEP = "RUN_CFG = %r\n" % RUN_CFG + PERSTEP
+
+
 def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -527,6 +609,11 @@ def test_port_runs_the_task_mix_without_jax():
 def test_port_runs_the_pretrained_path_without_jax():
     out = _fresh(PRETRAINED)
     assert "pretrained" in out
+
+
+def test_port_runs_the_per_step_paths_without_jax():
+    out = _fresh(PERSTEP)
+    assert "run_training per-step" in out and "host memory" in out
 
 
 def test_train_entry_point_help_without_jax():

@@ -54,10 +54,12 @@ Phases, in order; any failure raises and the script exits nonzero:
      attention path, on the same inputs and weights with dropout off;
   8. int4 matmul vs plain: the int4 dequant-matmul kernel (K4) against its
      plain version at the 7B layer shapes (h, o) in {(4096, 4096), (4096,
-     11008), (11008, 4096)}, m in {4096, 3584, 7}, w4 (bf16 x) and w4a8
-     (int8 x), timed with CUDA events beside a dense bf16 torch.matmul and,
-     for w4, torch._weight_int4pack_mm on the same weight repacked (the
-     library yardstick, its max |d| from the plain version beside it);
+     11008), (11008, 4096)}, m in {4096, 3584, 7}, w4 (bf16 x), w4a8
+     (int8 x) and f32 x (split in the launch into bf16 high and low parts;
+     held to 1e-4 of max |ref|, the JAX test's bound), timed with CUDA
+     events beside a dense bf16 torch.matmul and, for w4,
+     torch._weight_int4pack_mm on the same weight repacked (the library
+     yardstick, its max |d| from the plain version beside it);
   9. the w4 slice: the trained model's LLM quantized to int4 on the card
      (quantize_nav_params, bits=4), then phase 3's evaluation again; every
      layer matmul of every step must go through the int4 kernel;
@@ -269,6 +271,40 @@ agent's per-stage host timer, agent.timer.report()):
      rule;
  40. training on EQA batches: the fused teacher, the per-step teacher and
      the fused DAgger, each running the answer head's grad call.
+The rest of quantization, at 7B width on BPE prompts:
+ 43. (after phase 19, bf16 model) phase 18 with --dagger_sample_quant:
+     every sampling step and prefill on the runner's W8A8 policy (the LLM
+     quantized to int8, int8 activations), made once per optimizer step
+     (gate: quantizations = optimizer steps); sampling ms per DAgger batch
+     beside phase 18's, ms per quantization, peak; then one DAgger batch
+     with dropout off sampled on the W8A8 policy and forced through the
+     live and the W8A8 policy: the same trajectories, losses within
+     SAMPLE_Q_LOSS_REL, gradient cosine >= 0.999;
+ 42. (after phase 25, int4 tree) phase 23 with act_int8 (w4a8, whose
+     lm_head product is W8A8 on int8 weights), with a bf16 and then an int8
+     prompt K/V: answers in the vocabulary, K4 224 per LLM pass with int8
+     x; the first decoded token's logits and one decode step on the int8
+     prompt K/V through K4 against its plain version (logit_tol);
+ 44. REVERIE and SOON (INT4_OG_EPISODES each, T = 0.01, the OG queue) and
+     CVDN (INT4_CVDN_EPISODES dialogs, prefix cache with the int8 K/V,
+     every cached step replayed through eval_step, then timed) on the int4
+     tree, with phases 27's and 29's gates and K4 224 per LLM pass;
+ 41. int8 weights: the model drawn quantized on the card
+     (init_nav_params(quantize_llm=True)) equal bit for bit to quantizing
+     the bf16 init, each path's peak memory; then R2R streaming evaluation
+     of W8A8_EPISODES: weight-only int8 with a bf16 prefix cache (reference),
+     W8A8 uncached, W8A8 with the prefix cache and the int8 K/V, all with
+     the candidates in graph order (where a kv8 trajectory parts from the
+     reference's, the top-2 margin within twice what the int8 noise moves
+     a logit on the episodes' first steps, plus the bf16 limit; the int8
+     product exact against f64 at the model's shapes);
+     ms per step, padded int8 products per step,
+     cache bytes per slot group (bf16 against int8), LLM bytes, peak; one
+     kv8 cached step against the uncached W8A8 step (phase 15's A/B, whose
+     planted faults add the last cached token's K scaled to zero).
+The cached-vs-uncached comparisons (15, 19, 29, 41, 44) gate the candidate
+logits by cached_logit_tol, tied to the spread of the row's valid logits
+(C-w1), and print each planted fault's margin.
 The kernels line lists K1-K4 with each one's time, its plain version's,
 the library call's (or why there is none) with its agreement, the worst
 gate excess of the checks (K3: and of its delta) and its bound: the
@@ -304,7 +340,7 @@ from navillm_tpu_torch.agents import device_memory as DM
 from navillm_tpu_torch.agents import fused_teacher as FT
 from navillm_tpu_torch.agents.mp3d_agent import R2RAgent, TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
-from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.convert import flatten_tree, init_nav_params
 from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
                                                synthetic_object_db)
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
@@ -317,7 +353,7 @@ from navillm_tpu_torch.models.nav_model import (NavModel, NavModelConfig,
                                                 forward_object_grounding)
 from navillm_tpu_torch.models.pano_encoder import PanoConfig
 from navillm_tpu_torch.models.quant import (_quant_one4, is_quantized,
-                                            quantize_nav_params)
+                                            quantize_nav_params, weight_bits)
 from navillm_tpu_torch.models.tokenization import NavTokenizer
 from navillm_tpu_torch.ops import _build
 from navillm_tpu_torch.ops.attention import (
@@ -423,6 +459,22 @@ MAX_PREFIX = 192
 # logits by several times this.
 CACHED_LOGIT_REL = 2 ** -7
 CACHED_LOGIT_ROW = 2 ** -3
+# the cached-vs-uncached comparisons (phases 15, 19, 29, 41, 44) tie the row
+# term to the spread of the row's valid logits instead (their standard
+# deviation about the row's mean, never above the RMS, so the limit only
+# tightens): a common offset of the row, which trained weights give and
+# which moves no argmax, no longer widens it. Measured on the card in
+# units of the row's spread (PERF.md): honest bf16-cache steps deviate at
+# most 0.064 (phase 19's sampled steps; 0.031 in phase 15, 0.008 over
+# phase 29's 120 steps), the last cached token hidden moves the logits
+# 0.62 (phase 15). With int8 activations an int8 cache's noise flips the
+# per-token rounding of the activations, so an honest W8A8 kv8 step
+# deviates 0.26 there (a kv8 step on bf16 activations: 0.006), and its
+# faults move the logits 0.87 (the last cached token hidden) and 0.40
+# (that token's K scaled to zero): that path, new, gets its own limit.
+# The bf16 one sits at 1.5x the worst honest step, 3/4 of CACHED_LOGIT_ROW.
+CACHED_LOGIT_SPREAD = 3 / 32
+CACHED_LOGIT_SPREAD_A8KV8 = 0.3125
 # phase 15 snapshots the 3rd step with every slot appending history, from
 # a run whose stop logit is lowered by 30 (far below the others, so no
 # episode stops early)
@@ -443,6 +495,11 @@ MAX_LOSS = 1e3
 # result (Q4_A8_RTOL)
 Q4_FLOOR = 1e-4
 Q4_A8_RTOL = 1e-6
+# f32 x: the JAX package's own bound for its Pallas kernel on f32 x
+# (tests/test_matmul_q4.py), 1e-4 of max(|ref|, 1); the split into bf16
+# high and low parts keeps x to 2^-17 of itself, rounding x to bf16 once
+# misses the bound by ~20x at these shapes (measured on an H100)
+Q4_F32_TOL = 1e-4
 # the 7B layer matmuls (h, o): wq/wk/wv/wo, w_gate/w_up, w_down
 Q4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))
 Q4_LAYER_MATMULS = 7
@@ -757,13 +814,15 @@ def bwd_bounds(b, t, nh, d):
                   6 * tensor + 2 * rows + b * t))
 
 
-def q4_bound(m, h, o, g, int8_x: bool):
+def q4_bound(m, h, o, g, mode: str):
     """K4: 2 m h o operations (int8 tensor cores at twice the bf16 rate for
-    w4a8); x, the nibbles and the bf16 scales read once, y written once
-    (bf16 for w4, f32 for w4a8)."""
-    nbytes = (m * h * (1 if int8_x else 2) + h * o // 2 + (h // g) * o * 2
-              + m * o * (4 if int8_x else 2))
-    return bound(2 * m * h * o, nbytes, 2 * PEAK_FLOPS if int8_x else PEAK_FLOPS)
+    w4a8, bf16 tensor cores otherwise: the least an f32-x product needs);
+    x, the nibbles and the bf16 scales read once, y written once (bf16 for
+    w4, f32 for w4a8 and f32 x)."""
+    xb, yb = {"w4": (2, 2), "w4a8": (1, 4), "f32": (4, 4)}[mode]
+    nbytes = m * h * xb + h * o // 2 + (h // g) * o * 2 + m * o * yb
+    return bound(2 * m * h * o, nbytes,
+                 2 * PEAK_FLOPS if mode == "w4a8" else PEAK_FLOPS)
 
 
 def left_padded_mask(b: int, s: int, min_keys: int = 1):
@@ -988,16 +1047,21 @@ def slice_dims():
 
 def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
                 window=contextlib.nullcontext, prefix_cache: bool = False,
-                prompts=None):
-    """Greedy streaming eval of N_EPISODES episodes (after a warm-up on its
+                prompts=None, kv_int8: bool = False, runner=None,
+                graph_order: bool = False, n_episodes: int = N_EPISODES):
+    """Greedy streaming eval of n_episodes episodes (after a warm-up on its
     own world); gates every trajectory's start, SR/SPL and K1's launches:
     one per layer of every uncached step, or with ``prefix_cache`` one per
     layer of every prefill call, where the run must have taken the cached
     step only (no whole-prompt step). ``window()`` is entered around the
     measured run (scripts/profile_port.py traces it); ``prompts``, a list,
     receives the uncached steps' prompt texts. Returns ({instr_id:
-    trajectory}, the run's counts and measures)."""
-    runner = NavModelRunner(cfg, model, tok, dims=slice_dims())
+    trajectory}, the run's counts and measures). kv_int8: the prefix cache
+    in int8; ``runner`` (optional) is the runner to drive; graph_order:
+    candidates in graph order (IdentityPermutation), so that an episode's
+    prompts do not depend on the draws other episodes took before it and
+    two runs' trajectories compare."""
+    runner = runner or NavModelRunner(cfg, model, tok, dims=slice_dims())
     widths = []
     step, cached_step = runner.eval_step, runner.eval_step_cached
     tokenize = runner.tokenize_with_positions
@@ -1020,11 +1084,16 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
     feat = cfg.pano.image_feat_size
     if warm_up:   # cuBLAS handles, allocator, on its own small world
         warm = T.make_r2r_world(f"{tmp}/warm", n_episodes=2 * N_SLOTS, seed=1)
-        run_eval(*T.r2r_eval(warm, runner, N_SLOTS, feat,
-                             prefix_cache=prefix_cache))
-    anno = T.make_r2r_world(f"{tmp}/main", n_episodes=N_EPISODES)
+        w_agent, w_ds, w_args = T.r2r_eval(warm, runner, N_SLOTS, feat,
+                                           prefix_cache=prefix_cache)
+        w_args.kv_int8 = kv_int8
+        run_eval(w_agent, w_ds, w_args)
+    anno = T.make_r2r_world(f"{tmp}/main", n_episodes=n_episodes)
     agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat,
                                  prefix_cache=prefix_cache)
+    args.kv_int8 = kv_int8
+    if graph_order:
+        agent.np_rng = IdentityPermutation()
     widths.clear()
     if prompts is not None:
         prompts.clear()
@@ -1033,6 +1102,7 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
     torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0
     matmul_q4.launches = matmul_q4.int8_launches = 0
+    L.int_mm.padded_calls = L.int_mm.padded_rows = 0
     runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
     runner.llm_token_units = 0.0
     with window():
@@ -1070,7 +1140,9 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
     stats = {**counts, "steps": steps, "seconds": dt,
              "episodes_per_s": len(preds) / dt, "ms_per_step": 1e3 * dt / steps,
              "token_units": runner.llm_token_units,
-             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "int_mm_padded": (L.int_mm.padded_calls, L.int_mm.padded_rows),
+             "launches": launches, "q4_launches": matmul_q4.launches}
     kind = "cached" if prefix_cache else "eval"
     widths_note = (f"[append | suffix] window widths {sorted(set(widths))}"
                    if prefix_cache else f"prompt widths {sorted(set(widths))}")
@@ -1473,11 +1545,14 @@ def int4pack(q4p, s):
     return packed, sz.contiguous()
 
 
-def phase_q4_kernel(tag=8, rows=(4096, 3584, 7), modes=("w4", "w4a8")):
+def phase_q4_kernel(tag=8, rows=(4096, 3584, 7),
+                    modes=("w4", "w4a8", "f32")):
     """K4 against its plain version at the 7B layer shapes, ``rows`` the
-    m of x. Returns {(m, h, o, mode): row}, row holding max_abs_err, ms,
-    plain_ms, library_ms (w4: with the call's max |d| from the plain version
-    and how far beyond K4's tolerance; w4a8: None, with the reason in
+    m of x: bf16 x (w4), int8 x (w4a8) and f32 x (f32; values that bf16
+    does not hold, held to the JAX test's bound, 1e-4 of max(|ref|, 1)).
+    Returns {(m, h, o, mode): row}, row holding max_abs_err, ms, plain_ms,
+    library_ms (w4: with the call's max |d| from the plain version and how
+    far beyond K4's tolerance; w4a8 and f32: None, with the reason in
     ``library``), bound_ms and bound_by."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     has_lib = all(hasattr(torch, f) for f in ("_weight_int4pack_mm",
@@ -1493,7 +1568,11 @@ def phase_q4_kernel(tag=8, rows=(4096, 3584, 7), modes=("w4", "w4a8")):
             x = torch.randn((m, h), generator=gen, device="cuda",
                             dtype=torch.bfloat16)
             dense_ms = cuda_ms(lambda: x @ w)
-            for mode, a in (("w4", x), ("w4a8", _act_q(x)[0])):
+            # f32 x off bf16's grid (a deterministic relative nudge)
+            wiggle = torch.sin(torch.arange(m * h, device="cuda",
+                                            dtype=torch.float32)).view(m, h)
+            xf = x.float() * (1 + 2 ** -9 * wiggle)
+            for mode, a in (("w4", x), ("w4a8", _act_q(x)[0]), ("f32", xf)):
                 if mode not in modes:
                     continue
                 y = matmul_q4(a, q4p, s)
@@ -1503,14 +1582,17 @@ def phase_q4_kernel(tag=8, rows=(4096, 3584, 7), modes=("w4", "w4a8")):
                     raise RuntimeError(f"{mode} m={m} h={h} o={o}: kernel "
                                        f"output is not finite")
                 top = ref.float().abs()
-                tol = (2 ** -7 * top + Q4_FLOOR * top.max() if mode == "w4"
-                       else Q4_A8_RTOL * top)
+                tol = {"w4": lambda: 2 ** -7 * top + Q4_FLOOR * top.max(),
+                       "w4a8": lambda: Q4_A8_RTOL * top,
+                       "f32": lambda: torch.full_like(
+                           top, Q4_F32_TOL * max(top.max().item(), 1.0))
+                       }[mode]()
                 d = (y.float() - ref.float()).abs()
                 rel = (d / top.clamp(min=Q4_FLOOR * top.max().item())).max()
                 ms = cuda_ms(lambda: matmul_q4(a, q4p, s))
                 plain_ms = cuda_ms(lambda: matmul_q4_reference(a, q4p, s),
                                    iters=5)
-                bound_ms, by = q4_bound(m, h, o, g, mode == "w4a8")
+                bound_ms, by = q4_bound(m, h, o, g, mode)
                 err = d.max().item()
                 row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": None, "bound_ms": bound_ms,
@@ -1519,6 +1601,11 @@ def phase_q4_kernel(tag=8, rows=(4096, 3584, 7), modes=("w4", "w4a8")):
                 if mode == "w4a8":
                     row["library"] = ("none: no PyTorch call multiplies int8 "
                                       "activations by int4 weights")
+                elif mode == "f32":
+                    row["library"] = ("none: no PyTorch call multiplies f32 "
+                                      "activations by int4 weights")
+                    row["bf16_x_ms"] = out[(m, h, o, "w4")]["ms"] \
+                        if (m, h, o, "w4") in out else None
                 elif not has_lib:
                     row["library"] = ("none: this torch has no "
                                       "_weight_int4pack_mm")
@@ -1655,7 +1742,44 @@ def logit_excess(got, want) -> float:
     return ((got - want).abs() / tol)[valid].max().item()
 
 
-def phase_cached_ab(bpe, cfg, model, tmp):
+def cached_logit_tol(want, spread=CACHED_LOGIT_SPREAD):
+    """(tol, valid): the cached-vs-uncached bound per element of want's
+    valid logits, CACHED_LOGIT_REL * |ref| + ``spread`` * the standard
+    deviation of the row's valid logits (0 on the masked ones)."""
+    valid = want > NEG_INF / 2
+    zero = torch.zeros((), device=want.device)
+    n = valid.sum(-1, keepdim=True).clamp(min=1)
+    w = torch.where(valid, want, zero)
+    dev = torch.where(valid, want - w.sum(-1, keepdim=True) / n, zero)
+    std = (dev.square().sum(-1, keepdim=True) / n).sqrt()
+    tol = CACHED_LOGIT_REL * w.abs() + spread * std
+    return torch.where(valid, tol, zero), valid
+
+
+def spread_need(got, want) -> float:
+    """The spread constant at which ``got`` would sit exactly on the
+    cached limit: max over want's valid logits of (|got - want| -
+    CACHED_LOGIT_REL |want|) / the row's spread (what the printouts give
+    beside each excess, the margin of a fault or of the honest step)."""
+    tol, valid = cached_logit_tol(want, 1.0)
+    rel = CACHED_LOGIT_REL * want.abs()
+    std = tol - rel
+    if not torch.equal(got > NEG_INF / 2, valid):
+        return math.inf
+    need = ((got - want).abs() - rel) / std.clamp(min=1e-30)
+    return need[valid].max().item()
+
+
+def cached_logit_excess(got, want, spread=CACHED_LOGIT_SPREAD) -> float:
+    """The worst |got - want| / tol over want's valid logits under
+    cached_logit_tol; both must mask the same logits."""
+    tol, valid = cached_logit_tol(want, spread)
+    if not torch.equal(got > NEG_INF / 2, valid):
+        return math.inf
+    return ((got - want).abs() / tol)[valid].max().item()
+
+
+def phase_cached_ab(bpe, cfg, model, tmp, tag=15, kv_int8=False):
     """One slot group's cached step against the uncached step on the same
     state and prompts. A cached run on its own small world, its stop logit
     lowered by AB_STOP_SHIFT so that the episodes run on, snapshots its
@@ -1663,13 +1787,20 @@ def phase_cached_ab(bpe, cfg, model, tmp):
     (the cache built by a prefill and several appends); with the stop
     logit restored, that step is replayed through eval_step_cached and
     through eval_step on the same prompts. The candidate logits are gated
-    per element (CACHED_LOGIT_*); the same cached step with the last cached
-    token hidden from the prefix (plen - 1) must fail the gate."""
+    per element (cached_logit_tol; CACHED_LOGIT_SPREAD_A8KV8 on an int8
+    cache under int8 activations); the same cached step with the last
+    cached token hidden from the prefix (plen - 1) must fail the gate, and
+    on an int8 cache (kv_int8, phase 41) so must the step with that token's
+    K scaled to zero (its K scales set to 0). Returns {name: excess} of the
+    honest step and the faults."""
+    spread = CACHED_LOGIT_SPREAD_A8KV8 if kv_int8 and cfg.llm.act_int8 \
+        else CACHED_LOGIT_SPREAD
     runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
     feat = cfg.pano.image_feat_size
     anno = T.make_r2r_world(f"{tmp}/ab", n_episodes=2 * N_SLOTS, seed=2)
     agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat,
                                  prefix_cache=True)
+    args.kv_int8 = kv_int8
     snap, seen, found = {}, [], [0]
     step, windows = runner.eval_step_cached, agent._cached_prompt_windows
 
@@ -1706,13 +1837,20 @@ def phase_cached_ab(bpe, cfg, model, tmp):
         raise RuntimeError("no cached step with history to compare")
 
     with torch.inference_mode():
-        def cached(hide: int):
+        def cached(hide: int = 0, zero_k: bool = False):
             cache = clone(snap["cache"])
+            if zero_k:             # the last cached token's K scaled to 0
+                rows = torch.arange(N_SLOTS, device=cache["plen"].device)
+                cache["pkv_ks"][:, rows, cache["plen"].long() - 1] = 0.0
             cache["plen"] -= hide
             return step(clone(snap["state"]), cache, snap["pano"],
                         snap["batch"], *snap["args"])[3]
 
-        got, fault = cached(0), cached(1)
+        got = cached()
+        faults = {"last cached token hidden": cached(hide=1)}
+        if kv_int8:
+            faults["last cached token's K scaled to zero"] = \
+                cached(zero_k=True)
         toks, cand_pos, hist_pos, cls_pos = runner.tokenize_with_positions(
             snap["prompts"])
         batch = {k: v for k, v in snap["batch"].items()
@@ -1725,30 +1863,42 @@ def phase_cached_ab(bpe, cfg, model, tmp):
                                 *snap["args"])[2]
         torch.cuda.synchronize()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise RuntimeError("cached-step A/B: logits are not finite")
+        raise RuntimeError(f"[{tag}] cached-step A/B: logits are not finite")
     valid = want > NEG_INF / 2
-    excess, f_excess = logit_excess(got, want), logit_excess(fault, want)
+    excess = cached_logit_excess(got, want, spread)
+    out = {"honest": excess,
+           "max_dlogit": (got - want).abs()[want > NEG_INF / 2].max().item()}
     n_hist = int(snap["batch"]["app_mask"].sum(1).min())
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    print(f"[15] cached step vs uncached step ({N_SLOTS} slots, each "
-          f"appending >= {n_hist} history tokens, at the slots' step "
+    notes = []
+    for name, bad in faults.items():
+        out[name] = cached_logit_excess(bad, want, spread)
+        notes.append(f"{name}: excess {out[name]:.2f} (spread "
+                     f"{spread_need(bad, want):.4f}; the RMS limit's excess "
+                     f"{logit_excess(bad, want):.2f})")
+    kind = "W8A8 on an int8 cache" if kv_int8 else "bf16 cache"
+    print(f"[{tag}] cached step ({kind}) vs uncached step ({N_SLOTS} slots, "
+          f"each appending >= {n_hist} history tokens, at the slots' step "
           f"{AB_SNAPSHOT} or later; prompts of {toks.input_ids.shape[1]} "
-          f"tokens, "
-          f"windows {snap['batch']['app_ids'].shape[1]} | "
+          f"tokens, windows {snap['batch']['app_ids'].shape[1]} | "
           f"{snap['batch']['suf_ids'].shape[1]}): max |dlogit| "
           f"{(got - want).abs()[valid].max().item():.4e} over "
           f"{int(valid.sum())} candidate logits (range "
           f"{want[valid].min().item():.3f}..{want[valid].max().item():.3f}), "
-          f"excess {excess:.3f} of the limit; argmax agreement {agree:.2f}; "
-          f"planted fault (last cached token hidden) fails it: excess "
-          f"{f_excess:.1f}")
-    if f_excess <= 1:
-        raise RuntimeError(f"cached-step A/B: the gate passes a planted "
-                           f"fault (excess {f_excess:.3f})")
+          f"excess {excess:.3f} of the limit (spread "
+          f"{spread_need(got, want):.4f} of {spread:.4f}; the RMS limit's "
+          f"excess "
+          f"{logit_excess(got, want):.3f}); argmax agreement {agree:.2f}; "
+          f"planted faults fail it: {'; '.join(notes)}")
+    for name, f_excess in out.items():
+        if name in faults and f_excess <= 1:
+            raise RuntimeError(f"[{tag}] cached-step A/B: the gate passes a "
+                               f"planted fault ({name}, excess "
+                               f"{f_excess:.3f})")
     if not excess <= 1:
-        raise RuntimeError("cached-step A/B: the cached step disagrees with "
-                           "the uncached step")
-    return excess
+        raise RuntimeError(f"[{tag}] cached-step A/B: the cached step "
+                           f"disagrees with the uncached step")
+    return out
 
 
 def report_cached(tag, cfg, trajs, stats, ref_trajs, ref_stats, ref_tag):
@@ -1788,9 +1938,11 @@ def zero_counters(runner):
     for fn in COUNTERS.values():
         fn.launches = 0
     matmul_q4.launches = matmul_q4.int8_launches = 0
+    L.int_mm.padded_calls = L.int_mm.padded_rows = 0
     runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
     runner.grad_calls = runner.gen_grad_calls = runner.generate_calls = 0
     runner.og_calls = runner.og_grad_calls = runner.forward_calls = 0
+    runner.sampling_quantizations, runner.sampling_quant_s = 0, 0.0
     runner.llm_token_units = 0.0
 
 
@@ -1820,6 +1972,26 @@ def check_launches(tag, runner, layers):
     return launches
 
 
+def check_q4(tag, runner, layers, decodes: int = 0) -> int:
+    """K4 (matmul_q4) Q4_LAYER_MATMULS times per layer of every LLM pass on
+    an int4 tree (uncached and cached steps, prefills, generate calls'
+    prefills and their ``decodes`` decode steps, OG calls, other forwards),
+    every launch with int8 x under act_int8, and none on another tree.
+    Returns the launches."""
+    passes = (runner.eval_steps + runner.cached_steps + runner.prefill_calls
+              + runner.generate_calls + runner.og_calls
+              + runner.forward_calls + decodes)
+    int4 = is_quantized(runner.model) and weight_bits(runner.model) == 4
+    want = passes * layers * Q4_LAYER_MATMULS if int4 else 0
+    int8 = want if runner.cfg.llm.act_int8 else 0
+    if (matmul_q4.launches, matmul_q4.int8_launches) != (want, int8):
+        raise RuntimeError(f"[{tag}] int4 kernel launches "
+                           f"{matmul_q4.launches} ({matmul_q4.int8_launches} "
+                           f"with int8 x) != {passes} LLM passes x {layers} x "
+                           f"{Q4_LAYER_MATMULS} ({int8})")
+    return matmul_q4.launches
+
+
 def dagger_setup(tok, cfg, model):
     """The JAX defaults of the DAgger half (fused_dagger, dagger_streams=2,
     dagger_prefix_cache=True) at stage multi."""
@@ -1831,21 +2003,27 @@ def dagger_setup(tok, cfg, model):
     return args, runner
 
 
-def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
+def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext,
+                 tag=18, sample_quant=False):
     """Phase 18: train_one_epoch at stage multi (teacher, then the fused
     DAgger: sampling on the card through the prefix-cached step, then the
-    fused loss pass), a warm-up epoch, then 4 batches of 8. Returns the
-    measured run's kernel launches."""
+    fused loss pass), a warm-up epoch, then 4 batches of 8. Phase 43 the
+    same with --dagger_sample_quant: every sampling step and prefill on the
+    runner's W8A8 policy, made once per optimizer step. Returns (the
+    measured run's kernel launches, its measures)."""
     args, runner = dagger_setup(bpe, cfg, model)
+    args = dataclasses.replace(args, dagger_sample_quant=sample_quant)
     layers = cfg.llm.num_layers
     rec = {"draws": [], "sample_tokens": 0.0, "teacher_s": [],
            "dagger_s": [], "dagger_lp": [],
-           "loss_pass": {"teacher": [], "sample": []}, "losses": []}
+           "loss_pass": {"teacher": [], "sample": []}, "losses": [],
+           "policy": {True: 0, False: 0}}
     cached, plain, prefill = (runner.eval_step_cached, runner.eval_step,
                               runner.prefill)
 
     def counted(fn, step):
         def wrapped(*a, **kw):
+            rec["policy"][bool(kw.get("quant", False))] += 1
             before = runner.llm_token_units
             out = fn(*a, **kw)
             rec["sample_tokens"] += runner.llm_token_units - before
@@ -1901,6 +2079,7 @@ def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
                   rec["loss_pass"]["sample"], rec["losses"]):
             v.clear()
         rec["sample_tokens"] = 0.0
+        rec["policy"] = {True: 0, False: 0}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counters(runner)
@@ -1909,7 +2088,7 @@ def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
             avg_loss, norms = epoch(f"{tmp}/main", TRAIN_EPISODES, seed=0)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-        launches = check_launches(18, runner, layers)
+        launches = check_launches(tag, runner, layers)
     finally:
         FT._fused_trajectory_train = loss_pass
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1918,17 +2097,18 @@ def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
     losses = [float(x) for x in rec["losses"]]
     if len(losses) != n_batches or not all(
             math.isfinite(x) and 0 < x < MAX_LOSS for x in losses):
-        raise RuntimeError(f"[18] losses {losses}: not all finite and in "
+        raise RuntimeError(f"[{tag}] losses {losses}: not all finite and in "
                            f"(0, {MAX_LOSS})")
     norms = [float(n) for n in norms]
     if len(norms) != n_batches // args.gradient_accumulation_step or not all(
             math.isfinite(n) and n > 0 for n in norms):
-        raise RuntimeError(f"[18] global gradient norms {norms}")
+        raise RuntimeError(f"[{tag}] global gradient norms {norms}")
     # the sampling pass took the cached step throughout: no uncached step,
     # no mid-batch bailout
     if runner.eval_steps or not runner.cached_steps \
             or not runner.prefill_calls or agent.dagger_bailouts:
-        raise RuntimeError(f"[18] the DAgger batches did not take the cached "
+        raise RuntimeError(f"[{tag}] the DAgger batches did not take the "
+                           f"cached "
                            f"sampling step: {runner.eval_steps} uncached, "
                            f"{runner.cached_steps} cached steps, "
                            f"{runner.prefill_calls} prefills, "
@@ -1940,17 +2120,29 @@ def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
         bad += int(((chosen <= NEG_INF / 2) & act).sum())
         n_draws += int(act.sum())
     if bad:
-        raise RuntimeError(f"[18] {bad} sampled actions are not a valid "
+        raise RuntimeError(f"[{tag}] {bad} sampled actions are not a valid "
                            f"candidate of their row")
+    # the policy: every sampling step and prefill on the W8A8 copy (or on
+    # the live weights), one copy per optimizer step of the run
+    if rec["policy"][not sample_quant] or (
+            sample_quant and runner.sampling_quantizations != len(norms)):
+        raise RuntimeError(f"[{tag}] sampling calls by policy (W8A8: True) "
+                           f"{rec['policy']}; {runner.sampling_quantizations} "
+                           f"quantizations for {len(norms)} optimizer steps")
     groups = len({id(c[2]) for c in agent._dagger_cache_pool})
     cache_bytes = sum(runner.prefix_cache_bytes(b, p)
                       for b, p, _ in agent._dagger_cache_pool)
     steps = runner.cached_steps
     lp = rec["dagger_lp"]
     sample_s = [d - l for d, l in zip(rec["dagger_s"], lp)]
-    print(f"[18] stage multi, {TRAIN_EPISODES} episodes in {dt:.3f} s = "
+    quant_note = (f"W8A8 sampling policy: {rec['policy'][True]} sampling "
+                  f"calls on it, {runner.sampling_quantizations} "
+                  f"quantizations ({1e3 * runner.sampling_quant_s:.1f} ms in "
+                  f"all) for {len(norms)} optimizer steps; "
+                  if sample_quant else "")
+    print(f"[{tag}] stage multi, {TRAIN_EPISODES} episodes in {dt:.3f} s = "
           f"{TRAIN_EPISODES / dt:.3f} episodes/s, {len(norms)} optimizer "
-          f"steps; teacher batch "
+          f"steps; {quant_note}teacher batch "
           f"{[round(1e3 * x, 1) for x in rec['teacher_s']]} ms; DAgger "
           f"batch {[round(1e3 * x, 1) for x in rec['dagger_s']]} ms = "
           f"sampling {[round(1e3 * x, 1) for x in sample_s]} + loss pass "
@@ -1964,7 +2156,11 @@ def phase_dagger(bpe, cfg, model, tmp, window=contextlib.nullcontext):
           f"{[round(x, 4) for x in losses]} (mean {avg_loss:.4f}); grad "
           f"norms {[round(n, 4) for n in norms]}; launches {launches}")
     del tx
-    return launches
+    return launches, {"sample_ms": [1e3 * x for x in sample_s],
+                      "loss_pass_ms": [1e3 * x for x in lp], "peak_gib": peak,
+                      "quant_ms": 1e3 * runner.sampling_quant_s,
+                      "quantizations": runner.sampling_quantizations,
+                      "opt_steps": len(norms)}
 
 
 def phase_sampler(bpe, cfg, model, tmp):
@@ -2078,15 +2274,17 @@ def phase_sampler(bpe, cfg, model, tmp):
 def dagger_batch(tmp, args, runner):
     """One DAgger batch of TRAIN_BATCH on its own world, with candidates in
     graph order. Returns (agent, dataset, rollout): rollout(prefix_cache,
-    forced=None) runs it through rollout_dagger_fused and returns (loss,
-    paths, wall s, (cached steps, uncached steps, prefills))."""
+    forced=None, **flags) runs it through rollout_dagger_fused (flags:
+    TrainArgs fields) and returns (loss, paths, wall s, (cached steps,
+    uncached steps, prefills))."""
     anno = T.make_r2r_world(f"{tmp}/ab", n_episodes=TRAIN_BATCH, seed=3,
                             split="train")
     agent, ds, _ = T.r2r_train(anno, runner, args, TRAIN_BATCH)
     optim = T.train_config(MAX_ACTION_LEN).Optim
 
-    def rollout(prefix_cache, forced=None):
-        a2 = dataclasses.replace(args, dagger_prefix_cache=prefix_cache)
+    def rollout(prefix_cache, forced=None, **flags):
+        a2 = dataclasses.replace(args, dagger_prefix_cache=prefix_cache,
+                                 **flags)
         batch = next(iter(Dataloader(ds, TRAIN_BATCH, shuffle=False)))
         zero_counters(runner)
         t = []
@@ -2291,7 +2489,7 @@ def sampled_ab(ref, got, temperature):
         if not torch.isfinite(have).all():
             fails.append(f"step {key}: logits not finite")
             continue
-        excess = logit_excess(have, want)
+        excess = cached_logit_excess(have, want)
         if math.isfinite(excess):
             st["worst"] = max(st["worst"], excess)
         if not excess <= 1:
@@ -2302,7 +2500,7 @@ def sampled_ab(ref, got, temperature):
         if not torch.equal(top, r["draws"][idx]):
             fails.append(f"step {key}: the replayed noise misses the draw")
             continue
-        slack = logit_tol(want)[0] / temperature
+        slack = cached_logit_tol(want)[0] / temperature
         hi = (score - slack).gather(1, top[:, None])[:, 0]
         rest = (score + slack).scatter(1, top[:, None], -math.inf)
         decisive = (hi > rest.max(-1).values).tolist()
@@ -2686,15 +2884,17 @@ def phase_gen_ab(bpe, cfg, model, tmp):
 
 
 def phase_eqa(tag, bpe, cfg, model, tmp, prefix_cache=False,
-              warm_up=True):
-    """Phases 23 and 25: EQA streaming evaluation of GEN_EPISODES episodes
+              warm_up=True, kv_int8=False, n_episodes=GEN_EPISODES):
+    """Phases 23 and 25: EQA streaming evaluation of n_episodes episodes
     (2 slot groups of N_SLOTS, val_max_action_len GEN_MAX_ACTION_LEN, the
     answer vocabulary's trie), after a warm-up on its own world. Gates:
     every episode answered by its pass and its oracle pass, every answer in
     the vocabulary, K1 once per layer of every generate call (its prefill),
     uncached step and prefill call (and on an int4 tree K4 7 times per layer
-    of every LLM pass: those and each decode step). Returns the measures."""
-    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+    of every LLM pass: those and each decode step). kv_int8: generate keeps
+    the prompt K/V int8. Returns the measures."""
+    runner = NavModelRunner(cfg, model, bpe, dims=slice_dims(),
+                            kv_int8=kv_int8)
     layers, feat = cfg.llm.num_layers, cfg.pano.image_feat_size
     gen_s, prefill_s, decodes = [], [], [0]
     runner.generate = cuda_timed(runner.generate, gen_s)
@@ -2724,7 +2924,7 @@ def phase_eqa(tag, bpe, cfg, model, tmp, prefix_cache=False,
         torch.cuda.reset_peak_memory_stats()
         zero_counters(runner)
         t0 = time.perf_counter()
-        preds, ds = run(f"{tmp}/main", GEN_EPISODES, 0)
+        preds, ds = run(f"{tmp}/main", n_episodes, 0)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     finally:
@@ -2732,11 +2932,7 @@ def phase_eqa(tag, bpe, cfg, model, tmp, prefix_cache=False,
     launches = check_launches(tag, runner, layers)
     passes = (runner.eval_steps + runner.cached_steps + runner.prefill_calls
               + runner.generate_calls + decodes[0])
-    if is_quantized(model) and matmul_q4.launches != \
-            passes * layers * Q4_LAYER_MATMULS:
-        raise RuntimeError(f"[{tag}] int4 kernel launches "
-                           f"{matmul_q4.launches} != {passes} LLM passes x "
-                           f"{layers} x {Q4_LAYER_MATMULS}")
+    check_q4(tag, runner, layers, decodes=decodes[0])
     if prefix_cache and (runner.eval_steps or not runner.cached_steps
                          or not runner.prefill_calls):
         raise RuntimeError(f"[{tag}] the cached run did not take the cached "
@@ -2766,8 +2962,9 @@ def phase_eqa(tag, bpe, cfg, model, tmp, prefix_cache=False,
           "launches": launches, "q4_launches": matmul_q4.launches}
     kind = "cached" if prefix_cache else "uncached"
     q4_note = (f", int4 {matmul_q4.launches} = {passes} LLM passes x "
-               f"{layers} x {Q4_LAYER_MATMULS}" if is_quantized(model) else "")
-    print(f"[{tag}] EQA streaming eval ({kind}) of {len(preds)} episodes, "
+               f"{layers} x {Q4_LAYER_MATMULS}" if matmul_q4.launches else "")
+    kv_note = ", int8 prompt K/V" if kv_int8 else ""
+    print(f"[{tag}] EQA streaming eval ({kind}{kv_note}) of {len(preds)} episodes, "
           f"each with its oracle pass, in {dt:.3f} s = "
           f"{st['episodes_per_s']:.3f} episodes/s: {steps} {kind} steps at "
           f"{st['ms_per_step']:.2f} ms wall per step (generation excluded)"
@@ -3065,7 +3262,7 @@ def phase_og_ab(bpe, cfg, model, tmp):
 
 
 def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
-                  do_sample=True):
+                  do_sample=True, n_episodes=OG_EPISODES):
     """Phase 27: REVERIE or SOON streaming evaluation of OG_EPISODES
     episodes (2 slot groups of N_SLOTS, val_max_action_len
     GEN_MAX_ACTION_LEN) with enable_og, sampled at OG_TEMPERATURE unless
@@ -3080,7 +3277,7 @@ def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
     og_s = []
     runner.object_grounding = cuda_timed(runner.object_grounding, og_s)
     root = f"{tmp}/og_{task}"
-    T.make_r2r_world(root, n_episodes=OG_EPISODES, seed=13)
+    T.make_r2r_world(root, n_episodes=n_episodes, seed=13)
     obj_db = og_obj_dbs(cfg)[task.lower()]
     flags = dict(do_sample=True, temperature=OG_TEMPERATURE) \
         if do_sample else {}
@@ -3112,6 +3309,7 @@ def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
     finally:
         DM.select_actions = select
     launches = check_launches(tag, runner, cfg.llm.num_layers)
+    q4 = check_q4(tag, runner, cfg.llm.num_layers)
     left = [m[lf] for lf, m in draws]
     left = torch.cat(left).float().cpu() if left else torch.zeros(0)
     if len(left) and left.max() > OG_DRAW_TEMPS * OG_TEMPERATURE:
@@ -3146,7 +3344,7 @@ def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
           "ms_per_og": 1e3 * og_total / len(og_s), "og_calls": len(og_s),
           "episodes_per_s": len(preds) / dt,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "launches": launches}
+          "launches": launches, "q4_launches": q4}
     kind = ("cached" if prefix_cache else "uncached") + (
         f", sampled at T={OG_TEMPERATURE}" if do_sample else ", argmax")
     drawn = (f"{len(left)} of {n_draws} draws left the argmax of their "
@@ -3161,7 +3359,8 @@ def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
           f"{st['ms_per_og']:.1f} ms each; {drawn}"
           f"{({k: round(float(v), 2) for k, v in avg.items()})}; every "
           f"pred_objid one of its viewpoint's {OG_OBJECTS} objects; peak "
-          f"memory {st['peak_gib']:.2f} GiB; launches {launches}")
+          f"memory {st['peak_gib']:.2f} GiB; launches {launches}"
+          f"{f', int4 {q4}' if q4 else ''}")
     return st, {p["instr_id"]: p["trajectory"] for p in preds}
 
 
@@ -3421,7 +3620,7 @@ def cvdn_dims():
 
 
 def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
-                    ab=False):
+                    ab=False, n_episodes=CVDN_EPISODES, kv_int8=False):
     """Phase 29: CVDN streaming evaluation (greedy, val_max_action_len
     CVDN_MAX_ACTION_LEN) of CVDN_EPISODES dialogs in 2 slot groups of
     N_SLOTS, uncached or prefix-cached. Gates: every trajectory starts at
@@ -3441,10 +3640,11 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
     measures and the trajectories."""
     runner = NavModelRunner(cfg, model, bpe, dims=cvdn_dims())
     root = f"{tmp}/cvdn"
-    T.make_r2r_world(root, n_episodes=CVDN_EPISODES, seed=18)
+    T.make_r2r_world(root, n_episodes=n_episodes, seed=18)
     agent, ds, args = T.cvdn_eval(root, "val", runner, N_SLOTS,
                                   cfg.pano.image_feat_size,
                                   prefix_cache=prefix_cache)
+    args.kv_int8 = kv_int8
     widest, tokenize = [0], runner.tokenize_with_positions
 
     def tokenize_recorded(texts, *a, **kw):
@@ -3453,8 +3653,8 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
         return out
 
     runner.tokenize_with_positions = tokenize_recorded
-    checks = {"steps": 0, "worst": 0.0, "fault": None, "token": None,
-              "snap": None, "plen": 0, "found": 0}
+    checks = {"steps": 0, "worst": 0.0, "need": 0.0, "fault": None,
+              "token": None, "snap": None, "plen": 0, "found": 0}
     step, windows, seen = runner.eval_step_cached, \
         agent._cached_prompt_windows, []
 
@@ -3480,7 +3680,8 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
         rows = torch.as_tensor(active, device=out[3].device)
         want = runner.eval_step(clone(before[0]), pano, full, reset, cur,
                                 cand, active)[2][rows]
-        exc = logit_excess(out[3][rows], want)
+        exc = cached_logit_excess(out[3][rows], want)
+        checks["need"] = max(checks["need"], spread_need(out[3][rows], want))
         checks["steps"] += 1
         checks["worst"] = max(checks["worst"], exc)
         if not exc <= 1:
@@ -3495,9 +3696,10 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
                 hidden = clone(before[1])
                 hidden["plen"] -= torch.as_tensor(hide, dtype=torch.int32,
                                                   device=out[3].device)
-                return logit_excess(step(
-                    clone(before[0]), hidden, pano, batch, reset, cur, cand,
-                    active, *a, **kw)[3][rows], want)
+                bad = step(clone(before[0]), hidden, pano, batch, reset,
+                           cur, cand, active, *a, **kw)[3][rows]
+                return (cached_logit_excess(bad, want),
+                        spread_need(bad, want))
             checks["token"] = faulty(1)
             checks["fault"] = faulty(appended)
         return out
@@ -3516,6 +3718,7 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = check_launches(tag, runner, cfg.llm.num_layers)
+    q4 = check_q4(tag, runner, cfg.llm.num_layers)
     if prefix_cache and (runner.eval_steps != (checks["steps"] if ab else 0)
                          or not runner.cached_steps):
         raise RuntimeError(f"[{tag}] the cached run took {runner.eval_steps} "
@@ -3542,22 +3745,28 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
     st = {"ms_per_step": 1e3 * dt / steps, "episodes_per_s": len(preds) / dt,
           "tokens_per_step": runner.llm_token_units / steps,
           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "launches": launches}
-    kind = "cached" if prefix_cache else "uncached"
+          "launches": launches, "q4_launches": q4}
+    kind = ("cached, int8 cache" if kv_int8 else "cached") if prefix_cache \
+        else "uncached"
     if ab:
         print(f"[{tag}] cached CVDN steps vs eval_step on the same states and "
               f"whole prompts: {checks['steps']} steps, the active rows' "
               f"candidate logits at worst {checks['worst']:.3f} of the limit "
-              f"(CACHED_LOGIT_*); on step {AB_SNAPSHOT} with every row "
-              f"appending, the cached step at {checks['snap']:.3f} of the "
-              f"limit, with each row's last history entry hidden at "
-              f"{checks['fault']:.3f} (last cached token alone: "
-              f"{checks['token']:.3f}); longest prefix {checks['plen']} of "
-              f"{CVDN_PREFIX} tokens")
-        if not checks["fault"] >= FAULT_RESOLVE * checks["snap"]:
+              f"(cached_logit_tol; spread {checks['need']:.4f} of "
+              f"CACHED_LOGIT_SPREAD {CACHED_LOGIT_SPREAD:.4f}); on step "
+              f"{AB_SNAPSHOT} with every row appending, the cached step at "
+              f"{checks['snap']:.3f} of the limit, with each row's last "
+              f"history entry hidden at {checks['fault'][0]:.3f} (spread "
+              f"{checks['fault'][1]:.4f}; last cached token alone: "
+              f"{checks['token'][0]:.3f}, spread {checks['token'][1]:.4f}); "
+              f"longest prefix {checks['plen']} of {CVDN_PREFIX} tokens")
+        if not checks["fault"][0] >= FAULT_RESOLVE * checks["snap"]:
             raise RuntimeError(f"[{tag}] a hidden history entry moves the "
                                f"logits less than {FAULT_RESOLVE}x the "
                                f"cached step's own deviation")
+        st["ab"] = {"worst": checks["worst"], "need": checks["need"],
+                    "snap": checks["snap"], "fault": checks["fault"],
+                    "token": checks["token"]}
         return st, {p["instr_id"]: p["trajectory"] for p in preds}
     print(f"[{tag}] CVDN streaming eval ({kind}, greedy, "
           f"val_max_action_len {CVDN_MAX_ACTION_LEN}) of {len(preds)} "
@@ -3568,7 +3777,8 @@ def phase_cvdn_eval(tag, bpe, cfg, model, tmp, prefix_cache=False,
           f"lengths {lens}; "
           f"{'' if prefix_cache else f'longest prompt {widest[0]} tokens; '}"
           f"{({k: round(float(v), 2) for k, v in avg.items()})}; peak memory "
-          f"{st['peak_gib']:.2f} GiB; launches {launches}")
+          f"{st['peak_gib']:.2f} GiB; launches {launches}"
+          f"{f', int4 {q4}' if q4 else ''}")
     return st, {p["instr_id"]: p["trajectory"] for p in preds}
 
 
@@ -4152,7 +4362,8 @@ class StepLogits(contextlib.AbstractContextManager):
     """{(instr_id, step): the logits row [G] (f32, host)} of every
     navigation step of the runs inside the block: nav_gmap_inputs names the
     rows of the step (their episode, and the step from the graph map's step
-    id) whose logits the runner's navigation or eval_step returns next. The
+    id) whose logits the runner's navigation, eval_step or
+    eval_step_cached returns next. The
     first entry of a key stays (an ended row's stale repeats, an oracle
     pass's, come later)."""
 
@@ -4163,6 +4374,7 @@ class StepLogits(contextlib.AbstractContextManager):
         self.gmap_inputs = R2RAgent.nav_gmap_inputs
         self.navigation = self.runner.navigation
         self.eval_step = self.runner.eval_step
+        self.eval_step_cached = self.runner.eval_step_cached
         log = self
 
         def nav_gmap_inputs(agent, obs, gmaps, *a, **kw):
@@ -4188,21 +4400,29 @@ class StepLogits(contextlib.AbstractContextManager):
             keep(out[2])
             return out
 
+        def eval_step_cached(*a, **kw):
+            out = log.eval_step_cached(*a, **kw)
+            keep(out[3])
+            return out
+
         R2RAgent.nav_gmap_inputs = nav_gmap_inputs
         self.runner.navigation, self.runner.eval_step = navigation, eval_step
+        self.runner.eval_step_cached = eval_step_cached
         return self
 
     def __exit__(self, *exc):
         R2RAgent.nav_gmap_inputs = self.gmap_inputs
         self.runner.navigation = self.navigation
         self.runner.eval_step = self.eval_step
+        self.runner.eval_step_cached = self.eval_step_cached
 
 
-def near_tie_parts(tag, got, want, logits):
+def near_tie_parts(tag, got, want, logits, strict: bool = True):
     """The near-tie rule: where ``got``'s trajectory (instr_id -> path)
     parts from ``want``'s, the step at which it parts must have, in want's
     logits, a top-2 margin within logit_tol's bf16 bound (phase 15's
-    CACHED_LOGIT_*). Returns [(instr_id, step, margin, limit)]."""
+    CACHED_LOGIT_*); without ``strict`` the margins are only reported.
+    Returns [(instr_id, step, margin, limit)]."""
     if got.keys() != want.keys():
         raise RuntimeError(f"[{tag}] other episodes: {sorted(got)} against "
                            f"{sorted(want)}")
@@ -4221,7 +4441,7 @@ def near_tie_parts(tag, got, want, logits):
         top = row.topk(2)
         margin = (top.values[0] - top.values[1]).item()
         limit = tol[0, top.indices].sum().item()
-        if margin > limit:
+        if strict and margin > limit:
             raise RuntimeError(f"[{tag}] {k} parts at step {j - 1} on a "
                                f"top-2 margin {margin:.4f} above the bf16 "
                                f"limit {limit:.4f}")
@@ -4889,6 +5109,324 @@ def phase_pretrained_int4(vic, tmp, tok, cfg, qmodel, w4):
     torch.cuda.empty_cache()
     return {"35": fwd}, {"35": q4, "35_replay": launches}
 
+# ------------------------------------------- the rest of quantization --- #
+# phase 43's forced A/B: the W8A8 policy changes which actions are drawn,
+# never the loss pass, so with the actions forced the loss may differ from
+# the live policy's run only by the loss pass's own run-to-run rounding
+# (the same bf16 ops on the same inputs; atomics in the backward)
+SAMPLE_Q_LOSS_REL = 1e-3
+# the quantization phases' episode counts (their run time is held to ~150
+# s beside the others'): R2R episodes of phase 41, EQA episodes of 42,
+# REVERIE and SOON episodes and CVDN dialogs of 44
+W8A8_EPISODES = 16
+EQA_A8_EPISODES = 8
+INT4_OG_EPISODES = 8
+INT4_CVDN_EPISODES = 8
+# W8A8's int8 product on the card at the model's shapes: rows (a decode
+# step's and lm_head's 4, padded; a navigation step's ~800) and weights
+W8A8_ROWS = (4, 800)
+
+
+def phase_sample_quant_ab(bpe, cfg, model, tmp):
+    """Phase 43, continued: the card's twin of the JAX package's
+    test_quant_sampling_policy. One DAgger batch of TRAIN_BATCH with
+    dropout off, sampled on the W8A8 policy (cached), then its actions
+    forced through sampling on the live weights and on the W8A8 policy:
+    the same trajectories, losses within SAMPLE_Q_LOSS_REL and gradients
+    within MIN_GRAD_COSINE."""
+    nodrop = dataclasses.replace(cfg, pano=dataclasses.replace(
+        cfg.pano, hidden_dropout_prob=0.0))
+    args, runner = dagger_setup(bpe, nodrop, model)
+    runner.feat_dropout = 0.0
+    _, _, rollout = dagger_batch(tmp, args, runner)
+    last = cfg.llm.num_layers - 1
+    watch = {"llm.layers.wq[0]": lambda m: m.llm.layers.wq.grad[0],
+             f"llm.layers.wq[{last}]": lambda m: m.llm.layers.wq.grad[last],
+             "out_head.w": lambda m: m.out_head.w.grad,
+             "pano.mapper.w": lambda m: m.pano.mapper.w.grad}
+    groups, loss_pass = [], FT._fused_trajectory_train
+
+    def capture(*a, **kw):
+        groups.append(kw["steps"])
+        return loss_pass(*a, **kw)
+
+    def run(sample_quant, forced=None):
+        runner.zero_grads()
+        FT._fused_trajectory_train = capture
+        try:
+            loss, paths, t, counts = rollout(True, forced,
+                                             dagger_sample_quant=sample_quant)
+        finally:
+            FT._fused_trajectory_train = loss_pass
+        grads = {k: f(model).float().clone() for k, f in watch.items()}
+        return float(loss), paths, grads, t
+
+    sampled = run(True)
+    n_steps = max(len(st) for st in groups)
+    forced = [np.concatenate([st[t]["actions"] if t < len(st)
+                              else np.zeros(len(st[0]["actions"]), np.int64)
+                              for st in groups]) for t in range(n_steps)]
+    live = run(False, forced)
+    quant = run(True, forced)
+    runner.take_grads()
+    if not (sampled[1] == live[1] == quant[1]):
+        raise RuntimeError("[43] the forced trajectories differ between the "
+                           "live and the W8A8 sampling policy")
+    rel = abs(quant[0] - live[0]) / abs(live[0])
+    cos = {k: F.cosine_similarity(quant[2][k].flatten(),
+                                  live[2][k].flatten(), dim=0).item()
+           for k in watch}
+    print(f"[43] one DAgger batch of {TRAIN_BATCH} (dropout off), sampled on "
+          f"the W8A8 policy, then forced to its actions: trajectories equal "
+          f"({n_steps} steps); loss W8A8-sampled {quant[0]:.6f} against "
+          f"live-sampled {live[0]:.6f} (rel {rel:.3e}, limit "
+          f"{SAMPLE_Q_LOSS_REL:.0e}); gradient cosine "
+          f"{ {k: round(v, 6) for k, v in cos.items()} }; the batch took "
+          f"{1e3 * quant[3]:.1f} ms against {1e3 * live[3]:.1f} ms")
+    if not rel <= SAMPLE_Q_LOSS_REL or min(cos.values()) < MIN_GRAD_COSINE:
+        raise RuntimeError("[43] the forced batch's loss pass differs between "
+                           "the live and the W8A8 sampling policy")
+    return {"rel": rel, "cos": min(cos.values())}
+
+
+def phase_quantized_init(cfg):
+    """Phase 41's tree: the navigation model with its LLM drawn already
+    int8 on the card (init_nav_params(quantize_llm=True): each weight drawn,
+    quantized and dropped before the next), against drawing the bf16 tree
+    and quantizing it (quantize_nav_params): the two LLMs equal bit for
+    bit, and each path's peak memory above what was allocated before it.
+    Returns the int8 model."""
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30, \
+            time.perf_counter() - t0
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(0)
+
+    model8, q_peak, q_s = peak_of(lambda: NavModel(cfg, init_nav_params(
+        cfg, gen(), quantize_llm=True, quant_bits=8)))
+    dense, d_peak, d_s = peak_of(lambda: quantize_nav_params(
+        init_nav_params(cfg, gen()), 8))
+    want, got = flatten_tree(dense["llm"]), flatten_tree(model8["llm"])
+    same = sorted(want) == sorted(got) and all(
+        torch.equal(want[k], got[k]) for k in want)
+    del dense, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm_bytes = sum(p.numel() * p.element_size()
+                    for p in model8.llm.parameters())
+    print(f"[41] the int8 model drawn quantized on the card in {q_s:.2f} s, "
+          f"peak {q_peak:.2f} GiB above the baseline, against bf16 init then "
+          f"quantize_nav_params in {d_s:.2f} s, peak {d_peak:.2f} GiB; the "
+          f"two LLMs equal bit for bit: {same}; LLM {llm_bytes / 1e9:.3f} GB "
+          f"(layer matmuls, embed and lm_head int8)")
+    if not same:
+        raise RuntimeError("[41] init_nav_params(quantize_llm=True) differs "
+                           "from quantizing the bf16 init")
+    return model8
+
+
+def check_w8a8_mm(llm):
+    """W8A8 on int8 weights on the card (llama._mm -> int_mm ->
+    torch._int_mm, rows below 17 padded) at W8A8_ROWS rows against the
+    same function with the int8 product taken in f64 (exact): equal bit
+    for bit, for wq, w_down and lm_head. Returns the padded calls."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    L.int_mm.padded_calls = L.int_mm.padded_rows = 0
+    for name, w in (("wq", {k: v[0] for k, v in llm["layers"]["wq"].items()}),
+                    ("w_down", {k: v[0] for k, v in
+                                llm["layers"]["w_down"].items()}),
+                    ("lm_head", dict(llm["lm_head"].items()))):
+        for m in W8A8_ROWS:
+            x = randn(gen, m, w["q"].shape[0])
+            got = L._mm(x, w, a8=True)
+            xq, sx = _act_q(x)
+            exact = (xq.double() @ w["q"].double()).float()
+            want = (exact * sx * w["s"].float()).to(x.dtype)
+            if not torch.equal(got, want):
+                raise RuntimeError(f"[41] W8A8 {name} at {m} rows differs "
+                                   f"from its f64 product")
+    return L.int_mm.padded_calls
+
+
+def phase_w8a8(bpe, cfg, model8, tmp):
+    """Phase 41: R2R streaming evaluation on int8 weights at the JAX
+    bench's 7B headline: W8A8_EPISODES episodes in 2 slot groups of
+    N_SLOTS on BPE prompts, weight-only int8 with a bf16 prefix cache (the
+    reference, its step logits kept), W8A8 uncached
+    (r2r_stream_7b_w8a8_bpe), then W8A8 with the prefix cache and the int8
+    K/V (_cached_kv8). Gates: the int8 product exact (check_w8a8_mm);
+    phase 13's and 14's (starts, metrics, K1 launches, cached path only);
+    no K4 launch; the kv8 cached step against the uncached W8A8 step on
+    one snapshot (phase_cached_ab, with its planted faults); and the
+    near-tie rule with the int8 noise: every episode's first step sees
+    the same state in both runs, so the largest logit deviation there (E0)
+    is what the int8 noise does to a logit; where a kv8 trajectory parts
+    from the reference's, the reference's top-2 margin at that step must
+    be within 2 E0 and the bf16 limit. The three runs take the candidates
+    in graph order, so that a trajectory depends only on its own states.
+    The share of equal trajectories is printed (the CPU tests gate JAX's
+    80%: with random 7B weights many steps are near-ties). Returns the
+    measures."""
+    a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                          act_int8=True))
+    padded = check_w8a8_mm(model8["llm"])
+    logs, runs = {}, {}
+    for name, c, kw in (("ref", cfg, dict(prefix_cache=True)),
+                        ("a8", a8, {}),
+                        ("kv8", a8, dict(prefix_cache=True, kv_int8=True,
+                                         warm_up=False))):
+        runner = NavModelRunner(c, model8, bpe, dims=slice_dims())
+        lg = StepLogits(runner)        # around the measured run only
+        runs[name] = phase_slice(41, bpe, c, model8, tmp, runner=runner,
+                                 graph_order=True, window=lambda: lg,
+                                 n_episodes=W8A8_EPISODES, **kw)
+        logs[name] = lg.logits
+    (ref, ref_st), (a8_trajs, a8_st), (kv_trajs, kv_st) = \
+        runs["ref"], runs["a8"], runs["kv8"]
+
+    def step0_dev(got, want):
+        """The largest |dlogit| over the episodes' first steps, on the
+        logits both runs hold valid."""
+        return max((got[k] - want[k]).abs()[
+            (want[k] > NEG_INF / 2) & (got[k] > NEG_INF / 2)].max().item()
+            for k in want if k[1] == 0 and k in got)
+    if any(st["q4_launches"] for st in (ref_st, a8_st, kv_st)):
+        raise RuntimeError("[41] the int4 kernel ran on an int8 tree")
+    same_kv = sum(kv_trajs[k] == ref[k] for k in ref)
+    same_a8 = sum(a8_trajs[k] == ref[k] for k in ref)
+    e0 = {k: step0_dev(logs[a], logs[b]) for k, (a, b) in
+          {"W8A8": ("a8", "ref"), "kv8": ("kv8", "a8"),
+           "both": ("kv8", "ref")}.items()}
+    parted = near_tie_parts(41, kv_trajs, ref, logs["ref"], strict=False)
+    ab = phase_cached_ab(bpe, a8, model8, tmp, tag=41, kv_int8=True)
+    beyond = [p for p in parted if p[2] > 2 * e0["both"] + p[3]]
+    bf16_b = runner.prefix_cache_bytes(N_SLOTS, MAX_PREFIX)
+    kv8_b = runner.prefix_cache_bytes(N_SLOTS, MAX_PREFIX, kv_int8=True)
+    llm_b = sum(p.numel() * p.element_size() for p in model8.llm.parameters())
+
+    def padded_per_step(st):
+        calls, rows = st["int_mm_padded"]
+        return (f"{calls / st['steps']:.1f} padded int8 products of "
+                f"{rows / max(calls, 1):.1f} rows per step")
+    print(f"[41] W8A8 on int8 weights: uncached {a8_st['ms_per_step']:.2f} ms "
+          f"per step ({padded_per_step(a8_st)}), cached with the int8 K/V "
+          f"{kv_st['ms_per_step']:.2f} ms per step "
+          f"({padded_per_step(kv_st)}), "
+          f"against weight-only int8 with a bf16 cache "
+          f"{ref_st['ms_per_step']:.2f}; episodes/s {a8_st['episodes_per_s']:.3f}"
+          f" / {kv_st['episodes_per_s']:.3f} / {ref_st['episodes_per_s']:.3f};"
+          f" cache per slot group {kv8_b} bytes int8 against {bf16_b} bf16 "
+          f"({kv8_b / bf16_b:.3f}x); LLM {llm_b / 1e9:.3f} GB; peak "
+          f"{a8_st['peak_gib']:.2f} / {kv_st['peak_gib']:.2f} / "
+          f"{ref_st['peak_gib']:.2f} GiB; trajectories equal to the "
+          f"reference's: W8A8 uncached {same_a8}, W8A8 + kv8 {same_kv} of "
+          f"{len(ref)}; where kv8 parts (instr_id, step, top-2 margin, the "
+          f"bf16 limit): {parted}; first-step logit deviations E0: W8A8 "
+          f"against weight-only {e0['W8A8']:.4f}, the int8 cache against "
+          f"the bf16 one (both W8A8, cached against uncached) "
+          f"{e0['kv8']:.4f}, both {e0['both']:.4f}; the int8 product exact "
+          f"at {W8A8_ROWS} rows ({padded} of its calls padded)")
+    if beyond:
+        raise RuntimeError(f"[41] kv8 trajectories part on top-2 margins "
+                           f"beyond 2 E0: {beyond}")
+    return {"ref": ref_st, "a8": a8_st, "kv8": kv_st, "ab": ab, "e0": e0,
+            "same": (same_a8, same_kv), "cache_bytes": (bf16_b, kv8_b),
+            "launches": sum(st["launches"] for st in (ref_st, a8_st, kv_st))}
+
+
+def phase_eqa_w4a8(bpe, cfg, qmodel, tmp, ref):
+    """Phase 42: the w4a8 generation that once raised (lm_head's W8A8
+    product): phase 23's EQA evaluation (EQA_A8_EPISODES episodes) on the
+    int4 tree with act_int8,
+    with a bf16 and then an int8 prompt K/V (answers in the vocabulary; K4
+    224 per LLM pass, decode steps included, all with int8 x); then the
+    first decoded token's logits (the prefill's last position) and one
+    decode step on the int8 prompt K/V, through K4 against
+    q4_impl="plain", within logit_tol. Returns (the two runs' measures)."""
+    a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                          act_int8=True))
+    # phase 25 warmed this tree up
+    bf = phase_eqa(42, bpe, a8, qmodel, tmp, warm_up=False,
+                   n_episodes=EQA_A8_EPISODES)
+    kv = phase_eqa(42, bpe, a8, qmodel, tmp, warm_up=False, kv_int8=True,
+                   n_episodes=EQA_A8_EPISODES)
+    runner, ids, mask, inj_pos, inj_emb = gen_inputs(bpe, a8, qmodel, tmp)
+    llm = qmodel["llm"]
+    b_ids, b_mask, b_pos = D.bucket_prompt(ids, mask, inj_pos, bpe.pad_id)
+    dev_mask = runner.upload(b_mask)
+    out = {}
+    with torch.inference_mode():
+        for impl in ("auto", "plain"):
+            c = dataclasses.replace(a8.llm, q4_impl=impl)
+            logits, kv_ = D.prefill(llm, c, runner.upload(
+                b_ids.astype(np.int64)), dev_mask, runner.upload(b_pos),
+                inj_emb)
+            first = logits.masked_fill(runner.special_mask, NEG_INF)
+            tok0 = first.argmax(-1) if impl == "auto" else out["auto"][2]
+            emb0 = L.embed_rows(llm["embed"], tok0)[:, None]
+            h, _ = L.decode_step(llm, c, emb0, L.quantize_kv_stack(kv_), dev_mask,
+                                 L.init_decode_cache(c, N_SLOTS, 1,
+                                                     runner.device),
+                                 0, dev_mask.sum(-1)[:, None])
+            out[impl] = (first, L.logits_from_hidden(llm, c, h[:, 0],
+                                                     runner.special_mask),
+                         tok0)
+    exc = [logit_excess(out["auto"][i], out["plain"][i]) for i in (0, 1)]
+    print(f"[42] w4a8 generation: the first decoded token's logits through "
+          f"K4 vs q4_impl=plain at {exc[0]:.3f} of the limit, one decode "
+          f"step on the int8 prompt K/V at {exc[1]:.3f}; "
+          f"{bf['ms_per_generate']:.1f} / {kv['ms_per_generate']:.1f} ms per "
+          f"generate call (bf16 / int8 prompt K/V) and {bf['ms_per_decode']:.2f}"
+          f" / {kv['ms_per_decode']:.2f} ms per decode token, beside phase "
+          f"25's w4 {ref['ms_per_generate']:.1f} and {ref['ms_per_decode']:.2f};"
+          f" {bf['ms_per_step']:.2f} / {kv['ms_per_step']:.2f} ms per nav "
+          f"step; peak {bf['peak_gib']:.2f} / {kv['peak_gib']:.2f} GiB")
+    if not max(exc) <= 1:
+        raise RuntimeError(f"[42] w4a8 logits through K4 vs its plain version "
+                           f"at {exc} of the limit")
+    return bf, kv
+
+
+def phase_int4_og_cvdn(bpe, cfg, qmodel, tmp):
+    """Phase 44: the task mix on the int4 tree (w4): REVERIE and SOON
+    (INT4_OG_EPISODES each, sampled at OG_TEMPERATURE, the OG queue) and
+    CVDN (INT4_CVDN_EPISODES dialogs, the prefix cache with the int8 K/V,
+    every cached step replayed through eval_step as phase 29 does, then
+    timed), with phase 27's and 29's gates and K4 224 per LLM pass (OG
+    calls and prefills included). Returns {name: measures}."""
+    out = {}
+    for task in ("REVERIE", "SOON"):
+        out[task.lower()], _ = phase_og_eval(44, bpe, cfg, qmodel, tmp, task,
+                                             n_episodes=INT4_OG_EPISODES)
+    stop_b = qmodel.out_head.b
+    with torch.no_grad():
+        stop_b0 = stop_b[0].clone()
+        stop_b[0] -= AB_STOP_SHIFT
+    try:
+        kw = dict(prefix_cache=True, kv_int8=True,
+                  n_episodes=INT4_CVDN_EPISODES)
+        out["cvdn_ab"], _ = phase_cvdn_eval(44, bpe, cfg, qmodel, tmp,
+                                            ab=True, **kw)
+        out["cvdn"], _ = phase_cvdn_eval(44, bpe, cfg, qmodel, tmp, **kw)
+    finally:
+        with torch.no_grad():
+            stop_b[0] = stop_b0
+    print(f"[44] the int4 tree: REVERIE {out['reverie']['ms_per_step']:.2f} "
+          f"and SOON {out['soon']['ms_per_step']:.2f} ms per step, "
+          f"{out['reverie']['ms_per_og']:.1f} / {out['soon']['ms_per_og']:.1f}"
+          f" ms per OG call; CVDN cached with the int8 K/V "
+          f"{out['cvdn']['ms_per_step']:.2f} ms per step, "
+          f"{out['cvdn']['tokens_per_step']:.1f} LLM tokens per step; K4 "
+          f"{sum(v['q4_launches'] for v in out.values())} launches in all")
+    return out
+
 
 def main():
     smi = phase_device()
@@ -4921,9 +5459,23 @@ def main():
     # the DAgger half and the training driver, at 7B width on BPE prompts,
     # before the int4 phases free the bf16 LLM
     with tempfile.TemporaryDirectory() as tmp:
-        dagger_launches = phase_dagger(bpe, cfg, model, tmp)
+        dagger_launches, dagger = phase_dagger(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         phase_sampler(bpe, cfg, model, tmp)
+    # the W8A8 sampling policy (--dagger_sample_quant), phase 18's cell
+    with tempfile.TemporaryDirectory() as tmp:
+        dagger_q_launches, dagger_q = phase_dagger(bpe, cfg, model, tmp,
+                                                   tag=43, sample_quant=True)
+    print(f"[43] W8A8 sampling {[round(x, 1) for x in dagger_q['sample_ms']]}"
+          f" ms per DAgger batch against phase 18's bf16 sampling "
+          f"{[round(x, 1) for x in dagger['sample_ms']]} ms; "
+          f"{dagger_q['quantizations']} quantizations for "
+          f"{dagger_q['opt_steps']} optimizer steps, "
+          f"{dagger_q['quant_ms'] / max(dagger_q['quantizations'], 1):.1f} "
+          f"ms each; peak {dagger_q['peak_gib']:.2f} GiB against "
+          f"{dagger['peak_gib']:.2f}")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_sample_quant_ab(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         run_launches = phase_run_training(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5019,6 +5571,19 @@ def main():
                        f"version", qmodel, c, plain)
     with tempfile.TemporaryDirectory() as tmp:
         eqa_w4, q4_decode = phase_eqa_w4(bpe, cfg, qmodel, tmp, eqa)
+    # the rest of quantization on the int4 tree: w4a8 generation with an
+    # int8 prompt K/V, then REVERIE, SOON and CVDN
+    with tempfile.TemporaryDirectory() as tmp:
+        eqa_a8 = phase_eqa_w4a8(bpe, cfg, qmodel, tmp, eqa_w4)
+    with tempfile.TemporaryDirectory() as tmp:
+        int4_mix = phase_int4_og_cvdn(bpe, cfg, qmodel, tmp)
+    # int8 weights (drawn quantized), W8A8 and the int8 prefix cache
+    model8 = phase_quantized_init(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        w8a8 = phase_w8a8(bpe, cfg, model8, tmp)
+    del model8
+    gc.collect()
+    torch.cuda.empty_cache()
     # the pretrained path's training (8-bit moments) and resume, then its
     # int4 evaluation, after the bf16 model is gone
     with tempfile.TemporaryDirectory() as tmp:
@@ -5055,6 +5620,12 @@ def main():
                 **{f"38_{t.lower()}": n[key]
                    for t, n in perstep["38"].items()},
                 "39": perstep["39"][key], "40": perstep["40"][key],
+                "41": w8a8["launches"] if key == "fwd" else 0,
+                **{f"42{sfx}": st["launches"][key]
+                   for sfx, st in zip(("", "_kv8"), eqa_a8)},
+                "43": dagger_q_launches[key],
+                **{f"44_{k}": v["launches"][key]
+                   for k, v in int4_mix.items()},
                 "33": load_launches[key],
                 **{ph: n[key] for ph, n in pre_launches.items()},
                 **{ph: n[key] for ph, n in int4_launches.items()}}
@@ -5072,7 +5643,12 @@ def main():
     rows.append({**KERNELS["q4"], "launches": launches["q4"],
                  "launches_by_phase": {"9": launches["q4"],
                                        "25": eqa_w4["q4_launches"],
-                                       **int4_q4},
+                                       **int4_q4,
+                                       **{f"42{sfx}": st["q4_launches"]
+                                          for sfx, st in zip(("", "_kv8"),
+                                                             eqa_a8)},
+                                       **{f"44_{k}": v["q4_launches"]
+                                          for k, v in int4_mix.items()}},
                  **q4[(4096, 4096, 11008, "w4")],
                  "max_abs_err": max(r["max_abs_err"] for r in
                                     [*q4.values(), *q4_decode.values()]),
@@ -5080,7 +5656,12 @@ def main():
                  "decode_m4": {f"h={h} o={o}": {k: r[k] for k in (
                      "max_abs_err", "ms", "plain_ms", "library_ms",
                      "bound_ms", "bound_by")}
-                     for (m, h, o, _), r in q4_decode.items()}})
+                     for (m, h, o, _), r in q4_decode.items()},
+                 "f32_x": {f"m={m} h={h} o={o}": {k: r[k] for k in (
+                     "max_abs_err", "ms", "bf16_x_ms", "plain_ms",
+                     "library_ms", "bound_ms", "bound_by")}
+                     for (m, h, o, mode), r in q4.items()
+                     if mode == "f32" and m == 4096}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

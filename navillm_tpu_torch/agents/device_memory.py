@@ -197,24 +197,38 @@ def init_prefix_cache(llm_cfg, batch: int, max_prefix: int,
     max_prefix, NKV, D] in the LLM's dtype, and "plen" [B] int32 (each
     row's valid prefix length). The instruction and history part of the
     navigation prompt is append-only within an episode, so each step
-    forwards only the new history tokens and the candidates section."""
-    if kv_int8:
-        raise NotImplementedError("the int8 prefix cache (kv_int8) is not "
-                                  "ported yet (ROADMAP A9)")
+    forwards only the new history tokens and the candidates section.
+    kv_int8 stores the values int8, with f32 scales per token and head
+    "pkv_ks", "pkv_vs" [L, B, max_prefix, NKV, 1] (llama.kv_quantize):
+    half the bytes."""
     shape = (llm_cfg.num_layers, batch, max_prefix, llm_cfg.num_kv_heads,
              llm_cfg.head_dim)
-    return {"plen": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "pkv_k": torch.zeros(shape, dtype=llm_cfg.dtype, device=device),
-            "pkv_v": torch.zeros(shape, dtype=llm_cfg.dtype, device=device)}
+    out = {"plen": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if kv_int8:
+        sshape = (*shape[:-1], 1)
+        for name in ("k", "v"):
+            out[f"pkv_{name}"] = torch.zeros(shape, dtype=torch.int8,
+                                             device=device)
+            out[f"pkv_{name}s"] = torch.zeros(sshape, dtype=torch.float32,
+                                              device=device)
+        return out
+    out["pkv_k"] = torch.zeros(shape, dtype=llm_cfg.dtype, device=device)
+    out["pkv_v"] = torch.zeros(shape, dtype=llm_cfg.dtype, device=device)
+    return out
+
+
+_KV_NAMES = {"pkv_k": "k", "pkv_ks": "ks", "pkv_v": "v", "pkv_vs": "vs"}
 
 
 def _cache_kv_view(cache):
-    """The {"k", "v"} view llama.chunk_forward_cached takes."""
-    return {"k": cache["pkv_k"], "v": cache["pkv_v"]}
+    """The {"k", "v"} (int8: and "ks", "vs") view llama.chunk_forward_cached
+    takes."""
+    return {kv: cache[c] for c, kv in _KV_NAMES.items() if c in cache}
 
 
 def _cache_from_kv(kv, plen):
-    return {"pkv_k": kv["k"], "pkv_v": kv["v"], "plen": plen}
+    return {"plen": plen, **{c: kv[n] for c, n in _KV_NAMES.items()
+                             if n in kv}}
 
 
 def prefill_prefix(params, llm_cfg, cache, ids, mask, rows, valid):
@@ -227,21 +241,23 @@ def prefill_prefix(params, llm_cfg, cache, ids, mask, rows, valid):
     (return_kv; causal, through the flash kernel on the card), whose
     padding entries have all-false masks: their rows see no valid key and
     come out finite. Only [:, rows, :Pw] is written; tokens beyond plen
-    stay invisible behind the prefix mask whatever they hold. The t=0
-    prefix (instruction + history header) holds no special token, so
-    nothing is injected. Returns the cache."""
-    if "pkv_ks" in cache:
-        raise NotImplementedError("the int8 prefix cache (kv_int8) is not "
-                                  "ported yet (ROADMAP A9)")
+    stay invisible behind the prefix mask whatever they hold. On an int8
+    cache the fresh K/V is quantized (llama.quantize_kv_stack) before the
+    write, codes and scales alike. The t=0 prefix (instruction + history header)
+    holds no special token, so nothing is injected. Returns the cache."""
     llm = params["llm"]
     emb = L.embed_with_injection(llm, ids)
     emb = torch.where(mask[..., None], emb, torch.zeros((), dtype=emb.dtype,
                                                         device=emb.device))
     _, kv = L.forward_hidden(llm, llm_cfg, emb, mask, return_kv=True)
     p = cache["pkv_k"].shape[2]
+    kv = {"k": kv["k"][:, :, :p], "v": kv["v"][:, :, :p]}
+    if "pkv_ks" in cache:
+        kv = L.quantize_kv_stack(kv)
+    pieces = {c: kv[n] for c, n in _KV_NAMES.items() if n in kv}
     rows = rows.long()
     vmask = valid[None, :, None, None, None]
-    for name, new in (("pkv_k", kv["k"][:, :, :p]), ("pkv_v", kv["v"][:, :, :p])):
+    for name, new in pieces.items():
         buf = cache[name]
         pw = new.shape[2]
         old = buf[:, rows, :pw]

@@ -55,8 +55,10 @@ them one step later.
 The agent's StageTimer times the stages JAX times, by the same names:
 pano_assemble, nav_assemble, env_step, get_obs, pano_device,
 dagger_sample, dagger_sync, phase2_host, fuse_device, phase4_host,
-phase5_host and nav_device. Not ported here: the W8A8 sampling policy
-(A9), the shape high-water marks of the JAX code (the gmap width keeps
+phase5_host and nav_device. With dagger_sample_quant the sampling rollout
+runs on the runner's W8A8 policy (runner.sampling_params), prefills
+included; the loss pass stays on the live weights. Not ported here: the
+shape high-water marks of the JAX code (the gmap width keeps
 the bucket of 16 and the sampling windows ``_window_arrays``' own
 buckets; their extra columns are masked), JAX's one-dispatch concat of
 phase 2 (_phase2_concat_jit: torch.cat does it, inside the same
@@ -163,11 +165,13 @@ def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
     rollout_dagger_fused). forced_actions ([T][B] ints) replaces the draw
     at each step (do_sample is off then); np_rng replaces the agent's
     RandomState for the candidate permutations and, on the host-memory
-    path, the draws. Returns (loss as a device scalar, trajectories)."""
-    if getattr(args, "dagger_sample_quant", False):
-        raise NotImplementedError(
-            "the W8A8 sampling policy (dagger_sample_quant) is not ported "
-            "yet (ROADMAP A9)")
+    path, the draws. Returns (loss as a device scalar, trajectories).
+
+    With args.dagger_sample_quant (on the device-memory path, where the
+    runner holds a dense LLM to quantize) every sampling step and prefill
+    runs on the W8A8 policy (runner.sampling_params, re-quantized after
+    each optimizer step). The gradient is untouched: the loss pass
+    recomputes the trajectory on the live weights."""
     obs_all = list(batch_dict["observations"])
     B = len(obs_all)
     loss_den = loss_denom if loss_denom is not None else B
@@ -175,6 +179,8 @@ def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
     max_action_len = optim_cfg.train_max_action_len[name]
     runner = agent.runner
     use_mem = runner.device_memory
+    use_q = use_mem and bool(getattr(args, "dagger_sample_quant", False)) \
+        and runner.sampling_quant_available()
 
     agent.update_scanvp_cands(obs_all)
     # the host-memory step waits for its logits, so it has nothing to
@@ -218,7 +224,7 @@ def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
     # reading its a_t, so the others' host work overlaps the card. The
     # groups draw their permutations from rng_local in this order.
     live = [_dagger_sample_group(agent, args, grp, dataset, rng_local,
-                                 max_action_len, use_cache)
+                                 max_action_len, use_cache, use_q)
             for grp in groups]
     while live:
         for gen in list(live):
@@ -253,7 +259,7 @@ class _Row:
 
 
 def _dagger_sample_group(agent, args, grp, dataset, rng_local,
-                         max_action_len, use_cache):
+                         max_action_len, use_cache, use_q=False):
     """Phase 1 of the DAgger half for one slot group, as a generator that
     yields once per step, between dispatching the step (sync=False) and
     reading its a_t. Fills grp["steps"] (the snapshots of the teacher's
@@ -269,6 +275,9 @@ def _dagger_sample_group(agent, args, grp, dataset, rng_local,
     raises RuntimeError), the buffer goes back to the pool at once and
     the rest of the group takes the full-prompt step: the graph memory
     does not depend on the cache.
+
+    With use_q the steps and prefills run on the runner's W8A8 policy
+    (eval_step_q, eval_step_cached_q, prefill_q).
 
     On the host-memory path each step's panorama comes down, the graph
     maps pool it, runner.navigation runs the step, and the action is a
@@ -402,14 +411,18 @@ def _dagger_sample_group(agent, args, grp, dataset, rng_local,
                              do_sample=forced_actions is None,
                              temperature=temperature, sync=False)
             if use_cache and prefill_items:
-                cache = agent.prefill_rows(cache, prefill_items, B)
+                cache = agent.prefill_rows(cache, prefill_items, B,
+                                           quant=use_q)
+            step_cached = (runner.eval_step_cached_q if use_q
+                           else runner.eval_step_cached)
+            step_plain = runner.eval_step_q if use_q else runner.eval_step
             with agent.timer.stage("dagger_sample"):
                 if use_cache:
-                    mem_state, cache, a_t, _ = runner.eval_step_cached(
+                    mem_state, cache, a_t, _ = step_cached(
                         mem_state, cache, pano_inputs, nav_batch,
                         **step_args)
                 else:
-                    mem_state, a_t, _ = runner.eval_step(
+                    mem_state, a_t, _ = step_plain(
                         mem_state, pano_inputs, nav_batch, **step_args)
                 a_t = HostCopy(a_t)
             yield

@@ -20,8 +20,9 @@ fixed-shape input assembly of the JAX agent (``panorama_inputs``,
 ``teacher_object``) and its sim step (``make_equiv_action``), which are
 host numpy code, copied because the JAX agent module imports jax. Every
 path times its stages in the agent's StageTimer (``agent.timer``) under
-JAX's stage names. The int8 prefix cache is not ported (ROADMAP A9):
-asking for it raises NotImplementedError naming the item.
+JAX's stage names. ``args.kv_int8`` keeps the streaming prefix cache
+int8 (every queue that caches: R2R, CVDN, REVERIE and SOON with the OG
+queue, EQA); generate's int8 prompt K/V is the runner's own ``kv_int8``.
 """
 from __future__ import annotations
 
@@ -397,13 +398,15 @@ class R2RAgent:
                 "suf_mask": suf_mask, "cand_positions": cand_pos,
                 "cls_pos": cls_pos}
 
-    def prefill_rows(self, cache, items, width):
+    def prefill_rows(self, cache, items, width, quant: bool = False):
         """Dispatch bucketed prompt-prefix prefills into ``cache``.
 
         items: [(row, prefix ids)]; width: the cache's batch rows. Calls
         run in fixed-width chunks (bp <= 8) at 64-bucketed prefix widths;
         padding entries point at distinct rows NOT being prefilled, with
-        valid False (they write that row's old content back). Returns the
+        valid False (they write that row's old content back). quant:
+        through the runner's W8A8 sampling policy (prefill_q), so the
+        cached K/V comes from the policy that steps on it. Returns the
         cache."""
         bp = min(8, width)
         for c0 in range(0, len(items), bp):
@@ -423,7 +426,8 @@ class R2RAgent:
             for j in range(len(chunk), bp):
                 rows[j] = spare[j - len(chunk)]
             with self.timer.stage("prefill_dispatch"):
-                cache = self.runner.prefill(cache, ids, mask, rows, valid)
+                cache = self.runner.prefill(cache, ids, mask, rows, valid,
+                                            quant=quant)
         return cache
 
     def _memory_ids(self, gmaps, obs, cand_vpids, skip):
@@ -896,9 +900,6 @@ class R2RAgent:
 
         eqa_oracle = name == "EQA"
         kv_int8 = getattr(args, "kv_int8", False)
-        if args.prefix_cache and kv_int8:
-            raise NotImplementedError("the int8 prefix cache (kv_int8) is "
-                                      "not ported yet (ROADMAP A9)")
         max_action_len = config.Optim.val_max_action_len[name]
         assert max_action_len <= self.dims.max_hist, (
             f"max_action_len {max_action_len} exceeds history capacity "
@@ -965,7 +966,8 @@ class R2RAgent:
 
         n_streams = max(1, int(getattr(args, "eval_streams", 0) or 2))
         use_cache = args.prefix_cache and self.runner.prefix_cache_enabled(
-            num_slots, self.dims.max_prefix, n_caches=n_streams)
+            num_slots, self.dims.max_prefix, n_caches=n_streams,
+            kv_int8=kv_int8)
         # the host path waits for the whole logits in its step, so it has
         # nothing to overlap: one slot group
         if not use_mem:
@@ -989,9 +991,9 @@ class R2RAgent:
                 break
             st.mem_state = (self.runner.memory_init(len(st.slots))
                             if use_mem else None)
-            st.cache = (self.runner.prefix_cache_init(len(st.slots),
-                                                      self.dims.max_prefix)
-                        if use_cache else None)
+            st.cache = (self.runner.prefix_cache_init(
+                len(st.slots), self.dims.max_prefix, kv_int8=kv_int8)
+                if use_cache else None)
             st.prefill_items = []
             st.reset_rows = np.zeros(len(st.slots), bool)
             st.pending = False

@@ -13,11 +13,14 @@ path (``device_memory=False``) ``navigation``, ``generation``,
 ``panorama_device``, ``memory_update``, ``memory_reset_slots``,
 ``navigation_from_memory``, ``pano_mem_navigation_train``,
 ``history_append`` and ``fuse_embeds_only``, for generation the
-special-token logit mask, ``gen_embeds``, ``generate`` and
-``pano_generation_train`` (the
-summarization / EQA / FGR2R heads and the ScanQA / LLaVA loss), and for
+special-token logit mask, ``gen_embeds``, ``generate`` (with an int8
+prompt K/V when built with ``kv_int8``) and ``pano_generation_train`` (the
+summarization / EQA / FGR2R heads and the ScanQA / LLaVA loss), for
 object grounding (REVERIE, SOON) ``object_grounding`` and
-``pano_og_train``. Host arrays go up through pinned buffers with
+``pano_og_train``, and for the fused DAgger's W8A8 sampling policy
+(``--dagger_sample_quant``) ``sampling_quant_available``,
+``sampling_params``, ``eval_step_q``, ``eval_step_cached_q`` and
+``prefill_q``. Host arrays go up through pinned buffers with
 non-blocking copies, so uploading one slot group's step never waits for
 the other group's step running on the card.
 
@@ -31,6 +34,7 @@ seeded the same way, as JAX draws them from a fresh key per call.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -40,7 +44,7 @@ from ..models import nav_model as NM
 from ..models.decoding import generate
 from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import dropout
-from ..models.quant import is_quantized
+from ..models.quant import is_quantized, quantize_nav_params
 from ..models.tokenization import NavTokenizer
 from . import device_memory as DM
 
@@ -103,7 +107,8 @@ class NavModelRunner:
                  tokenizer: NavTokenizer, dims: RolloutDims = RolloutDims(),
                  device: Optional[torch.device] = None,
                  feat_dropout: float = 0.4, ignore_id: int = -100,
-                 seed: int = 0, device_memory: bool = True):
+                 seed: int = 0, device_memory: bool = True,
+                 kv_int8: bool = False):
         if cfg.llm.act_int8 and not is_quantized(model):
             raise ValueError("act_int8 needs a quantized LLM: int8 "
                              "activations only run against quantized "
@@ -118,6 +123,9 @@ class NavModelRunner:
         # training steps), or on the host (graph maps hold the node
         # embeddings, each step uploads them: runner.navigation)
         self.device_memory = device_memory
+        # int8 prompt K/V in generate (the streaming prefix cache takes its
+        # own kv_int8 through prefix_cache_init)
+        self.kv_int8 = kv_int8
         self.feat_dropout = feat_dropout
         self.ignore_id = ignore_id
         self.rng = torch.Generator().manual_seed(seed)
@@ -159,6 +167,15 @@ class NavModelRunner:
         # (the host-memory and batched evaluation steps) and generation's
         # loss without training
         self.forward_calls = 0
+        # the W8A8 sampling policy: its config, the int8 copy of the LLM
+        # and the key of the weights it was made from; re-quantizations and
+        # the seconds they took
+        self.cfg_q = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, act_int8=True))
+        self._samp_q = None
+        self._samp_key = None
+        self.sampling_quantizations = 0
+        self.sampling_quant_s = 0.0
 
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
@@ -412,7 +429,8 @@ class NavModelRunner:
                        special_token_mask=self.special_mask,
                        eos_id=self.tok.eos_id, pad_id=self.tok.pad_id,
                        max_new_tokens=max_new_tokens, do_sample=do_sample,
-                       temperature=temperature, generator=gen, trie=trie)
+                       temperature=temperature, generator=gen, trie=trie,
+                       kv_int8=self.kv_int8)
         return HostCopy(out).result()
 
     def memory_init(self, batch: int, capacity: int = None):
@@ -462,17 +480,73 @@ class NavModelRunner:
                 self.device).total_memory
         return 12e9
 
-    def prefill(self, cache, ids, mask, rows, valid):
+    # ------------------------------------------ W8A8 sampling policy --- #
+    def sampling_quant_available(self) -> bool:
+        """The W8A8 policy quantizes the live dense LLM; a tree that is
+        quantized already (evaluation) has none to quantize."""
+        return not is_quantized(self.model)
+
+    def _llm_versions(self) -> int:
+        """The sum of the LLM leaves' version counters: every in-place
+        write (an optimizer step's p.add_, a checkpoint's copy_) bumps
+        it."""
+        return sum(p._version for p in self.model["llm"].parameters())
+
+    def sampling_params(self) -> NavModel:
+        """The policy of the fused DAgger's sampling with
+        --dagger_sample_quant: the live tree with its LLM quantized to int8
+        (quantize_nav_params(bits=8), one layer at a time; the panorama
+        encoder and the heads are the live ones), run with act_int8
+        (``cfg_q``). The optimizers update the parameters in place, so the
+        copy is keyed to the LLM leaves' version counters, which every
+        optimizer step bumps, and made anew (the old copy freed first)
+        when they moved: the policy samples from the current weights up to
+        the int8 grid, as JAX's, which re-quantizes each new tree."""
+        key = (id(self.model), self._llm_versions())
+        if self._samp_key != key:
+            self._samp_q = None
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                self._samp_q = NavModel(self.cfg_q,
+                                        quantize_nav_params(self.model, 8))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.sampling_quant_s += time.perf_counter() - t0
+            self.sampling_quantizations += 1
+            self._samp_key = key
+        return self._samp_q
+
+    def _policy(self, quant: bool):
+        """(params, cfg) of the live policy or of the W8A8 one."""
+        return (self.sampling_params(), self.cfg_q) if quant \
+            else (self.model, self.cfg)
+
+    def prefill_q(self, cache, ids, mask, rows, valid):
+        """prefill against the W8A8 sampling policy, so the cached K/V
+        comes from the policy that steps on it."""
+        return self.prefill(cache, ids, mask, rows, valid, quant=True)
+
+    def eval_step_q(self, *args, **kwargs):
+        """eval_step against the W8A8 sampling policy."""
+        return self.eval_step(*args, quant=True, **kwargs)
+
+    def eval_step_cached_q(self, *args, **kwargs):
+        """eval_step_cached against the W8A8 sampling policy."""
+        return self.eval_step_cached(*args, quant=True, **kwargs)
+
+    def prefill(self, cache, ids, mask, rows, valid, quant: bool = False):
         """Prefill refilled rows' prefixes into ``cache`` (in place;
         device_memory.prefill_prefix). rows must be distinct: padding
         entries point at rows not being prefilled, with valid False.
-        Counts the valid rows' prefix tokens in llm_token_units."""
+        Counts the valid rows' prefix tokens in llm_token_units. quant:
+        through the W8A8 sampling policy (prefill_q)."""
         v = np.asarray(valid)
         self.llm_token_units += float((np.asarray(mask) * v[:, None]).sum())
         self.prefill_calls += 1
+        params, cfg = self._policy(quant)
         with torch.inference_mode():
             return DM.prefill_prefix(
-                self.model, self.cfg.llm, cache, self.upload(ids),
+                params, cfg.llm, cache, self.upload(ids),
                 self.upload(mask), self.upload(np.asarray(rows, np.int32)),
                 self.upload(v))
 
@@ -486,11 +560,13 @@ class NavModelRunner:
     def eval_step_cached(self, state, cache, pano_inputs: Dict, batch: Dict,
                          reset_mask, cur_ids, cand_ids, active_mask,
                          a_t_override=None, do_sample: bool = False,
-                         temperature: float = 1.0, sync: bool = True):
+                         temperature: float = 1.0, sync: bool = True,
+                         quant: bool = False):
         """Prefix-cached fused eval step (device_memory.eval_step_cached):
         eval_step's contract plus the cache, which is updated in place.
         Counts the active rows' window tokens in llm_token_units. Returns
-        (state', cache, a_t, logits)."""
+        (state', cache, a_t, logits). quant: through the W8A8 sampling
+        policy (eval_step_cached_q)."""
         if a_t_override is None:
             a_t_override = np.full(len(cur_ids), -1, np.int32)
         pano = self._pano_dev_inputs(pano_inputs)
@@ -500,9 +576,10 @@ class NavModelRunner:
             (np.asarray(batch["app_mask"]) * act).sum()
             + (np.asarray(batch["suf_mask"]) * act).sum())
         self.cached_steps += 1
+        params, cfg = self._policy(quant)
         with torch.inference_mode():
             state, cache, a_t, logits = DM.eval_step_cached(
-                self.model, self.cfg, state, cache, pano, dev,
+                params, cfg, state, cache, pano, dev,
                 self.upload(reset_mask), self.upload(cur_ids),
                 self.upload(cand_ids), self.upload(active_mask),
                 self.upload(np.asarray(a_t_override, np.int32)),
@@ -512,23 +589,25 @@ class NavModelRunner:
     def eval_step(self, state, pano_inputs: Dict, batch: Dict, reset_mask,
                   cur_ids, cand_ids, active_mask, a_t_override=None,
                   do_sample: bool = False, temperature: float = 1.0,
-                  sync: bool = True):
+                  sync: bool = True, quant: bool = False):
         """ONE device call per streaming-eval step (reset -> pano -> memory
         update -> nav forward -> argmax, or with do_sample a draw at
         ``temperature`` on the device -> hist append). pano_inputs'
         view_img_fts may already be a device tensor. Returns (new_state,
         a_t, logits [B, G] on device); a_t is a numpy array, or with
         sync=False the device tensor, so the caller can overlap host work
-        with the step and download a_t later (HostCopy)."""
+        with the step and download a_t later (HostCopy). quant: through
+        the W8A8 sampling policy (eval_step_q)."""
         if a_t_override is None:
             a_t_override = np.full(len(cur_ids), -1, np.int32)
         pano = self._pano_dev_inputs(pano_inputs)
         dev = {k: self.upload(v) for k, v in batch.items()}
         self.llm_token_units += float(np.asarray(batch["attention_mask"]).sum())
         self.eval_steps += 1
+        params, cfg = self._policy(quant)
         with torch.inference_mode():
             state, a_t, logits = DM.eval_step(
-                self.model, self.cfg, state, pano, dev,
+                params, cfg, state, pano, dev,
                 self.upload(reset_mask), self.upload(cur_ids),
                 self.upload(cand_ids), self.upload(active_mask),
                 self.upload(np.asarray(a_t_override, np.int32)),

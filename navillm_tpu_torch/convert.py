@@ -14,9 +14,10 @@
   so gradient trees compare leaf by leaf.
 - ``init_nav_params`` draws a fresh tree with the JAX init's shapes and
   scales straight on the target device in the config's dtypes (the 7B
-  tree in bf16 on the card, never staged in f32 on the host). Torch's
-  generator gives other numbers than jax.random: parity tests convert the
-  JAX tree instead.
+  tree in bf16 on the card, never staged in f32 on the host); with
+  ``quantize_llm`` the LLM is drawn already quantized, one weight at a time
+  (models/quant.py:init_params_quantized). Torch's generator gives other
+  numbers than jax.random: parity tests convert the JAX tree instead.
 """
 from __future__ import annotations
 
@@ -58,12 +59,12 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {"a.b.c": leaf}, the names ParamTree's
+    """Nested dicts or ParamTrees -> {"a.b.c": leaf}, the names ParamTree's
     named_parameters() gives the same leaves."""
     out = {}
     for k, v in tree.items():
         name = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if hasattr(v, "items"):
             out.update(flatten_tree(v, name + "."))
         else:
             out[name] = v
@@ -145,10 +146,17 @@ def init_pano_params(cfg: PanoConfig, generator, device=None):
 
 def init_nav_params(cfg: NavModelConfig, generator: torch.Generator,
                     device: Optional[torch.device] = None,
-                    llm: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                    llm: Optional[Dict[str, Any]] = None,
+                    quantize_llm: bool = False,
+                    quant_bits: int = 8) -> Dict[str, Any]:
     """Random navigation parameters on ``device`` (default: the card; the
     generator must live on the same device). ``llm``, a loaded LLM tree,
-    takes the LLM's place and none is drawn."""
+    takes the LLM's place and none is drawn. quantize_llm draws the LLM
+    quantized (layer matmuls at ``quant_bits``, embed and lm_head int8),
+    from the same generator stream, without the dense tree ever existing
+    whole (JAX init_nav_params(quantize_llm=True))."""
+    from .models.quant import init_params_quantized
+
     device = target_device(device)
     h, a = cfg.hidden_size, cfg.angle_feat_size
     init = _Init(generator, device, cfg.llm.dtype)
@@ -159,7 +167,8 @@ def init_nav_params(cfg: NavModelConfig, generator: torch.Generator,
 
     return {
         "llm": llm if llm is not None
-        else init_llama_params(cfg.llm, generator, device),
+        else init_params_quantized(cfg.llm, generator, quant_bits, device)
+        if quantize_llm else init_llama_params(cfg.llm, generator, device),
         "pano": init_pano_params(cfg.pano, generator, device),
         "token_type_emb": init.normal((cfg.type_vocab_size, h), 0.02),
         "gmap_pos": mlp_ln(a + 3),

@@ -9,12 +9,19 @@
 // with q the int4 values of q4p (uint8 [h, o/2], byte b holds output
 // channels 2b (low nibble) and 2b+1 (high nibble), two's complement), s the
 // group scales [h/G, o] (bf16 or f32, widened to f32) and the sum over
-// groups taken in order g = 0, 1, ... in f32. Two modes:
+// groups taken in order g = 0, 1, ... in f32. Three modes:
 //   - w4:   x bf16; each group's product runs on bf16 tensor cores into a
 //           fresh f32 partial;
 //   - w4a8: x int8; each group's product runs on int8 tensor cores into a
 //           fresh s32 partial, exact, so the result equals the plain
-//           version's bit for bit.
+//           version's bit for bit;
+//   - f32 x (the Pallas kernel takes it and accumulates in f32): a first
+//           pass splits x into bf16 hi = bf16(x) and lo = bf16(x - hi),
+//           which keep x to 2^-17 of itself (TF32 alone would keep 2^-11,
+//           too little for a sum over 11008 terms); each group's partial
+//           is then hi . q + lo . q on the bf16 path (the int4 values are
+//           exact in bf16, so both products are exact and only the f32
+//           sums round).
 // The partial is scaled per column and added without FMA contraction
 // (__fmul_rn, __fadd_rn), as the plain version's two separate f32 ops do;
 // the scale is never folded into the dequantized weight (that would round
@@ -69,7 +76,8 @@ constexpr int CONSUMERS = 256;
 constexpr int SLICE = 32;        // bytes of k per wgmma: 16 bf16, 32 int8
 
 struct Params {
-  CUtensorMap tx;        // x [m, h]
+  CUtensorMap tx;        // x [m, h] (f32 x: its bf16 hi part)
+  CUtensorMap tx2;       // f32 x: the bf16 lo part [m, h]
   CUtensorMap tw;        // q4p [h, o/2] (when w_tma)
   const uint8_t* q4p;    // [h, o/2]
   const void* s;         // [h/G, o]: bf16 or f32
@@ -77,11 +85,12 @@ struct Params {
   int m, h, o, g, ng, n_tiles, w_tma;
 };
 
-template <bool INT8>
+template <bool INT8, bool SPLIT>
 struct Smem {
   static constexpr int XB = INT8 ? 1 : 2;          // bytes per x element
-  static constexpr int STAGES = INT8 ? 4 : 3;
-  static constexpr int x_bytes = BM * KT * XB;     // x tile
+  static constexpr int STAGES = INT8 ? 4 : SPLIT ? 2 : 3;
+  static constexpr int xpart = BM * KT * XB;       // one x tile
+  static constexpr int x_bytes = (SPLIT ? 2 : 1) * xpart;  // hi and lo
   static constexpr int b_bytes = BN * KT * XB;     // dequantized tile
   static constexpr int w_bytes = KT * BN / 2;      // packed tile
   static constexpr int sc_bytes = (KT / 16) * BN * 4;  // <= KT/16 groups
@@ -175,10 +184,32 @@ __device__ __forceinline__ void unpack_unit(const unsigned char* sw,
   }
 }
 
-template <bool INT8, typename ST, typename OT>
+// f32 x [n] -> bf16 hi = bf16(x), lo = bf16(x - hi), four values a thread
+// (n is a multiple of 4; x, hi and lo 16-byte aligned).
+__global__ void split_bf16_kernel(const float4* x, uint2* hi, uint2* lo,
+                                  long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n4; i += (long long)gridDim.x * blockDim.x) {
+    const float4 v = x[i];
+    const float f[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[2] = {0u, 0u}, l[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat16 he = __float2bfloat16_rn(f[e]);
+      const __nv_bfloat16 le = __float2bfloat16_rn(f[e] -
+                                                   __bfloat162float(he));
+      h[e / 2] |= (uint32_t)__bfloat16_as_ushort(he) << (16 * (e % 2));
+      l[e / 2] |= (uint32_t)__bfloat16_as_ushort(le) << (16 * (e % 2));
+    }
+    hi[i] = make_uint2(h[0], h[1]);
+    lo[i] = make_uint2(l[0], l[1]);
+  }
+}
+
+template <bool INT8, bool SPLIT, typename ST, typename OT>
 __global__ void __launch_bounds__(THREADS, 1)
 matmul_q4_kernel(const __grid_constant__ Params p) {
-  using L = Smem<INT8>;
+  using L = Smem<INT8, SPLIT>;
   using PT = typename std::conditional<INT8, int, float>::type;
   constexpr int S = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -250,9 +281,13 @@ matmul_q4_kernel(const __grid_constant__ Params p) {
                               L::x_bytes + (p.w_tma ? L::w_bytes : 0));
         unsigned char* sx = smem + L::x + stage * L::x_bytes;
 #pragma unroll
-        for (int cb = 0; cb < L::XB; ++cb)  // 128-byte column boxes
+        for (int cb = 0; cb < L::XB; ++cb) {  // 128-byte column boxes
           tma_load_2d(sx + cb * BM * 128, &p.tx, &full[stage],
                       k0 + cb * (128 / L::XB), m0);
+          if constexpr (SPLIT)
+            tma_load_2d(sx + L::xpart + cb * BM * 128, &p.tx2, &full[stage],
+                        k0 + cb * (128 / L::XB), m0);
+        }
         if (p.w_tma) tma_load_2d(sw, &p.tw, &full[stage], n0 / 2, k0);
       } else {
         mbar_arrive(&full[stage]);
@@ -294,6 +329,12 @@ matmul_q4_kernel(const __grid_constant__ Params p) {
         else
           wgmma_ss_n128(part, da, db, kk > gi * spg);
       }
+      if constexpr (SPLIT) {
+        // the lo part into the same partial
+        for (int kk = gi * spg; kk < (gi + 1) * spg; ++kk)
+          wgmma_ss_n128(part, desc_kmajor(sxw + L::xpart, kk, BM),
+                        desc_kmajor(sb, kk, BN), true);
+      }
       wgmma_commit();
       if (gi == 0 && t + 1 < p.n_tiles) unpack(t + 1);
       wgmma_wait<0>();
@@ -332,10 +373,10 @@ matmul_q4_kernel(const __grid_constant__ Params p) {
   }
 }
 
-template <bool INT8, typename ST, typename OT>
+template <bool INT8, bool SPLIT, typename ST, typename OT>
 int launch(const Params& p, cudaStream_t stream) {
-  const int bytes = Smem<INT8>::alloc;
-  auto kernel = matmul_q4_kernel<INT8, ST, OT>;
+  const int bytes = Smem<INT8, SPLIT>::alloc;
+  auto kernel = matmul_q4_kernel<INT8, SPLIT, ST, OT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -344,44 +385,64 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool INT8, typename ST>
+template <bool INT8, bool SPLIT, typename ST>
 int launch_out(const Params& p, int out_f32, cudaStream_t stream) {
-  return out_f32 ? launch<INT8, ST, float>(p, stream)
-                 : launch<INT8, ST, __nv_bfloat16>(p, stream);
+  return out_f32 ? launch<INT8, SPLIT, ST, float>(p, stream)
+                 : launch<INT8, SPLIT, ST, __nv_bfloat16>(p, stream);
 }
 
-template <bool INT8>
+template <bool INT8, bool SPLIT>
 int launch_scales(const Params& p, int s_f32, int out_f32,
                   cudaStream_t stream) {
-  return s_f32 ? launch_out<INT8, float>(p, out_f32, stream)
-               : launch_out<INT8, __nv_bfloat16>(p, out_f32, stream);
+  return s_f32 ? launch_out<INT8, SPLIT, float>(p, out_f32, stream)
+               : launch_out<INT8, SPLIT, __nv_bfloat16>(p, out_f32, stream);
 }
 
 }  // namespace
 
 // Plain C interface, bound with ctypes (navillm_tpu_torch/ops/matmul_q4.py).
-// x [m, h] bf16 (x_int8 = 0) or int8 (x_int8 = 1); q4p uint8 [h, o/2];
-// s [h/g, o] bf16 (s_f32 = 0) or f32; y [m, o] bf16 (y_f32 = 0) or f32. All
-// dense and 16-byte aligned (s: 8). g must divide 128 and be a multiple of
-// 16 (bf16) or 32 (int8), h a multiple of g, o even. Returns a cudaError_t:
-// of building the tensor maps, or of the launch.
+// x [m, h]: bf16 (x_kind = 0), int8 (1) or f32 (2; split into scratch, bf16
+// [2, m, h], before the product); q4p uint8 [h, o/2]; s [h/g, o] bf16
+// (s_f32 = 0) or f32; y [m, o] bf16 (y_f32 = 0) or f32. All dense and
+// 16-byte aligned (s: 8). g must divide 128 and be a multiple of 16 (bf16,
+// f32) or 32 (int8), h a multiple of g, o even. Returns a cudaError_t: of
+// building the tensor maps, or of a launch.
 extern "C" int navillm_matmul_q4(const void* x, const void* q4p, const void* s,
-                                 void* y, int m, int h, int o, int g,
-                                 int x_int8, int s_f32, int y_f32,
+                                 void* y, void* scratch, int m, int h, int o,
+                                 int g, int x_kind, int s_f32, int y_f32,
                                  void* stream) {
+  const int x_int8 = x_kind == 1, split = x_kind == 2;
   const int step = x_int8 ? SLICE : SLICE / 2;
   if (m <= 0 || g <= 0 || KT % g || g % step || h % g || o <= 0 || o % 2 ||
-      (m + BM - 1) / BM > 65535)
+      (m + BM - 1) / BM > 65535 || x_kind < 0 || x_kind > 2 ||
+      (split && scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   Params p;
   const int xb = x_int8 ? 1 : 2;
+  const void* xt = split ? scratch : x;
   int err = bind_context();
+  if (!err && split) {
+    const long long n4 = (long long)m * h / 4;
+    const int blocks = (int)((n4 + 255) / 256 < 132 * 16 ? (n4 + 255) / 256
+                                                         : 132 * 16);
+    split_bf16_kernel<<<blocks, 256, 0, st>>>(
+        static_cast<const float4*>(x), static_cast<uint2*>(scratch),
+        static_cast<uint2*>(scratch) + n4, n4);
+    err = static_cast<int>(cudaGetLastError());
+  }
   if (!err)
-    err = make_map_2d(&p.tx, x,
+    err = make_map_2d(&p.tx, xt,
                         x_int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                         h, m, (long long)h * xb, 128 / xb, BM,
                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err && split)
+    err = make_map_2d(&p.tx2,
+                      static_cast<const __nv_bfloat16*>(scratch) +
+                          (long long)m * h,
+                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, h, m,
+                      (long long)h * 2, 64, BM, CU_TENSOR_MAP_SWIZZLE_128B);
   p.w_tma = (o / 2) % 16 == 0;
   if (!err && p.w_tma)
     err = make_map_2d(&p.tw, q4p, CU_TENSOR_MAP_DATA_TYPE_UINT8, o / 2, h,
@@ -396,9 +457,9 @@ extern "C" int navillm_matmul_q4(const void* x, const void* q4p, const void* s,
   p.g = g;
   p.ng = h / g;
   p.n_tiles = (h + KT - 1) / KT;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return x_int8 ? launch_scales<true>(p, s_f32, y_f32, st)
-                : launch_scales<false>(p, s_f32, y_f32, st);
+  if (x_int8) return launch_scales<true, false>(p, s_f32, y_f32, st);
+  return split ? launch_scales<false, true>(p, s_f32, y_f32, st)
+               : launch_scales<false, false>(p, s_f32, y_f32, st);
 }
 
 extern "C" const char* navillm_cuda_error_string(int err) {

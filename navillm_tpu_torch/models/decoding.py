@@ -4,7 +4,8 @@ Torch twin of navillm_tpu/models/decoding.py. The visual embeds are
 injected at the prefill only; the prompt is left-padded to a multiple of
 ``prompt_bucket`` (the JAX bucketing, kept so both packages run the same
 widths), forwarded once by forward_hidden(return_kv=True) (the flash
-kernel on the card), and its K/V stay read-only while a Python loop runs
+kernel on the card), and its K/V (int8 with ``kv_int8``, quantized once
+after the prefill) stay read-only while a Python loop runs
 one decode_step per token against them and a decode region written in
 place. Tokens stay on the device: the loop syncs with the host only to
 ask, every ``STOP_CHECK`` steps, whether every row has finished, after
@@ -88,13 +89,16 @@ def generate(params, cfg: L.LlamaConfig, input_ids, attention_mask, *,
              temperature: float = 1.0,
              generator: Optional[torch.Generator] = None,
              trie: Optional[DenseTrie] = None,
-             prompt_bucket: int = 64) -> torch.Tensor:
+             prompt_bucket: int = 64, kv_int8: bool = False
+             ) -> torch.Tensor:
     """Generated token ids [B, max_new_tokens] int32 on the params' device
     (pad after eos).
 
     input_ids / attention_mask: [B, T] left-padded prompts (numpy);
     inject_positions [B, K] (-1 unused) and inject_embeds [B, K, H] are
-    added at the prefill; special_token_mask [vocab] bool.
+    added at the prefill; special_token_mask [vocab] bool. kv_int8: the
+    prompt K/V is kept int8 (llama.quantize_kv_stack) after the prefill,
+    and each decode step reads it dequantized.
     """
     dev = _device_of(params)
     ids, mask, inject_positions = bucket_prompt(
@@ -113,6 +117,8 @@ def generate(params, cfg: L.LlamaConfig, input_ids, attention_mask, *,
     with torch.inference_mode():
         logits, prompt_kv = prefill(params, cfg, ids, mask, inject_positions,
                                     inject_embeds)
+        if kv_int8:
+            prompt_kv = L.quantize_kv_stack(prompt_kv)
         state = torch.zeros((b,), dtype=torch.int32, device=dev)
         tok = pick_token(logits, state, **pick)
         done = tok == eos_id

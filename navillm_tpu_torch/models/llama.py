@@ -8,8 +8,11 @@ Cast order follows the JAX code so bf16 runs round in the same places.
 With ``remat`` (the JAX default) and grad enabled, each layer runs under
 activation checkpointing, as ``jax.checkpoint`` wraps the scanned layer.
 The layer matmuls go through ``_mm``, which also takes the quantized
-leaves of models/quant.py: int8 weight-only, and int4 (w4, or w4a8 with
-``act_int8``) through ops/matmul_q4.py (the CUDA int4 kernel on the card).
+leaves of models/quant.py: int8 (weight-only, or W8A8 with ``act_int8``:
+an int8 x int8 -> int32 product through ``torch._int_mm``, as the JAX code
+leaves it to XLA), and int4 (w4, or w4a8) through ops/matmul_q4.py (the
+CUDA int4 kernel on the card). The prefix cache and the prompt K/V of
+generation may be int8 (``kv_quantize``, per token and head, f32 scales).
 Generation adds the one-token ``decode_step`` over the prompt's K/V and a
 decode region, the LM logits and the causal LM loss.
 """
@@ -124,17 +127,50 @@ def _act_q(x: torch.Tensor):
     return torch.round(xf / sx).clamp(-127, 127).to(torch.int8), sx
 
 
+# cuBLAS's int8 product (torch._int_mm on the card) takes more than 16
+# rows; fewer are padded with zero rows up to this many
+INT_MM_MIN_ROWS = 17
+
+
+def int_mm(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """int8 [m, k] @ int8 [k, n] -> exact int32 [m, n] through
+    ``torch._int_mm``. On the card it needs k and n multiples of 8 (raises
+    otherwise: there is no float fallback) and more than 16 rows: fewer
+    are padded with zero rows and the result sliced back, counted in
+    ``int_mm.padded_calls`` and ``int_mm.padded_rows``."""
+    m = xq.shape[0]
+    if xq.is_cuda:
+        k, n = q.shape
+        if k % 8 or n % 8:
+            raise ValueError(f"int_mm: torch._int_mm on the card needs k "
+                             f"and n multiples of 8, got k={k}, n={n}")
+        if m < INT_MM_MIN_ROWS:
+            int_mm.padded_calls += 1
+            int_mm.padded_rows += INT_MM_MIN_ROWS - m
+            xq = F.pad(xq, (0, 0, 0, INT_MM_MIN_ROWS - m))
+    return torch._int_mm(xq, q)[:m]
+
+
+int_mm.padded_calls = 0
+int_mm.padded_rows = 0
+
+
 def _mm(x: torch.Tensor, w, a8: bool = False, q4_impl: str = "auto"):
-    """x @ w for a dense weight, an int8 weight-only one (``{"q", "s"}``,
-    per output channel: ``(x @ q) * s``) or an int4 one (``{"q4p", "s"}``,
-    _mm4). a8 (cfg.act_int8) quantizes x per token; dense weights ignore
-    it, as in the JAX code."""
+    """x @ w for a dense weight, an int8 one (``{"q", "s"}``, per output
+    channel: ``(x @ q) * s``) or an int4 one (``{"q4p", "s"}``, _mm4). a8
+    (cfg.act_int8) quantizes x per token; on int8 weights the product is
+    then int8 x int8 -> int32 (``int_mm``), rescaled in f32 by the row's
+    and the channel's scales in the JAX order; dense weights ignore a8, as
+    in the JAX code."""
     if isinstance(w, torch.Tensor):
         return x @ w
     if "q4p" in w:
         return _mm4(x, w, a8, q4_impl)
     if a8:
-        raise NotImplementedError("W8A8 on int8 weights is not ported yet")
+        xq, sx = _act_q(x)
+        y = int_mm(xq.reshape(-1, xq.shape[-1]), w["q"])
+        y = y.reshape(*xq.shape[:-1], y.shape[-1])
+        return (y.float() * sx * w["s"].float()).to(x.dtype)
     return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
 
 
@@ -264,32 +300,72 @@ def forward_hidden(params, cfg: LlamaConfig, inputs_embeds, attention_mask,
     return (x, kv) if return_kv else x
 
 
+def kv_quantize(x: torch.Tensor):
+    """Symmetric int8 over head_dim (the last axis): (int8 values, f32
+    scales [..., 1]), with the JAX order of the scale's operations, so the
+    codes match it exactly (torch.round rounds half to even, as
+    jnp.round)."""
+    xf = x.float()
+    s = xf.abs().amax(-1, keepdim=True).clamp(min=1e-6) * (1.0 / 127.0)
+    return torch.round(xf / s).clamp(-127, 127).to(torch.int8), s
+
+
+def kv_dequantize(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    """Multiply in the scales' f32 and round once to ``dtype``."""
+    return (q.to(s.dtype) * s).to(dtype)
+
+
+def kv_is_quantized(kv) -> bool:
+    return isinstance(kv, dict) and "ks" in kv
+
+
+def quantize_kv_stack(kv):
+    """{"k", "v"} [L, B, T, NKV, D] -> {"k", "ks", "v", "vs"} (int8
+    values, f32 scales [L, B, T, NKV, 1]), one layer at a time, so the f32
+    transient is one layer's."""
+    out = {}
+    for name in ("k", "v"):
+        src = kv[name]
+        q = torch.empty(src.shape, dtype=torch.int8, device=src.device)
+        sc = torch.empty((*src.shape[:-1], 1), dtype=torch.float32,
+                         device=src.device)
+        for i in range(src.shape[0]):
+            q[i], sc[i] = kv_quantize(src[i])
+        out[name], out[name + "s"] = q, sc
+    return out
+
+
 def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
                          prefix_mask, suffix_mask, positions,
                          write_offsets=None, write_mask=None):
     """Forward an S-token window against a per-row ragged prefix KV cache
-    (twin of the JAX chunk_forward_cached, on a bf16/f32 cache).
+    (twin of the JAX chunk_forward_cached).
 
     inputs_embeds [B, S, H]; prefix_kv {"k", "v"} [L, B, P, NKV, D]
-    (post-rope, rows at positions 0..len-1); prefix_mask [B, P] validity;
-    suffix_mask [B, S] validity (right-padded); positions [B, S] absolute
-    rope positions. Each window token sees the row's valid prefix and the
-    window tokens up to itself: a [B, S, P+S] mask, so attention runs the
-    eager path (the flash kernel takes [B, S] key masks only), as JAX runs
-    impl="xla" here.
+    (post-rope, rows at positions 0..len-1) in the compute dtype, or int8
+    {"k", "ks", "v", "vs"} with f32 scales [L, B, P, NKV, 1]
+    (``kv_quantize``); prefix_mask [B, P] validity; suffix_mask [B, S]
+    validity (right-padded); positions [B, S] absolute rope positions.
+    Each window token sees the row's valid prefix and the window tokens up
+    to itself: a [B, S, P+S] mask, so attention runs the eager path (the
+    flash kernel takes [B, S] key masks only), as JAX runs impl="xla"
+    here. An int8 cache is dequantized per layer at read (f32, then one
+    rounding to the compute dtype).
 
     write_offsets [B] (optional): also write the window's post-rope K/V
     into the cache at write_offsets[b] + j for the tokens of write_mask
     [B, S] (default suffix_mask; a per-row prefix of the valid columns).
-    Writes that land at or beyond P are dropped, never clamped. The cache
-    is updated IN PLACE (each slot group owns its cache, and the card runs
+    Writes that land at or beyond P are dropped, never clamped; an int8
+    cache takes the codes and the scales at the same slots. The cache is
+    updated IN PLACE (each slot group owns its cache, and the card runs
     one stream in order), before the layer's attention, which still reads
     the written slots as window tokens only (they are not in prefix_mask
-    yet). Returns (hidden [B, S, H], prefix_kv).
+    yet). On an int8 cache the window reads its written columns through
+    the int8 round trip, as later steps will read them from the cache, so
+    the appending step and every later one attend to the same K/V for a
+    token. Returns (hidden [B, S, H], prefix_kv).
     """
-    if "ks" in prefix_kv:
-        raise NotImplementedError("the int8 prefix cache (kv_int8) is not "
-                                  "ported yet (ROADMAP A9)")
+    quant = kv_is_quantized(prefix_kv)
     b, s, _ = inputs_embeds.shape
     p = prefix_kv["k"].shape[2]
     dev = inputs_embeds.device
@@ -312,6 +388,8 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
         keep = (wm & (off + j < p))[..., None, None]
         widx = (off + j) % p
         bgrid = torch.arange(b, device=dev)[:, None].expand(b, w)
+        # the window columns written to the cache ([B, S, 1, 1])
+        written = F.pad(keep, (0, 0, 0, 0, 0, s - w))
 
         def scatter(buf, new):
             old = buf[bgrid, widx]
@@ -324,8 +402,22 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
         pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
         q, k, v = _qkv(cfg, x, lp, cos, sin)
         if write_offsets is not None:
-            scatter(pk, k)
-            scatter(pv, v)
+            if quant:
+                pks, pvs = prefix_kv["ks"][i], prefix_kv["vs"][i]
+                kq, ksc = kv_quantize(k)
+                vq, vsc = kv_quantize(v)
+                scatter(pk, kq)
+                scatter(pks, ksc)
+                scatter(pv, vq)
+                scatter(pvs, vsc)
+                k = torch.where(written, kv_dequantize(kq, ksc, k.dtype), k)
+                v = torch.where(written, kv_dequantize(vq, vsc, v.dtype), v)
+            else:
+                scatter(pk, k)
+                scatter(pv, v)
+        if quant:
+            pk = kv_dequantize(pk, prefix_kv["ks"][i], k.dtype)
+            pv = kv_dequantize(pv, prefix_kv["vs"][i], v.dtype)
         keys = torch.cat([pk.to(k.dtype), k], dim=1)
         vals = torch.cat([pv.to(v.dtype), v], dim=1)
         attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
@@ -350,16 +442,16 @@ def decode_step(params, cfg: LlamaConfig, inputs_embeds, prompt_kv,
     """One-token decode step (twin of the JAX decode_step) against the
     read-only prompt K/V and the decode region.
 
-    inputs_embeds [B, 1, H]; prompt_kv {"k", "v"} [L, B, T, NKV, D];
+    inputs_embeds [B, 1, H]; prompt_kv {"k", "v"} [L, B, T, NKV, D], or
+    the int8 {"k", "ks", "v", "vs"} of quantize_kv_stack (dequantized per
+    layer at read; the decode region stays in the compute dtype);
     prompt_mask [B, T]; dec_cache {"k", "v"} [L, B, N, NKV, D], whose slot
     step_index receives this token's post-rope K/V IN PLACE before the
     layer's attention; positions [B, 1]. Each token sees the valid prompt
     keys and decode slots 0..step_index: a [B, T+N] key mask over the
     concatenated keys, through the eager attention, as JAX runs impl="xla"
     here. Returns (hidden [B, 1, H], dec_cache)."""
-    if "ks" in prompt_kv:
-        raise NotImplementedError("generate on an int8 prompt KV stack "
-                                  "(kv_int8) is not ported yet (ROADMAP A9)")
+    quant = kv_is_quantized(prompt_kv)
     b = inputs_embeds.shape[0]
     n_dec = dec_cache["k"].shape[2]
     dev = inputs_embeds.device
@@ -374,8 +466,12 @@ def decode_step(params, cfg: LlamaConfig, inputs_embeds, prompt_kv,
         dk, dv = dec_cache["k"][i], dec_cache["v"][i]
         dk[:, step_index] = k[:, 0]
         dv[:, step_index] = v[:, 0]
-        keys = torch.cat([prompt_kv["k"][i], dk], dim=1).to(k.dtype)
-        vals = torch.cat([prompt_kv["v"][i], dv], dim=1).to(v.dtype)
+        pk, pv = prompt_kv["k"][i], prompt_kv["v"][i]
+        if quant:
+            pk = kv_dequantize(pk, prompt_kv["ks"][i], k.dtype)
+            pv = kv_dequantize(pv, prompt_kv["vs"][i], v.dtype)
+        keys = torch.cat([pk, dk], dim=1).to(k.dtype)
+        vals = torch.cat([pv, dv], dim=1).to(v.dtype)
         attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
                                     causal=False, impl="eager")
         x = _post_attn(cfg, x, lp, attn)

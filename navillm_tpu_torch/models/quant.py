@@ -19,6 +19,8 @@ scale the quantizer used. ``torch.round`` rounds half to even, like
 ``lax.map`` does), so the f32 transient is one layer (~180 MB at 7B). The
 functions take nested dicts or ParamTrees, on the CPU or on the card, and
 return nested dicts that share the leaves they do not quantize.
+``init_params_quantized`` draws a random tree already quantized, one weight
+at a time.
 """
 from __future__ import annotations
 
@@ -151,6 +153,34 @@ def quantize_host_llama(params: Dict[str, Any],
     params["embed"] = _quant_embed(params.pop("embed"))
     params["lm_head"] = _quant_weight(params.pop("lm_head"))
     return params
+
+
+@torch.no_grad()
+def init_params_quantized(cfg, generator: torch.Generator, bits: int = 8,
+                          device=None) -> Dict[str, Any]:
+    """A random LLM tree, quantized as it is drawn (twin of the JAX
+    init_params_quantized): each weight is drawn in the order of
+    convert.init_llama_params, from the same generator, quantized and
+    dropped before the next is drawn. The result equals
+    ``quantize_llama_params(init_llama_params(cfg, generator))`` for a
+    generator in the same state, and the peak is the quantized tree, the
+    largest dense weight and one layer's f32 transient, never the dense
+    tree (13.5 GB at 7B in bf16)."""
+    from ..convert import _Init, target_device
+    from .llama import weight_spec
+
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    init = _Init(generator, target_device(device), cfg.dtype)
+    spec = weight_spec(cfg)
+    qw = _quant_weight4 if bits == 4 else _quant_weight
+    layers = {k: qw(init.dense(*v)) for k, v in spec["layers"].items()}
+    layers["attn_norm"] = init.const((cfg.num_layers, cfg.hidden_size), 1.0)
+    layers["mlp_norm"] = init.const((cfg.num_layers, cfg.hidden_size), 1.0)
+    return {"embed": _quant_embed(init.dense(*spec["embed"])),
+            "layers": layers,
+            "final_norm": init.const((cfg.hidden_size,), 1.0),
+            "lm_head": _quant_weight(init.dense(*spec["lm_head"]))}
 
 
 def quantize_nav_params(params, bits: int = 8) -> Dict[str, Any]:

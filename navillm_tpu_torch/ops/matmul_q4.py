@@ -8,9 +8,12 @@ scales ``s`` [h/G, o] with G = h // s.shape[0].
 - ``matmul_q4`` launches ``csrc/matmul_q4.cu``, the Hopper port of the
   Pallas kernel ``_mm4_kernel``, on CUDA tensors (counted in
   ``matmul_q4.launches``); on CPU tensors it runs ``matmul_q4_reference``.
-  ``matmul_q4.int8_launches`` counts the launches with int8 x (w4a8). On
-  CUDA it raises ``ValueError`` for what the kernel does not take and
-  never falls back.
+  ``matmul_q4.int8_launches`` counts the launches with int8 x (w4a8),
+  ``matmul_q4.f32_launches`` those with f32 x (split by the kernel into a
+  bf16 high and low part, accumulated in f32 as the Pallas kernel does).
+  On CUDA it raises ``ValueError`` for what the kernel does not take and
+  never falls back; f32 x is never rounded to bf16 once and sent down the
+  bf16 path (that is another function).
 - ``matmul_q4_reference`` is the plain version, in the Pallas kernel's k
   order: one f32 product per group, scaled per column and summed over the
   groups in order.
@@ -76,7 +79,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.navillm_matmul_q4
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
         fn.restype = i32
         lib.navillm_cuda_error_string.argtypes = [i32]
         lib.navillm_cuda_error_string.restype = ctypes.c_char_p
@@ -85,9 +88,9 @@ def _lib() -> ctypes.CDLL:
 
 def _check_kernel_inputs(xf, q4p, s, out_dtype, g):
     dev = xf.device
-    if xf.dtype not in (torch.bfloat16, torch.int8):
-        raise ValueError(f"matmul_q4 kernel: x must be bf16 or int8, got "
-                         f"{xf.dtype}")
+    if xf.dtype not in (torch.bfloat16, torch.int8, torch.float32):
+        raise ValueError(f"matmul_q4 kernel: x must be bf16, f32 or int8, "
+                         f"got {xf.dtype}")
     if q4p.dtype != torch.uint8 or s.dtype not in (torch.bfloat16,
                                                    torch.float32):
         raise ValueError(f"matmul_q4 kernel: q4p must be uint8 and s bf16 or "
@@ -114,8 +117,9 @@ def _check_kernel_inputs(xf, q4p, s, out_dtype, g):
 def matmul_q4(x, q4p, s, out_dtype=None) -> torch.Tensor:
     """y = x @ dequant(q4p, s) for x [..., h] -> [..., o] in ``out_dtype``
     (default: x's dtype, f32 for int8 x; the caller applies int8 x's row
-    scale). CUDA tensors launch csrc/matmul_q4.cu on the current stream;
-    CPU tensors run matmul_q4_reference."""
+    scale). CUDA tensors launch csrc/matmul_q4.cu on the current stream
+    (f32 x: with a bf16 [2, m, h] scratch for its split); CPU tensors run
+    matmul_q4_reference."""
     if not x.is_cuda:
         return matmul_q4_reference(x, q4p, s, out_dtype)
     h, o, _, g = _shapes(x, q4p, s)
@@ -130,18 +134,24 @@ def matmul_q4(x, q4p, s, out_dtype=None) -> torch.Tensor:
     if m > 65535 * 128:
         raise ValueError(f"matmul_q4 kernel: {m} rows exceed its grid")
     lib = _lib()
+    f32_x = xf.dtype == torch.float32
+    scratch = torch.empty((2, m, h), dtype=torch.bfloat16,
+                          device=x.device) if f32_x else None
     err = lib.navillm_matmul_q4(
-        xf.data_ptr(), q4p.data_ptr(), s.data_ptr(), y.data_ptr(), m, h, o, g,
-        int(xf.dtype == torch.int8), int(s.dtype == torch.float32),
-        int(out_dtype == torch.float32),
+        xf.data_ptr(), q4p.data_ptr(), s.data_ptr(), y.data_ptr(),
+        scratch.data_ptr() if f32_x else None, m, h, o, g,
+        2 if f32_x else int(xf.dtype == torch.int8),
+        int(s.dtype == torch.float32), int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("matmul_q4 kernel launch failed: "
                            + lib.navillm_cuda_error_string(err).decode())
     matmul_q4.launches += 1
     matmul_q4.int8_launches += int(xf.dtype == torch.int8)
+    matmul_q4.f32_launches += int(f32_x)
     return y.reshape(*lead, o)
 
 
 matmul_q4.launches = 0
 matmul_q4.int8_launches = 0
+matmul_q4.f32_launches = 0

@@ -225,21 +225,28 @@ def build_runner(args, cfg, logger=None) -> NavModelRunner:
                 path, tok.vocab_size, dtype=dtype,
                 quantize=args.quantize_llm, quant_bits=args.quant_bits,
                 device=device)
-        if args.act_int8:
-            llm_cfg = dataclasses.replace(llm_cfg, act_int8=True)
         nav_cfg = full_config(args, llm_cfg)
     else:
         tok = NavTokenizer()
         nav_cfg = tiny_config(args, tok.vocab_size, device)
+    if args.act_int8:
+        nav_cfg = dataclasses.replace(nav_cfg, llm=dataclasses.replace(
+            nav_cfg.llm, act_int8=True))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = NavModel(nav_cfg, init_nav_params(nav_cfg, gen, device=device,
-                                              llm=llm_params))
+    # --quantize_llm without a pretrained path draws the LLM already
+    # quantized (models/quant.py:init_params_quantized); the JAX package
+    # runs a dense tree there
+    model = NavModel(nav_cfg, init_nav_params(
+        nav_cfg, gen, device=device, llm=llm_params,
+        quantize_llm=args.quantize_llm and not path,
+        quant_bits=args.quant_bits))
     if logger is not None:
         n = sum(p.numel() for p in model.parameters())
         logger.info("model initialized with %.2f M parameters" % (n / 1e6))
     return NavModelRunner(nav_cfg, model, tok, device=device,
                           feat_dropout=args.feat_dropout,
-                          ignore_id=args.ignoreid, seed=args.seed)
+                          ignore_id=args.ignoreid, seed=args.seed,
+                          kv_int8=args.kv_int8)
 
 
 def build_world_and_data(args, cfg, training: bool, stage: str, world=None,

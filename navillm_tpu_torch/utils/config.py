@@ -136,9 +136,10 @@ class TrainArgs:
     # eval-only weight quantization (int8, or int4 with quant_bits=4)
     quantize_llm: bool = False
     quant_bits: int = 8
-    # int8 activations on a quantized LLM (w4a8 on int4)
+    # int8 activations on a quantized LLM (W8A8 on int8, w4a8 on int4)
     act_int8: bool = False
-    # int8 prefix cache (not ported: ROADMAP A9)
+    # int8 K/V: the streaming prefix cache and generate's prompt K/V
+    # (per token and head, f32 scales: models/llama.py:kv_quantize)
     kv_int8: bool = False
     # 8-bit Adam moments (training/optim.py:AdamQ8): int8/uint8 codes in
     # the parameter's shape with f32 group scales, f32 update math
@@ -152,7 +153,8 @@ class TrainArgs:
     dagger_pipeline: bool = True
     # fused-DAgger sampling slot groups
     dagger_streams: int = 2
-    # the W8A8 sampling policy (not ported: ROADMAP A9)
+    # the fused DAgger samples from an int8 copy of the LLM with int8
+    # activations (W8A8), re-quantized after each optimizer step
     dagger_sample_quant: bool = False
     # fused DAgger: no-grad sampling rollout + one fused loss pass
     fused_dagger: bool = True

@@ -473,23 +473,20 @@ def test_train_one_epoch_multi_matches_jax(models, data_dir, task_config,
 
 
 def test_unported_dagger_paths_raise(models, data_dir):
-    """The W8A8 sampling policy (ROADMAP A9) still raises. The DAgger paths
-    that named A8 run now: the per-step DAgger (no fused_dagger) and the
-    fused DAgger on a host-memory runner train the batch with a finite,
-    positive loss and gradients."""
+    """The DAgger paths that once named an item of the roadmap run: the
+    W8A8 sampling policy (A9: one quantization for the batch), the per-step
+    DAgger (no fused_dagger) and the fused DAgger on a host-memory runner
+    (A8) train the batch with a finite, positive loss and gradients."""
     runner, agent, ds, args = _port_side(models, data_dir)
-    batch = _batch(ds, 2)
     cfg = T.train_config(MAX_ACTION_LEN)
-    runner.zero_grads()
-    a = TrainArgs(**{**args.__dict__, "dagger_sample_quant": True})
-    with pytest.raises(NotImplementedError, match="A9"):
-        agent.train("R2R", batch, a, cfg, dataset=ds, step=1)
+    sample_q = TrainArgs(**{**args.__dict__, "dagger_sample_quant": True})
     per_step = TrainArgs(**{**args.__dict__, "fused_dagger": False})
-    for a, dev_mem in ((per_step, True), (args, False)):
+    for a, dev_mem in ((sample_q, True), (per_step, True), (args, False)):
         runner, agent, ds, _ = _port_side(models, data_dir)
         runner.device_memory = dev_mem
         runner.zero_grads()
         loss = agent.train("R2R", _batch(ds, 2), a, cfg, dataset=ds, step=1)
         assert np.isfinite(float(loss)) and float(loss) > 0
         assert runner.grad_calls > 0
+        assert runner.sampling_quantizations == int(a.dagger_sample_quant)
         assert np.abs(grads_to_numpy(runner.model)["out_head.w"]).sum() > 0

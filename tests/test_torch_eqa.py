@@ -196,15 +196,18 @@ def test_test_mode_summarization_matches_jax(runners, tmp_path):
 
 
 def test_unported_eval_paths_still_raise(runners, tmp_path):
-    """The int8 prefix cache still names A9. Sampled evaluation and the OG
-    flag, which named A7, run now: EQA sampled at T = 0.01 with enable_og
-    answers every episode from the vocabulary and grounds nothing (the OG
-    head is REVERIE's and SOON's)."""
+    """The paths that once named an item of the roadmap run: the int8
+    prefix cache (A9) answers every EQA episode from the vocabulary through
+    cached steps; sampled evaluation with the OG flag (A7), EQA sampled at
+    T = 0.01 with enable_og, answers every episode and grounds nothing (the
+    OG head is REVERIE's and SOON's)."""
     _, trunner = runners
     T.make_r2r_world(tmp_path, n_episodes=2, rows=4, cols=4, seed=9)
-    with pytest.raises(NotImplementedError, match="A9"):
-        _stream(trunner, True, tmp_path, "val.json", "EQA", 2,
-                prefix_cache=True, kv_int8=True)
+    steps = trunner.cached_steps
+    got, _, ds = _stream(trunner, True, tmp_path, "val.json", "EQA", 2,
+                         prefix_cache=True, kv_int8=True)
+    assert len(got) == 2 and trunner.cached_steps > steps
+    assert all(p["pred_answer"] in ds.answer_vocab for p in got.values())
     calls = trunner.og_calls
     got, _, ds = _stream(trunner, True, tmp_path, "val.json", "EQA", 2,
                          do_sample=True, temperature=0.01, enable_og=True)

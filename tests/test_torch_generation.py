@@ -121,10 +121,17 @@ def test_decode_step_matches_jax_and_the_full_forward(models):
             tl, torch.from_numpy(full_ids)), torch.from_numpy(full_mask))
         np.testing.assert_allclose(ht[:, 0].numpy(), hf[:, -1].numpy(),
                                    **TOL)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TL.decode_step(tl, tcfg.llm, ht, {"k": 0, "ks": 0, "v": 0, "vs": 0},
-                       torch.from_numpy(mask), dec_t, 0,
-                       torch.from_numpy(pos))
+    # an int8 prompt stack (kv_int8) is read dequantized, as in JAX
+    qkv_j, qkv_t = JL.quantize_kv_stack(kv_j), TL.quantize_kv_stack(kv_t)
+    emb = fed[:, 0]
+    hj, _ = JL.decode_step(jl, jcfg.llm, JL.embed_rows(jl["embed"], emb)[
+        :, None], qkv_j, mask, JL.init_decode_cache(jcfg.llm, b, n_new), 0,
+        lens[:, None].astype(np.int32))
+    ht, _ = TL.decode_step(tl, tcfg.llm, TL.embed_rows(
+        tl["embed"], torch.from_numpy(emb).long())[:, None], qkv_t,
+        torch.from_numpy(mask), TL.init_decode_cache(tcfg.llm, b, n_new), 0,
+        torch.from_numpy(lens[:, None].astype(np.int32)))
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), **TOL)
 
 
 # --------------------------------------------------------- generate --- #

@@ -575,6 +575,70 @@ print("loaded", sorted(m for m in sys.modules if m in %r
 """ % (BANNED,)
 PERSTEP = "RUN_CFG = %r\n" % RUN_CFG + PERSTEP
 
+# the rest of quantization: W8A8 on an int8 tree drawn quantized, with the
+# prefix cache and the int8 K/V; generate on a w4a8 tree with an int8 prompt
+# K/V; the fused DAgger sampling from the W8A8 policy
+QUANT = """
+import dataclasses, sys, tempfile
+import numpy as np
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents import fused_teacher as FT
+from navillm_tpu_torch.agents.mp3d_agent import TrainArgs
+from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
+from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.loaders import Dataloader
+from navillm_tpu_torch.models import decoding as D
+from navillm_tpu_torch.models.nav_model import NavModel, NavModelConfig
+from navillm_tpu_torch.models.quant import quantize_nav_params, weight_bits
+from navillm_tpu_torch.models.tokenization import NavTokenizer
+
+torch.set_num_threads(1)
+bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+cfg = NavModelConfig.tiny(vocab_size=bpe.vocab_size, use_obj=False)
+a8 = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm,
+                                                      act_int8=True))
+q8 = NavModel(a8, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu", quantize_llm=True))
+assert weight_bits(q8) == 8
+with tempfile.TemporaryDirectory() as tmp:
+    anno = T.make_r2r_world(tmp, n_episodes=4, rows=3, cols=3)
+    runner = NavModelRunner(a8, q8, bpe, dims=RolloutDims.tiny())
+    agent, ds, args = T.r2r_eval(anno, runner, 2, cfg.pano.image_feat_size,
+                                 prefix_cache=True)
+    args.kv_int8 = True
+    preds = agent.validate_streaming("R2R", args, T.eval_config(4),
+                                     Dataloader(ds, 2, False), dataset=ds)
+    assert len(preds) == 4 and runner.cached_steps > 0, preds
+    print("w8a8 kv8 metrics", ds.eval_metrics(preds, None, "R2R")[0])
+
+    model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                          device="cpu"))
+    w4 = quantize_nav_params(model, bits=4)
+    ids = np.random.RandomState(0).randint(3, 200, (2, 40)).astype(np.int32)
+    out = D.generate(w4["llm"], a8.llm, ids, np.ones((2, 40), bool),
+                     eos_id=bpe.eos_id, pad_id=bpe.pad_id, max_new_tokens=6,
+                     kv_int8=True)
+    assert out.shape == (2, 6)
+    print("w4a8 generate", out.tolist())
+
+    runner = NavModelRunner(cfg, model, bpe, dims=RolloutDims.tiny())
+    targs = TrainArgs(image_feat_size=cfg.pano.image_feat_size,
+                      fused_rows_per_call=4, dagger_sample_quant=True)
+    anno = T.make_r2r_world(tmp + "/train", n_episodes=4, rows=3, cols=3,
+                            split="train")
+    tagent, tds, loader = T.r2r_train(anno, runner, targs, 4, shuffle=False)
+    runner.zero_grads()
+    loss, _ = FT.rollout_dagger_fused(tagent, targs, "R2R",
+                                      T.train_config(4).Optim,
+                                      next(iter(loader)), dataset=tds,
+                                      train_ml=1.0)
+    assert torch.isfinite(loss) and runner.sampling_quantizations == 1
+    print("dagger sample quant", float(loss))
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+
 
 def _fresh(code):
     env = dict(os.environ)
@@ -614,6 +678,12 @@ def test_port_runs_the_pretrained_path_without_jax():
 def test_port_runs_the_per_step_paths_without_jax():
     out = _fresh(PERSTEP)
     assert "run_training per-step" in out and "host memory" in out
+
+
+def test_port_runs_the_quantization_paths_without_jax():
+    out = _fresh(QUANT)
+    assert "w8a8 kv8" in out and "w4a8 generate" in out \
+        and "dagger sample quant" in out
 
 
 def test_train_entry_point_help_without_jax():

@@ -576,11 +576,33 @@ def test_matmul_q4_kernel_ragged_m_f32_scales(case, int8_x):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", Q4_CASES)
+def test_matmul_q4_kernel_f32_x_matches_reference(case):
+    """f32 x, as the Pallas kernel takes it: split into bf16 hi and lo
+    parts inside the launch, accumulated in f32; held to the JAX test's
+    own bound (tests/test_matmul_q4.py): 1e-4 of max(|ref|, 1) against the
+    plain version's f32 products (TF32 off)."""
+    _require_sm90()
+    lead, h, o = case
+    x, _, q4p, s = _q4_inputs(lead, h, o, seed=3, s_dtype=torch.float32)
+    xf = x.float() * (1 + torch.rand_like(x, dtype=torch.float32) * 2 ** -9)
+    before = (matmul_q4.launches, matmul_q4.f32_launches)
+    got = matmul_q4(xf, q4p, s)
+    torch.cuda.synchronize()
+    assert (matmul_q4.launches, matmul_q4.f32_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (*lead, o)
+    want = matmul_q4_reference(xf, q4p, s)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * max(want.abs().max().item(), 1.0), err
+
+
+@pytest.mark.cuda
 def test_matmul_q4_kernel_rejects_what_it_does_not_take():
     _require_sm90()
     x, xq, q4p, s = _q4_inputs((16,), 256, 128)
-    with pytest.raises(ValueError):                  # f32 x
-        matmul_q4(x.float(), q4p, s)
+    with pytest.raises(ValueError):                  # f64 x
+        matmul_q4(x.double(), q4p, s)
     with pytest.raises(ValueError):                  # a strided x
         matmul_q4(torch.cat([x, x], -1)[:, 1:257], q4p, s)
     with pytest.raises(ValueError):                  # q4p off its alignment
@@ -591,3 +613,26 @@ def test_matmul_q4_kernel_rejects_what_it_does_not_take():
     matmul_q4(x48, q48, s48)                          # bf16 takes G = 16
     with pytest.raises(ValueError):                   # int8 needs G % 32
         matmul_q4(xq48, q48, s48)
+
+
+@pytest.mark.cuda
+def test_int_mm_pads_fewer_than_17_rows_on_the_card():
+    """W8A8's int8 product (llama.int_mm, torch._int_mm on the card) at
+    the 7B width: exact, fewer than 17 rows padded and counted, k and n not
+    multiples of 8 refused (no float fallback). cuBLAS refuses some small
+    shapes (k=64, n=48 at 17 rows), so the test keeps the model's."""
+    _require_sm90()
+    from navillm_tpu_torch.models import llama as TL
+    r = np.random.RandomState(2)
+    b = torch.from_numpy(r.randint(-127, 128, (4096, 4096)).astype(np.int8))
+    for m in (1, 4, 16, 17, 40):
+        a = torch.from_numpy(r.randint(-127, 128, (m, 4096)).astype(np.int8))
+        before = (TL.int_mm.padded_calls, TL.int_mm.padded_rows)
+        got = TL.int_mm(a.cuda(), b.cuda())
+        want = a.cuda().double() @ b.cuda().double()      # exact below 2^53
+        assert got.dtype == torch.int32 and torch.equal(got.double(), want)
+        pad = max(TL.INT_MM_MIN_ROWS - m, 0)
+        assert (TL.int_mm.padded_calls, TL.int_mm.padded_rows) == (
+            before[0] + int(pad > 0), before[1] + pad)
+    with pytest.raises(ValueError):
+        TL.int_mm(a.cuda(), b[:, :4092].contiguous().cuda())

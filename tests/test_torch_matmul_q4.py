@@ -120,8 +120,10 @@ def test_mm_int8_weight_only_matches_jax_and_refuses_a8():
     np.testing.assert_allclose(TL._mm(_t(x), tw).numpy(),
                                np.asarray(JL._mm(jnp.asarray(x), wq)),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        TL._mm(_t(x), tw, a8=True)
+    # W8A8: an exact int32 product, then the same f32 rescale and cast
+    np.testing.assert_array_equal(
+        TL._mm(_t(x), tw, a8=True).numpy(),
+        np.asarray(JL._mm(jnp.asarray(x), wq, a8=True)))
 
 
 def test_wrapper_on_cpu_is_the_plain_version():

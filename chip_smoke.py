@@ -302,6 +302,36 @@ The rest of quantization, at 7B width on BPE prompts:
      cache bytes per slot group (bf16 against int8), LLM bytes, peak; one
      kv8 cached step against the uncached W8A8 step (phase 15's A/B, whose
      planted faults add the last cached token's K scaled to zero).
+Slice 14, after phase 44 (the int4 and int8 trees freed):
+ 45. the feature-extraction towers, EVA02-CLIP-L-14-336 and CLIP
+     ViT-L/14-336, at full width (24 layers, width 1024, 577 tokens),
+     random f32 weights (no TF32), through FeatureExtractor's batched
+     forward over VIT_VIEWPOINTS x 36 synthetic preprocessed views:
+     images/s beside the FP32 bound (0.382 TFLOP per image at 67
+     TFLOP/s), peak memory; 2 images against the same forward in f64 and
+     2 images alone against their batch of 36, each within VIT_REL of the
+     largest feature;
+ 46. tp=2 evaluation at the full 7B: one card's R2R streaming runs of
+     TP_EPISODES episodes in graph order on BPE prompts (bf16 and int4,
+     uncached and prefix-cached), then two spawned ranks (gloo over
+     localhost, CUDA tensors staged through host memory; NCCL refuses two
+     ranks on one card) that draw the same weights, keep their shards
+     (16 of 32 heads, K1 on them; K4 on the int4 shards) and run the same
+     four evaluations under phase_slice's gates; the ranks' trajectories
+     equal each other's, one step's logits within logit_tol of one
+     card's, trajectories beside one card's; K4 at the shards' shapes
+     (Q4_TP_SHAPES) against its plain version; ms per step and per-rank
+     peak memory;
+ 47. dp=2 x tp=2 training in four spawned ranks at full width and
+     DP_TP_LAYERS layers (the full depth would not fit four times):
+     stage pretrain, fused teacher, no dropout, graph order, ZeRO-1
+     AdamW, two optimizer steps of 8 episodes (4 per data-group rank);
+     K1-K3 launches as phase 6 counts them, parameters equal across the
+     data group, the data group's mean loss within DP_TP_LOSS_REL of one
+     card's on the concatenated batches, moment bytes per rank against
+     replicated, and an all_gather_objects merge over the four ranks.
+A rank that fails fails the run. The kernels line's launches_by_phase
+gains 46 (rank 0's runs) and 47, and K4's row its shards' shapes.
 The cached-vs-uncached comparisons (15, 19, 29, 41, 44) gate the candidate
 logits by cached_logit_tol, tied to the spread of the row's valid logits
 (C-w1), and print each planted fault's margin.
@@ -329,6 +359,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -344,6 +375,7 @@ from navillm_tpu_torch.convert import flatten_tree, init_nav_params
 from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
                                                synthetic_object_db)
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
+from navillm_tpu_torch.data.r2r import R2RDataset
 from navillm_tpu_torch.models import decoding as D
 from navillm_tpu_torch.models import llama as L
 from navillm_tpu_torch.models.convert import save_vicuna
@@ -364,12 +396,19 @@ from navillm_tpu_torch.ops.attention import (
 from navillm_tpu_torch.ops.masking import NEG_INF
 from navillm_tpu_torch.ops.matmul_q4 import (matmul_q4, matmul_q4_reference,
                                              unpack_q4)
+from navillm_tpu_torch.parallel.dist import (all_gather_objects,
+                                             merge_dist_results)
+from navillm_tpu_torch.parallel.mesh import make_mesh, zero1_shard_opt_state
+from navillm_tpu_torch.sim import WorldModel
 from navillm_tpu_torch.training import train_loop as TTL
 from navillm_tpu_torch.training.checkpoints import load_checkpoint
 from navillm_tpu_torch.training.optim import AdamQ8, make_optimizer
 from navillm_tpu_torch.training.train_loop import (make_opt_step,
                                                    train_one_epoch)
 from navillm_tpu_torch.utils.config import load_yaml_text, read_args
+from navillm_tpu_torch.vision.extract import FeatureExtractor
+from navillm_tpu_torch.vision.vit import (ViTConfig, init_vit_params,
+                                          vit_forward_features)
 
 KERNELS = {
     "fwd": {"name": "flash_attn_fwd", "route": "cuda",
@@ -1014,7 +1053,7 @@ def phase_kernel():
     return top, timed
 
 
-def model_7b():
+def model_7b(tag=3, quiet: bool = False):
     tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
     llm = LlamaConfig.vicuna_7b(vocab_size=32128, max_seq_len=1024,
                                 dtype=torch.bfloat16)
@@ -1026,8 +1065,10 @@ def model_7b():
     model = NavModel(cfg, init_nav_params(cfg, gen))  # on the card
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
-    print(f"[3] Vicuna-7B-width nav model: {n / 1e9:.3f} B params (bf16), "
-          f"random init on the card in {time.perf_counter() - t0:.1f} s")
+    if not quiet:
+        print(f"[{tag}] Vicuna-7B-width nav model: {n / 1e9:.3f} B params "
+              f"(bf16), random init on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
     return tok, cfg, model
 
 
@@ -1546,7 +1587,7 @@ def int4pack(q4p, s):
 
 
 def phase_q4_kernel(tag=8, rows=(4096, 3584, 7),
-                    modes=("w4", "w4a8", "f32")):
+                    modes=("w4", "w4a8", "f32"), shapes=Q4_SHAPES):
     """K4 against its plain version at the 7B layer shapes, ``rows`` the
     m of x: bf16 x (w4), int8 x (w4a8) and f32 x (f32; values that bf16
     does not hold, held to the JAX test's bound, 1e-4 of max(|ref|, 1)).
@@ -1558,7 +1599,7 @@ def phase_q4_kernel(tag=8, rows=(4096, 3584, 7),
     has_lib = all(hasattr(torch, f) for f in ("_weight_int4pack_mm",
                                              "_convert_weight_to_int4pack"))
     out = {}
-    for h, o in Q4_SHAPES:
+    for h, o in shapes:
         w = torch.randn((h, o), generator=gen, device="cuda",
                         dtype=torch.bfloat16) * h ** -0.5
         q4p, s = _quant_one4(w)
@@ -3286,8 +3327,9 @@ def phase_og_eval(tag, bpe, cfg, model, tmp, task, prefix_cache=False,
                                     prefix_cache=prefix_cache, **flags)
     draws, select = [], DM.select_actions
 
-    def recording_select(logits, override, sample, temperature, generator):
-        a_t = select(logits, override, sample, temperature, generator)
+    def recording_select(logits, override, sample, temperature, generator,
+                         *rest):
+        a_t = select(logits, override, sample, temperature, generator, *rest)
         if sample:
             top = logits.topk(2, dim=-1).values
             left = (a_t != logits.argmax(-1)) & (override < 0)
@@ -5428,6 +5470,380 @@ def phase_int4_og_cvdn(bpe, cfg, qmodel, tmp):
     return out
 
 
+# ------------------------------------------------- phases 45-47 (slice 14) --
+# phase 45: the feature-extraction towers at full width, f32 (no TF32)
+VIT_VIEWPOINTS = 8
+VIT_VIEWS = 36
+VIT_F64_IMAGES = 2
+# f32 features against the f64 forward, and an image alone against its
+# batch of 36, each held to this share of the largest |feature|: f32 has
+# 2^-24 relative rounding, 24 pre-LN blocks of a few thousand-term sums
+# leave ~1e-6 of the scale (5e-7 measured at the tiny width on the CPU)
+VIT_REL = 1e-4
+# the H100 SXM's published FP32 peak outside the tensor cores
+PEAK_FP32 = 67e12
+# phase 46: two ranks of tp=2 on the one card (gloo, CUDA tensors staged
+# through host memory: NCCL refuses two ranks on one device)
+TP_EPISODES = 8
+# phase 47: dp=2 x tp=2 training at full width and 8 layers (four ranks
+# of the full depth would not fit the card)
+DP_TP_LAYERS = 8
+DP_TP_EPISODES = 16
+# the data group's mean loss against one card's on the concatenated batch:
+# the split batch and the split heads regroup bf16 sums (each rounding
+# 2^-8 relative), and the rows' losses are sums over the trajectory's
+# steps; a wrong average or a missing rank moves it by a factor of 2
+DP_TP_LOSS_REL = 2 ** -5
+# the TP shards' int4 layer shapes (h, o) at 7B, tp=2: wq/wk/wv, w_gate/
+# w_up split by column, wo and w_down by row
+Q4_TP_SHAPES = ((4096, 2048), (4096, 5504), (2048, 4096), (5504, 4096))
+
+
+def vit_flops(cfg) -> float:
+    """Operations of one image's forward (2 per multiply-add): the patch
+    embedding, and per block the q/k/v and out projections, scores and
+    weighted values, the MLP (SwiGLU: three products)."""
+    t, w, m = cfg.seq_len, cfg.width, cfg.mlp_dim
+    patch = 2 * cfg.grid ** 2 * cfg.patch_size ** 2 * 3 * w
+    attn = 2 * t * w * 4 * w + 2 * 2 * t * t * w
+    mlp = (3 if cfg.style == "eva02" else 2) * 2 * t * w * m
+    return patch + cfg.num_layers * (attn + mlp)
+
+
+def vit_bound_ms(cfg, n: int, params) -> Tuple[float, str]:
+    """n images: the weights and images read once, the features written
+    once, the operations at the FP32 peak (the forward runs in f32 on the
+    CUDA cores: TF32 is off)."""
+    nbytes = 4 * (sum(t.numel() for t in flatten_tree(params).values())
+                  + n * cfg.image_size ** 2 * 3 + n * cfg.width)
+    return bound(n * vit_flops(cfg), nbytes, PEAK_FP32)
+
+
+def _as_f64(tree):
+    return {k: _as_f64(v) if isinstance(v, dict) else v.double()
+            for k, v in tree.items()}
+
+
+def phase_vision():
+    """EVA02-CLIP-L-14-336 and CLIP ViT-L/14-336 with random f32 weights:
+    FeatureExtractor's batched forward over VIT_VIEWPOINTS x 36 synthetic
+    preprocessed views (images/s, peak memory, the FP32 bound), 2 images
+    against the same forward in f64, and 2 images alone against their
+    batch of 36."""
+    out = {}
+    for name, vcfg in (("EVA02-CLIP-L-14-336", ViTConfig.eva02_clip_l_14_336()),
+                       ("CLIP ViT-L/14-336", ViTConfig.clip_l_14_336())):
+        gen = torch.Generator(device="cuda").manual_seed(45)
+        params = init_vit_params(vcfg, gen)             # on the card
+        fe = FeatureExtractor(params, vcfg, batch_size=VIT_VIEWS)
+        n = VIT_VIEWPOINTS * VIT_VIEWS
+        imgs = torch.randn((n, vcfg.image_size, vcfg.image_size, 3),
+                           generator=gen, device="cuda")
+        fe.encode(imgs[:VIT_VIEWS])                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fe.forward_calls = 0
+        t0 = time.perf_counter()
+        feats = fe.encode(imgs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if feats.shape != (n, vcfg.width) or not np.isfinite(feats).all():
+            raise RuntimeError(f"[45] {name}: features {feats.shape}, "
+                               f"finite {np.isfinite(feats).all()}")
+        if fe.forward_calls != VIT_VIEWPOINTS:
+            raise RuntimeError(f"[45] {name}: {fe.forward_calls} forwards "
+                               f"for {n} images in batches of {VIT_VIEWS}")
+        with torch.inference_mode():
+            ref = vit_forward_features(
+                _as_f64(params), dataclasses.replace(vcfg, dtype=torch.float64),
+                imgs[:VIT_F64_IMAGES].double()).cpu().numpy()
+            solo = np.concatenate([vit_forward_features(
+                params, vcfg, imgs[k:k + 1]).cpu().numpy()
+                for k in (0, VIT_VIEWS // 2)])
+        scale = np.abs(ref).max()
+        f64_rel = np.abs(feats[:VIT_F64_IMAGES] - ref).max() / scale
+        solo_rel = np.abs(solo - feats[[0, VIT_VIEWS // 2]]).max() / scale
+        bound_ms, by = vit_bound_ms(vcfg, n, params)
+        ips = n / dt
+        print(f"[45] {name} (f32, {vcfg.num_layers} layers, width "
+              f"{vcfg.width}, {vcfg.seq_len} tokens, random weights): {n} "
+              f"images ({VIT_VIEWPOINTS} viewpoints x {VIT_VIEWS} views) in "
+              f"{dt:.3f} s = {ips:.1f} images/s, {fe.forward_calls} forwards "
+              f"of {VIT_VIEWS}; bound {bound_ms:.1f} ms ({by}, "
+              f"{vit_flops(vcfg) / 1e12:.3f} TFLOP per image at "
+              f"{PEAK_FP32 / 1e12:.0f} TFLOP/s FP32) = "
+              f"{n / bound_ms * 1e3:.1f} images/s, {bound_ms / 1e3 / dt * 100:.1f}% "
+              f"of it; peak memory {peak:.2f} GiB; f32 against f64 max "
+              f"|d|/max|f| {f64_rel:.3e}; alone against the batch of "
+              f"{VIT_VIEWS} {solo_rel:.3e}; MP3D's 10567 viewpoints x 36 "
+              f"views would take {10567 * 36 / ips / 3600:.2f} h")
+        if not (f64_rel <= VIT_REL and solo_rel <= VIT_REL):
+            raise RuntimeError(f"[45] {name}: f64 {f64_rel:.3e}, alone "
+                               f"{solo_rel:.3e} > {VIT_REL}")
+        out[name] = {"images_per_s": ips, "bound_images_per_s":
+                     n / bound_ms * 1e3, "peak_gib": peak,
+                     "f64_rel": f64_rel, "solo_rel": solo_rel}
+        del params, fe, imgs
+        torch.cuda.empty_cache()
+    return out
+
+
+def _join(rank: int, dp: int, tp: int):
+    """A rank spawned by testing.spawn_gloo (gloo over localhost, CUDA
+    tensors staged through host memory): its grid on the shared card."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = make_mesh(dp, tp, device="cuda:0")
+    if rank == 0:
+        print(f"[{46 if dp == 1 else 47}] {plan.describe()}", flush=True)
+    return plan
+
+
+def _tp_runs(tag, bpe, cfg, runner, tmp, warm: bool):
+    """The uncached and the prefix-cached evaluation of TP_EPISODES
+    episodes in graph order through ``runner``, each with phase_slice's
+    gates (``warm``: a warm-up run first; the ranks skip it, their steps
+    are bound by the staged collectives); returns {cached: (trajectories,
+    stats)}."""
+    out = {}
+    for cached in (False, True):
+        zero_counters(runner)
+        out[cached] = phase_slice(tag, bpe, cfg, None, f"{tmp}/{int(cached)}",
+                                  warm_up=warm and not cached,
+                                  prefix_cache=cached, graph_order=True,
+                                  n_episodes=TP_EPISODES, runner=runner)
+    return out
+
+
+def _tp_eval_rank(rank, tmp, ref_logits):
+    plan = _join(rank, 1, 2)
+    bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+    tmp = f"{tmp}/rank{rank}"
+    res = {}
+    for kind in ("bf16", "w4"):
+        _, cfg, model = model_7b(tag=f"46 r{rank}", quiet=rank > 0)
+        if kind == "w4":
+            with torch.no_grad():
+                model = NavModel(cfg, quantize_nav_params(model, bits=4))
+        runner = NavModelRunner(cfg, model, bpe, dims=slice_dims(),
+                                mesh_plan=plan)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        heads = L.local_heads(runner.model["llm"], cfg.llm)
+        runs = _tp_runs(f"46 {kind} r{rank}", bpe, cfg, runner, tmp, False)
+        q4 = {c: runs[c][1]["q4_launches"] for c in runs}
+        if kind == "w4":
+            for c, (_, st) in runs.items():
+                passes = st["eval_steps"] + st["cached_steps"] \
+                    + st["prefill_calls"]
+                want = passes * cfg.llm.num_layers * Q4_LAYER_MATMULS
+                if st["q4_launches"] != want:
+                    raise RuntimeError(f"[46] r{rank} w4 K4 launches "
+                                       f"{st['q4_launches']} != {want}")
+        with torch.inference_mode():
+            got = forward_navigation(runner.model, cfg,
+                                     ab_batch(cfg))["fuse_logits"].cpu()
+        excess = logit_excess(got, ref_logits[kind])
+        if not excess <= 1.0:
+            raise RuntimeError(f"[46] r{rank} {kind}: tp=2 logits against "
+                               f"one card's exceed logit_tol x{excess:.3f}")
+        res[kind] = {"trajs": {c: runs[c][0] for c in runs},
+                     "stats": {c: runs[c][1] for c in runs},
+                     "q4": q4, "excess": excess, "heads": heads,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "staged": plan.model.staged_calls}
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        # K4 at the shards' shapes, each against its plain version
+        res["q4_check"] = phase_q4_kernel(tag="46 r0", rows=(2048, 4),
+                                          modes=("w4",),
+                                          shapes=Q4_TP_SHAPES)
+    return res
+
+
+def phase_tp_eval(tmp):
+    """tp=2 streaming evaluation at the full 7B: one card's runs on the
+    same weights and episodes (graph order), then two ranks."""
+    bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+    ref, ref_logits = {}, {}
+    _, cfg, model = model_7b(tag=46)
+    for kind in ("bf16", "w4"):
+        if kind == "w4":
+            with torch.no_grad():
+                model = NavModel(cfg, quantize_nav_params(model, bits=4))
+            gc.collect()
+            torch.cuda.empty_cache()
+        runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+        ref[kind] = _tp_runs(f"46 {kind} one card", bpe, cfg, runner,
+                             f"{tmp}/one_{kind}", True)
+        with torch.inference_mode():
+            ref_logits[kind] = forward_navigation(
+                model, cfg, ab_batch(cfg))["fuse_logits"].cpu()
+        del runner
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = T.spawn_gloo(_tp_eval_rank, 2, tmp, ref_logits)
+    for kind in ("bf16", "w4"):
+        for cached in (False, True):
+            one, st1 = ref[kind][cached]
+            for r, rr in enumerate(res):
+                got, st = rr[kind]["trajs"][cached], rr[kind]["stats"][cached]
+                same = sum(got[k] == one[k] for k in one)
+                print(f"[46] {kind} {'cached' if cached else 'uncached'} "
+                      f"rank {r} ({rr[kind]['heads'][0]} of "
+                      f"{cfg.llm.num_heads} heads): {same} of {len(one)} "
+                      f"trajectories equal to one card's; "
+                      f"{st['ms_per_step']:.1f} ms per step against "
+                      f"{st1['ms_per_step']:.1f}; K1 {st['launches']}, K4 "
+                      f"{st['q4_launches']}; peak {rr[kind]['peak_gib']:.2f}"
+                      f" GiB; logits x{rr[kind]['excess']:.3f} of logit_tol;"
+                      f" {rr[kind]['staged']} staged collectives")
+            if res[0][kind]["trajs"][cached] != res[1][kind]["trajs"][cached]:
+                raise RuntimeError(f"[46] {kind}: the two ranks' "
+                                   f"trajectories differ")
+    return res, ref
+
+
+def model_8l(seed: int = 47):
+    """phase 47's model: 7B width, DP_TP_LAYERS layers, bf16, dropout off,
+    from a seed; BPE prompts."""
+    tok = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
+    llm = LlamaConfig.vicuna_7b(vocab_size=32128, max_seq_len=1024,
+                                num_layers=DP_TP_LAYERS, dtype=torch.bfloat16)
+    cfg = NavModelConfig(llm=llm, pano=PanoConfig(
+        output_size=llm.hidden_size, dtype=torch.bfloat16,
+        hidden_dropout_prob=0.0))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tok, cfg, NavModel(cfg, init_nav_params(cfg, gen))
+
+
+def _train_epoch(tok, cfg, runner, root, batch, rank=0, world=1, tx=None):
+    """Teacher forcing (stage pretrain, fused teacher, no dropout, graph
+    order) of DP_TP_EPISODES episodes, batch episodes per rank and
+    optimizer step. Returns (losses per batch, norms, seconds, tx)."""
+    args = TrainArgs(stage="pretrain", image_feat_size=cfg.pano.image_feat_size,
+                     fused_rows_per_call=ROWS_PER_CALL, feat_dropout=0.0,
+                     gradient_accumulation_step=1, seed=0)
+    dims = RolloutDims(max_gmap_nodes=48, max_views=44, max_cands=47,
+                       max_hist=16)
+    runner.dims = dims
+    anno = T.make_r2r_world(root, n_episodes=DP_TP_EPISODES, seed=0,
+                            split="train")
+    world_model = WorldModel(str(Path(anno).parents[2] / "connectivity"))
+    ds = R2RDataset(anno, world_model, training=True)
+    ds.init_feat_db(SyntheticImageFeaturesDB(args.image_feat_size))
+    loader = Dataloader(ds, batch, shuffle=False, rank=rank,
+                        world_size=world)
+    agent = R2RAgent(args, world_model, runner)
+    agent.np_rng = IdentityPermutation()
+    losses = []
+    train = agent.train
+
+    def recorded(*a, **kw):
+        losses.append(train(*a, **kw))
+        return losses[-1]
+    agent.train = recorded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, norms = train_one_epoch(args, T.train_config(MAX_ACTION_LEN), runner,
+                               tx, make_opt_step(tx),
+                               MetaLoader({"R2R": (loader, 1.0)}),
+                               {"R2R": agent}, {"R2R": ds}, 0, None,
+                               num_batches=len(loader))
+    torch.cuda.synchronize()
+    return ([float(x) for x in losses], [float(n) for n in norms],
+            time.perf_counter() - t0)
+
+
+def _dp_tp_rank(rank, tmp):
+    plan = _join(rank, 2, 2)
+    tok, cfg, model = model_8l()
+    runner = NavModelRunner(cfg, model, tok, feat_dropout=0.0,
+                            seed=plan.dp_rank, mesh_plan=plan)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    named = dict(runner.model.named_parameters())
+    tx = make_optimizer(named, lr=1e-5, grad_clip_norm=40.0)
+    tx.set_plan(plan, runner.param_specs)
+    replicated = tx.moment_bytes()
+    zero1_shard_opt_state(tx, plan)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(runner)
+    losses, norms, dt = _train_epoch(tok, cfg, runner, f"{tmp}/rank{rank}",
+                                     TRAIN_BATCH // plan.dp_size,
+                                     plan.dp_rank, plan.dp_size, tx)
+    launches = check_launches(f"47 r{rank}", runner, cfg.llm.num_layers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the data group's members must hold the same parameters
+    sums = [float(p.detach().double().sum()) for p in named.values()]
+    group = all_gather_objects(sums, plan.data)
+    if any(g != group[0] for g in group):
+        raise RuntimeError(f"[47] r{rank}: parameters differ across the "
+                           f"data group")
+    merged = merge_dist_results(all_gather_objects(
+        [{"rank": rank, "losses": losses}]))
+    return {"losses": losses, "norms": norms, "seconds": dt,
+            "launches": launches, "peak_gib": peak,
+            "moment_bytes": tx.moment_bytes(), "replicated_bytes": replicated,
+            "merged": merged, "dp_rank": plan.dp_rank,
+            "staged": plan.model.staged_calls + plan.data.staged_calls,
+            "grad_calls": runner.grad_calls}
+
+
+def phase_dp_tp_train(tmp):
+    """dp=2 x tp=2 training (ZeRO-1, AdamW) at full width and 8 layers, two
+    optimizer steps, against one card's steps on the same batches."""
+    tok, cfg, model = model_8l()
+    runner = NavModelRunner(cfg, model, tok, feat_dropout=0.0, seed=0)
+    tx = make_optimizer(dict(model.named_parameters()), lr=1e-5,
+                        grad_clip_norm=40.0)
+    torch.cuda.reset_peak_memory_stats()
+    one_losses, one_norms, one_dt = _train_epoch(tok, cfg, runner,
+                                                 f"{tmp}/one", TRAIN_BATCH,
+                                                 tx=tx)
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = sum(p.numel() for p in model.parameters())
+    del runner, model, tx
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = T.spawn_gloo(_dp_tp_rank, 4, tmp)
+    by_dp = {r["dp_rank"]: r for r in res}
+    losses = [sum(by_dp[d]["losses"][i] for d in by_dp) / len(by_dp)
+              for i in range(len(one_losses))]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    for r, rr in enumerate(res):
+        print(f"[47] rank {r} (dp {rr['dp_rank']}): losses "
+              f"{[round(x, 4) for x in rr['losses']]}, grad norms "
+              f"{[round(x, 4) for x in rr['norms']]}; "
+              f"{1e3 * rr['seconds'] / len(rr['norms']):.0f} ms per "
+              f"optimizer step; {rr['grad_calls']} grad calls, launches "
+              f"{rr['launches']}; peak {rr['peak_gib']:.2f} GiB; moments "
+              f"{rr['moment_bytes'] / 2 ** 30:.2f} GiB (ZeRO-1) against "
+              f"{rr['replicated_bytes'] / 2 ** 30:.2f} GiB replicated; "
+              f"{rr['staged']} staged collectives")
+    print(f"[47] {n / 1e9:.3f} B params, {DP_TP_LAYERS} layers: data-group "
+          f"mean losses {[round(x, 4) for x in losses]} against one card's "
+          f"{[round(x, 4) for x in one_losses]} on the concatenated "
+          f"batches (max rel {rel:.2e}); one card "
+          f"{1e3 * one_dt / len(one_norms):.0f} ms per optimizer step, "
+          f"peak {one_peak:.2f} GiB; grad norms {[round(x, 4) for x in one_norms]}"
+          f"; merged over 4 ranks: {[m['rank'] for m in res[0]['merged']]}")
+    if not rel <= DP_TP_LOSS_REL:
+        raise RuntimeError(f"[47] dp x tp losses part from one card's by "
+                           f"{rel:.3e} > {DP_TP_LOSS_REL}")
+    if len(res[0]["merged"]) != 4 or any(
+            r["moment_bytes"] >= 0.75 * r["replicated_bytes"] for r in res):
+        raise RuntimeError("[47] merge or ZeRO-1 moment bytes")
+    return res
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -5595,6 +6011,17 @@ def main():
         int4_launches, int4_q4 = phase_pretrained_int4(vic, tmp, tok, cfg,
                                                        qmodel, w4)
     pre_dir.cleanup()
+    # slice 14: the feature-extraction towers, then tp=2 evaluation and
+    # dp=2 x tp=2 training in spawned ranks that share the card
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_vision()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_eval, _ = phase_tp_eval(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_tp = phase_dp_tp_train(tmp)
+    tp0 = tp_eval[0]
     # K1 at the eval slice's widest prompts (B=4, T=1024), K2/K3 at the
     # training slice's (B=16, T=1024), K4 at the w_gate shape with 4 slots
     # of 1024 tokens (w4); launches from the measured runs of phases 6
@@ -5628,7 +6055,12 @@ def main():
                    for k, v in int4_mix.items()},
                 "33": load_launches[key],
                 **{ph: n[key] for ph, n in pre_launches.items()},
-                **{ph: n[key] for ph, n in int4_launches.items()}}
+                **{ph: n[key] for ph, n in int4_launches.items()},
+                # rank 0 of each spawned run (its 16 heads; rank 1 the same)
+                **{f"46_{kind}{'_cached' if c else ''}":
+                   tp0[kind]["stats"][c]["launches"] if key == "fwd" else 0
+                   for kind in ("bf16", "w4") for c in (False, True)},
+                "47": dp_tp[0]["launches"][key]}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
              "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],
@@ -5648,7 +6080,10 @@ def main():
                                           for sfx, st in zip(("", "_kv8"),
                                                              eqa_a8)},
                                        **{f"44_{k}": v["q4_launches"]
-                                          for k, v in int4_mix.items()}},
+                                          for k, v in int4_mix.items()},
+                                       **{f"46_w4{'_cached' if c else ''}":
+                                          n for c, n in tp0["w4"]["q4"]
+                                          .items()}},
                  **q4[(4096, 4096, 11008, "w4")],
                  "max_abs_err": max(r["max_abs_err"] for r in
                                     [*q4.values(), *q4_decode.values()]),
@@ -5661,7 +6096,11 @@ def main():
                      "max_abs_err", "ms", "bf16_x_ms", "plain_ms",
                      "library_ms", "bound_ms", "bound_by")}
                      for (m, h, o, mode), r in q4.items()
-                     if mode == "f32" and m == 4096}})
+                     if mode == "f32" and m == 4096},
+                 "tp2_shards": {f"m={m} h={h} o={o}": {k: r[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")}
+                     for (m, h, o, _), r in tp0["q4_check"].items()}})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,11 @@ teacher forcing, and the fused DAgger half with actions drawn on the card,
 with the object-grounding, summarization and FGR2R heads; or the 3D-QA
 answer loss), with AdamW, driven from the command line by ``python -m
 navillm_tpu_torch.train`` (YAML config, validation, model selection,
-checkpoints, resume). Every Llama
+checkpoints, resume), on one card or, under ``torchrun``, over a dp x tp
+grid of cards (parallel/: the LLM split Megatron-style, gradients
+averaged over the data group, ZeRO-1 moments); and the offline view
+features, the EVA02-CLIP and CLIP towers over rendered or simulated views
+into HDF5 (vision/). Every Llama
 layer's attention runs in hand-written CUDA kernels: the forward in
 csrc/flash_attn_fwd.cu, its gradient in csrc/flash_attn_bwd.cu (dK, dV)
 and csrc/flash_attn_bwd_dq.cu (dQ). With the LLM in int4, its layer

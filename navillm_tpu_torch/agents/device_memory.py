@@ -145,11 +145,15 @@ def sample_actions(logits, temperature: float, generator) -> torch.Tensor:
 
 
 def select_actions(logits, a_t_override, do_sample: bool, temperature,
-                   generator) -> torch.Tensor:
+                   generator, tp=None) -> torch.Tensor:
     """argmax (first maximum, as jnp.argmax) or a draw (sample_actions);
-    a_t_override >= 0 wins after either, as in JAX."""
+    a_t_override >= 0 wins after either, as in JAX. tp: the model group
+    of a sharded LLM, whose ranks draw alike (same generator, same
+    logits); rank 0's draw is broadcast all the same."""
     if do_sample:
         a_t = sample_actions(logits, temperature, generator)
+        if tp is not None:
+            a_t = tp.broadcast(a_t)
     else:
         a_t = logits.argmax(-1).int()
     return torch.where(a_t_override >= 0, a_t_override.int(), a_t)
@@ -185,14 +189,15 @@ def eval_step(params, cfg, state: State, pano_in, batch, reset_mask, cur_ids,
     logits, fuse = nav_step_from_memory(params, cfg, state, batch,
                                         pano_embeds)
     a_t = select_actions(logits, a_t_override, do_sample, temperature,
-                         generator)
+                         generator, L.tp_group(params["llm"]))
     state = hist_append(state, fuse,
                         torch.where(active_mask, a_t, torch.full_like(a_t, -1)))
     return state, a_t, logits
 
 
 def init_prefix_cache(llm_cfg, batch: int, max_prefix: int,
-                      kv_int8: bool = False, device=None):
+                      kv_int8: bool = False, device=None,
+                      num_kv_heads: int = None):
     """Per-slot ragged prompt-prefix KV cache: {"pkv_k", "pkv_v"} [L, B,
     max_prefix, NKV, D] in the LLM's dtype, and "plen" [B] int32 (each
     row's valid prefix length). The instruction and history part of the
@@ -200,9 +205,10 @@ def init_prefix_cache(llm_cfg, batch: int, max_prefix: int,
     forwards only the new history tokens and the candidates section.
     kv_int8 stores the values int8, with f32 scales per token and head
     "pkv_ks", "pkv_vs" [L, B, max_prefix, NKV, 1] (llama.kv_quantize):
-    half the bytes."""
-    shape = (llm_cfg.num_layers, batch, max_prefix, llm_cfg.num_kv_heads,
-             llm_cfg.head_dim)
+    half the bytes. num_kv_heads: a sharded LLM's local heads
+    (llama.local_heads), default all."""
+    shape = (llm_cfg.num_layers, batch, max_prefix,
+             num_kv_heads or llm_cfg.num_kv_heads, llm_cfg.head_dim)
     out = {"plen": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if kv_int8:
         sshape = (*shape[:-1], 1)
@@ -358,7 +364,7 @@ def eval_step_cached(params, cfg, state: State, cache, pano_in, batch,
     logits = torch.where(cand_masks, logits, neg)
 
     a_t = select_actions(logits, a_t_override, do_sample, temperature,
-                         generator)
+                         generator, L.tp_group(params["llm"]))
     state = hist_append(state, fuse,
                         torch.where(active_mask, a_t, torch.full_like(a_t, -1)))
     return state, _cache_from_kv(pkv, plen), a_t, logits

@@ -30,6 +30,17 @@ the same way (the fused trainer's phase-2 panorama and its phase-5
 recompute) draws the same dropout masks. A sampled eval step (do_sample)
 draws its actions on the device from a generator on the runner's device,
 seeded the same way, as JAX draws them from a fresh key per call.
+
+Under a mesh plan (``mesh_plan=``, parallel/mesh.py) the runner holds this
+rank's shards of the LLM (sharded at build, after quantizing, as the JAX
+runner shards its tree) and the model group travels with them
+(``model.llm.tp``): the caches are sized by the local heads, ``take_grads``
+averages the gradients over the data group (each rank's loss carries its
+own batch's coefficient, so the average is the gradient of the data
+group's concatenated batch), the token-mean losses count the data group's
+valid tokens, and sampled actions are broadcast from the model group's
+first rank. The W8A8 sampling policy is not available under a plan, as in
+JAX.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import dropout
 from ..models.quant import is_quantized, quantize_nav_params
 from ..models.tokenization import NavTokenizer
+from ..parallel.mesh import flat_specs, nav_param_specs, shard_params
 from . import device_memory as DM
 
 # device graph-memory node capacity (ids beyond it are not memorized)
@@ -108,12 +120,17 @@ class NavModelRunner:
                  device: Optional[torch.device] = None,
                  feat_dropout: float = 0.4, ignore_id: int = -100,
                  seed: int = 0, device_memory: bool = True,
-                 kv_int8: bool = False):
+                 kv_int8: bool = False, mesh_plan=None):
         if cfg.llm.act_int8 and not is_quantized(model):
             raise ValueError("act_int8 needs a quantized LLM: int8 "
                              "activations only run against quantized "
                              "weights (models/llama.py:_mm)")
         self.cfg = cfg
+        self.plan = mesh_plan
+        # {parameter name: partition spec} of the (sharded) tree
+        self.param_specs = {}
+        if mesh_plan is not None:
+            model = self._shard(model, mesh_plan)
         self.model = model
         self.tok = tokenizer
         self.dims = dims
@@ -177,6 +194,20 @@ class NavModelRunner:
         self.sampling_quantizations = 0
         self.sampling_quant_s = 0.0
 
+    def _shard(self, model: NavModel, plan) -> NavModel:
+        """This rank's shards of a whole tree (mesh.shard_params under
+        nav_param_specs), as a NavModel whose LLM carries the model
+        group."""
+        from ..models.quant import weight_bits
+        quantized = is_quantized(model)
+        specs = nav_param_specs(self.cfg, quantized=quantized,
+                                bits=weight_bits(model) if quantized else 8)
+        self.param_specs = flat_specs(specs)
+        with torch.no_grad():
+            local = NavModel(self.cfg, shard_params(model, specs, plan))
+        local.llm.tp = plan.model_group
+        return local
+
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
         non-blocking on CUDA); ``dtype`` casts on the host first."""
@@ -212,9 +243,22 @@ class NavModelRunner:
 
     def take_grads(self) -> Dict[str, torch.Tensor]:
         """Close the window; {name: accumulated gradient} under the JAX
-        names (the .grad tensors themselves, not copies)."""
+        names (the .grad tensors themselves, not copies), averaged over
+        the data group under a plan."""
         self.grads_open = False
-        return {n: p.grad for n, p in self.model.named_parameters()}
+        grads = {n: p.grad for n, p in self.model.named_parameters()}
+        if self.plan is not None and self.plan.dp_size > 1:
+            inv = 1.0 / self.plan.dp_size
+            with torch.no_grad():
+                for g in grads.values():
+                    g.copy_(self.plan.data.all_reduce(g)).mul_(inv)
+        return grads
+
+    def _count_group(self):
+        """The data group of the token-mean losses (None: this batch)."""
+        if self.plan is not None and self.plan.dp_size > 1:
+            return self.plan.data
+        return None
 
     def _pano_dev_inputs(self, pano_inputs) -> Dict[str, torch.Tensor]:
         return {k: (v if torch.is_tensor(v) else self.upload(v))
@@ -336,8 +380,9 @@ class NavModelRunner:
         with torch.enable_grad():
             dev["vp_img_embeds"] = self.pano_apply(
                 pano_dev, self.generator(seed), False)["pano_embeds"]
-            loss = NM.forward_generation_loss(self.model, self.cfg,
-                                              dev)["loss"] * coef
+            loss = NM.forward_generation_loss(
+                self.model, self.cfg, dev,
+                self._count_group())["loss"] * coef
             loss.backward()
         return loss.detach()
 
@@ -441,7 +486,12 @@ class NavModelRunner:
     def prefix_cache_init(self, batch: int, max_prefix: int,
                           kv_int8: bool = False):
         return DM.init_prefix_cache(self.cfg.llm, batch, max_prefix,
-                                    kv_int8=kv_int8, device=self.device)
+                                    kv_int8=kv_int8, device=self.device,
+                                    num_kv_heads=self._local_kv_heads())
+
+    def _local_kv_heads(self) -> int:
+        from ..models.llama import local_heads
+        return local_heads(self.model["llm"], self.cfg.llm)[1]
 
     def prefix_cache_enabled(self, batch: int, max_prefix: int,
                              n_caches: int = 1, kv_int8: bool = False) -> bool:
@@ -462,11 +512,12 @@ class NavModelRunner:
 
     def prefix_cache_bytes(self, batch: int, max_prefix: int,
                            kv_int8: bool = False) -> int:
-        """Bytes of one [L, batch, max_prefix, NKV, D] K and V cache."""
+        """Bytes of one [L, batch, max_prefix, NKV, D] K and V cache (this
+        rank's heads)."""
         c = self.cfg.llm
         itemsize = (1 + 4 / c.head_dim) if kv_int8 else c.dtype.itemsize
-        return int(2 * c.num_layers * batch * max_prefix * c.num_kv_heads
-                   * c.head_dim * itemsize)
+        return int(2 * c.num_layers * batch * max_prefix
+                   * self._local_kv_heads() * c.head_dim * itemsize)
 
     def params_bytes(self) -> int:
         return sum(p.numel() * p.element_size()
@@ -483,8 +534,9 @@ class NavModelRunner:
     # ------------------------------------------ W8A8 sampling policy --- #
     def sampling_quant_available(self) -> bool:
         """The W8A8 policy quantizes the live dense LLM; a tree that is
-        quantized already (evaluation) has none to quantize."""
-        return not is_quantized(self.model)
+        quantized already (evaluation) has none to quantize, and a plan's
+        shards none to hand it (as in JAX)."""
+        return self.plan is None and not is_quantized(self.model)
 
     def _llm_versions(self) -> int:
         """The sum of the LLM leaves' version counters: every in-place
@@ -667,8 +719,9 @@ class NavModelRunner:
         self.grad_calls += 1
         self.gen_grad_calls += 1
         with torch.enable_grad():
-            loss = NM.forward_generation_loss(self.model, self.cfg,
-                                              dev)["loss"] * coef
+            loss = NM.forward_generation_loss(
+                self.model, self.cfg, dev,
+                self._count_group())["loss"] * coef
             loss.backward()
         return float(loss.detach())
 

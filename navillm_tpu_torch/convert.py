@@ -9,6 +9,8 @@
   another device (``device="cpu"``, as the CPU tests do); with no CUDA
   device and none named they raise, rather than build a model that would
   run the eager CPU path with no kernel.
+- ``vit_params_from_jax`` does the same for the ViT of the feature
+  extraction (vision/vit.py keeps the JAX tree's layout).
 - ``flatten_tree`` / ``grads_to_numpy`` name every leaf of a nested tree,
   and every gradient of a model, by its dotted JAX path (``llm.layers.wq``),
   so gradient trees compare leaf by leaf.
@@ -56,6 +58,17 @@ def params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     device = target_device(device)
     return {k: (params_from_jax(v, device) if isinstance(v, dict)
                 else _tensor(v, device)) for k, v in tree.items()}
+
+
+def vit_params_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+    """A JAX ViT tree (navillm_tpu/vision/vit.py: patch_embed, pos_embed,
+    cls_token, ln_pre for clip, ln_post, and the stacked ``layers``) in the
+    port's layout, which keeps the JAX names, shapes and dtypes, on
+    ``device`` (default: the card)."""
+    missing = {"patch_embed", "pos_embed", "ln_post", "layers"} - set(tree)
+    if missing:
+        raise KeyError(f"not a ViT parameter tree: no {sorted(missing)}")
+    return params_from_jax(tree, device)
 
 
 def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:

@@ -152,9 +152,13 @@ def create_dataloaders(args, config, training: bool, world=None,
                     obj_db = obj_feat_dbs.get("soon")
             ds.init_feat_db(feat_dbs[FEAT_KEY[source]], obj_db)
         bs = args.batch_size if training else args.val_batch_size
+        # one shard per rank of the data group: the ranks of a model group
+        # (tp_size consecutive ranks) read the same batches
+        tp = max(getattr(args, "tp_size", 1), 1)
         loaders[source] = (Dataloader(ds, bs, shuffle=training,
-                                      rank=args.rank,
-                                      world_size=args.world_size,
+                                      rank=args.rank // tp,
+                                      world_size=max(args.world_size // tp,
+                                                     1),
                                       seed=args.seed), float(ratio))
         datasets[source] = ds
     return loaders, datasets

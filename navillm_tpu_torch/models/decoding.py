@@ -78,7 +78,7 @@ def prefill(params, cfg: L.LlamaConfig, ids, mask, inject_positions=None,
     in f32, unmasked; the prompt K/V {"k", "v"} [L, B, T, NKV, D])."""
     x = L.embed_with_injection(params, ids, inject_positions, inject_embeds)
     hidden, prompt_kv = L.forward_hidden(params, cfg, x, mask, return_kv=True)
-    last = L._mm(hidden[:, -1], params["lm_head"], cfg.act_int8, cfg.q4_impl)
+    last = L.lm_head(params, cfg, hidden[:, -1])
     return last.float(), prompt_kv
 
 
@@ -111,6 +111,13 @@ def generate(params, cfg: L.LlamaConfig, input_ids, attention_mask, *,
     ids = torch.as_tensor(ids, device=dev).long()
     mask = torch.as_tensor(mask, device=dev)
     b = ids.shape[0]
+    tp = L.tp_group(params)
+
+    def same_draw(t):
+        """A sharded tree's ranks draw alike (same generator, same
+        gathered logits); rank 0's draw is broadcast all the same."""
+        return tp.broadcast(t) if do_sample and tp is not None else t
+
     pick = dict(special_token_mask=special_token_mask, trie=trie,
                 do_sample=do_sample, temperature=temperature,
                 generator=generator)
@@ -120,25 +127,26 @@ def generate(params, cfg: L.LlamaConfig, input_ids, attention_mask, *,
         if kv_int8:
             prompt_kv = L.quantize_kv_stack(prompt_kv)
         state = torch.zeros((b,), dtype=torch.int32, device=dev)
-        tok = pick_token(logits, state, **pick)
+        tok = same_draw(pick_token(logits, state, **pick))
         done = tok == eos_id
         outs = [tok[:, None]]
         prompt_lens = mask.sum(-1)
-        dec_cache = L.init_decode_cache(cfg, b, max_new_tokens, dev)
+        dec_cache = L.init_decode_cache(cfg, b, max_new_tokens, dev,
+                                        L.local_heads(params, cfg)[1])
         for i in range(max_new_tokens - 1):
             if i % STOP_CHECK == 0 and i and bool(done.all()):
                 outs.append(torch.full((b, max_new_tokens - 1 - i), pad_id,
                                        dtype=torch.int32, device=dev))
                 break
-            emb = L.embed_rows(params["embed"], tok.long())[:, None, :]
+            emb = L.embed_rows(params["embed"], tok.long(),
+                               L.tp_group(params))[:, None, :]
             hidden, dec_cache = L.decode_step(
                 params, cfg, emb, prompt_kv, mask, dec_cache, i,
                 (prompt_lens + i)[:, None])
-            logits = L._mm(hidden[:, -1], params["lm_head"], cfg.act_int8,
-                           cfg.q4_impl)
+            logits = L.lm_head(params, cfg, hidden[:, -1])
             if trie is not None:
                 state = trie.advance(state, tok)
-            nxt = pick_token(logits, state, **pick)
+            nxt = same_draw(pick_token(logits, state, **pick))
             outs.append(torch.where(done, pad_id, nxt).int()[:, None])
             done = done | (nxt == eos_id)
             tok = nxt

@@ -15,6 +15,17 @@ CUDA int4 kernel on the card). The prefix cache and the prompt K/V of
 generation may be int8 (``kv_quantize``, per token and head, f32 scales).
 Generation adds the one-token ``decode_step`` over the prompt's K/V and a
 decode region, the LM logits and the causal LM loss.
+
+Tensor parallelism: a tree of local shards (parallel/mesh.py:shard_params
+under ``partition_specs``) carries its model group as ``tp`` (``Llama.tp``;
+``tp_group`` reads it). Each rank then runs its H/tp heads and its columns
+of wq/wk/wv/w_gate/w_up; wo and w_down (split by input row) are followed
+by a sum over the model group, embed (split by vocabulary row) is a masked
+lookup and a sum, lm_head (split by column) gathers the logits. The norms
+are whole on every rank. Under W8A8 the per-token amax of a row-split
+input is a max over the group. Gradients cross the collectives by
+Megatron's rule (parallel/mesh.py: copy_to_model before a column split,
+reduce_from_model after a row split).
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import multi_head_attention
 from ..ops.masking import NEG_INF
 from ..ops.matmul_q4 import matmul_q4, matmul_q4_reference
+from ..parallel.mesh import (copy_to_model, gather_from_model,
+                             reduce_from_model)
 from .params import ParamTree
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
@@ -75,6 +88,57 @@ class LlamaConfig:
         return cls(vocab_size=vocab_size, **kw)
 
 
+def partition_specs(cfg: LlamaConfig, quantized: bool = False,
+                    bits: int = 8) -> Dict[str, Any]:
+    """Partition specs (parallel/mesh.py) of the LLM tree: megatron-style
+    tensor parallelism over the model group, the JAX package's
+    partition_specs as tuples. quantized: the int8 {"q", "s"} leaves (the
+    scale drops the reduction axis's split, which has length 1 there), or
+    with bits=4 the {"q4p", "s"} layer leaves, whose group scales follow
+    the weight's spec (JAX replicates them; the port slices them with the
+    weight, shard_params checks the groups); embed and lm_head are int8 at
+    every bits setting."""
+    col, row = (None, None, "model"), (None, "model", None)
+    specs = {
+        "embed": ("model", None),
+        "layers": {"attn_norm": (None, None), "wq": col, "wk": col,
+                   "wv": col, "wo": row, "mlp_norm": (None, None),
+                   "w_gate": col, "w_up": col, "w_down": row},
+        "final_norm": (None,),
+        "lm_head": (None, "model"),
+    }
+    if not quantized:
+        return specs
+
+    def qspec(spec):
+        s = list(spec)
+        s[-2] = None
+        return {"q": spec, "s": tuple(s)}
+
+    def qspec4(spec):
+        return {"q4p": spec, "s": spec}
+
+    lq = qspec4 if bits == 4 else qspec
+    return {
+        "embed": {"q": specs["embed"], "s": ("model", None)},
+        "layers": {k: (lq(v) if k not in ("attn_norm", "mlp_norm") else v)
+                   for k, v in specs["layers"].items()},
+        "final_norm": specs["final_norm"],
+        "lm_head": qspec(specs["lm_head"]),
+    }
+
+
+def tp_group(params):
+    """The model group a tree of local shards carries (None: whole)."""
+    return getattr(params, "tp", None)
+
+
+def local_heads(params, cfg: LlamaConfig):
+    """(query heads, K/V heads) of this rank's shard."""
+    n = tp_group(params).size if tp_group(params) is not None else 1
+    return cfg.num_heads // n, cfg.num_kv_heads // n
+
+
 def weight_spec(cfg: LlamaConfig) -> Dict[str, Any]:
     """Shapes + init scales of every dense weight (None = fan-in)."""
     h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
@@ -120,10 +184,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def _act_q(x: torch.Tensor):
-    """Per-token int8 activations: (xq int8, sx f32 [..., 1]), x ~= xq*sx."""
+def _act_q(x: torch.Tensor, group=None):
+    """Per-token int8 activations: (xq int8, sx f32 [..., 1]), x ~= xq*sx.
+    group: the model group over which x's features are split (the input
+    of a row-split matmul): the amax is the row's over all of them."""
     xf = x.float()
-    sx = xf.abs().amax(-1, keepdim=True).clamp(min=1e-6) * (1.0 / 127.0)
+    amax = xf.abs().amax(-1, keepdim=True)
+    if group is not None:
+        amax = group.all_reduce(amax, "max")
+    sx = amax.clamp(min=1e-6) * (1.0 / 127.0)
     return torch.round(xf / sx).clamp(-127, 127).to(torch.int8), sx
 
 
@@ -155,26 +224,28 @@ int_mm.padded_calls = 0
 int_mm.padded_rows = 0
 
 
-def _mm(x: torch.Tensor, w, a8: bool = False, q4_impl: str = "auto"):
+def _mm(x: torch.Tensor, w, a8: bool = False, q4_impl: str = "auto",
+        split_in=None):
     """x @ w for a dense weight, an int8 one (``{"q", "s"}``, per output
     channel: ``(x @ q) * s``) or an int4 one (``{"q4p", "s"}``, _mm4). a8
     (cfg.act_int8) quantizes x per token; on int8 weights the product is
     then int8 x int8 -> int32 (``int_mm``), rescaled in f32 by the row's
     and the channel's scales in the JAX order; dense weights ignore a8, as
-    in the JAX code."""
+    in the JAX code. split_in: the model group when x holds this rank's
+    part of the features (a row-split weight; the result is partial)."""
     if isinstance(w, torch.Tensor):
         return x @ w
     if "q4p" in w:
-        return _mm4(x, w, a8, q4_impl)
+        return _mm4(x, w, a8, q4_impl, split_in)
     if a8:
-        xq, sx = _act_q(x)
+        xq, sx = _act_q(x, split_in)
         y = int_mm(xq.reshape(-1, xq.shape[-1]), w["q"])
         y = y.reshape(*xq.shape[:-1], y.shape[-1])
         return (y.float() * sx * w["s"].float()).to(x.dtype)
     return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
 
 
-def _mm4(x: torch.Tensor, w, a8: bool, q4_impl: str):
+def _mm4(x: torch.Tensor, w, a8: bool, q4_impl: str, split_in=None):
     """Group-scaled int4 matmul through matmul_q4 (q4_impl "auto") or its
     plain version ("plain"). w4a8: int8 activations, f32 out, then the
     row scale, as the JAX kernel path does."""
@@ -182,45 +253,48 @@ def _mm4(x: torch.Tensor, w, a8: bool, q4_impl: str):
         raise ValueError(f"unknown q4_impl {q4_impl!r}")
     fn = matmul_q4 if q4_impl == "auto" else matmul_q4_reference
     if a8:
-        xq, sx = _act_q(x)
+        xq, sx = _act_q(x, split_in)
         return (fn(xq, w["q4p"], w["s"]) * sx).to(x.dtype)
     return fn(x, w["q4p"], w["s"], out_dtype=x.dtype)
 
 
-def _qkv(cfg: LlamaConfig, x, lp, cos, sin):
+def _qkv(cfg: LlamaConfig, x, lp, cos, sin, tp=None):
+    """Post-rope q, k, v [B, T, heads, D] of this rank's heads."""
     b, t, _ = x.shape
-    nh, nkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    attn_in = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    d = cfg.head_dim
+    attn_in = copy_to_model(rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps),
+                            tp)
     a8, impl = cfg.act_int8, cfg.q4_impl
-    q = _mm(attn_in, lp["wq"], a8, impl).reshape(b, t, nh, d)
-    k = _mm(attn_in, lp["wk"], a8, impl).reshape(b, t, nkv, d)
-    v = _mm(attn_in, lp["wv"], a8, impl).reshape(b, t, nkv, d)
+    q = _mm(attn_in, lp["wq"], a8, impl).reshape(b, t, -1, d)
+    k = _mm(attn_in, lp["wk"], a8, impl).reshape(b, t, -1, d)
+    v = _mm(attn_in, lp["wv"], a8, impl).reshape(b, t, -1, d)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _post_attn(cfg: LlamaConfig, x, lp, attn):
+def _post_attn(cfg: LlamaConfig, x, lp, attn, tp=None):
     b, t, _ = x.shape
     a8, impl = cfg.act_int8, cfg.q4_impl
-    x = x + _mm(attn.reshape(b, t, cfg.num_heads * cfg.head_dim), lp["wo"],
-                a8, impl)
-    mlp_in = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    x = x + reduce_from_model(_mm(attn.reshape(b, t, -1), lp["wo"], a8,
+                                  impl, tp), tp)
+    mlp_in = copy_to_model(rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps), tp)
     gate = F.silu(_mm(mlp_in, lp["w_gate"], a8, impl))
-    return x + _mm(gate * _mm(mlp_in, lp["w_up"], a8, impl), lp["w_down"],
-                   a8, impl)
+    return x + reduce_from_model(_mm(
+        gate * _mm(mlp_in, lp["w_up"], a8, impl), lp["w_down"], a8, impl,
+        tp), tp)
 
 
 def _layer(cfg: LlamaConfig, x, lp, cos, sin, kv_mask, attn_impl,
-           kv_out=None):
+           kv_out=None, tp=None):
     """One transformer block (causal self-attention over x). kv_out: an
     optional (k, v) pair of [B, T, NKV, D] buffers that receive the
-    post-rope K/V."""
-    q, k, v = _qkv(cfg, x, lp, cos, sin)
+    post-rope K/V. tp: the model group of a sharded tree."""
+    q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
     if kv_out is not None:
         kv_out[0].copy_(k)
         kv_out[1].copy_(v)
     attn = multi_head_attention(q, k, v, kv_mask=kv_mask, causal=True,
                                 impl=attn_impl)
-    return _post_attn(cfg, x, lp, attn)
+    return _post_attn(cfg, x, lp, attn, tp)
 
 
 class _StackSlice(torch.autograd.Function):
@@ -279,23 +353,24 @@ def forward_hidden(params, cfg: LlamaConfig, inputs_embeds, attention_mask,
         positions = positions.clamp(min=0)
     cos, sin = rope_tables(cfg, positions)
     x = inputs_embeds.to(cfg.dtype)
+    tp = tp_group(params)
     layers = params["layers"]
     n_layers = layers["attn_norm"].shape[0]
     kv = None
     if return_kv:
         b, t, _ = x.shape
-        shape = (n_layers, b, t, cfg.num_kv_heads, cfg.head_dim)
+        shape = (n_layers, b, t, local_heads(params, cfg)[1], cfg.head_dim)
         kv = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
     remat = cfg.remat and torch.is_grad_enabled() and not return_kv
     for i in range(n_layers):
         lp = _layer_weights(layers, i)
         if remat:
             x = checkpoint(_layer, cfg, x, lp, cos, sin, attention_mask,
-                           cfg.attn_impl, use_reentrant=False,
+                           cfg.attn_impl, None, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
             x = _layer(cfg, x, lp, cos, sin, attention_mask, cfg.attn_impl,
-                       (kv["k"][i], kv["v"][i]) if return_kv else None)
+                       (kv["k"][i], kv["v"][i]) if return_kv else None, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return (x, kv) if return_kv else x
 
@@ -375,6 +450,7 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
     kv_mask = torch.cat([prefix_mask[:, None, :].expand(b, s, p), sm], dim=-1)
 
     x = inputs_embeds.to(cfg.dtype)
+    tp = tp_group(params)
     if write_offsets is not None:
         # only the first min(S, P) columns can land below P. Their slots
         # (off + j) mod P are distinct within a row, and equal off + j
@@ -400,7 +476,7 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
     for i in range(layers["attn_norm"].shape[0]):
         lp = _layer_weights(layers, i)
         pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
         if write_offsets is not None:
             if quant:
                 pks, pvs = prefix_kv["ks"][i], prefix_kv["vs"][i]
@@ -422,17 +498,18 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
         vals = torch.cat([pv.to(v.dtype), v], dim=1)
         attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
                                     causal=False, impl="eager")
-        x = _post_attn(cfg, x, lp, attn)
+        x = _post_attn(cfg, x, lp, attn, tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), prefix_kv
 
 
 def init_decode_cache(cfg: LlamaConfig, batch_size: int, max_new: int,
-                      device=None):
+                      device=None, num_kv_heads: Optional[int] = None):
     """The decode region {"k", "v"} [L, B, max_new, NKV, D]: only the
     generated tokens' K/V live here; the prompt's stay in the read-only
-    stack of forward_hidden(return_kv=True)."""
-    shape = (cfg.num_layers, batch_size, max_new, cfg.num_kv_heads,
-             cfg.head_dim)
+    stack of forward_hidden(return_kv=True). num_kv_heads: a shard's
+    (local_heads), default all."""
+    shape = (cfg.num_layers, batch_size, max_new,
+             num_kv_heads or cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
 
@@ -459,10 +536,11 @@ def decode_step(params, cfg: LlamaConfig, inputs_embeds, prompt_kv,
     dec_mask = (torch.arange(n_dec, device=dev) <= step_index)[None, :]
     kv_mask = torch.cat([prompt_mask, dec_mask.expand(b, n_dec)], dim=1)
     x = inputs_embeds.to(cfg.dtype)
+    tp = tp_group(params)
     layers = params["layers"]
     for i in range(layers["attn_norm"].shape[0]):
         lp = _layer_weights(layers, i)
-        q, k, v = _qkv(cfg, x, lp, cos, sin)
+        q, k, v = _qkv(cfg, x, lp, cos, sin, tp)
         dk, dv = dec_cache["k"][i], dec_cache["v"][i]
         dk[:, step_index] = k[:, 0]
         dv[:, step_index] = v[:, 0]
@@ -474,36 +552,49 @@ def decode_step(params, cfg: LlamaConfig, inputs_embeds, prompt_kv,
         vals = torch.cat([pv, dv], dim=1).to(v.dtype)
         attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
                                     causal=False, impl="eager")
-        x = _post_attn(cfg, x, lp, attn)
+        x = _post_attn(cfg, x, lp, attn, tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), dec_cache
+
+
+def lm_head(params, cfg: LlamaConfig, hidden):
+    """hidden @ lm_head in the matmul's dtype; a column-split lm_head
+    gathers every rank's columns."""
+    tp = tp_group(params)
+    return gather_from_model(_mm(copy_to_model(hidden, tp), params["lm_head"],
+                                 cfg.act_int8, cfg.q4_impl), tp)
 
 
 def logits_from_hidden(params, cfg: LlamaConfig, hidden,
                        special_token_mask=None):
     """LM logits in f32, special-token columns (a [vocab] bool mask) at
-    NEG_INF."""
-    logits = _mm(hidden, params["lm_head"], cfg.act_int8,
-                 cfg.q4_impl).float()
+    NEG_INF. A column-split lm_head gathers every rank's columns."""
+    logits = lm_head(params, cfg, hidden).float()
     if special_token_mask is not None:
         logits = logits.masked_fill(special_token_mask, NEG_INF)
     return logits
 
 
-def causal_lm_loss(logits, labels, ignore_id: int = -100):
-    """Shifted mean cross-entropy over the labels != ignore_id."""
+def causal_lm_loss(logits, labels, ignore_id: int = -100, group=None):
+    """Shifted mean cross-entropy over the labels != ignore_id. group: a
+    data group (parallel/mesh.py) whose ranks hold the other rows of the
+    batch: the mean is over the valid labels of all of them (summed over
+    the group), so the ranks' averaged gradients are the whole batch's."""
     shift_labels = labels[:, 1:]
     valid = shift_labels != ignore_id
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -logp.gather(-1, shift_labels.clamp(min=0).long()[..., None])[..., 0]
     total = torch.where(valid, nll, torch.zeros((), device=nll.device)).sum()
-    return total / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if group is not None:
+        count = group.all_reduce(count)
+    return total / count.clamp(min=1)
 
 
 def embed_with_injection(params, input_ids, special_positions=None,
                          special_embeds=None):
     """inputs_embeds = embed[ids], plus special_embeds [B, K, H] added at
     token positions special_positions [B, K] (-1 = unused slot)."""
-    x = embed_rows(params["embed"], input_ids.long())
+    x = embed_rows(params["embed"], input_ids.long(), tp_group(params))
     if special_positions is not None:
         b, k = special_positions.shape
         valid = special_positions >= 0
@@ -515,16 +606,33 @@ def embed_with_injection(params, input_ids, special_positions=None,
     return x
 
 
-def embed_rows(embed, ids: torch.Tensor) -> torch.Tensor:
-    """Lookup in a dense table or an int8 per-row one ({"q", "s" [V, 1]})."""
+def embed_rows(embed, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """Lookup in a dense table or an int8 per-row one ({"q", "s" [V, 1]}).
+    tp: the model group of a table split by vocabulary row: each rank
+    looks up the ids in its rows (zero elsewhere) and the group sums."""
+    if tp is None:
+        return _lookup(embed, ids)
+    rows = (embed if isinstance(embed, torch.Tensor) else embed["q"]) \
+        .shape[0]
+    local = ids - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = _lookup(embed, local.clamp(0, rows - 1))
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return reduce_from_model(x, tp)
+
+
+def _lookup(embed, ids):
     if isinstance(embed, torch.Tensor):
         return embed[ids]
     return embed["q"][ids].to(embed["s"].dtype) * embed["s"][ids]
 
 
 def lm_head_dim(params) -> int:
+    """The vocabulary width of the logits (all ranks' columns)."""
     w = params["lm_head"]
-    return (w if isinstance(w, torch.Tensor) else w["q"]).shape[-1]
+    n = tp_group(params).size if tp_group(params) is not None else 1
+    return (w if isinstance(w, torch.Tensor) else w["q"]).shape[-1] * n
 
 
 class Llama(ParamTree):
@@ -532,9 +640,11 @@ class Llama(ParamTree):
     names of ``weight_spec`` plus ``attn_norm``/``mlp_norm``),
     ``final_norm`` and ``lm_head``."""
 
-    def __init__(self, cfg: LlamaConfig, params: Dict[str, Any]):
+    def __init__(self, cfg: LlamaConfig, params: Dict[str, Any], tp=None):
         super().__init__(params)
         self.cfg = cfg
+        # the model group when the leaves are local shards
+        self.tp = tp
 
     def forward(self, inputs_embeds, attention_mask, positions=None):
         return forward_hidden(self, self.cfg, inputs_embeds, attention_mask,

@@ -145,13 +145,16 @@ def prep_generation_embeds(params, cfg: NavModelConfig, vp_img_embeds,
     return torch.where(vp_masks[..., None], x, _zero(x))
 
 
-def forward_generation_loss(params, cfg: NavModelConfig, batch):
+def forward_generation_loss(params, cfg: NavModelConfig, batch,
+                            count_group=None):
     """Teacher-forced LM loss of summarization / EQA / FGR2R (twin of the
     JAX forward_generation_loss). batch: input_ids, attention_mask, labels
     [B, T] (-100 ignored), cand_positions [B, C], hist_positions [B, Hh],
     hist_embeds [B, Hh, H], special_token_mask [vocab] bool, and either
     cand_embeds [B, C, H] or vp_img_embeds [B, V, H] + vp_masks [B, V]
     (fused here by prep_generation_embeds; the valid views are a prefix).
+    count_group: the data group whose ranks' batches together make the
+    step's batch (the token mean is over all of their valid tokens).
     Returns {"loss": scalar, "logits": [B, T, vocab] f32}."""
     c = batch["cand_positions"].shape[1]
     if "cand_embeds" in batch:
@@ -168,7 +171,8 @@ def forward_generation_loss(params, cfg: NavModelConfig, batch):
                               batch["attention_mask"])
     logits = L.logits_from_hidden(params["llm"], cfg.llm, hidden,
                                   batch.get("special_token_mask"))
-    return {"loss": L.causal_lm_loss(logits, batch["labels"]),
+    return {"loss": L.causal_lm_loss(logits, batch["labels"],
+                                     group=count_group),
             "logits": logits}
 
 

@@ -57,7 +57,8 @@ class PanoConfig:
 
 
 def layer_norm(x, scale, bias, eps=1e-12):
-    xf = x.float()
+    """In f32 (f64 for f64 inputs), rounded back to x's dtype."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, correction=0)
     y = (xf - mu) * torch.rsqrt(var + eps)

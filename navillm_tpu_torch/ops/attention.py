@@ -43,9 +43,11 @@ def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _scores(q, k, kv_mask, causal, scale):
-    """Masked f32 scores [B, NH, T, S] (k already GQA-expanded)."""
+    """Masked scores [B, NH, T, S] in f32, or f64 for f64 inputs (k
+    already GQA-expanded)."""
     t, s = q.shape[1], k.shape[1]
-    scores = torch.einsum("btnd,bsnd->bnts", q.float(), k.float()) * scale
+    dt = torch.promote_types(q.dtype, torch.float32)
+    scores = torch.einsum("btnd,bsnd->bnts", q.to(dt), k.to(dt)) * scale
     if kv_mask is not None:
         if kv_mask.dim() == 2:
             kv_mask = kv_mask[:, None, :]

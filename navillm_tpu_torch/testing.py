@@ -10,7 +10,8 @@ ids that ``aug_decoder`` reads, and ``.json``); ``r2r_eval``,
 ``eqa_eval``, ``reverie_eval``, ``soon_eval``, ``cvdn_eval`` and
 ``scanqa_eval`` wire the port's evaluation over it, ``r2r_train`` its
 teacher-forcing training, and ``feature_dbs`` the synthetic stores of
-every task.
+every task. ``spawn_gloo`` runs a function in N processes joined by a
+gloo process group (the multi-process tests and rehearsals on the CPU).
 """
 from __future__ import annotations
 
@@ -597,3 +598,42 @@ def synthetic_nav_batch(cfg, b: int = 2, g: int = 12, v: int = 8, c: int = 8,
         "attention_mask": np.ones((b, tlen), bool),
         "cls_pos": np.full((b,), tlen - 1, np.int32),
     }
+
+
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _gloo_entry(rank, nprocs, port, fn, out_dir, args):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=nprocs)
+    try:
+        result = fn(rank, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, Path(out_dir) / f"rank{rank}.pt")
+
+
+def spawn_gloo(fn, nprocs: int, *args):
+    """[fn(rank, *args) for each rank] from ``nprocs`` spawned processes
+    joined by a gloo process group over localhost (one thread each).
+    ``fn`` must be importable by name (a module-level function) and its
+    result picklable by torch.save; a rank's exception is raised here."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as out:
+        mp.start_processes(_gloo_entry, args=(nprocs, free_port(), fn, out,
+                                              args),
+                           nprocs=nprocs, join=True, start_method="spawn")
+        return [torch.load(Path(out) / f"rank{r}.pt", weights_only=False)
+                for r in range(nprocs)]

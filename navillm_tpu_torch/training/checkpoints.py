@@ -24,6 +24,13 @@ place, beside a JSON header {"epoch", "backend", "has_opt"}:
     bf16 kept as bf16 (a 7B tree is ~13.5 GB, not 27), read back through
     a memory map. The JAX package writes orbax there, which the port
     cannot read: restoring an orbax checkpoint raises.
+
+Under a mesh plan (parallel/mesh.py) the live tensors are shards: the
+model group's split of each LLM leaf (``specs``) and, for the moments,
+ZeRO-1's slice over the data group (the optimizer's ``layout``). Saving
+gathers every tensor whole (all ranks take part) and rank 0 writes the
+file a single-card run writes; loading reads the whole file on every rank
+and copies each rank's slices, after a barrier.
 """
 from __future__ import annotations
 
@@ -69,6 +76,43 @@ def flat_state(params, opt_state=None) -> Dict[str, torch.Tensor]:
     return flat
 
 
+def _layouts(params, opt_state, specs) -> Dict[str, Any]:
+    """{flat key: (spec, zero1 axis)} of every sharded tensor."""
+    specs = specs or {}
+    out = {_key("params", n): (tuple(specs.get(n, ())), None)
+           for n in _named(params)}
+    if opt_state is not None:
+        for field, tree in opt_state.state_trees().items():
+            for n, t in tree.items():
+                if t.dim():                 # 0-d scales are whole
+                    out[_key(OPT_STATE + field, n)] = opt_state.layout[n]
+    return out
+
+
+def _gather(t: torch.Tensor, layout, plan) -> torch.Tensor:
+    """A shard made whole: the data group's ZeRO-1 slices, then the model
+    group's split."""
+    from ..parallel.mesh import tp_axis
+    spec, zax = layout
+    if zax is not None and plan.dp_size > 1:
+        t = plan.data.all_gather(t, dim=zax)
+    ax = tp_axis(spec)
+    if ax is not None and plan.tp_size > 1:
+        t = plan.model.all_gather(t, dim=ax)
+    return t
+
+
+def _slice(t: torch.Tensor, layout, plan) -> torch.Tensor:
+    """This rank's shard of a whole tensor (the inverse of _gather)."""
+    from ..parallel.mesh import local_slice
+    spec, zax = layout
+    t = local_slice(t, spec, plan)
+    if zax is not None and plan.dp_size > 1:
+        k = t.shape[zax] // plan.dp_size
+        t = t.narrow(zax, plan.dp_rank * k, k)
+    return t
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     if t.dtype == torch.bfloat16:
@@ -77,17 +121,24 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def save_checkpoint(path, params, opt_state=None, epoch: Optional[int] = None,
-                    backend: str = "auto"):
+                    backend: str = "auto", plan=None, specs=None):
     """Write ``path``.npz or ``path``.pt and ``path``.json. ``params``: a
     ParamTree or {dotted name: tensor}; ``opt_state``: the port's AdamW or
-    AdamQ8."""
+    AdamQ8. Under a ``plan`` every rank calls it with its shards and the
+    parameters' {name: spec} ``specs``; rank 0 writes the whole tensors."""
     path = Path(path)
+    flat = flat_state(params, opt_state)
+    if plan is not None and plan.world_size > 1:
+        lay = _layouts(params, opt_state, specs)
+        flat = {k: (_gather(v, lay[k], plan) if k in lay else v)
+                for k, v in flat.items()}
+        if plan.rank != 0:
+            return
     path.parent.mkdir(parents=True, exist_ok=True)
     if backend == "auto":
-        nbytes = sum(p.numel() * p.element_size()
-                     for p in _named(params).values())
+        nbytes = sum(v.numel() * v.element_size() for k, v in flat.items()
+                     if k.startswith("params" + SEP))
         backend = "torch" if nbytes >= TORCH_THRESHOLD_BYTES else "npz"
-    flat = flat_state(params, opt_state)
     header: Dict[str, Any] = {"epoch": epoch, "backend": backend}
     if opt_state is not None:
         header["has_opt"] = True
@@ -118,9 +169,10 @@ def _as_tensor(x) -> torch.Tensor:
 
 
 def _restore_into(live: Dict[str, torch.Tensor], flat, prefix: str,
-                  logger=None):
+                  logger=None, plan=None, layouts=None):
     """Copy flat entries into the live tensors in place, casting to their
-    dtype and device; entries whose shape differs are skipped and logged."""
+    dtype and device (under a plan, this rank's slice of each); entries
+    whose shape differs are skipped and logged."""
     skipped = []
     with torch.no_grad():
         for name, t in live.items():
@@ -128,6 +180,8 @@ def _restore_into(live: Dict[str, torch.Tensor], flat, prefix: str,
             if key not in flat:
                 continue
             src = flat[key]
+            if plan is not None and key in (layouts or {}):
+                src = _slice(_as_tensor(src), layouts[key], plan)
             if tuple(src.shape) != tuple(t.shape):
                 skipped.append((key, tuple(src.shape), tuple(t.shape)))
                 continue
@@ -139,11 +193,17 @@ def _restore_into(live: Dict[str, torch.Tensor], flat, prefix: str,
     return skipped
 
 
-def load_checkpoint(path, params, opt_state=None, logger=None
-                    ) -> Tuple[Any, Any, int]:
+def load_checkpoint(path, params, opt_state=None, logger=None, plan=None,
+                    specs=None) -> Tuple[Any, Any, int]:
     """Restore into ``params`` (and the optimizer's ``opt_state``) in place.
-    Returns (params, opt_state, resume_from_epoch)."""
+    Under a ``plan`` (with the parameters' ``specs``) each rank copies its
+    slices of the whole file. Returns (params, opt_state,
+    resume_from_epoch)."""
     path = Path(path)
+    if plan is not None and plan.world_size > 1:
+        import torch.distributed as dist
+        dist.barrier()
+    lay = _layouts(params, opt_state, specs) if plan is not None else None
     header = {}
     if path.with_suffix(".json").exists():
         header = json.loads(path.with_suffix(".json").read_text())
@@ -166,11 +226,11 @@ def load_checkpoint(path, params, opt_state=None, logger=None
     else:
         raise FileNotFoundError(f"no checkpoint at {path}")
 
-    _restore_into(_named(params), flat, "params", logger)
+    _restore_into(_named(params), flat, "params", logger, plan, lay)
     if opt_state is not None and OPT_COUNT in flat:
         opt_state.count = int(_as_tensor(flat[OPT_COUNT]))
         for field, tree in opt_state.state_trees().items():
-            _restore_into(tree, flat, OPT_STATE + field, logger)
+            _restore_into(tree, flat, OPT_STATE + field, logger, plan, lay)
     epoch = header.get("epoch")
     return params, opt_state, (epoch + 1) if epoch is not None else 0
 

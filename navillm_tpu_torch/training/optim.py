@@ -22,6 +22,17 @@ The port's layer weights are stacked ``[L, ...]`` (at 7B ``w_gate`` is
 1.44 G elements), so a leaf is updated in slices of whole rows of its last
 axis, ``_SLICE_ELEMENTS`` at a time, and the f32 transients stay at a few
 slices (~64 MB each) whatever the leaf's size.
+
+Under a mesh plan (parallel/mesh.py) the parameters are this rank's
+shards and the gradients are already averaged over the data group
+(runner.take_grads). ``set_plan`` gives the optimizer the leaves' specs:
+the clip's global norm then sums the model-split leaves' squares over
+the model group (the replicated ones count once), and ``shard_zero1``
+(ZeRO-1) keeps each large leaf's moments for this rank's slice along
+``mesh.zero1_axis`` only: the step updates that slice of the parameter
+and the data group all-gathers the updated parameter. ``layout`` says,
+for every leaf, which axes are split, so checkpoints gather and re-slice
+the state (training/checkpoints.py).
 """
 from __future__ import annotations
 
@@ -29,6 +40,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import tp_axis, zero1_axis
 
 
 def constant_with_warmup(lr: float, num_warmup_steps: int
@@ -43,12 +56,20 @@ def constant_with_warmup(lr: float, num_warmup_steps: int
     return sched
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, split=None, group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in f32, on the
-    device (no host sync)."""
+    device (no host sync). split: one flag per gradient, True where it is
+    this rank's shard of a leaf the model ``group`` splits: those squares
+    are summed over the group, the others counted once."""
+    grads = list(grads)
     sq = [torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
           for g in grads]
-    return torch.stack(sq).sum().sqrt()
+    if split is None or group is None:
+        return torch.stack(sq).sum().sqrt()
+    zero = torch.zeros((), device=sq[0].device)
+    part = sum((q for q, f in zip(sq, split) if f), zero)
+    rest = sum((q for q, f in zip(sq, split) if not f), zero)
+    return (group.all_reduce(part) + rest).sqrt()
 
 
 class AdamW:
@@ -67,12 +88,69 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.count = 0
+        # under a plan: {name: (spec, zero1 axis or None)}
+        self.plan = None
+        self.layout = {n: ((), None) for n in params}
         with torch.no_grad():
             self._init_moments()
 
+    # ------------------------------------------------ plan and ZeRO-1 --- #
+    def set_plan(self, plan, specs):
+        """The mesh plan and {name: spec} of the (sharded) parameters."""
+        self.plan = plan
+        self.layout = {n: (tuple(specs.get(n, ())), None)
+                       for n in self.params}
+
+    def _zero_group(self, n: str):
+        """The 8-bit store's group along the last axis (None: AdamW)."""
+        return None
+
+    def shard_zero1(self, plan, min_size: int = 1 << 16):
+        """ZeRO-1: the moments of every leaf with a zero1_axis keep only
+        this rank's slice over the data group (made anew: call before the
+        first step; a resume restores into the slices)."""
+        if self.plan is None:
+            self.plan = plan
+        for n, p in self.params.items():
+            spec, _ = self.layout[n]
+            ax = zero1_axis(p.shape, spec, plan.dp_size, min_size,
+                            plan.tp_size, self._zero_group(n))
+            self.layout[n] = (spec, ax)
+        with torch.no_grad():
+            self._init_moments()
+
+    def _local(self, n: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-1 slice of a parameter-shaped tensor (a view),
+        or the tensor."""
+        ax = self.layout[n][1]
+        if ax is None:
+            return t
+        k = t.shape[ax] // self.plan.dp_size
+        return t.narrow(ax, self.plan.dp_rank * k, k)
+
+    def _shape(self, n: str, p: torch.Tensor):
+        return tuple(self._local(n, p).shape)
+
+    def _norm(self, grads) -> torch.Tensor:
+        names = list(self.params)
+        if self.plan is None or self.plan.tp_size == 1:
+            return global_norm(grads[n] for n in names)
+        return global_norm((grads[n] for n in names),
+                           [tp_axis(self.layout[n][0]) is not None
+                            for n in names], self.plan.model)
+
+    def _gather(self, n: str, p: torch.Tensor, local: torch.Tensor):
+        """Write the data group's updated slices into the whole parameter
+        (a no-op for a leaf without a ZeRO-1 axis)."""
+        ax = self.layout[n][1]
+        if ax is not None:
+            p.copy_(self.plan.data.all_gather(local.contiguous(), dim=ax))
+
     def _init_moments(self):
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.mu = {n: torch.zeros(self._shape(n, p), dtype=p.dtype,
+                                  device=p.device)
+                   for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(m) for n, m in self.mu.items()}
 
     def state_trees(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The moment store under the field names of optax's state
@@ -85,7 +163,7 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        norm = global_norm(grads[n] for n in self.params)
+        norm = self._norm(grads)
         # optax's rule: scale by max/norm only when norm >= max
         factor = torch.where(norm < self.grad_clip_norm,
                              torch.ones_like(norm),
@@ -94,8 +172,9 @@ class AdamW:
         self.count += 1
         bc1 = 1.0 - self.b1 ** self.count
         bc2 = 1.0 - self.b2 ** self.count
-        for n, p in self.params.items():
-            g = grads[n].mul_(factor)
+        for n, p_all in self.params.items():
+            p = self._local(n, p_all)
+            g = self._local(n, grads[n]).mul_(factor)
             m, v = self.mu[n], self.nu[n]
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
@@ -103,6 +182,7 @@ class AdamW:
             if self.weight_decay:
                 upd.add_(p, alpha=self.weight_decay)
             p.add_(upd, alpha=-lr)
+            self._gather(n, p_all, p)
         return norm
 
 
@@ -176,20 +256,43 @@ class AdamQ8(AdamW):
     (f32 group scales, or a 0-d zero), ``qv`` (uint8 codes or f32) and
     ``vs``."""
 
+    def _zero_group(self, n: str):
+        p = self.params[n]
+        return _group_size(p.shape[-1]) if _quantized_leaf(p) else None
+
+    def set_plan(self, plan, specs):
+        """As AdamW's; a model split of the last axis must keep the 8-bit
+        groups of the whole leaf inside each shard."""
+        super().set_plan(plan, specs)
+        for n, p in self.params.items():
+            ax = tp_axis(self.layout[n][0])
+            if plan.tp_size > 1 and _quantized_leaf(p) and ax is not None \
+                    and ax % p.dim() == p.dim() - 1:
+                whole = p.shape[-1] * plan.tp_size
+                if p.shape[-1] % _group_size(whole):
+                    raise NotImplementedError(
+                        f"8-bit Adam moments of {n}: the model split leaves "
+                        f"{p.shape[-1]} of {whole} columns per rank, which "
+                        f"cuts the {_group_size(whole)}-wide groups; use "
+                        f"AdamW (no --adam_8bit) at this tp_size")
+        with torch.no_grad():
+            self._init_moments()
+
     def _init_moments(self):
         self.qm, self.ms, self.qv, self.vs = {}, {}, {}, {}
         for n, p in self.params.items():
             kw = dict(device=p.device)
+            shape = self._shape(n, p)
             if _quantized_leaf(p):
                 g = _group_size(p.shape[-1])
-                scales = (*p.shape[:-1], p.shape[-1] // g)
-                self.qm[n] = torch.zeros(p.shape, dtype=torch.int8, **kw)
-                self.qv[n] = torch.zeros(p.shape, dtype=torch.uint8, **kw)
+                scales = (*shape[:-1], shape[-1] // g)
+                self.qm[n] = torch.zeros(shape, dtype=torch.int8, **kw)
+                self.qv[n] = torch.zeros(shape, dtype=torch.uint8, **kw)
                 self.ms[n] = torch.ones(scales, **kw)
                 self.vs[n] = torch.ones(scales, **kw)
             else:
-                self.qm[n] = torch.zeros(p.shape, **kw)
-                self.qv[n] = torch.zeros(p.shape, **kw)
+                self.qm[n] = torch.zeros(shape, **kw)
+                self.qv[n] = torch.zeros(shape, **kw)
                 self.ms[n] = torch.zeros((), **kw)
                 self.vs[n] = torch.zeros((), **kw)
 
@@ -198,7 +301,7 @@ class AdamQ8(AdamW):
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        norm = global_norm(grads[n] for n in self.params)
+        norm = self._norm(grads)
         clip = norm < self.grad_clip_norm
         scale = np.float32(-self.lr_schedule(self.count))
         lr_scale = {dt: torch.tensor(scale, dtype=dt, device=norm.device)
@@ -208,8 +311,13 @@ class AdamQ8(AdamW):
         bc1, bc2 = (float(np.float32(1.0) - np.float32(b)
                           ** np.float32(self.count))
                     for b in (self.b1, self.b2))
-        for n, p in self.params.items():
-            g = grads[n]
+        for n, p_all in self.params.items():
+            # a ZeRO-1 slice is updated in a contiguous copy, then gathered
+            zero = self.layout[n][1] is not None
+            p = self._local(n, p_all)
+            g = self._local(n, grads[n])
+            if zero:
+                p, g = p.contiguous(), g.contiguous()
             last = p.shape[-1] if p.dim() else 1
             rows = p.numel() // max(last, 1)
             step = max(1, _SLICE_ELEMENTS // max(last, 1))
@@ -249,6 +357,7 @@ class AdamQ8(AdamW):
                 if self.weight_decay:
                     upd = upd + self.weight_decay * pr
                 pr.add_(lr_scale[upd.dtype] * upd)
+            self._gather(n, p_all, p)
         return norm
 
 

@@ -29,10 +29,16 @@ Torch twin of navillm_tpu/training/train_loop.py (reference train.py:
   - ``calc_overall_score``: task-weighted SPL model selection;
   - ``run_training``: the epoch loop with best-score checkpoint retention
     (max_saved_checkpoints), pretrain-stage periodic saves, latest-state
-    saves and resume (training/checkpoints.py). The mesh and ZeRO-1 of the
-    JAX driver are ROADMAP A10: dp_size, tp_size or world_size above 1
-    raises, as does any flag of a path not ported yet
-    (utils/config.check_ported).
+    saves and resume (training/checkpoints.py). A flag of a path not
+    ported raises (utils/config.check_ported);
+  - ``build_mesh_plan``: with more than one process (torchrun, one per
+    card) or --tp_size above 1, the (data, model) grid of
+    parallel/mesh.py: each rank of a data group reads its own shard of
+    every loader (--batch_size is per card), the LLM is split over the
+    model group, gradients are averaged over the data group, the moments
+    are ZeRO-1 slices (--zero1, the default), validation predictions are
+    gathered on rank 0, and rank 0 logs and writes the checkpoints (every
+    rank takes part in gathering them).
 """
 from __future__ import annotations
 
@@ -54,7 +60,9 @@ from ..models.convert import config_from_hf, load_vicuna, read_hf_config
 from ..models.nav_model import NavModel, NavModelConfig
 from ..models.pano_encoder import PanoConfig
 from ..models.tokenization import NavTokenizer
-from ..parallel.dist import all_gather_objects, merge_dist_results
+from ..parallel.dist import (all_gather_objects, init_distributed,
+                             merge_dist_results)
+from ..parallel.mesh import make_mesh, zero1_shard_opt_state
 from ..sim.env import WorldModel
 from ..utils.config import check_ported
 from .checkpoints import (checkpoint_exists, load_checkpoint,
@@ -62,12 +70,57 @@ from .checkpoints import (checkpoint_exists, load_checkpoint,
 from .optim import make_optimizer
 
 
-def check_single_card(args):
-    if args.dp_size > 1 or args.tp_size > 1 or args.world_size > 1:
-        raise NotImplementedError(
-            f"data/tensor parallelism (dp_size={args.dp_size}, tp_size="
-            f"{args.tp_size}, world_size={args.world_size}) is not ported "
-            f"yet (ROADMAP A10): the port trains on one card")
+def build_mesh_plan(args, logger=None):
+    """The (data, model) grid over the processes (joining torchrun's
+    process group first, unless the caller has: it may name the backend
+    through parallel.dist.init_distributed); None for one process without
+    tensor parallelism. Sets args.rank, world_size, dp_size and tp_size
+    from the plan."""
+    import torch.distributed as dist
+    init_distributed()
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if n <= 1 and args.tp_size <= 1:
+        return None
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    plan = make_mesh(dp_size=args.dp_size, tp_size=args.tp_size,
+                     device=device)
+    args.rank, args.world_size = plan.rank, plan.world_size
+    args.dp_size, args.tp_size = plan.dp_size, plan.tp_size
+    if logger is not None:
+        logger.info(plan.describe())
+    return plan
+
+
+def _data_rank(args) -> int:
+    """This rank's index in its data group (rank // tp_size)."""
+    return args.rank // max(args.tp_size, 1)
+
+
+def _from_rank0(obj, plan):
+    """Rank 0's ``obj`` on every rank (one process: obj)."""
+    if plan is None:
+        return obj
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _dedupe(preds):
+    """The merged predictions with each episode once (the loaders pad
+    every rank's shard to one length by repeating episodes)."""
+    seen, out = set(), []
+    for p in preds:
+        key = p.get("instr_id") if isinstance(p, dict) else None
+        if key is not None:
+            if key in seen:
+                continue
+            seen.add(key)
+        out.append(p)
+    return out
 
 
 class Metrics:
@@ -190,12 +243,14 @@ def full_config(args, llm_cfg: L.LlamaConfig) -> NavModelConfig:
                           angle_feat_size=args.angle_feat_size)
 
 
-def build_runner(args, cfg, logger=None) -> NavModelRunner:
-    """Tokenizer + model on ``args.device``. With a pretrained path: its
-    tokenizer and its weights (or, with --from_scratch or
-    --resume_from_checkpoint, its architecture with random weights) and
-    full_config; without one, the byte tokenizer and tiny_config. Random
-    weights come from ``args.seed``."""
+def build_runner(args, cfg, logger=None, mesh_plan=None) -> NavModelRunner:
+    """Tokenizer + model on ``args.device`` (a plan's device under one).
+    With a pretrained path: its tokenizer and its weights (or, with
+    --from_scratch or --resume_from_checkpoint, its architecture with
+    random weights) and full_config; without one, the byte tokenizer and
+    tiny_config. Random weights come from ``args.seed`` (every rank draws
+    the same tree and keeps its shards); dropout from args.seed plus the
+    data-group rank."""
     if args.quantize_llm and args.mode != "test":
         raise ValueError("--quantize_llm is eval-only: int8 weights are "
                          "not differentiable (models/quant.py)")
@@ -203,7 +258,8 @@ def build_runner(args, cfg, logger=None) -> NavModelRunner:
         raise ValueError("--act_int8 needs --quantize_llm: int8 "
                          "activations run against quantized weights "
                          "(models/llama.py:_mm)")
-    device = torch.device(args.device)
+    device = mesh_plan.device if mesh_plan is not None \
+        else torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port trains on the card; "
                            "pass --device cpu to run on the CPU")
@@ -245,8 +301,9 @@ def build_runner(args, cfg, logger=None) -> NavModelRunner:
         logger.info("model initialized with %.2f M parameters" % (n / 1e6))
     return NavModelRunner(nav_cfg, model, tok, device=device,
                           feat_dropout=args.feat_dropout,
-                          ignore_id=args.ignoreid, seed=args.seed,
-                          kv_int8=args.kv_int8)
+                          ignore_id=args.ignoreid,
+                          seed=args.seed + _data_rank(args),
+                          kv_int8=args.kv_int8, mesh_plan=mesh_plan)
 
 
 def build_world_and_data(args, cfg, training: bool, stage: str, world=None,
@@ -281,8 +338,10 @@ def val_one_epoch(args, cfg, runner, val_loaders, agents, datasets, epoch,
                   logger) -> Dict[str, Dict[str, float]]:
     """Per task: streaming validation, or with --no-streaming_eval (and for
     the 3D-QA agent, which has no streaming) the agent's validate;
-    predictions gathered, scored on rank 0 (and saved with
+    predictions gathered over the data group (each model group validated
+    one shard), each episode once, scored on rank 0 (and saved with
     save_pred_results)."""
+    plan = getattr(runner, "plan", None)
     task_results: Dict[str, Dict[str, float]] = {}
     for name, (loader, _ratio) in val_loaders.items():
         if logger is not None:
@@ -292,7 +351,8 @@ def val_one_epoch(args, cfg, runner, val_loaders, agents, datasets, epoch,
         validate = agent.validate_streaming if args.streaming_eval and \
             hasattr(agent, "validate_streaming") else agent.validate
         preds = validate(name, args, cfg, loader, dataset=datasets[name])
-        all_preds = merge_dist_results(all_gather_objects(preds))
+        all_preds = _dedupe(merge_dist_results(all_gather_objects(
+            preds, plan.data if plan is not None else None)))
         if args.rank == 0 and not args.validation_split.startswith("test"):
             score_summary, item_metrics = datasets[name].eval_metrics(
                 all_preds, logger=logger, name=name)
@@ -332,11 +392,17 @@ def calc_overall_score(results, cfg) -> float:
 def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
                  obj_feat_dbs=None, runner=None):
     """The main() flow (reference train.py:207-294). ``world``,
-    ``feat_dbs`` and ``runner`` are injectable. Returns the best epoch's
-    validation results (mode "test": that one validation's)."""
-    check_single_card(args)
+    ``feat_dbs`` and ``runner`` are injectable (an injected runner brings
+    its own plan). Returns the best epoch's validation results (mode
+    "test": that one validation's; None on ranks other than 0)."""
     check_ported(args)
-    np.random.seed(args.seed + args.rank)
+    plan = build_mesh_plan(args, logger) if runner is None \
+        else runner.plan
+    if plan is not None:
+        args.rank, args.world_size = plan.rank, plan.world_size
+        args.dp_size, args.tp_size = plan.dp_size, plan.tp_size
+    # the ranks of a model group make the same host decisions
+    np.random.seed(args.seed + _data_rank(args))
 
     world, train_loaders, train_datasets, feat_dbs, obj_feat_dbs = \
         build_world_and_data(args, cfg, training=True, stage=args.stage,
@@ -347,7 +413,7 @@ def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
         feat_dbs=feat_dbs, obj_feat_dbs=obj_feat_dbs, logger=logger,
         test_datasets=args.test_datasets)
 
-    runner = runner or build_runner(args, cfg, logger)
+    runner = runner or build_runner(args, cfg, logger, mesh_plan=plan)
     train_agents = build_agents(args, train_loaders.keys(), world, runner)
     val_agents = build_agents(args, val_loaders.keys(), world, runner)
 
@@ -359,12 +425,23 @@ def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
         num_warmup_steps=max(args.num_warmup_steps //
                              max(args.gradient_accumulation_step, 1), 0),
         grad_clip_norm=args.grad_clip_norm, moments_8bit=args.adam_8bit)
+    specs = runner.param_specs
+    # the checkpoints' shard layout (one process: none)
+    shards = dict(plan=plan, specs=specs) if plan is not None else {}
+    if tx is not None and plan is not None:
+        tx.set_plan(plan, specs)
+        if args.zero1 and plan.dp_size > 1:
+            # before a resume, which restores into the slices
+            zero1_shard_opt_state(tx, plan)
+            if logger is not None:
+                logger.info("ZeRO-1: optimizer moments sharded %d-way over "
+                            "the data group" % plan.dp_size)
 
     resume_from_epoch = 0
     if args.resume_from_checkpoint and \
             checkpoint_exists(args.resume_from_checkpoint):
         _, _, resume_from_epoch = load_checkpoint(
-            args.resume_from_checkpoint, runner.model, tx, logger)
+            args.resume_from_checkpoint, runner.model, tx, logger, **shards)
 
     if args.mode == "test":
         return val_one_epoch(args, cfg, runner, val_loaders, val_agents,
@@ -373,7 +450,7 @@ def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
     opt_step = make_opt_step(tx)
     meta_loader = MetaLoader(train_loaders, seed=args.seed,
                              off_batch_task=args.off_batch_task,
-                             rank=args.rank)
+                             rank=_data_rank(args))
     out = Path(args.output_dir)
     best_results, best_score = None, None
     history_scores = []
@@ -383,6 +460,7 @@ def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
                         num_batches)
         results = val_one_epoch(args, cfg, runner, val_loaders, val_agents,
                                 val_datasets, epoch, logger)
+        save_as, remove_epoch = None, None
         if args.rank == 0:
             score = calc_overall_score(results, cfg)
             history_scores.append(score)
@@ -403,10 +481,15 @@ def run_training(args, cfg, logger=None, world=None, feat_dbs=None,
                     remove_epoch = resume_from_epoch \
                         + ranked[args.max_saved_checkpoints][0]
                     remove_checkpoint(out / f"epoch_{remove_epoch}")
-                save_checkpoint(out / f"epoch_{epoch}", runner.model)
+                save_as = f"epoch_{epoch}"
             elif args.stage == "pretrain" and \
                     (epoch + 1) % args.save_ckpt_per_epochs == 0:
-                save_checkpoint(out / f"pretrain_{epoch}", runner.model)
+                save_as = f"pretrain_{epoch}"
+        # every rank gathers the shards rank 0 writes
+        save_as = _from_rank0(save_as, plan)
+        if save_as is not None:
+            save_checkpoint(out / save_as, runner.model, **shards)
         if args.save_latest_states:
-            save_checkpoint(out / "latest", runner.model, tx, epoch)
+            save_checkpoint(out / "latest", runner.model, tx, epoch,
+                            **shards)
     return best_results

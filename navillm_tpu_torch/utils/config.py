@@ -144,7 +144,8 @@ class TrainArgs:
     # 8-bit Adam moments (training/optim.py:AdamQ8): int8/uint8 codes in
     # the parameter's shape with f32 group scales, f32 update math
     adam_8bit: bool = False
-    # ZeRO-1 over the data axis (not ported: ROADMAP A10)
+    # ZeRO-1 over the data group (parallel/mesh.py): the moments of large
+    # leaves keep each rank's slice only
     zero1: bool = True
     # fused whole-trajectory teacher forcing
     fused_teacher: bool = True
@@ -163,7 +164,8 @@ class TrainArgs:
     # rows per fused grad call (0: one call over all rows)
     fused_rows_per_call: int = 48
 
-    # parallelism (one card; more raises: ROADMAP A10)
+    # parallelism: one process per card under torchrun; run_training sets
+    # these from the plan (training/train_loop.py:build_mesh_plan)
     dp_size: int = -1
     tp_size: int = 1
     rank: int = 0
@@ -194,11 +196,8 @@ class TrainArgs:
         return self
 
 
-# flag -> why it cannot act in the port yet, naming the ROADMAP queue-A
-# item that ports what reads it (the data/tensor-parallel sizes:
-# train_loop.check_single_card)
+# flag -> why it cannot act in the port
 UNPORTED = {
-    "zero1": "ZeRO-1 over the data axis is not ported (ROADMAP A10)",
     "workers": "the loaders have no worker processes (neither has the JAX "
                "package's)",
 }

@@ -403,8 +403,9 @@ def test_registries_loaders_and_helpers(train_args, task_config, data_dir):
     assert [b["instr_id"] for b in loader] == [b["instr_id"] for b in jloader]
 
     assert merge_dist_results(all_gather_objects([1, 2])) == [1, 2]
-    with pytest.raises(NotImplementedError, match="A10"):
-        TTL.check_single_card(dataclasses.replace(args, tp_size=2))
+    assert TTL.build_mesh_plan(args) is None
+    with pytest.raises(ValueError, match="one process per card"):
+        TTL.build_mesh_plan(dataclasses.replace(args, tp_size=2))
     res = {"R2R": {"spl": 30.0}}
     score_cfg = JCFG.ConfigDict({"Multi": {"SOURCE": ["R2R", "CVDN"]}})
     assert TTL.calc_overall_score(res, score_cfg) \

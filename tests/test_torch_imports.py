@@ -12,8 +12,10 @@ evaluation, ScanQA evaluation, and run_training over configs/multi.yaml's
 sources at stage multi and, with the augmented sets, at stage pretrain),
 the per-step paths (the per-step teacher and the interleaved DAgger
 through run_training with batched validation, batched EQA validation, the
-host-memory runner, the stage timer and the profiler trace) and
-``python -m navillm_tpu_torch.train --help`` run on the CPU.
+host-memory runner, the stage timer and the profiler trace), the vision
+towers and the extraction entry points, run_training at tp=2 over two
+gloo ranks, and ``python -m navillm_tpu_torch.train --help`` run on the
+CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -640,6 +642,72 @@ print("loaded", sorted(m for m in sys.modules if m in %r
 """ % (BANNED,)
 
 
+# the vision and parallel slices, in two ranks joined from torchrun's
+# environment variables: each rank runs the tiny EVA02 and CLIP towers and
+# the extractor's device half, the extraction entry points' --help, then
+# run_training at tp=2 (stage multi: the teacher and the sampled DAgger on
+# the split LLM, merged validation, the checkpoint gathered on rank 0)
+PARALLEL = """
+import os, runpy, sys
+import numpy as np
+import torch
+from navillm_tpu_torch.vision import vit as V
+from navillm_tpu_torch.vision.extract import FeatureExtractor
+
+torch.set_num_threads(1)
+for style in ("eva02", "clip"):
+    vcfg = V.ViTConfig.tiny(style=style)
+    params = V.init_vit_params(vcfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    fe = FeatureExtractor(params, vcfg, batch_size=4, decode_workers=1)
+    feats = fe.encode(np.random.RandomState(0).randn(
+        6, 28, 28, 3).astype(np.float32))
+    assert feats.shape == (6, 64) and np.isfinite(feats).all()
+    assert fe.forward_calls == 2
+    print("vit", style, feats.shape)
+for mod in ("navillm_tpu_torch.vision.extract_features_mp3d",
+            "navillm_tpu_torch.vision.extract_features_frames"):
+    sys.argv = [mod, "--help"]
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.data.feature_db import SyntheticImageFeaturesDB
+from navillm_tpu_torch.parallel.dist import init_distributed
+from navillm_tpu_torch.training.train_loop import run_training
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+
+assert init_distributed(backend="gloo")
+run = os.environ["RUN_DIR"]
+rank = int(os.environ["RANK"])
+if rank == 0:
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="train")
+    T.make_r2r_world(run, n_episodes=2, rows=3, cols=3, split="val", seed=1)
+    os.makedirs(run + "/out")
+torch.distributed.barrier()
+cfg = load_yaml_text(RUN_CFG)
+args = TrainArgs(data_dir=run, output_dir=run + "/out", device="cpu",
+                 num_epochs=1, num_steps_per_epoch=2, batch_size=2,
+                 fused_rows_per_call=4, save_latest_states=True, tp_size=2,
+                 max_saved_checkpoints=1)
+args.sync_from_config(cfg)
+res = run_training(args, cfg, feat_dbs={"mp3d": SyntheticImageFeaturesDB(
+    args.image_feat_size)})
+assert (args.rank, args.dp_size, args.tp_size) == (rank, 1, 2), args
+if rank == 0:
+    assert "sr" in res["R2R"], res
+    assert sorted(os.listdir(run + "/out")) == [
+        "epoch_0.json", "epoch_0.npz", "latest.json", "latest.npz"]
+    print("run_training tp=2", res["R2R"])
+torch.distributed.destroy_process_group()
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+PARALLEL = "RUN_CFG = %r\n" % RUN_CFG + PARALLEL
+
+
 def _fresh(code):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -649,6 +717,28 @@ def _fresh(code):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "loaded []" in proc.stdout, proc.stdout
     return proc.stdout
+
+
+def test_port_runs_vision_and_parallel_without_jax(tmp_path):
+    """Two ranks, each with the environment torchrun gives it."""
+    from navillm_tpu_torch.testing import free_port
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), RUN_DIR=str(tmp_path / "run"))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", PARALLEL], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-4000:]
+        assert "loaded []" in out and "vit eva02" in out, out
+    assert "run_training tp=2" in outs[0][0]
+    assert "torch.distributed: backend gloo" in outs[0][0]
 
 
 def test_port_runs_its_slice_without_jax():
@@ -700,7 +790,13 @@ def _port_sources():
              ROOT / "chip_smoke.py"]
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
-    assert {"navillm_tpu_torch/data/reverie.py",
+    assert {"navillm_tpu_torch/vision/vit.py",
+            "navillm_tpu_torch/vision/extract.py",
+            "navillm_tpu_torch/vision/extract_features_mp3d.py",
+            "navillm_tpu_torch/vision/extract_features_frames.py",
+            "navillm_tpu_torch/parallel/mesh.py",
+            "navillm_tpu_torch/parallel/dist.py",
+            "navillm_tpu_torch/data/reverie.py",
             "navillm_tpu_torch/data/soon.py",
             "navillm_tpu_torch/data/cvdn.py", "navillm_tpu_torch/data/aug.py",
             "navillm_tpu_torch/data/llava.py",

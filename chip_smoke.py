@@ -332,6 +332,22 @@ Slice 14, after phase 44 (the int4 and int8 trees freed):
      replicated, and an all_gather_objects merge over the four ranks.
 A rank that fails fails the run. The kernels line's launches_by_phase
 gains 46 (rank 0's runs) and 47, and K4's row its shards' shapes.
+After phase 40 (bf16 model live):
+ 48. the feature prefetcher (data/prefetch.py, the agent's
+     FeaturePrefetcher) on the fused trainers: 2 teacher and 2 DAgger
+     batches of 8 through agent.train at stage multi (remat, BPE, cached
+     sampling, no optimizer step) over a disk-backed store of one .npy
+     file per viewpoint at 1024 wide (testing.NpyFeaturesDB: the card's
+     machine has no h5py), run with the prefetcher, held off
+     (testing.hold_off_prefetch), held off and with it; the losses equal
+     bit for bit in every run, gradients finite, K1-K3 launches as phase
+     18 counts them; ms per batch, pano_assemble and get_obs ms per call
+     both ways, keys prefetched and the hit share of get_obs reads, beside
+     nvidia-smi's name and power limit. Then phase 13's streaming
+     evaluation over the same .npy store and over the synthetic store
+     (whose reads the pool throws away), each with and without the
+     prefetcher: the same trajectories in every run, ms per step both
+     ways. launches_by_phase gains 48 and 48_eval.
 The cached-vs-uncached comparisons (15, 19, 29, 41, 44) gate the candidate
 logits by cached_logit_tol, tied to the spread of the row's valid logits
 (C-w1), and print each planted fault's margin.
@@ -5844,6 +5860,203 @@ def phase_dp_tp_train(tmp):
     return res
 
 
+# Phase 48: the feature prefetcher (data/prefetch.py) on the fused teacher
+# and DAgger, over a disk-backed store: with it, held off, held off, with it
+PREFETCH_BATCHES = 4        # stage multi: teacher, DAgger, teacher, DAgger
+PREFETCH_RUNS = (True, False, False, True)
+
+
+def phase_prefetch(bpe, cfg, model, tmp, smi):
+    """Phase 48: PREFETCH_BATCHES batches of TRAIN_BATCH through agent.train
+    at stage multi (the fused teacher on even steps, the fused DAgger with
+    cached sampling on odd ones; remat, BPE) over testing.NpyFeaturesDB, one
+    .npy file of [36, 1024] f32 per viewpoint read as ImageFeaturesDB reads
+    (cache=False: only the prefetcher fills the cache). No optimizer step,
+    and each run builds its runner and agent from the same seed, so the
+    runs compute the same numbers; the runs in PREFETCH_RUNS' order are
+    with the agent's prefetcher and with it held off
+    (testing.hold_off_prefetch). Gates: every run's losses equal bit for
+    bit, finite gradients with a norm > 0, K1/K2/K3 launches as phase 18's
+    path implies and the same in every run, and get_obs reads that hit the
+    cache only where the prefetcher filled it. Prints ms per batch, the
+    pano_assemble and get_obs ms per call both ways, the keys prefetched
+    and the hit share of the rollouts' get_obs reads. Returns the first
+    run's launches."""
+    anno = T.make_r2r_world(f"{tmp}/world", seed=0, split="train",
+                            n_episodes=PREFETCH_BATCHES * TRAIN_BATCH)
+    feat = cfg.pano.image_feat_size
+    root = T.write_npy_features(f"{tmp}/features", f"{tmp}/world/connectivity",
+                                feat)
+    config = T.train_config(MAX_ACTION_LEN)
+    layers = cfg.llm.num_layers
+    t_phase = time.perf_counter()
+    runs = []
+    for prefetch in PREFETCH_RUNS:
+        args, runner = dagger_setup(bpe, cfg, model)
+        agent, ds, loader = T.r2r_train(anno, runner, args, TRAIN_BATCH)
+        db = T.NpyFeaturesDB(root, feat)
+        ds.init_feat_db(db)
+        if not prefetch:
+            T.hold_off_prefetch(agent)
+        runner.zero_grads()
+        torch.cuda.synchronize()
+        zero_counters(runner)
+        losses, batch_ms, reads, hits = [], [], 0, 0
+        batches = iter(loader)
+        for step in range(PREFETCH_BATCHES):
+            batch = next(batches)
+            r0, h0 = db.reads, db.hits
+            t0 = time.perf_counter()
+            losses.append(agent.train("R2R", batch, args, config, ds,
+                                      step=step))
+            torch.cuda.synchronize()
+            batch_ms.append(1e3 * (time.perf_counter() - t0))
+            reads += db.reads - r0
+            hits += db.hits - h0
+        launches = check_launches(48, runner, layers)
+        norm = torch.stack([torch.linalg.vector_norm(p.grad,
+                                                     dtype=torch.float32)
+                            for p in model.parameters()]).norm()
+        if not (torch.isfinite(norm) and norm > 0):
+            raise RuntimeError(f"[48] gradient norm {float(norm)}")
+        agent._prefetcher.drain()
+        stages = agent.timer.summary()
+        runs.append({"prefetch": prefetch, "losses": torch.stack(losses),
+                     "batch_ms": batch_ms, "reads": reads, "hits": hits,
+                     "keys": len(db._store), "launches": launches,
+                     **{k: stages[k]["mean_ms"] for k in ("pano_assemble",
+                                                          "get_obs")}})
+        print(f"[48] prefetch {'on' if prefetch else 'held off'}: batches "
+              f"{[round(x, 1) for x in batch_ms]} ms (teacher, DAgger, "
+              f"teacher, DAgger); pano_assemble "
+              f"{stages['pano_assemble']['mean_ms']:.3f} ms x "
+              f"{stages['pano_assemble']['count']}, get_obs "
+              f"{stages['get_obs']['mean_ms']:.3f} ms x "
+              f"{stages['get_obs']['count']}; {hits} of {reads} rollout "
+              f"get_obs reads hit the cache; {len(db._store)} keys "
+              f"prefetched; losses {[float(x) for x in losses]}; grad norm "
+              f"{float(norm):.4f}; launches {launches}")
+        del agent, ds, loader, runner, batches, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    model.zero_grad(set_to_none=True)
+    ref = runs[0]
+    for r in runs[1:]:
+        if not torch.equal(r["losses"], ref["losses"]):
+            raise RuntimeError(f"[48] losses {r['losses'].tolist()} (prefetch "
+                               f"{r['prefetch']}) != {ref['losses'].tolist()}")
+        if r["launches"] != ref["launches"]:
+            raise RuntimeError(f"[48] launches {r['launches']} != "
+                               f"{ref['launches']}")
+    for r in runs:
+        cached = (r["hits"] > 0 and r["keys"] > 0) if r["prefetch"] \
+            else (r["hits"] == 0 and r["keys"] == 0)
+        if not cached:
+            raise RuntimeError(f"[48] prefetch {r['prefetch']}: {r['hits']} "
+                               f"hits, {r['keys']} keys cached")
+
+    def mean(key, on):
+        vals = [r[key] for r in runs if r["prefetch"] == on]
+        return sum(vals) / len(vals)
+
+    def per_kind(on, kind):
+        return [round(r["batch_ms"][i], 1) for r in runs
+                if r["prefetch"] == on for i in range(kind, PREFETCH_BATCHES,
+                                                       2)]
+
+    on = [r for r in runs if r["prefetch"]]
+    print(f"[48] {smi}: training, with the prefetcher against held off, "
+          f"pano_assemble "
+          f"{mean('pano_assemble', True):.3f} against "
+          f"{mean('pano_assemble', False):.3f} ms per call, get_obs "
+          f"{mean('get_obs', True):.3f} against {mean('get_obs', False):.3f}"
+          f" ms per call; teacher batches {per_kind(True, 0)} against "
+          f"{per_kind(False, 0)} ms, DAgger batches {per_kind(True, 1)} "
+          f"against {per_kind(False, 1)} ms; hit share of the rollouts' "
+          f"get_obs reads {sum(r['hits'] for r in on)} of "
+          f"{sum(r['reads'] for r in on)}, {on[0]['keys']} keys prefetched "
+          f"per run; losses equal bit for bit over {len(runs)} runs")
+    evals = prefetch_evals(bpe, cfg, model, tmp, root, smi)
+    print(f"[48] phase {time.perf_counter() - t_phase:.1f} s")
+    return ref["launches"], evals
+
+
+def prefetch_evals(bpe, cfg, model, tmp, root, smi):
+    """Phase 48's streaming evaluation: N_EPISODES greedy R2R episodes on
+    BPE prompts (phase 13's path) over the .npy store and over the
+    synthetic store (no cache: the pool's reads are thrown away), each in
+    PREFETCH_RUNS' order. Gates: the same trajectories in every run (the
+    two stores hold the same values), K1 once per layer of every step,
+    cache hits only where the prefetcher ran on the .npy store. Returns the
+    first run's K1 launches."""
+    anno = T.make_r2r_world(f"{tmp}/eval", n_episodes=N_EPISODES)
+    feat = cfg.pano.image_feat_size
+    layers = cfg.llm.num_layers
+    runs = []
+    for store in ("npy", "synthetic"):
+        for prefetch in PREFETCH_RUNS:
+            runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+            agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat)
+            db = T.NpyFeaturesDB(root, feat) if store == "npy" else None
+            if db is not None:
+                ds.init_feat_db(db)
+            if not prefetch:
+                T.hold_off_prefetch(agent)
+            torch.cuda.synchronize()
+            zero_counters(runner)
+            t0 = time.perf_counter()
+            preds = run_eval(agent, ds, args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = runner.eval_steps
+            if flash_attention_fwd.launches != steps * layers:
+                raise RuntimeError(f"[48] eval K1 launches "
+                                   f"{flash_attention_fwd.launches} != "
+                                   f"{steps} steps x {layers}")
+            agent._prefetcher.drain()
+            st = agent.timer.summary()
+            r = {"store": store, "prefetch": prefetch,
+                 "trajs": {p["instr_id"]: p["trajectory"] for p in preds},
+                 "ms_per_step": 1e3 * dt / steps, "steps": steps,
+                 "launches": flash_attention_fwd.launches,
+                 "hits": db.hits if db else 0, "reads": db.reads if db else 0,
+                 "keys": len(db._store) if db else 0,
+                 **{k: st[k]["mean_ms"] for k in ("pano_assemble",
+                                                  "get_obs")}}
+            runs.append(r)
+            print(f"[48] eval, {store} store, prefetch "
+                  f"{'on' if prefetch else 'held off'}: {len(preds)} "
+                  f"episodes, {steps} steps, {r['ms_per_step']:.2f} ms wall "
+                  f"per step; pano_assemble {r['pano_assemble']:.3f} ms, "
+                  f"get_obs {r['get_obs']:.3f} ms per call; {r['hits']} of "
+                  f"{r['reads']} store reads hit the cache, {r['keys']} "
+                  f"keys")
+            del agent, ds, runner
+    for r in runs:
+        if r["trajs"] != runs[0]["trajs"] or r["steps"] != runs[0]["steps"]:
+            raise RuntimeError(f"[48] eval trajectories of the {r['store']} "
+                               f"store, prefetch {r['prefetch']}, differ")
+        hit = r["hits"] > 0 and r["keys"] > 0
+        if hit != (r["store"] == "npy" and r["prefetch"]):
+            raise RuntimeError(f"[48] eval {r['store']}, prefetch "
+                               f"{r['prefetch']}: {r['hits']} hits, "
+                               f"{r['keys']} keys")
+
+    def ms(store, on, key="ms_per_step"):
+        return [round(r[key], 2) for r in runs
+                if r["store"] == store and r["prefetch"] == on]
+
+    for store in ("npy", "synthetic"):
+        print(f"[48] {smi}: eval over the {store} store, with the prefetcher "
+              f"against held off: {ms(store, True)} against "
+              f"{ms(store, False)} ms wall per step; get_obs "
+              f"{ms(store, True, 'get_obs')} against "
+              f"{ms(store, False, 'get_obs')} ms, pano_assemble "
+              f"{ms(store, True, 'pano_assemble')} against "
+              f"{ms(store, False, 'pano_assemble')} ms per call")
+    return runs[0]["launches"]
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -5944,6 +6157,10 @@ def main():
                     ("40", phase_eqa_train)):
         with tempfile.TemporaryDirectory() as tmp:
             perstep[tag] = fn(bpe, cfg, model, tmp)
+    # the feature prefetcher on the fused trainers over a disk-backed store
+    with tempfile.TemporaryDirectory() as tmp:
+        prefetch_launches, prefetch_eval = phase_prefetch(bpe, cfg, model,
+                                                          tmp, smi)
     # the pretrained path: the model's LLM written as an HF-layout
     # checkpoint and read back through build_runner; the directory serves
     # phases 34 and 35 too
@@ -6047,6 +6264,8 @@ def main():
                 **{f"38_{t.lower()}": n[key]
                    for t, n in perstep["38"].items()},
                 "39": perstep["39"][key], "40": perstep["40"][key],
+                "48": prefetch_launches[key],
+                "48_eval": prefetch_eval if key == "fwd" else 0,
                 "41": w8a8["launches"] if key == "fwd" else 0,
                 **{f"42{sfx}": st["launches"][key]
                    for sfx, st in zip(("", "_kv8"), eqa_a8)},

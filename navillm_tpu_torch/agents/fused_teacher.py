@@ -92,6 +92,7 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
     host_mem = not agent.runner.device_memory
 
     agent.update_scanvp_cands(obs)
+    agent.start_prefetcher(dataset)
     gmaps = [GraphMap(ob["viewpoint"]) for ob in obs]
     for i, ob in enumerate(obs):
         gmaps[i].update_graph(ob)
@@ -109,6 +110,7 @@ def rollout_teacher_fused(agent, args, name, optim_cfg, batch_dict, dataset,
         for i, gmap in enumerate(gmaps):
             if not ended[i]:
                 gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
+        agent.prefetch(obs)
         with agent.timer.stage("pano_assemble"):
             pano_inputs = agent.panorama_inputs(obs)
         with agent.timer.stage("nav_assemble"):
@@ -183,6 +185,7 @@ def rollout_dagger_fused(agent, args, name, optim_cfg, batch_dict, dataset,
         and runner.sampling_quant_available()
 
     agent.update_scanvp_cands(obs_all)
+    agent.start_prefetcher(dataset)
     # the host-memory step waits for its logits, so it has nothing to
     # overlap: one group
     n_groups = int(getattr(args, "dagger_streams", 0) or 2) if use_mem else 1
@@ -319,6 +322,7 @@ def _dagger_sample_group(agent, args, grp, dataset, rng_local,
         for i, gmap in enumerate(gmaps):
             if not ended[i]:
                 gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
+        agent.prefetch(obs)
         with agent.timer.stage("pano_assemble"):
             pano_inputs = agent.panorama_inputs(obs)
         V = pano_inputs["view_img_fts"].shape[1]

@@ -20,7 +20,11 @@ fixed-shape input assembly of the JAX agent (``panorama_inputs``,
 ``teacher_object``) and its sim step (``make_equiv_action``), which are
 host numpy code, copied because the JAX agent module imports jax. Every
 path times its stages in the agent's StageTimer (``agent.timer``) under
-JAX's stage names. ``args.kv_int8`` keeps the streaming prefix cache
+JAX's stage names. Where JAX prefetches (the fused teacher and DAgger,
+the per-step rollout, streaming evaluation's step assembly), the agent's
+FeaturePrefetcher (data/prefetch.py, ``start_prefetcher``, ``prefetch``)
+reads every candidate viewpoint's features into the dataset's feature
+store before the step's panorama assembly. ``args.kv_int8`` keeps the streaming prefix cache
 int8 (every queue that caches: R2R, CVDN, REVERIE and SOON with the OG
 queue, EQA); generate's int8 prompt K/V is the runner's own ``kv_int8``.
 """
@@ -32,6 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.prefetch import FeaturePrefetcher
 from ..models.decoding import decode_to_text
 from ..models.trie import DenseTrie
 from ..utils.config import TrainArgs
@@ -94,6 +99,22 @@ class R2RAgent:
         self.dagger_bailouts = 0
         # host wall time per named stage of every rollout path
         self.timer = StageTimer()
+        # reads the candidates' features into the store's cache while the
+        # card runs a step; built at a rollout's start (start_prefetcher)
+        self._prefetcher = None
+
+    def start_prefetcher(self, dataset):
+        """Build the agent's FeaturePrefetcher over ``dataset``'s feature
+        store, once, where the dataset has one (JAX's rule)."""
+        if self._prefetcher is None and dataset is not None \
+                and getattr(dataset, "feat_db", None) is not None:
+            self._prefetcher = FeaturePrefetcher(dataset.feat_db)
+
+    def prefetch(self, obs):
+        """Queue the reads of every candidate viewpoint's features of
+        ``obs``, before the step's panorama assembly."""
+        if self._prefetcher is not None:
+            self._prefetcher.prefetch_candidates(obs)
 
     def get_prompt(self, task, *a, **kw):
         kind = {"navigation": P.navigation_prompt,
@@ -1001,6 +1022,7 @@ class R2RAgent:
         if not streams:
             return []
         flush_width = len(streams[0].slots)
+        self.start_prefetcher(dataset)
 
         def flush_og(force=False):
             # two streams can queue up to 2 x flush_width snapshots in one
@@ -1029,6 +1051,7 @@ class R2RAgent:
             st.real_mask = np.array([sl.active for sl in active])
             obs = [sl.ob for sl in active]
             gmaps = [sl.gmap for sl in active]
+            self.prefetch([sl.ob for sl in active if sl.active])
             for sl in active:
                 if sl.active:
                     sl.gmap.node_step_ids[sl.ob["viewpoint"]] = sl.t + 1
@@ -1347,6 +1370,7 @@ class R2RAgent:
             f"slot; raise RolloutDims.max_hist")
 
         self.update_scanvp_cands(obs)
+        self.start_prefetcher(dataset)
         gmaps = [GraphMap(ob["viewpoint"]) for ob in obs]
         for i, ob in enumerate(obs):
             gmaps[i].update_graph(ob)
@@ -1368,6 +1392,7 @@ class R2RAgent:
             for i, gmap in enumerate(gmaps):
                 if not ended[i]:
                     gmap.node_step_ids[obs[i]["viewpoint"]] = t + 1
+            self.prefetch(obs)
 
             # one seed for the step's panorama: the host copy of the
             # memory path and the grad call's recompute draw the same

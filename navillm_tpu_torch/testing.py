@@ -10,21 +10,26 @@ ids that ``aug_decoder`` reads, and ``.json``); ``r2r_eval``,
 ``eqa_eval``, ``reverie_eval``, ``soon_eval``, ``cvdn_eval`` and
 ``scanqa_eval`` wire the port's evaluation over it, ``r2r_train`` its
 teacher-forcing training, and ``feature_dbs`` the synthetic stores of
-every task. ``spawn_gloo`` runs a function in N processes joined by a
-gloo process group (the multi-process tests and rehearsals on the CPU).
+every task. ``write_npy_features`` and ``NpyFeaturesDB`` give a
+disk-backed store with ``ImageFeaturesDB``'s reads and cache, without
+h5py; ``hold_off_prefetch`` keeps an agent from prefetching.
+``spawn_gloo`` runs a function in N processes joined by a gloo process
+group (the multi-process tests and rehearsals on the CPU).
 """
 from __future__ import annotations
 
 import json
 import math
 import random
+import threading
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Dict
 
 import numpy as np
 
-from .data.feature_db import SyntheticImageFeaturesDB, _SyntheticObjectStore
+from .data.feature_db import (ImageFeaturesDB, SyntheticImageFeaturesDB,
+                              _SyntheticObjectStore)
 from .data.loaders import Dataloader
 from .sim import ScanGraph, WorldModel
 
@@ -453,6 +458,72 @@ def feature_dbs(image_feat_size: int) -> Dict[str, SyntheticImageFeaturesDB]:
     return {"mp3d": SyntheticImageFeaturesDB(image_feat_size),
             "scan_qa": SyntheticImageFeaturesDB(image_feat_size, num_views=1),
             "coco": SyntheticImageFeaturesDB(image_feat_size, num_views=1)}
+
+
+def write_npy_features(root, connectivity_dir, image_feat_size: int) -> Path:
+    """One ``<scan>_<viewpoint>.npy`` file of [36, image_feat_size] f32
+    features (SyntheticImageFeaturesDB's values) per viewpoint of every scan
+    under ``connectivity_dir``. Returns ``root``."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    synth = SyntheticImageFeaturesDB(image_feat_size)
+    for conn in sorted(Path(connectivity_dir).glob("*_connectivity.json")):
+        scan = conn.name[: -len("_connectivity.json")]
+        for node in json.loads(conn.read_text()):
+            vp = node["image_id"]
+            np.save(root / f"{scan}_{vp}.npy",
+                    synth.get_image_feature(scan, vp))
+    return root
+
+
+class _NpyFiles:
+    """The h5py file's ``[key]`` read over a directory of .npy files."""
+
+    def __init__(self, root):
+        self.root = Path(root)
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return np.load(self.root / f"{key}.npy")
+
+
+class NpyFeaturesDB(ImageFeaturesDB):
+    """ImageFeaturesDB over write_npy_features' directory: the same reads,
+    slicing and ``_store`` cache (``cache=False``, as create_feature_db
+    builds it: only a prefetcher fills ``_store``). Counts the reads made
+    on the main thread (the rollouts' get_obs; a prefetcher reads on its
+    workers) in ``reads``, and those that found their key in ``_store`` in
+    ``hits``."""
+
+    def __init__(self, root, image_feat_size: int):
+        super().__init__(str(root), image_feat_size)
+        self.reads = self.hits = 0
+
+    def _file(self):
+        return _NpyFiles(self.img_ft_file)
+
+    def get_image_feature(self, scan, viewpoint=None):
+        if threading.current_thread() is threading.main_thread():
+            key = f"{scan}_{viewpoint}" if viewpoint is not None else scan
+            self.reads += 1
+            self.hits += key in self._store
+        return super().get_image_feature(scan, viewpoint)
+
+
+class _NoPrefetch:
+    """Takes an agent's FeaturePrefetcher's place and fetches nothing."""
+
+    def prefetch_candidates(self, obs):
+        pass
+
+    def drain(self):
+        pass
+
+
+def hold_off_prefetch(agent):
+    """Keep ``agent`` from prefetching: its rollouts build a prefetcher only
+    where the agent has none."""
+    agent._prefetcher = _NoPrefetch()
+    return agent
 
 
 def cvdn_eval(root, split, runner, n_slots: int, image_feat_size: int,

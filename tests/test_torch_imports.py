@@ -801,6 +801,7 @@ def _port_sources():
             "navillm_tpu_torch/data/cvdn.py", "navillm_tpu_torch/data/aug.py",
             "navillm_tpu_torch/data/llava.py",
             "navillm_tpu_torch/data/scanqa.py",
+            "navillm_tpu_torch/data/prefetch.py",
             "navillm_tpu_torch/eval/captioning.py",
             "navillm_tpu_torch/agents/llava_agent.py"} <= names
     return files
@@ -833,3 +834,13 @@ def test_port_sources_never_import_navillm_tpu():
     assert pat.search("from navillm_tpu.sim import WorldModel") \
         and pat.search("import navillm_tpu\n") \
         and not pat.search("from navillm_tpu_torch.sim import WorldModel")
+
+
+def test_prefetcher_imports_nothing_of_the_device_path():
+    """data/prefetch.py runs in worker threads on host memory: no torch
+    either, and of the port nothing at all."""
+    src = (ROOT / "navillm_tpu_torch/data/prefetch.py").read_text()
+    imports = re.findall(r"^\s*(?:import|from)\s+(\S+)", src, re.M)
+    assert imports and not [m for m in imports if m.split(".")[0] in (
+        "torch", "jax", "jaxlib", "navillm_tpu", "navillm_tpu_torch")
+        or m.startswith(".")], imports

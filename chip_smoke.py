@@ -218,8 +218,13 @@ LLaVA sections and its stage sources; image_feat_size 1024, obj_feat_size
  32. python -m navillm_tpu_torch.train's main() on its small card model at
      stage pretrain (configs/multi.yaml's Pretrain sources, the augmented
      sets from .json files) and at stage multi (its Multi sources), each
-     with the three heads and --test_datasets CVDN ScanQA; not a speed
-     cell.
+     with the three heads and --test_datasets CVDN ScanQA; then stage
+     pretrain with the augmented sets' .jsonl files (bert-base-uncased
+     ids), read through the default decoder over an offline Hugging Face
+     cache under a temporary $HF_HOME and then with testing.aug_decoder
+     injected: the decoded instructions equal, the batches, losses and
+     gradient norms equal bit for bit, K1-K3 as the path implies; not a
+     speed cell.
 The pretrained path at 7B width, phase 33 on the bf16 model after phase 32,
 phases 34 and 35 after phase 25 (the bf16 model freed):
  33. the model's LLM written as an HF-layout checkpoint with plain code
@@ -231,7 +236,15 @@ phases 34 and 35 after phase 25 (the bf16 model freed):
      the numpy-f32 mean of the checkpoint's rows), one forward_navigation
      step on phase 4's inputs through K1 giving the source's logits bit
      for bit; write and load seconds, the host RSS during the load and the
-     device peak;
+     device peak. Then the same checkpoint with LLaMA's sentencepiece
+     tokenizer.model in place of tokenizer.json (tests/fixtures/spm_llama,
+     1016 pieces, read by models/sentencepiece.py) through build_runner,
+     and 8 R2R episodes of streaming evaluation from it against the same
+     model with the tokenizer.json transformers converted from that model:
+     every prompt's ids, the trajectories and every step's logits equal bit
+     for bit, K1 32 per uncached step; both routes' load seconds and encode
+     ms per prompt, and a seeded 32000-piece model's (Vicuna's size) on the
+     host;
  34. main() from that directory at stage multi, bf16, --adam_8bit: 4
      batches of 8 over phase 32's R2R world (gradient accumulation 2: 2
      optimizer steps), validation of 4 episodes, epoch_0 (torch backend);
@@ -388,6 +401,7 @@ from navillm_tpu_torch.agents import fused_teacher as FT
 from navillm_tpu_torch.agents.mp3d_agent import R2RAgent, TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import flatten_tree, init_nav_params
+from navillm_tpu_torch.data import aug as AUG
 from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
                                                synthetic_object_db)
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
@@ -691,6 +705,20 @@ MIX_VAL_EPISODES = 8
 # REVERIE_AUG, ScanQA) and stage multi (seed 257: LLaVA, ScanQA, CVDN,
 # SOON) over configs/multi.yaml's sources and ratios
 CLI_MIX_SEEDS = {"pretrain": 31, "multi": 257}
+# phase 32's .jsonl runs: the variables that name the Hugging Face cache
+# (cleared, then HF_HOME set to a temporary one)
+HF_CACHE_VARS = ("TRANSFORMERS_CACHE", "PYTORCH_TRANSFORMERS_CACHE",
+                 "PYTORCH_PRETRAINED_BERT_CACHE", "HF_HUB_CACHE",
+                 "HUGGINGFACE_HUB_CACHE", "HF_HOME", "XDG_CACHE_HOME")
+# phase 33's tokenizer.model: the committed fixture (LLaMA's layout, as many
+# pieces as BPE_VOCAB, and transformers' tokenizer.json converted from it),
+# 8 episodes of streaming evaluation, and a Vicuna-sized seeded model read
+# on the host
+SPM_FIXTURE = Path(__file__).resolve().parent / "tests/fixtures/spm_llama"
+SPM_EPISODES = 8
+SPM_VICUNA_PIECES = 32000
+TOK_ATTRS = ("bos_id", "eos_id", "pad_id", "unk_id", "vocab_size",
+             "true_vocab_size", "cand_id", "hist_id", "obj_id", "cls_ids")
 # phases 33-35: the pretrained directory holds the LLM with bpe_nav.json's
 # base vocabulary (its tokenizer.json), so the 8 rows the tokenizer's
 # 1024-row table adds are mean-initialised; shards of ~5 GB, as Vicuna-7B's
@@ -754,11 +782,15 @@ Optim:
 """
 
 
-def run_mix_yaml(feat: int, obj: int, stores: str = "") -> str:
-    return RUN_MIX_YAML % {"feat": feat, "obj": obj,
+def run_mix_yaml(feat: int, obj: int, stores: str = "",
+                 aug: str = "json") -> str:
+    """RUN_MIX_YAML; ``aug`` the augmented sets' file kind (json, or jsonl:
+    bert-base-uncased ids)."""
+    text = RUN_MIX_YAML % {"feat": feat, "obj": obj,
                            "objects": OG_MAX_OBJECTS, "stores": stores,
                            "len": MAX_ACTION_LEN, "cvdn": MIX_TRAIN_LEN,
                            "cvdn_val": CVDN_MAX_ACTION_LEN}
+    return text.replace("train_aug.json", f"train_aug.{aug}")
 
 
 RUN_YAML = """
@@ -2661,9 +2693,10 @@ def phase_run_training(bpe, cfg, model, tmp):
     return launches
 
 
-def cli_main(argv):
+def cli_main(argv, losses=None):
     """The entry point's main(argv) on the card, its runner, epoch result
-    and trained tasks recorded; the YAML's feature_database and
+    and trained tasks recorded (and each batch's loss appended to
+    ``losses``, a list, when given); the YAML's feature_database and
     object_database resolve to synthetic stores where run_training builds
     them (the card's machine has neither h5py nor lmdb). Returns (results,
     runner, (average loss, gradient norms), tasks trained, seconds)."""
@@ -2691,7 +2724,10 @@ def cli_main(argv):
     def named(fn):
         def train(self, name, *a, **kw):
             names.append(name)
-            return fn(self, name, *a, **kw)
+            loss = fn(self, name, *a, **kw)
+            if losses is not None:
+                losses.append(loss)
+            return loss
         return train
 
     for fn in COUNTERS.values():
@@ -4159,6 +4195,112 @@ def phase_cli_mix(tmp, stage):
     return launches
 
 
+@contextlib.contextmanager
+def hf_home(path):
+    """$HF_HOME set to ``path``, every other variable naming a Hugging
+    Face cache cleared; restored on exit."""
+    saved = {k: os.environ.pop(k, None) for k in HF_CACHE_VARS}
+    os.environ["HF_HOME"] = str(path)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def phase_cli_jsonl(tmp):
+    """Phase 32, continued: main() at stage pretrain as above, with the
+    augmented R2R and REVERIE sets read from their .jsonl files
+    (bert-base-uncased ids), once through the default decoder over an
+    offline Hugging Face cache (testing.write_bert_cache, $HF_HOME pointed
+    at it) and once with testing.aug_decoder injected. Gates: every .jsonl
+    instruction the default decoder gives equal to aug_decoder's; the first
+    run built the default decoder for both augmented sets, the second
+    never; both runs' batches, per-batch losses and gradient norms equal
+    bit for bit; K1-K3 as the path implies in each. Returns (the first
+    run's launches, its seconds)."""
+    root = f"{tmp}/cli_jsonl"
+    T.make_r2r_world(root, n_episodes=4 * CLI_BATCH, seed=22, split="train")
+    T.make_r2r_world(root, n_episodes=CLI_VAL_EPISODES, seed=23, split="val")
+    yaml_path = Path(root) / "mix.yaml"
+    yaml_path.write_text(run_mix_yaml(32, 16, stores=(
+        ',\n          feature_database: {"mp3d": "mp3d.hdf5", '
+        '"scan_qa": "scanqa.hdf5", "coco": "coco.hdf5"},\n'
+        '          object_database: {"reverie": "obj/reverie", '
+        '"soon": "obj/soon"}'), aug="jsonl"))
+    T.write_bert_cache(f"{tmp}/hf")
+    classes = (AUG.R2RAugDataset, AUG.REVERIEAugDataset)
+    runs = []
+    with hf_home(f"{tmp}/hf"):
+        decode = AUG._default_decoder()
+        n = 0
+        for task in ("R2R", "REVERIE"):
+            for line in Path(f"{root}/{task}/annotations/train_aug.jsonl"
+                             ).read_text().splitlines():
+                ids = json.loads(line)["instr_encoding"]
+                if decode(ids) != T.aug_decoder(ids):
+                    raise RuntimeError(f"[32] the default decoder gives "
+                                       f"{decode(ids)!r} for {ids}, "
+                                       f"aug_decoder {T.aug_decoder(ids)!r}")
+                n += 1
+        for inject in (False, True):
+            default, built, losses = AUG._default_decoder, [], []
+
+            def counted():
+                built.append(1)
+                return default()
+            AUG._default_decoder = counted
+            for cls in classes:
+                cls.decoder = staticmethod(T.aug_decoder) if inject else None
+            random.seed(0)
+            try:
+                res, runner, (avg_loss, norms), names, dt = cli_main([
+                    "--cfg_file", str(yaml_path), "--data_dir", root,
+                    "--output_dir", f"{root}/out_{inject}", "--stage",
+                    "pretrain", "--num_epochs", "1", "--num_steps_per_epoch",
+                    "4", "--batch_size", str(CLI_BATCH), "--val_batch_size",
+                    str(N_SLOTS), "--seed", str(CLI_MIX_SEEDS["pretrain"]),
+                    "--save_ckpt_per_epochs", "100", "--max_saved_checkpoints",
+                    "0", "--enable_og", "--enable_summarize",
+                    "--enable_fgr2r", "--test_datasets", "CVDN", "ScanQA"],
+                    losses=losses)
+            finally:
+                AUG._default_decoder = default
+                for cls in classes:
+                    cls.decoder = None
+            launches = check_launches(32, runner, runner.cfg.llm.num_layers)
+            runs.append({"names": names, "losses": [float(x) for x in losses],
+                         "norms": [float(x) for x in norms], "built":
+                         len(built), "launches": launches, "seconds": dt,
+                         "device": runner.device.type})
+            del runner
+    a, b = runs
+    if a["built"] < 2 or b["built"] \
+            or {"R2R_AUG", "REVERIE_AUG"} - set(a["names"]):
+        raise RuntimeError(f"[32] default decoder built {a['built']} / "
+                           f"{b['built']} times, batches {a['names']}")
+    if (a["names"], a["losses"], a["norms"]) != \
+            (b["names"], b["losses"], b["norms"]) \
+            or not all(math.isfinite(x) for x in a["losses"] + a["norms"]):
+        raise RuntimeError(f"[32] .jsonl through the default decoder: "
+                           f"batches {a['names']}, losses {a['losses']}, norms "
+                           f"{a['norms']}; with aug_decoder injected "
+                           f"{b['names']}, {b['losses']}, {b['norms']}")
+    if a["device"] != "cuda":
+        raise RuntimeError(f"[32] the .jsonl runs ran on {a['device']}")
+    print(f"[32] main() at stage pretrain with the augmented sets' .jsonl "
+          f"files: {n} instructions decoded by the default decoder "
+          f"(bert-base-uncased from an offline cache under $HF_HOME) equal to "
+          f"aug_decoder's; batches {a['names']}, losses "
+          f"{[round(x, 4) for x in a['losses']]} and grad norms "
+          f"{[round(x, 4) for x in a['norms']]} equal bit for bit to the run "
+          f"with aug_decoder injected ({a['seconds']:.3f} s against "
+          f"{b['seconds']:.3f} s); launches {a['launches']}")
+    return a["launches"], a["seconds"]
+
+
 # --------------------------------------------- the per-step paths (36-40) --- #
 # phase 38: run_training's batched validation (--no-streaming_eval) of
 # N_EPISODES R2R episodes and BATCHED_EQA_EPISODES EQA ones with the oracle
@@ -4943,6 +5085,145 @@ def phase_load(cfg, model, vic, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     return {"fwd": launches, "dkv": 0, "dq": 0}
+
+
+def spm_dir(vic, out, files) -> str:
+    """A directory of symbolic links to the checkpoint files of ``vic``
+    (config.json, the shards and their index) beside the fixture's
+    ``files``: the same checkpoint with another tokenizer."""
+    out = Path(out)
+    out.mkdir()
+    for f in Path(vic).iterdir():
+        if not f.name.startswith("tokenizer"):
+            (out / f.name).symlink_to(f)
+    for f in files:
+        shutil.copy(SPM_FIXTURE / f, out / f)
+    return str(out)
+
+
+def timed_tokenizer(path):
+    """(NavTokenizer.from_pretrained(path), seconds)."""
+    t0 = time.perf_counter()
+    tok = NavTokenizer.from_pretrained(path)
+    return tok, time.perf_counter() - t0
+
+
+def encode_ms(tok, texts) -> float:
+    """ms per text of the tokenizer's encode, over texts it has not
+    encoded before (the encode caches of a fresh tokenizer)."""
+    t0 = time.perf_counter()
+    for t in texts:
+        tok.backend.encode(t)
+    return 1e3 * (time.perf_counter() - t0) / len(texts)
+
+
+def phase_spm(cfg, vic, tmp):
+    """Phase 33, continued: phase 33's checkpoint with LLaMA's sentencepiece
+    tokenizer.model in place of its tokenizer.json (the committed fixture:
+    BPE_VOCAB pieces, so the rows line up), read through build_runner with
+    the CLI's arguments, and SPM_EPISODES R2R episodes of streaming
+    evaluation from it; then the same model and evaluation with the
+    tokenizer.json transformers converted from that model (the fixture's
+    twin). Gates: the two tokenizers' special ids and sizes equal; every
+    prompt of the run encoded to the same ids by both; trajectories and
+    every step's logits equal bit for bit; K1 32 per uncached step (phase
+    3's gate). Prints both routes' load seconds and encode ms per prompt,
+    and a seeded SPM_VICUNA_PIECES-piece model's (Vicuna's size), read on
+    the host. Returns (K1-K3 launches of the tokenizer.model run, its
+    numbers)."""
+    dirs = {"model": spm_dir(vic, f"{tmp}/spm_model", (
+                "tokenizer.model", "tokenizer_config.json")),
+            "json": spm_dir(vic, f"{tmp}/spm_json", (
+                "tokenizer.json", "tokenizer_config.json"))}
+    args, ycfg = read_args([
+        "--cfg_file", pretrained_yaml(tmp, cfg.pano.image_feat_size),
+        "--output_dir", f"{tmp}/spm_out", "--pretrained_model_name_or_path",
+        dirs["model"], "--precision", "bf16"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = TTL.build_runner(args, ycfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    twin = NavModelRunner(runner.cfg, runner.model,
+                          NavTokenizer.from_pretrained(dirs["json"]),
+                          device=runner.device, feat_dropout=args.feat_dropout,
+                          ignore_id=args.ignoreid, seed=args.seed,
+                          kv_int8=args.kv_int8)
+    bad = [a for a in TOK_ATTRS
+           if getattr(runner.tok, a) != getattr(twin.tok, a)]
+    if bad or runner.cfg.llm.vocab_size != runner.tok.vocab_size:
+        raise RuntimeError(f"[33] tokenizer.model against tokenizer.json: "
+                           f"{bad} differ; vocabulary "
+                           f"{runner.cfg.llm.vocab_size}")
+    runs = {}
+    for key, r in (("model", runner), ("json", twin)):
+        logits, prompts, step = [], [], r.eval_step
+
+        def eval_step(*a, _step=step, _out=logits, **kw):
+            res = _step(*a, **kw)
+            _out.append(res[2].detach().clone())
+            return res
+        r.eval_step = eval_step
+        trajs, stats = phase_slice(33, r.tok, r.cfg, r.model,
+                                   f"{tmp}/spm_{key}_run", warm_up=False,
+                                   prompts=prompts, runner=r,
+                                   n_episodes=SPM_EPISODES)
+        runs[key] = (trajs, stats, logits, prompts)
+    (trajs, stats, logits, prompts), (trajs2, _, logits2, prompts2) = \
+        runs["model"], runs["json"]
+    same = len(logits) == len(logits2) and all(
+        torch.equal(a, b) for a, b in zip(logits, logits2))
+    if trajs != trajs2 or prompts != prompts2 or not same:
+        raise RuntimeError(f"[33] the tokenizer.model run parts from the "
+                           f"tokenizer.json twin's: trajectories equal "
+                           f"{trajs == trajs2}, prompts equal "
+                           f"{prompts == prompts2}, logits equal {same} "
+                           f"({len(logits)} and {len(logits2)} steps)")
+    # the host routes on the run's prompts, each tokenizer fresh
+    texts = list(dict.fromkeys(prompts))
+    tok_model, model_s = timed_tokenizer(dirs["model"])
+    tok_json, json_s = timed_tokenizer(dirs["json"])
+    model_ms, json_ms = encode_ms(tok_model, texts), encode_ms(tok_json, texts)
+    ids = [tok_model.encode(t) for t in texts]
+    if ids != [tok_json.encode(t) for t in texts]:
+        raise RuntimeError("[33] the tokenizer.model encodes a prompt to "
+                           "other ids than its tokenizer.json twin")
+    big = Path(tmp) / "spm_vicuna"
+    big.mkdir()
+    t0 = time.perf_counter()
+    T.write_sentencepiece_model(big / "tokenizer.model",
+                                T.spm_pieces(SPM_VICUNA_PIECES))
+    make_s = time.perf_counter() - t0
+    shutil.copy(SPM_FIXTURE / "tokenizer_config.json", big)
+    tok_big, big_s = timed_tokenizer(big)
+    big_ms = encode_ms(tok_big, texts)
+    if tok_big.true_vocab_size != SPM_VICUNA_PIECES + 6:
+        raise RuntimeError(f"[33] the {SPM_VICUNA_PIECES}-piece model gives "
+                           f"{tok_big.true_vocab_size} ids")
+    if runner.device.type != "cuda":
+        raise RuntimeError(f"[33] build_runner ran on {runner.device}")
+    lengths = [len(x) for x in ids]
+    print(f"[33] tokenizer.model (sentencepiece, {BPE_VOCAB} pieces) in "
+          f"place of tokenizer.json: build_runner in {load_s:.2f} s, "
+          f"{SPM_EPISODES} episodes, {stats['steps']} uncached steps at "
+          f"{stats['ms_per_step']:.2f} ms; {len(prompts)} prompts "
+          f"({len(texts)} distinct, {min(lengths)}-{max(lengths)} tokens) "
+          f"encoded to the ids of transformers' tokenizer.json twin; "
+          f"trajectories and {len(logits)} steps' logits equal bit for bit "
+          f"to the twin's run; load {model_s * 1e3:.1f} ms (tokenizer.model) "
+          f"against {json_s * 1e3:.1f} ms (tokenizer.json); encode "
+          f"{model_ms:.3f} against {json_ms:.3f} ms per prompt; a "
+          f"{SPM_VICUNA_PIECES}-piece model (written in {make_s:.2f} s): "
+          f"load {big_s * 1e3:.1f} ms, encode {big_ms:.3f} ms per prompt; "
+          f"launches {stats['launches']}")
+    del runner, twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"fwd": stats["launches"], "dkv": 0, "dq": 0},
+            {"build_runner_s": load_s, "model_load_s": model_s,
+             "json_load_s": json_s, "model_encode_ms": model_ms,
+             "json_encode_ms": json_ms, "vicuna_load_s": big_s,
+             "vicuna_encode_ms": big_ms})
 
 
 def moment_gate(w0):
@@ -6058,6 +6339,7 @@ def prefetch_evals(bpe, cfg, model, tmp, root, smi):
 
 
 def main():
+    t_main = time.perf_counter()
     smi = phase_device()
     phase_build()
     fwd_err, fwd_timed = phase_kernel()
@@ -6145,9 +6427,13 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         mix_launches, mix_peak = phase_run_mix(bpe, cfg, model, tmp)
     cli_mix = {}
+    t32 = time.perf_counter()
     for stage in ("pretrain", "multi"):
         with tempfile.TemporaryDirectory() as tmp:
             cli_mix[stage] = phase_cli_mix(tmp, stage)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_mix["pretrain_jsonl"], _ = phase_cli_jsonl(tmp)
+    print(f"[32] phase 32 in {time.perf_counter() - t32:.1f} s")
     # the per-step paths at 7B width: the per-step rollouts, the
     # interleaved DAgger streams, batched validation, the host-memory runner
     # and training on EQA batches
@@ -6166,7 +6452,10 @@ def main():
     # phases 34 and 35 too
     pre_dir = tempfile.TemporaryDirectory()
     vic = f"{pre_dir.name}/vicuna"
+    t33 = time.perf_counter()
     load_launches = phase_load(cfg, model, vic, pre_dir.name)
+    spm_launches, _ = phase_spm(cfg, vic, pre_dir.name)
+    print(f"[33] phase 33 in {time.perf_counter() - t33:.1f} s")
     q4 = phase_q4_kernel()
     qmodel = quantize_model(cfg, model)
     # free the bf16 LLM: the phases' runners hold it in reference cycles
@@ -6272,7 +6561,7 @@ def main():
                 "43": dagger_q_launches[key],
                 **{f"44_{k}": v["launches"][key]
                    for k, v in int4_mix.items()},
-                "33": load_launches[key],
+                "33": load_launches[key], "33_spm": spm_launches[key],
                 **{ph: n[key] for ph, n in pre_launches.items()},
                 **{ph: n[key] for ph, n in int4_launches.items()},
                 # rank 0 of each spawned run (its 16 heads; rank 1 the same)
@@ -6320,6 +6609,7 @@ def main():
                      "max_abs_err", "ms", "plain_ms", "library_ms",
                      "bound_ms", "bound_by")}
                      for (m, h, o, _), r in tp0["q4_check"].items()}})
+    print(f"[run] phases 0-48 in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,12 @@ card's machine has neither): the byte-level layout of ``bpe_nav.json``
 layouts (byte-fallback BPE under the legacy ``Prepend``/``Replace``
 normalizer or the ``Metaspace`` pre-tokenizer) and the ``Whitespace`` one.
 ``NavTokenizer.from_pretrained`` reads such a directory through
-``HFTokenizer``; a directory with only a sentencepiece ``tokenizer.model``
-raises (ROADMAP A13).
+``HFTokenizer``, and a directory with a sentencepiece ``tokenizer.model``
+and no ``tokenizer.json`` as transformers converts it for a
+``LlamaTokenizer`` (``models/sentencepiece.py`` reads the model and writes
+the spec ``TokenizerFile`` runs). ``WordPieceDecoder`` decodes
+bert-base-uncased ids from the local Hugging Face cache, as the augmented
+datasets' ``.jsonl`` annotations need.
 """
 from __future__ import annotations
 
@@ -253,10 +257,16 @@ class TokenizerFile:
     tokens flagged special when asked, then runs the decoder.
     """
 
-    def __init__(self, json_path):
-        with open(json_path, encoding="utf-8") as f:
-            spec = json.load(f)
-        where = str(json_path)
+    def __init__(self, source: Union[str, os.PathLike, dict],
+                 where: Optional[str] = None):
+        """``source``: a ``tokenizer.json`` path, or its content as a dict
+        (``where`` then names it in errors)."""
+        if isinstance(source, dict):
+            spec, where = source, where or "<tokenizer spec>"
+        else:
+            with open(source, encoding="utf-8") as f:
+                spec = json.load(f)
+            where = str(source)
         model = spec["model"]
         if model.get("type") != "BPE" or model.get("dropout") \
                 or model.get("continuing_subword_prefix") \
@@ -615,12 +625,35 @@ def _token_content(tok) -> Optional[str]:
     return tok.get("content") if isinstance(tok, dict) else tok
 
 
+def _sentencepiece_file(path: Path, conf: Dict[str, object]
+                        ) -> TokenizerFile:
+    """``path/tokenizer.model`` as the fast tokenizer transformers builds
+    from it (a slow ``LlamaTokenizer`` converted by ``LlamaConverter``),
+    with the slow class's defaults: ``legacy`` None reads as True and an
+    absent ``add_prefix_space`` as True."""
+    from .sentencepiece import llama_tokenizer_spec, load_model
+    cls = conf.get("tokenizer_class")
+    if cls not in (None, *_LLAMA_CLASSES):
+        raise ValueError(f"{path} holds a sentencepiece tokenizer.model "
+                         f"and no tokenizer.json, for a {cls}: only "
+                         f"LlamaTokenizer's layout is read")
+    legacy = conf.get("legacy")
+    model = path / "tokenizer.model"
+    spec = llama_tokenizer_spec(load_model(model),
+                                legacy=True if legacy is None else legacy,
+                                add_prefix_space=conf.get("add_prefix_space",
+                                                          True))
+    return TokenizerFile(spec, where=str(model))
+
+
 class HFTokenizer:
-    """An HF fast-tokenizer directory (``tokenizer.json`` and
+    """An HF tokenizer directory (``tokenizer.json``, or a sentencepiece
+    ``tokenizer.model`` of a ``LlamaTokenizer``, and
     ``tokenizer_config.json``) with the schema special tokens: the port's
     twin of the JAX package's ``HFTokenizer``, which loads the same
     directory through ``transformers.AutoTokenizer`` (use_fast, left
-    padding and truncation).
+    padding and truncation; a ``tokenizer.model`` converted to the fast
+    tokenizer by ``LlamaConverter``).
 
     As that does: the config's special tokens (bos, eos, unk, pad, ...) not
     yet added tokens are added as special ones; ``SPECIAL_TOKENS`` are added
@@ -634,25 +667,26 @@ class HFTokenizer:
 
     def __init__(self, pretrained_model_name_or_path):
         path = Path(pretrained_model_name_or_path)
-        if not (path / "tokenizer.json").exists():
-            if (path / "tokenizer.model").exists():
-                raise NotImplementedError(
-                    f"{path} holds a sentencepiece tokenizer.model and no "
-                    f"tokenizer.json: reading tokenizer.model is not ported "
-                    f"(ROADMAP A13); convert it to tokenizer.json first")
-            raise FileNotFoundError(f"no tokenizer.json in {path}")
         conf: Dict[str, object] = {}
         for name in ("special_tokens_map.json", "tokenizer_config.json"):
             if (path / name).exists():
                 conf.update(json.loads((path / name).read_text()))
-        if conf.get("tokenizer_class") in _LLAMA_CLASSES:
+        llama = conf.get("tokenizer_class") in _LLAMA_CLASSES
+        if (path / "tokenizer.json").exists():
+            self.tok = TokenizerFile(path / "tokenizer.json")
+        elif (path / "tokenizer.model").exists():
+            self.tok = _sentencepiece_file(path, conf)
+            llama = True
+        else:
+            raise FileNotFoundError(f"no tokenizer.json or tokenizer.model "
+                                    f"in {path}")
+        if llama:
             for k, v in (("bos_token", "<s>"), ("eos_token", "</s>"),
                          ("unk_token", "<unk>")):
                 conf.setdefault(k, v)
         named = {k: _token_content(conf.get(k)) for k in _SPECIAL_ATTRS}
         extra = [_token_content(t) for t in
                  conf.get("additional_special_tokens") or []]
-        self.tok = TokenizerFile(path / "tokenizer.json")
         self.tok.add_special_tokens([
             t for t in [*named.values(), *extra]
             if t is not None and t not in self.tok.added])
@@ -681,6 +715,101 @@ class HFTokenizer:
 
     def special_token_id(self, tok: str) -> int:
         return self.tok.token_to_id(tok)
+
+
+# BertTokenizer's special tokens, by attribute
+_BERT_SPECIALS = (("unk_token", "[UNK]"), ("sep_token", "[SEP]"),
+                  ("pad_token", "[PAD]"), ("cls_token", "[CLS]"),
+                  ("mask_token", "[MASK]"))
+# transformers' clean-up of spaces (clean_up_tokenization), and the one the
+# WordPiece decoder applies to each token
+_CLEAN_UP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","),
+             (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"),
+             (" 've", "'ve"), (" 're", "'re"))
+_WORDPIECE_CLEAN_UP = _CLEAN_UP[:7] + ((" do not", " don't"),) \
+    + _CLEAN_UP[7:]
+
+
+def _replace_all(text: str, pairs) -> str:
+    for old, new in pairs:
+        text = text.replace(old, new)
+    return text
+
+
+class WordPieceDecoder:
+    """``decode(ids, skip_special_tokens=True)`` of a BERT fast tokenizer
+    loaded from a directory (a Hugging Face snapshot of bert-base-uncased)
+    by ``transformers.AutoTokenizer``, in plain Python.
+
+    The vocabulary is ``tokenizer.json``'s WordPiece model when the
+    directory has one, else ``vocab.txt`` (a token per line, the line its
+    id). The special tokens are BERT's ``[UNK] [SEP] [PAD] [CLS] [MASK]``
+    unless ``tokenizer_config.json`` names others, with its additional ones
+    and those ``tokenizer.json`` flags special. Decoding drops unknown ids
+    and the special tokens, joins the
+    tokens as the WordPiece decoder does (a ``##`` piece glued to the one
+    before it, any other token after a space, each token cleaned of a space
+    before punctuation and contractions), then applies transformers'
+    ``clean_up_tokenization`` when the tokenizer cleans up: as the config
+    says, else when built from ``vocab.txt`` (BertTokenizer's default) and
+    not when read from ``tokenizer.json``.
+    """
+
+    def __init__(self, directory):
+        path = Path(directory)
+        conf: Dict[str, object] = {}
+        if (path / "tokenizer_config.json").exists():
+            conf = json.loads((path / "tokenizer_config.json").read_text())
+        added: Dict[int, Tuple[str, bool]] = {}
+        self.prefix, self.cleanup = "##", True
+        if (path / "tokenizer.json").exists():
+            where = path / "tokenizer.json"
+            spec = json.loads(where.read_text(encoding="utf-8"))
+            dec = spec.get("decoder") or {}
+            if spec["model"].get("type") != "WordPiece" \
+                    or dec.get("type") != "WordPiece":
+                raise ValueError(f"{where}: not a WordPiece model and "
+                                 f"decoder")
+            vocab = spec["model"]["vocab"]
+            self.prefix = dec.get("prefix", "##")
+            self.cleanup = bool(dec.get("cleanup", True))
+            for t in spec.get("added_tokens", []):
+                added[t["id"]] = (t["content"], bool(t.get("special")))
+            clean_up = False
+        elif (path / "vocab.txt").exists():
+            vocab = {}
+            with open(path / "vocab.txt", encoding="utf-8") as f:
+                for i, line in enumerate(f):
+                    vocab[line.rstrip("\n")] = i
+            clean_up = True
+        else:
+            raise FileNotFoundError(f"no tokenizer.json or vocab.txt in "
+                                    f"{path}")
+        self.clean_up = bool(conf.get("clean_up_tokenization_spaces",
+                                      clean_up))
+        self._id_to_token = {i: t for t, i in vocab.items()}
+        self._id_to_token.update({i: t for i, (t, _) in added.items()})
+        self._special = {t for t, s in added.values() if s}
+        self._special.update(
+            _token_content(conf.get(k, v)) for k, v in _BERT_SPECIALS)
+        self._special.update(_token_content(t) for t in
+                             conf.get("additional_special_tokens") or [])
+        self._special.discard(None)
+
+    def __call__(self, ids: Sequence[int], skip_special_tokens=True) -> str:
+        toks = [self._id_to_token[i] for i in map(int, ids)
+                if i in self._id_to_token]
+        if skip_special_tokens:
+            toks = [t for t in toks if t not in self._special]
+        out = []
+        for i, t in enumerate(toks):
+            if i:
+                t = t[len(self.prefix):] if t.startswith(self.prefix) \
+                    else " " + t
+            out.append(_replace_all(t, _WORDPIECE_CLEAN_UP)
+                       if self.cleanup else t)
+        text = "".join(out)
+        return _replace_all(text, _CLEAN_UP) if self.clean_up else text
 
 
 class NavTokenizer:
@@ -717,8 +846,8 @@ class NavTokenizer:
 
     @classmethod
     def from_pretrained(cls, path: str, **kw) -> "NavTokenizer":
-        """An HF fast-tokenizer directory (``tokenizer.json``), read by
-        HFTokenizer."""
+        """An HF tokenizer directory (``tokenizer.json``, or LLaMA's
+        ``tokenizer.model``), read by HFTokenizer."""
         return cls(HFTokenizer(path), **kw)
 
     @classmethod

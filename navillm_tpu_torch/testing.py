@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import math
 import random
+import struct
 import threading
 from pathlib import Path
 from types import SimpleNamespace
@@ -184,6 +185,208 @@ def aug_decoder(ids) -> str:
     """The decoder the augmented datasets take in place of
     bert-base-uncased's (``R2RAugDataset.decoder``)."""
     return " ".join(AUG_WORDS[i - AUG_ID0] for i in ids)
+
+
+# bert-base-uncased's first ids: [PAD], [unused0..98], the four specials,
+# then [unused99..]
+BERT_SPECIALS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+BERT_REVISION = "86b5e0934494bd15c9632b12f734a8a67f723594"
+
+
+def bert_vocab(words=AUG_WORDS):
+    """A bert-base-uncased-shaped vocabulary (one token per line, the line
+    number its id) with ``words`` from id AUG_ID0 on."""
+    head = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    head += [f"[unused{i}]" for i in range(99, 99 + AUG_ID0 - len(head))]
+    return head + list(words)
+
+
+def write_bert_cache(home, words=AUG_WORDS, tokenizer_json: bool = False,
+                     config: Dict[str, object] = None,
+                     revision: str = BERT_REVISION) -> Path:
+    """An offline Hugging Face cache under ``home`` (``$HF_HOME``) holding
+    bert-base-uncased as a download leaves it: ``hub/models--bert-base-
+    uncased/refs/main`` names ``revision``, whose snapshot has
+    ``vocab.txt`` (``bert_vocab``), ``tokenizer_config.json`` (``config``)
+    and ``config.json``, and with ``tokenizer_json`` also the fast
+    tokenizer's ``tokenizer.json`` (WordPiece, BERT's normalizer and
+    pre-tokenizer). Returns the hub directory (``$HF_HUB_CACHE``)."""
+    hub = Path(home) / "hub"
+    repo = hub / "models--bert-base-uncased"
+    snap = repo / "snapshots" / revision
+    snap.mkdir(parents=True, exist_ok=True)
+    (repo / "refs").mkdir(exist_ok=True)
+    (repo / "refs" / "main").write_text(revision)
+    vocab = bert_vocab(words)
+    (snap / "vocab.txt").write_text("".join(w + "\n" for w in vocab),
+                                    encoding="utf-8")
+    (snap / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": True, "model_max_length": 512}
+        if config is None else config))
+    (snap / "config.json").write_text(json.dumps(
+        {"architectures": ["BertForMaskedLM"], "model_type": "bert",
+         "vocab_size": len(vocab)}))
+    if tokenizer_json:
+        (snap / "tokenizer.json").write_text(json.dumps({
+            "version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [
+                {"id": vocab.index(t), "content": t, "single_word": False,
+                 "lstrip": False, "rstrip": False, "normalized": False,
+                 "special": True} for t in BERT_SPECIALS],
+            "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                           "handle_chinese_chars": True,
+                           "strip_accents": None, "lowercase": True},
+            "pre_tokenizer": {"type": "BertPreTokenizer"},
+            "post_processor": None,
+            "decoder": {"type": "WordPiece", "prefix": "##",
+                        "cleanup": True},
+            "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                      "continuing_subword_prefix": "##",
+                      "max_input_chars_per_word": 100,
+                      "vocab": {w: i for i, w in enumerate(vocab)}}},
+            ensure_ascii=False), encoding="utf-8")
+    return hub
+
+
+# ----------------------------------------------- sentencepiece models --- #
+def _pb_varint(n: int) -> bytes:
+    n &= (1 << 64) - 1          # negative int32s go out as 10 bytes
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_field(num: int, value) -> bytes:
+    """One field in the protobuf wire format: a bool or int as a varint, a
+    float as fixed32, a str/bytes as a length-delimited field."""
+    if isinstance(value, (bool, int)):
+        return _pb_varint(num << 3) + _pb_varint(int(value))
+    if isinstance(value, float):
+        return _pb_varint(num << 3 | 5) + struct.pack("<f", value)
+    if isinstance(value, str):
+        value = value.encode("utf-8")
+    return _pb_varint(num << 3 | 2) + _pb_varint(len(value)) + value
+
+
+def write_sentencepiece_model(path, pieces) -> bytes:
+    """Write ``pieces`` ((piece, score, type) or ``sentencepiece.Piece``) as
+    a sentencepiece ``tokenizer.model`` in LLaMA's layout: a BPE trainer
+    spec with byte fallback, unk/bos/eos ids 0-2 and pad id -1, and an
+    identity normalizer, as protobuf serializes a ``ModelProto`` (fields
+    in number order, defaults written out where LLaMA's file has them,
+    and fields this package does not read: the trainer's input file,
+    character coverage and sentence size, the self-test data). Returns the
+    bytes."""
+    out = bytearray()
+    for p in pieces:
+        piece, score, kind = (p.piece, p.score, p.type) \
+            if hasattr(p, "piece") else p
+        body = _pb_field(1, piece) + _pb_field(2, float(score))
+        if kind != 1:
+            body += _pb_field(3, kind)
+        out += _pb_field(1, body)
+    trainer = b"".join(_pb_field(n, v) for n, v in (
+        (1, "corpus.txt"), (2, "tokenizer"), (3, 2),
+        (4, len(pieces)), (10, 0.99995), (11, 2000000),
+        (20, 16), (35, True), (40, 0), (41, 1), (42, 2),
+        (43, -1), (45, "<unk>"), (46, "<s>"), (47, "</s>"),
+        (48, "<pad>")))
+    normalizer = b"".join(_pb_field(n, v) for n, v in (
+        (1, "identity"), (2, b""), (3, True), (4, False)))
+    out += _pb_field(2, trainer) + _pb_field(3, normalizer)
+    out += _pb_field(4, _pb_field(1, _pb_field(1, "hello") +
+                                  _pb_field(2, "▁he llo")))
+    data = bytes(out)
+    Path(path).write_bytes(data)
+    return data
+
+
+# the characters of the seeded models' alphabet (one piece each); other
+# characters go through the byte pieces
+SPM_ALPHABET = "▁" + "".join(chr(c) for c in range(33, 127)) + "é"
+SPM_MAX_PIECE = 16
+
+
+def _spm_corpus() -> Dict[str, int]:
+    """Word counts of the navigation prompts and the synthetic worlds'
+    words, each word with sentencepiece's "▁" before it."""
+    from .agents import prompts as P
+    texts = [P.navigation_prompt(t, "Walk past the sofa and stop.", 4, 5,
+                                 "") for t in ("r2r", "cvdn", "reverie",
+                                               "soon", "eqa")]
+    texts += [P.summarization_prompt(t, "", 3, 4)
+              for t in ("r2r", "reverie", "soon")]
+    texts.append(" ".join(_VERBS + _DIRS + _ROOMS + _OBJECTS + _VERBS
+                          + _DIRS))
+    counts: Dict[str, int] = {}
+    for text in texts:
+        for w in text.replace("<hist>", " ").replace("<cand>", " ").split():
+            counts["▁" + w] = counts.get("▁" + w, 0) + 1
+    return counts
+
+
+def spm_pieces(n: int, seed: int = 0, user_defined=()) -> list:
+    """A seeded LLaMA-layout piece list of exactly ``n`` pieces (``n`` >=
+    259 + the alphabet + ``user_defined``): ``<unk>`` (UNKNOWN), ``<s>``,
+    ``</s>`` (CONTROL), ``user_defined`` (USER_DEFINED), the 256 byte pieces
+    ``<0x00>``..``<0xFF>``, then merged pieces at falling scores -- first
+    those BPE training on ``_spm_corpus`` finds (the most frequent pair,
+    the first in sorted order on a tie), then joins of two earlier pieces
+    drawn from ``random.Random(seed)`` -- and last the alphabet's single
+    characters, scored below every merge as in LLaMA's file."""
+    from .models.sentencepiece import (BYTE, CONTROL, NORMAL, UNKNOWN,
+                                       USER_DEFINED, Piece)
+    head = [Piece("<unk>", 0.0, UNKNOWN), Piece("<s>", 0.0, CONTROL),
+            Piece("</s>", 0.0, CONTROL)]
+    head += [Piece(t, 0.0, USER_DEFINED) for t in user_defined]
+    head += [Piece(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    n_merges = n - len(head) - len(SPM_ALPHABET)
+    if n_merges < 0:
+        raise ValueError(f"{n} pieces cannot hold the {len(head)} fixed "
+                         f"ones and the {len(SPM_ALPHABET)}-character "
+                         f"alphabet")
+    known = set(SPM_ALPHABET)
+    merged = []
+    words = [(list(w), c) for w, c in sorted(_spm_corpus().items())]
+    while len(merged) < n_merges:
+        pairs: Dict[tuple, int] = {}
+        for sym, c in words:
+            for a, b in zip(sym, sym[1:]):
+                pairs[a, b] = pairs.get((a, b), 0) + c
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        new = best[0] + best[1]
+        for sym, _ in words:
+            i = 0
+            while i < len(sym) - 1:
+                if (sym[i], sym[i + 1]) == best:
+                    sym[i:i + 2] = [new]
+                i += 1
+        if new not in known:
+            known.add(new)
+            merged.append(new)
+    rng = random.Random(seed)
+    pool = list(SPM_ALPHABET) + merged
+    while len(merged) < n_merges:
+        a, b = rng.choice(pool), rng.choice(pool)
+        new = a + b
+        if "▁" in b or len(new) > SPM_MAX_PIECE or new in known:
+            continue
+        known.add(new)
+        merged.append(new)
+        pool.append(new)
+    body = [Piece(p, -float(k), NORMAL) for k, p in enumerate(merged)]
+    tail = [Piece(c, -float(n_merges + k), NORMAL)
+            for k, c in enumerate(SPM_ALPHABET)]
+    return head + body + tail
 
 
 def _plain_instruction(rng: random.Random) -> str:

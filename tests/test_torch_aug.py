@@ -1,9 +1,12 @@
 """The augmented R2R and REVERIE sets and the whole task mix against the JAX
-package: the default decoder's refusal, the fused teacher on R2R_AUG and
-REVERIE_AUG batches (summarization runs on both, object grounding on
-neither), and run_training at stage multi over configs/multi.yaml's six
-sources and at stage pretrain over its seven, with --enable_og
---enable_summarize --enable_fgr2r, the per-batch losses against JAX's.
+package: the default decoder (bert-base-uncased from an offline Hugging
+Face cache, testing.write_bert_cache) against JAX's, and its refusal
+without a cache, the fused teacher on R2R_AUG and REVERIE_AUG batches
+(summarization runs on both, object grounding on neither; R2R_AUG also
+through the default decoder), and run_training at stage multi over
+configs/multi.yaml's six sources and at stage pretrain over its seven,
+with --enable_og --enable_summarize --enable_fgr2r, the per-batch losses
+against JAX's.
 
 Both sides read testing.make_r2r_world's annotations (the augmented sets'
 .jsonl token ids through testing.aug_decoder) with synthetic features and
@@ -13,7 +16,9 @@ starts from the same seed of Python's global random, from which ScanQA
 draws its frames. Losses agree to rtol 1e-4 and gradients to rtol 2e-3
 (tests/test_torch_train.py).
 """
+import json
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -174,10 +179,145 @@ def _feats(port):
 
 
 # ------------------------------------------------------------ datasets --- #
-def test_default_decoder_raises_naming_the_vocabulary(world, monkeypatch):
-    """Without an injected decoder a .jsonl augmented file cannot be read:
-    the repository holds no bert-base-uncased vocabulary. A .json file
-    needs none."""
+# the variables that name the Hugging Face cache, cleared around each test
+# that reads one
+CACHE_VARS = ("TRANSFORMERS_CACHE", "PYTORCH_TRANSFORMERS_CACHE",
+              "PYTORCH_PRETRAINED_BERT_CACHE", "HF_HUB_CACHE",
+              "HUGGINGFACE_HUB_CACHE", "HF_HOME", "XDG_CACHE_HOME")
+
+
+def _cache_env(monkeypatch, **env):
+    for k in CACHE_VARS:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, str(v))
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+
+
+def test_default_decoder_raises_naming_the_vocabulary(world, monkeypatch,
+                                                      tmp_path):
+    """Without an injected decoder and with no bert-base-uncased in the
+    Hugging Face cache, a .jsonl augmented file cannot be read: the error
+    names the cache directories it looked in and vocab.txt. A .json file
+    needs no decoder."""
+    _cache_env(monkeypatch, HF_HOME=tmp_path / "empty")
+    cfg = TCFG.ConfigDict(_yaml_config())
+    args = TCFG.TrainArgs(device="cpu", data_dir=str(world),
+                          image_feat_size=FEAT)
+    w = WorldModel(str(world / "connectivity"))
+    hub = tmp_path / "empty" / "hub"
+    for cls, name, source in ((PA.R2RAugDataset, "r2r_aug", "R2R_AUG"),
+                              (PA.REVERIEAugDataset, "reverie_aug",
+                               "REVERIE_AUG")):
+        monkeypatch.setattr(cls, "decoder", None)
+        with pytest.raises(FileNotFoundError) as err:
+            load_dataset(name, args, cfg, training=True, source=source,
+                         world=w)
+        msg = str(err.value)
+        assert "vocab.txt" in msg and str(hub) in msg and str(
+            hub / "models--bert-base-uncased" / "refs" / "main") in msg
+        sec = cfg.Dataset[source]
+        sec.SPLIT["train"] = "annotations/train_aug.json"
+        ds = load_dataset(name, args, cfg, training=True, source=source,
+                          world=w)
+        assert len(ds) == 8 and ds.name == name
+        sec.SPLIT["train"] = "annotations/train_aug.jsonl"
+
+
+# a vocabulary with what bert-base-uncased's decode treats apart: "##"
+# pieces, punctuation, contractions, specials among the words
+BERT_WORDS = T.AUG_WORDS + [
+    ".", ",", "?", "!", "'", "n't", "'m", "'s", "'ve", "'re", "do", "not",
+    "don", "t", "s", "m", "re", "ve", "ok", "gone", "it", "we", "they",
+    "caf", "##\u00e9", "##s", "##ing", "##ed", "##'", "##.", "##,",
+    "##n't", "[unused0]", "##"]
+# (revision, write_bert_cache's keywords): a vocab.txt-only snapshot (it
+# cleans up spaces, BertTokenizer's default), one with tokenizer.json (it
+# does not), and each with the config saying the other
+BERT_SNAPSHOTS = [
+    ("vocab", {}),
+    ("json", dict(tokenizer_json=True)),
+    ("vocab_noclean", dict(config={"do_lower_case": True,
+                                   "clean_up_tokenization_spaces": False})),
+    ("json_clean", dict(tokenizer_json=True, config={
+        "do_lower_case": True, "clean_up_tokenization_spaces": True}))]
+
+JAX_DECODE = """
+import json, sys
+from pathlib import Path
+from navillm_tpu.data.datasets import aug
+out = []
+for ref, rev, seqs in json.load(sys.stdin):
+    Path(ref).write_text(rev)
+    aug._default_decoder = None          # the module caches its decoder
+    dec = aug._bert_decoder()
+    out.append([dec(ids) for ids in seqs])
+print(json.dumps(out))
+"""
+
+
+def _bert_sequences(n_vocab: int):
+    words = {w: i for i, w in enumerate(T.bert_vocab(BERT_WORDS))}
+    text = [
+        "[CLS] walk left into the kitchen [SEP]",
+        "turn right , don ' t stop . [SEP] [PAD] [PAD]",
+        "it ' s the sofa ! we ' re near it ? they ' ve gone",
+        "caf ##\u00e9 ##s walk ##ing walk ##ed the ##' s",
+        "do not stop ##. go ##, ok ##n't m ' m",
+        "##s [MASK] [UNK] stop [unused0] ##"]
+    seqs = [[words[t] for t in line.split()] for line in text]
+    rng = np.random.RandomState(0)
+    seqs += [rng.randint(0, n_vocab + 3, rng.randint(0, 16)).tolist()
+             for _ in range(300)]
+    return seqs + [T.aug_encode("walk left into the kitchen and stop")]
+
+
+@pytest.mark.parametrize("variable", ["HF_HOME", "HF_HUB_CACHE"])
+def test_default_decoder_matches_jax(tmp_path, monkeypatch, variable):
+    """bert-base-uncased's decode(ids, skip_special_tokens=True) read from
+    an offline cache named by HF_HOME or by HF_HUB_CACHE: the port's
+    default decoder against JAX's _bert_decoder (transformers'
+    AutoTokenizer, in a fresh process given the same environment) on each
+    snapshot of BERT_SNAPSHOTS in turn (refs/main moved to it)."""
+    import os
+    import subprocess
+    import sys
+    home = tmp_path / "hf"
+    for rev, kw in BERT_SNAPSHOTS:
+        hub = T.write_bert_cache(home, words=BERT_WORDS, revision=rev, **kw)
+    ref = hub / "models--bert-base-uncased" / "refs" / "main"
+    seqs = _bert_sequences(len(T.bert_vocab(BERT_WORDS)))
+    env = {variable: home if variable == "HF_HOME" else hub}
+    _cache_env(monkeypatch, **env)
+    monkeypatch.setattr(PA.R2RAugDataset, "decoder", None)
+    got = []
+    for rev, _ in BERT_SNAPSHOTS:
+        ref.write_text(rev)
+        dec = PA._default_decoder()
+        got.append([dec(ids) for ids in seqs])
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-c", JAX_DECODE],
+        input=json.dumps([(str(ref), rev, seqs) for rev, _ in
+                          BERT_SNAPSHOTS]),
+        env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+        text=True, timeout=300, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    want = json.loads(proc.stdout.splitlines()[-1])
+    for (rev, _), g, w in zip(BERT_SNAPSHOTS, got, want):
+        for ids, a, b in zip(seqs, g, w):
+            assert a == b, (rev, ids)
+    assert got[0][0] == "walk left into the kitchen"
+    assert got[0][1] == "turn right, don't stop."
+    assert got[1][1] == "turn right, don ' t stop."
+    assert got[0][-1] == T.aug_decoder(seqs[-1])
+
+
+def test_default_decoder_reads_the_jsonl_sets(world, monkeypatch, tmp_path):
+    """Over write_bert_cache's vocabulary (AUG_WORDS at AUG_ID0 + k) the
+    default decoder gives the instructions testing.aug_decoder gives."""
+    T.write_bert_cache(tmp_path / "hf")
+    _cache_env(monkeypatch, HF_HOME=tmp_path / "hf")
     cfg = TCFG.ConfigDict(_yaml_config())
     args = TCFG.TrainArgs(device="cpu", data_dir=str(world),
                           image_feat_size=FEAT)
@@ -185,16 +325,14 @@ def test_default_decoder_raises_naming_the_vocabulary(world, monkeypatch):
     for cls, name, source in ((PA.R2RAugDataset, "r2r_aug", "R2R_AUG"),
                               (PA.REVERIEAugDataset, "reverie_aug",
                                "REVERIE_AUG")):
+        want = load_dataset(name, args, cfg, training=True, source=source,
+                            world=w)
         monkeypatch.setattr(cls, "decoder", None)
-        with pytest.raises(NotImplementedError, match="vocab.txt"):
-            load_dataset(name, args, cfg, training=True, source=source,
-                         world=w)
-        sec = cfg.Dataset[source]
-        sec.SPLIT["train"] = "annotations/train_aug.json"
-        ds = load_dataset(name, args, cfg, training=True, source=source,
-                          world=w)
-        assert len(ds) == 8 and ds.name == name
-        sec.SPLIT["train"] = "annotations/train_aug.jsonl"
+        got = load_dataset(name, args, cfg, training=True, source=source,
+                           world=w)
+        assert [x["instruction"] for x in got.alldata] == \
+            [x["instruction"] for x in want.alldata]
+        assert len(got.alldata) == 8
 
 
 # ------------------------------------------------------ fused teacher --- #
@@ -230,6 +368,23 @@ def _teacher(port, models, world, task):
     else:
         grads = flatten_tree(jax.tree.map(np.asarray, jr.take_grads()))
     return float(loss), grads, [t["path"] for t in traj], runner
+
+
+def test_fused_teacher_default_decoder(models, world, monkeypatch,
+                                      tmp_path):
+    """A teacher batch of 4 R2R_AUG episodes read from .jsonl through the
+    default decoder (write_bert_cache's offline cache) equals the batch
+    with testing.aug_decoder injected: trajectories, loss and gradients
+    bit for bit."""
+    want = _teacher(True, models, world, "R2R_AUG")
+    T.write_bert_cache(tmp_path / "hf")
+    _cache_env(monkeypatch, HF_HOME=tmp_path / "hf")
+    monkeypatch.setattr(PA.R2RAugDataset, "decoder", None)
+    got = _teacher(True, models, world, "R2R_AUG")
+    assert got[2] == want[2] and got[0] == want[0]
+    assert sorted(got[1]) == sorted(want[1])
+    for name, g in want[1].items():
+        np.testing.assert_array_equal(got[1][name], g, err_msg=name)
 
 
 @pytest.mark.parametrize("task", ["R2R_AUG", "REVERIE_AUG"])

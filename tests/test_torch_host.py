@@ -289,13 +289,15 @@ def test_tokenizer_matches(max_length, multiple):
 
 
 def test_tokenizer_subword_backends_raise(tmp_path):
-    """A directory with only a sentencepiece tokenizer.model raises, naming
-    its ROADMAP item, and one with no tokenizer at all raises too (the
-    fast-tokenizer reader is held against HF's in
-    tests/test_torch_pretrained.py); the vendored BPE is the port's own
+    """A directory whose only tokenizer is a tokenizer.model that is no
+    sentencepiece model raises, naming the file, and one with no tokenizer
+    at all raises too (the fast-tokenizer reader is held against HF's in
+    tests/test_torch_pretrained.py, the sentencepiece reader in
+    tests/test_torch_sentencepiece.py); the vendored BPE is the port's own
     (tests/test_torch_tokenizer.py)."""
     (tmp_path / "tokenizer.model").write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(ValueError, match="tokenizer.model: not a "
+                                         "sentencepiece model"):
         PT.NavTokenizer.from_pretrained(str(tmp_path))
     with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         PT.NavTokenizer.from_pretrained(str(tmp_path / "vicuna"))

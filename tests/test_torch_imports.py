@@ -1,7 +1,8 @@
 """The port stands alone: it imports nothing of navillm_tpu, no jax and
-none of the packages the card's machine lacks (tokenizers among them), and
-its tiny slices (greedy evaluation on bytes, on BPE uncached and
-prefix-cached, on int4, one teacher-forcing optimizer step through
+none of the packages the card's machine lacks (tokenizers, protobuf,
+sentencepiece and huggingface_hub among them), and its tiny slices (greedy
+evaluation on bytes, on BPE uncached and prefix-cached, on int4, one
+teacher-forcing optimizer step through
 train_one_epoch, then run_training at stage multi from a YAML config),
 its generation paths (EQA streaming evaluation, run_training with the
 summarization and FGR2R heads validating R2R and EQA), its object-grounding
@@ -32,7 +33,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "yaml", "ml_dtypes", "tokenizers", "transformers",
-          "safetensors", "h5py")
+          "safetensors", "h5py", "google.protobuf", "sentencepiece",
+          "huggingface_hub")
 
 SLICE = """
 import sys, tempfile
@@ -333,9 +335,10 @@ OG = "OG_CFG = %r\n" % OG_CFG + OG
 # the six sources of configs/multi.yaml with --enable_og --enable_summarize
 # --enable_fgr2r (validating CVDN, SOON, R2R, REVERIE and ScanQA), and at
 # stage pretrain over its seven (the augmented sets' .jsonl files read
-# through testing.aug_decoder)
+# through the default decoder, bert-base-uncased from an offline cache
+# written by testing.write_bert_cache)
 MIX = """
-import sys, tempfile
+import os, sys, tempfile
 import torch
 from navillm_tpu_torch import testing as T
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
@@ -357,9 +360,16 @@ dims = RolloutDims(max_gmap_nodes=16, max_views=40, max_cands=15,
                    max_hist=8, max_objects=8, max_prefix=448)
 dbs = {s: synthetic_object_db(s, cfg.pano.obj_feat_size, 4)
        for s in ("reverie", "soon")}
-for cls in (aug.R2RAugDataset, aug.REVERIEAugDataset):
-    cls.decoder = staticmethod(T.aug_decoder)
+for k in ("TRANSFORMERS_CACHE", "PYTORCH_TRANSFORMERS_CACHE",
+          "PYTORCH_PRETRAINED_BERT_CACHE", "HF_HUB_CACHE",
+          "HUGGINGFACE_HUB_CACHE"):
+    os.environ.pop(k, None)
 with tempfile.TemporaryDirectory() as tmp:
+    os.environ["HF_HOME"] = tmp + "/hf"
+    T.write_bert_cache(tmp + "/hf")
+    assert aug.R2RAugDataset.decoder is None
+    ids = T.aug_encode("walk left into the kitchen")
+    assert aug._default_decoder()(ids) == T.aug_decoder(ids)
     T.make_r2r_world(tmp, n_episodes=3, rows=3, cols=3, split="val")
     trajs = []
     for cached in (False, True):
@@ -493,6 +503,15 @@ with tempfile.TemporaryDirectory() as tmp:
         assert "sr" in res["R2R"], res
     assert weight_bits(built[-1].model) == 4
     print("pretrained", res["R2R"])
+    # the same checkpoint with LLaMA's sentencepiece tokenizer.model alone
+    os.remove(vic + "/tokenizer.json")
+    for f in ("tokenizer.model", "tokenizer_config.json"):
+        shutil.copy("tests/fixtures/spm_llama/" + f, vic + "/" + f)
+    a = TrainArgs(output_dir=run + "/spm", mode="test", **common)
+    a.sync_from_config(ycfg)
+    res = TTL.run_training(a, ycfg, feat_dbs=feats)
+    assert "sr" in res["R2R"] and built[-1].tok.true_vocab_size == 1022, res
+    print("tokenizer.model", res["R2R"])
 print("loaded", sorted(m for m in sys.modules if m in %r
                        or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
 """ % (BANNED,)
@@ -762,7 +781,7 @@ def test_port_runs_the_task_mix_without_jax():
 
 def test_port_runs_the_pretrained_path_without_jax():
     out = _fresh(PRETRAINED)
-    assert "pretrained" in out
+    assert "pretrained" in out and "tokenizer.model" in out
 
 
 def test_port_runs_the_per_step_paths_without_jax():
@@ -802,6 +821,7 @@ def _port_sources():
             "navillm_tpu_torch/data/llava.py",
             "navillm_tpu_torch/data/scanqa.py",
             "navillm_tpu_torch/data/prefetch.py",
+            "navillm_tpu_torch/models/sentencepiece.py",
             "navillm_tpu_torch/eval/captioning.py",
             "navillm_tpu_torch/agents/llava_agent.py"} <= names
     return files
@@ -817,13 +837,18 @@ def test_port_sources_never_import_hf_packages():
     """The pretrained path reads HF's layouts itself: the card's machine has
     neither transformers, safetensors nor tokenizers."""
     pat = re.compile(r"^\s*(import|from)\s+(transformers|safetensors|"
-                     r"tokenizers)\b", re.M)
+                     r"tokenizers|google\.protobuf|sentencepiece|"
+                     r"huggingface_hub)\b", re.M)
     files = _port_sources()
     assert ROOT / "navillm_tpu_torch/models/convert.py" in files
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert not hits, hits
     assert pat.search("from safetensors import safe_open") \
-        and pat.search("import tokenizers\n")
+        and pat.search("import tokenizers\n") \
+        and pat.search("from google.protobuf import message") \
+        and pat.search("import sentencepiece as spm") \
+        and pat.search("from huggingface_hub import constants") \
+        and not pat.search("from .sentencepiece import load_model")
 
 
 def test_port_sources_never_import_navillm_tpu():

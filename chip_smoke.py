@@ -361,7 +361,26 @@ After phase 40 (bf16 model live):
      (whose reads the pool throws away), each with and without the
      prefetcher: the same trajectories in every run, ms per step both
      ways. launches_by_phase gains 48 and 48_eval.
-The cached-vs-uncached comparisons (15, 19, 29, 41, 44) gate the candidate
+After phase 47 (nothing else on the card):
+ 49. a Meta-Llama-3-8B-shaped directory through read_args -> build_runner
+     (--pretrained_model_name_or_path DIR --from_scratch --precision
+     bf16): Meta-Llama-3-8B's config.json (32 heads over 8 KV heads, MLP
+     14336, vocabulary 128256, rope_theta 500000) and a LLaMA-3-layout
+     tokenizer.json (the Split regex, ByteLevel without one,
+     ignore_merges) grown by testing.llama3_tokenizer_spec from the
+     committed fixture to 128000 BPE entries and 256 special tokens,
+     random bf16 weights from the seed; at phase 13's dims, 16 R2R
+     episodes uncached (K1 32 per step), the same prefix-cached (phase
+     14's gates) and phase 15's A/B (C-w1), 8 episodes on the tree
+     quantized to int4 on the card (K4 224 per LLM pass); every prompt of
+     the first run encodes to the ids of a fresh load; K1 at 32/8 heads
+     at the step's and the prefill's widest shapes and K4 at (m, 4096,
+     1024), (m, 4096, 14336) and (m, 14336, 4096) for the int4 step's m
+     and m = 4, against their plain versions, timed beside their bounds
+     and library calls (masked SDPA with enable_gqa;
+     torch._weight_int4pack_mm). launches_by_phase gains 49, 49_cached
+     and 49_w4, K1's row gqa_32_8 and K4's llama3_8b.
+The cached-vs-uncached comparisons (15, 19, 29, 41, 44, 49) gate the candidate
 logits by cached_logit_tol, tied to the spread of the row's valid logits
 (C-w1), and print each planted fault's margin.
 The kernels line lists K1-K4 with each one's time, its plain version's,
@@ -964,8 +983,10 @@ def sdpa_call(q, k, v, mask, causal: bool, scale: float):
         am = am & torch.ones(t, s, dtype=torch.bool,
                              device=mask.device).tril(s - t)
     views = [x.transpose(1, 2) for x in (q, k, v)]
+    # grouped-query K/V (fewer heads than q) through the call's own GQA
+    kw = {"enable_gqa": True} if k.shape[2] != q.shape[2] else {}
     return lambda: F.scaled_dot_product_attention(*views, attn_mask=am,
-                                                  scale=scale)
+                                                  scale=scale, **kw)
 
 
 def randn(gen, *shape):
@@ -5780,8 +5801,10 @@ VIT_REL = 1e-4
 # the H100 SXM's published FP32 peak outside the tensor cores
 PEAK_FP32 = 67e12
 # phase 46: two ranks of tp=2 on the one card (gloo, CUDA tensors staged
-# through host memory: NCCL refuses two ranks on one device)
-TP_EPISODES = 8
+# through host memory: NCCL refuses two ranks on one device); 4 episodes
+# since phase 49 joined the run: a rank's step takes 1.1-1.5 s there,
+# and 8 episodes left the whole run within 56 s of its 1200 s limit
+TP_EPISODES = 4
 # phase 47: dp=2 x tp=2 training at full width and 8 layers (four ranks
 # of the full depth would not fit the card)
 DP_TP_LAYERS = 8
@@ -6338,6 +6361,241 @@ def prefetch_evals(bpe, cfg, model, tmp, root, smi):
     return runs[0]["launches"]
 
 
+# ------------------------------------- slice 17: a LLaMA-3-layout directory --- #
+LLAMA3_FIXTURE = Path(__file__).resolve().parent / "tests/fixtures/llama3_bpe"
+# phase 49's R2R episodes: bf16 uncached and prefix-cached, then int4
+LLAMA3_EPISODES = 16
+LLAMA3_W4_EPISODES = 8
+# Meta-Llama-3-8B's architecture as its config.json gives it: (hidden,
+# layers, heads, KV heads, MLP, rope_theta, rms_norm_eps, positions)
+LLAMA3_8B = (4096, 32, 32, 8, 14336, 500000.0, 1e-5, 8192)
+# K4 at the 8B layer shapes that no 7B phase runs: wk/wv (o = 8 KV heads x
+# 128), w_gate/w_up (o = 14336) and w_down (h = 14336)
+Q4_LLAMA3_SHAPES = ((4096, 1024), (4096, 14336), (14336, 4096))
+
+
+def llm_bytes(llm) -> dict:
+    """Bytes of the LLM's embedding, lm_head and layer leaves."""
+    out = {"embed": 0, "lm_head": 0, "layers": 0}
+    for name, p in llm.named_parameters():
+        key = name.split(".")[0]
+        out[key if key in out else "layers"] += p.numel() * p.element_size()
+    return out
+
+
+def recording(runner, name, sink, pick):
+    """runner.<name> wrapped to append pick(args) of every call to
+    ``sink``."""
+    fn = getattr(runner, name)
+
+    def wrapped(*a, **kw):
+        sink.append(pick(a))
+        return fn(*a, **kw)
+    setattr(runner, name, wrapped)
+
+
+def phase_gqa_kernel(tag, b, t, padding: str):
+    """K1 at 32 query heads over 8 KV heads (head dim 128, causal) on [B, T]
+    key masks padded on the ``padding`` side (left: an eval step's; right:
+    a prefill's): held to its plain version by phase 2's gate (planted
+    faults on the rows that see LONG_ROW keys or more), then timed beside
+    the plain version and masked SDPA with enable_gqa (the library
+    yardstick). Returns the row of timings."""
+    nh, nkv, d = 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    mask = left_padded_mask(b, t) if padding == "left" \
+        else right_padded_mask(b, t)
+    q, k, v = randn(gen, b, t, nh, d), randn(gen, b, t, nkv, d), \
+        randn(gen, b, t, nkv, d)
+    scale = d ** -0.5
+    with torch.inference_mode():
+        o, lse = flash_attention_fwd(q, k, v, mask, causal=True, scale=scale)
+        ro, rlse = flash_attention_fwd_reference(q, k, v, mask, True, scale)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+            raise RuntimeError(f"[{tag}] K1 at B={b} T={t} GQA 32/8: output "
+                               f"is not finite")
+        seen = T.visible_keys(mask, t, True)
+        rows, long_rows = seen > 0, seen >= LONG_ROW
+        err = (o.float() - ro.float()).abs()[rows].max().item()
+        err_lse = (lse - rlse).abs().transpose(1, 2)[rows].max().item()
+        faults = [(name, flash_attention_fwd_reference(
+            q, k, v, hide_keys(mask, min(128, t // 2), w), True, scale)[0])
+            for name, w in (("one key hidden", 1),
+                            ("one 64-key tile hidden", 64))
+            if long_rows.any()]
+        excess = gate(f"[{tag}] K1 B={b} T={t} NH=32 NKV=8 D=128 causal, "
+                      f"max|dO|={err:.3e} max|dlse|={err_lse:.3e}", o, ro,
+                      rows, faults, long_rows)
+        if err_lse > LSE_ATOL:
+            raise RuntimeError(f"[{tag}] K1's lse disagrees with its plain "
+                               f"version")
+        del faults
+        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, mask, causal=True,
+                                                 scale=scale))
+        plain_ms = cuda_ms(lambda: flash_attention_fwd_reference(
+            q, k, v, mask, True, scale), iters=5)
+        library = sdpa_call(q, k, v, mask, True, scale)
+        library_ms = cuda_ms(library)
+        lib_err = (library().transpose(1, 2).float()
+                   - ro.float()).abs()[rows].max().item()
+    bound_ms, by = fwd_bound(b, t, t, nh, nkv, d, True)
+    print(f"[{tag}] K1 B={b} T={t} GQA 32/8: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, masked SDPA (enable_gqa) {library_ms:.4f} ms "
+          f"(max|d| {lib_err:.3e} from the plain version), bound "
+          f"{bound_ms:.4f} ms ({by})")
+    return {"max_abs_err": err, "gate_excess": excess, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+            "bound_by": by}
+
+
+def phase_llama3(tmp, smi):
+    """Phase 49: a Meta-Llama-3-8B-shaped directory through the CLI's
+    entry points (read_args -> build_runner with
+    --pretrained_model_name_or_path DIR --from_scratch --precision bf16):
+    Meta-Llama-3-8B's config.json (GQA 32/8, MLP 14336, vocabulary 128256,
+    rope_theta 500000) and a LLaMA-3-layout tokenizer.json of 128000 BPE
+    entries and 256 special tokens (testing.write_llama3_checkpoint from
+    the committed fixture), random bf16 weights from the seed. Runs
+    LLAMA3_EPISODES R2R episodes of streaming evaluation uncached, then
+    prefix-cached (phase 14's gates: no uncached step, K1 32 per prefill),
+    phase 15's cached-vs-uncached A/B (C-w1), and LLAMA3_W4_EPISODES on the
+    tree quantized to int4 on the card (K4 224 per LLM pass); phase_slice's
+    gates on each (trajectories start at the ground truth, metrics finite,
+    K1 32 per uncached step). Every prompt of the first run encodes to the
+    ids a fresh load of the file gives. K1 is held to its plain version at
+    32/8 heads at the step's and the prefill's shapes, K4 at
+    Q4_LLAMA3_SHAPES for the int4 step's m and m = 4, each timed beside
+    its bound and library call. Returns ({K1 launches by phase}, {K4
+    launches by phase}, {K1 shape: timings}, {K4 (m, h, o, mode):
+    timings})."""
+    from navillm_tpu_torch.models.tokenization import TokenizerFile
+    t_phase = time.perf_counter()
+    base = json.loads((LLAMA3_FIXTURE / "tokenizer.json").read_text(
+        encoding="utf-8"))
+    d = Path(tmp) / "llama3_8b"
+    t0 = time.perf_counter()
+    T.write_llama3_checkpoint(d, base)
+    make_s = time.perf_counter() - t0
+    args, ycfg = read_args([
+        "--cfg_file", pretrained_yaml(tmp, 1024), "--output_dir",
+        f"{tmp}/llama3_out", "--pretrained_model_name_or_path", str(d),
+        "--from_scratch", "--precision", "bf16"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = TTL.build_runner(args, ycfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    llm, tok = runner.cfg.llm, runner.tok
+    arch = (llm.hidden_size, llm.num_layers, llm.num_heads, llm.num_kv_heads,
+            llm.intermediate_size, llm.rope_theta, llm.rms_norm_eps,
+            llm.max_seq_len)
+    device = runner.device
+    if arch != LLAMA3_8B or llm.vocab_size != tok.vocab_size \
+            or (tok.bos_id, tok.eos_id, tok.true_vocab_size) != (
+                T.LLAMA3_VOCAB, T.LLAMA3_VOCAB + 1, T.LLAMA3_VOCAB + 262) \
+            or tok.pad_id != tok.unk_id:
+        raise RuntimeError(f"[49] build_runner built {arch} with vocabulary "
+                           f"{llm.vocab_size}; tokenizer "
+                           f"bos {tok.bos_id} eos {tok.eos_id} pad "
+                           f"{tok.pad_id} unk {tok.unk_id}, "
+                           f"{tok.true_vocab_size} ids")
+    nbytes = llm_bytes(runner.model.llm)
+    print(f"[49] Meta-Llama-3-8B-shaped directory (config.json: hidden "
+          f"{llm.hidden_size}, {llm.num_layers} layers, {llm.num_heads} "
+          f"heads over {llm.num_kv_heads} KV heads, MLP "
+          f"{llm.intermediate_size}, rope_theta {llm.rope_theta}; "
+          f"tokenizer.json of {T.LLAMA3_VOCAB} BPE entries and 256 special "
+          f"tokens, made and written in {make_s:.2f} s) through read_args "
+          f"-> build_runner --from_scratch in {build_s:.2f} s: vocabulary "
+          f"{tok.true_vocab_size} ids (<PAD> {tok.pad_id} added, unk = pad) "
+          f"padded to {llm.vocab_size}; bf16 LLM {sum(nbytes.values()) / 1e9:.3f}"
+          f" GB (embed {nbytes['embed'] / 1e9:.3f}, lm_head "
+          f"{nbytes['lm_head'] / 1e9:.3f}, layers "
+          f"{nbytes['layers'] / 1e9:.3f}); {smi}")
+    runner.dims = slice_dims()
+    steps, prefills = [], []
+    recording(runner, "eval_step", steps, lambda a: a[2]["input_ids"].shape)
+    recording(runner, "prefill", prefills, lambda a: a[1].shape)
+    prompts = []
+    trajs, stats = phase_slice(49, tok, runner.cfg, runner.model,
+                               f"{tmp}/l3_eval", prompts=prompts,
+                               runner=runner, n_episodes=LLAMA3_EPISODES)
+    step_shape = max(steps[-stats["eval_steps"]:], key=lambda s: s[1])
+    cached_trajs, cached_stats = phase_slice(
+        49, tok, runner.cfg, runner.model, f"{tmp}/l3_cached",
+        prefix_cache=True, runner=runner, n_episodes=LLAMA3_EPISODES)
+    report_cached(49, runner.cfg, cached_trajs, cached_stats, trajs, stats,
+                  49)
+    pre_shape = max(prefills, key=lambda s: s[1])
+    phase_cached_ab(tok, runner.cfg, runner.model, f"{tmp}/l3_ab", tag=49)
+    # the prompts against a second, fresh load of the directory's files
+    texts = list(dict.fromkeys(prompts))
+    t0 = time.perf_counter()
+    TokenizerFile(d / "tokenizer.json")
+    file_s = time.perf_counter() - t0
+    tok2, nav_s = timed_tokenizer(str(d))
+    ms = encode_ms(tok2, texts)
+    ids = [tok2.encode(t, add_bos=False) for t in texts]
+    bad = [t for t, i in zip(texts, ids)
+           if tok.encode(t, add_bos=False) != i]
+    if bad or not texts:
+        raise RuntimeError(f"[49] {len(bad)} of {len(texts)} prompts encode "
+                           f"to other ids than a fresh load of the file")
+    lengths = [len(i) for i in ids]
+    print(f"[49] {len(prompts)} prompts of the uncached run ({len(texts)} "
+          f"distinct, {min(lengths)}-{max(lengths)} tokens) encode to the "
+          f"ids of a fresh load of the {T.LLAMA3_VOCAB}-entry file; load "
+          f"{file_s * 1e3:.1f} ms (TokenizerFile) and {nav_s * 1e3:.1f} ms "
+          f"(NavTokenizer.from_pretrained, the schema tokens added); encode "
+          f"{ms:.3f} ms per prompt; {smi}")
+    # K1 at 32/8 heads: the widest uncached step and prefill
+    k1 = {f"{kind} B={b} T={t}": phase_gqa_kernel(49, b, t, padding)
+          for kind, (b, t), padding in (("step", step_shape, "left"),
+                                        ("prefill", pre_shape, "right"))}
+    # the int4 tree
+    cfg = runner.cfg
+    with torch.no_grad():
+        qmodel = NavModel(cfg, quantize_nav_params(runner.model, bits=4))
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    qbytes = llm_bytes(qmodel.llm)
+    w4_trajs, w4_stats = phase_slice(49, tok, cfg, qmodel, f"{tmp}/l3_w4",
+                                     n_episodes=LLAMA3_W4_EPISODES)
+    passes = w4_stats["steps"] + w4_stats["prefill_calls"]
+    want = passes * cfg.llm.num_layers * Q4_LAYER_MATMULS
+    if w4_stats["q4_launches"] != want:
+        raise RuntimeError(f"[49] K4 launches {w4_stats['q4_launches']} != "
+                           f"{passes} LLM passes x {cfg.llm.num_layers} x "
+                           f"{Q4_LAYER_MATMULS}")
+    m = N_SLOTS * step_shape[1]
+    q4 = phase_q4_kernel(tag=49, rows=(m, 4), modes=("w4",),
+                         shapes=Q4_LLAMA3_SHAPES)
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[49] int4 LLM {sum(qbytes.values()) / 1e9:.3f} GB (layers "
+          f"{qbytes['layers'] / 1e9:.3f} GB with their scales) against bf16 "
+          f"{sum(nbytes.values()) / 1e9:.3f}; K4 {w4_stats['q4_launches']} = "
+          f"{passes} LLM passes x {cfg.llm.num_layers} x {Q4_LAYER_MATMULS};"
+          f" ms per step bf16 uncached {stats['ms_per_step']:.2f}, cached "
+          f"{cached_stats['ms_per_step']:.2f}, int4 "
+          f"{w4_stats['ms_per_step']:.2f}; LLM tokens per step "
+          f"{stats['token_units'] / stats['steps']:.1f}, "
+          f"{cached_stats['token_units'] / cached_stats['steps']:.1f}, "
+          f"{w4_stats['token_units'] / w4_stats['steps']:.1f}; peak "
+          f"{stats['peak_gib']:.2f}, {cached_stats['peak_gib']:.2f}, "
+          f"{w4_stats['peak_gib']:.2f} GiB; phase 49 in "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}")
+    if device.type != "cuda":
+        raise RuntimeError(f"[49] build_runner ran on {device}")
+    return ({"49": stats["launches"], "49_cached": cached_stats["launches"],
+             "49_w4": w4_stats["launches"]},
+            {"49_w4": w4_stats["q4_launches"]}, k1, q4)
+
+
 def main():
     t_main = time.perf_counter()
     smi = phase_device()
@@ -6528,6 +6786,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         dp_tp = phase_dp_tp_train(tmp)
     tp0 = tp_eval[0]
+    # slice 17: a Meta-Llama-3-8B-shaped directory (GQA 32/8) on one card
+    with tempfile.TemporaryDirectory() as tmp:
+        l3_launches, l3_q4, l3_k1, l3_k4 = phase_llama3(tmp, smi)
     # K1 at the eval slice's widest prompts (B=4, T=1024), K2/K3 at the
     # training slice's (B=16, T=1024), K4 at the w_gate shape with 4 slots
     # of 1024 tokens (w4); launches from the measured runs of phases 6
@@ -6568,11 +6829,18 @@ def main():
                 **{f"46_{kind}{'_cached' if c else ''}":
                    tp0[kind]["stats"][c]["launches"] if key == "fwd" else 0
                    for kind in ("bf16", "w4") for c in (False, True)},
-                "47": dp_tp[0]["launches"][key]}
+                "47": dp_tp[0]["launches"][key],
+                **{ph: n if key == "fwd" else 0
+                   for ph, n in l3_launches.items()}}
     rows = [{**KERNELS["fwd"], "launches": launches["fwd"],
              "launches_by_phase": by_phase("fwd"),
              **fwd_err, **fwd_timed[(4, 1024)],
-             "shape": "B=4 T=S=1024 NH=32 D=128 causal", "library": sdpa}]
+             "max_abs_err": max(fwd_err["max_abs_err"], *(
+                 r["max_abs_err"] for r in l3_k1.values())),
+             "shape": "B=4 T=S=1024 NH=32 D=128 causal", "library": sdpa,
+             "gqa_32_8": {shape: {k: r[k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by")} for shape, r in l3_k1.items()}}]
     for key in ("dkv", "dq"):
         rows.append({**KERNELS[key], "launches": launches[key],
                      "launches_by_phase": by_phase(key),
@@ -6591,10 +6859,12 @@ def main():
                                           for k, v in int4_mix.items()},
                                        **{f"46_w4{'_cached' if c else ''}":
                                           n for c, n in tp0["w4"]["q4"]
-                                          .items()}},
+                                          .items()},
+                                       **l3_q4},
                  **q4[(4096, 4096, 11008, "w4")],
                  "max_abs_err": max(r["max_abs_err"] for r in
-                                    [*q4.values(), *q4_decode.values()]),
+                                    [*q4.values(), *q4_decode.values(),
+                                     *l3_k4.values()]),
                  "shape": "m=4096 h=4096 o=11008 w4",
                  "decode_m4": {f"h={h} o={o}": {k: r[k] for k in (
                      "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -6608,8 +6878,12 @@ def main():
                  "tp2_shards": {f"m={m} h={h} o={o}": {k: r[k] for k in (
                      "max_abs_err", "ms", "plain_ms", "library_ms",
                      "bound_ms", "bound_by")}
-                     for (m, h, o, _), r in tp0["q4_check"].items()}})
-    print(f"[run] phases 0-48 in {time.perf_counter() - t_main:.1f} s")
+                     for (m, h, o, _), r in tp0["q4_check"].items()},
+                 "llama3_8b": {f"m={m} h={h} o={o}": {k: r[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")}
+                     for (m, h, o, _), r in l3_k4.items()}})
+    print(f"[run] phases 0-49 in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

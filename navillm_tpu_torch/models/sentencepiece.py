@@ -8,7 +8,8 @@ with ``LlamaConverter`` (transformers 4.57, ``convert_slow_tokenizer.py``):
 it parses the proto with ``protobuf``, reads each piece's string through
 ``sentencepiece`` (``SentencePieceExtractor``: ``{id_to_piece(i): i}``,
 which is the proto's ``pieces[i].piece``), derives the BPE merges from the
-pieces' scores (``generate_merges``) and assembles the normalizer,
+pieces' scores (``generate_merges``; a Unigram model keeps its scored
+pieces as a ``Unigram`` model) and assembles the normalizer,
 pre-tokenizer and decoder from the tokenizer's ``legacy`` and
 ``add_prefix_space``. The card's machine has neither ``protobuf``,
 ``sentencepiece``, ``transformers`` nor ``tokenizers``, so this module
@@ -203,7 +204,8 @@ def llama_tokenizer_spec(model: SentencePieceModel, legacy=True,
     writes for a ``LlamaTokenizer`` over ``model`` with these ``legacy`` and
     ``add_prefix_space`` (read for their truth, as the converter does).
 
-    The BPE vocabulary is the pieces by id (ids 0-2 scored 0.0), the merges
+    For a BPE model (LLaMA's and Vicuna's) the vocabulary is the pieces by
+    id (ids 0-2 scored 0.0), the merges
     come from ``generate_merges`` over the scores, with ``byte_fallback``,
     ``fuse_unk`` and the trainer's ``unk_piece``; CONTROL pieces are added
     as special tokens and USER_DEFINED ones as plain added tokens. Legacy:
@@ -212,19 +214,32 @@ def llama_tokenizer_spec(model: SentencePieceModel, legacy=True,
     a ``Metaspace`` pre-tokenizer that prepends only at the text's start
     (``first``, or ``never`` without ``add_prefix_space``). The decoder
     undoes "▁", the byte pieces and, with ``add_prefix_space``, one leading
-    space. A Unigram (or word or char) model raises ValueError."""
+    space. A Unigram model (``model_type`` 1) converts as
+    ``SpmConverter.tokenizer`` does it: a ``Unigram`` model over the same
+    scored pieces with ``unk_id`` 0 and byte fallback, and the same
+    normalizer, pre-tokenizer, decoder and added tokens. A word or char
+    model raises ValueError."""
     kind = model.trainer_spec["model_type"]
-    if kind != BPE:
-        name = {UNIGRAM: "Unigram", WORD: "word", CHAR: "char"}.get(
-            kind, str(kind))
-        raise ValueError(f"{model.where}: a {name} sentencepiece model; only "
-                         f"BPE models (LLaMA's and Vicuna's) are read "
-                         f"(ROADMAP A14)")
     pieces = model.pieces
     scored = [(p.piece, 0.0 if i < 3 else p.score)
               for i, p in enumerate(pieces)]
-    sp_vocab = {p.piece: i for i, p in enumerate(pieces)}
-    merges = generate_merges(sp_vocab, scored)
+    if kind == BPE:
+        sp_vocab = {p.piece: i for i, p in enumerate(pieces)}
+        merges = generate_merges(sp_vocab, scored)
+        spec = {"type": "BPE", "dropout": None,
+                "unk_token": model.trainer_spec["unk_piece"],
+                "continuing_subword_prefix": None,
+                "end_of_word_suffix": None, "fuse_unk": True,
+                "byte_fallback": True, "ignore_merges": False,
+                "vocab": {piece: i for i, (piece, _) in enumerate(scored)},
+                "merges": [list(m) for m in merges]}
+    elif kind == UNIGRAM:
+        spec = {"type": "Unigram", "unk_id": 0,
+                "vocab": [list(v) for v in scored], "byte_fallback": True}
+    else:
+        name = {WORD: "word", CHAR: "char"}.get(kind, str(kind))
+        raise ValueError(f"{model.where}: a {name} sentencepiece model; only "
+                         f"BPE and Unigram models are read")
     vocab = {piece: i for i, (piece, _) in enumerate(scored)}
     added = [{"id": vocab[p.piece], "content": p.piece, "single_word": False,
               "lstrip": False, "rstrip": False, "normalized": False,
@@ -252,10 +267,5 @@ def llama_tokenizer_spec(model: SentencePieceModel, legacy=True,
         "added_tokens": added, "normalizer": normalizer,
         "pre_tokenizer": pre_tokenizer, "post_processor": None,
         "decoder": {"type": "Sequence", "decoders": decoders},
-        "model": {"type": "BPE", "dropout": None,
-                  "unk_token": model.trainer_spec["unk_piece"],
-                  "continuing_subword_prefix": None,
-                  "end_of_word_suffix": None, "fuse_unk": True,
-                  "byte_fallback": True, "ignore_merges": False,
-                  "vocab": vocab, "merges": [list(m) for m in merges]},
+        "model": spec,
     }

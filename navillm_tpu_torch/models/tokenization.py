@@ -18,7 +18,10 @@ plain Python, without the ``tokenizers`` or ``transformers`` packages (the
 card's machine has neither): the byte-level layout of ``bpe_nav.json``
 (``BPETokenizer``, the GPT-2 split written out over ``str``), the Llama
 layouts (byte-fallback BPE under the legacy ``Prepend``/``Replace``
-normalizer or the ``Metaspace`` pre-tokenizer) and the ``Whitespace`` one.
+normalizer or the ``Metaspace`` pre-tokenizer), the LLaMA-3 one (a regex
+``Split``, then ``ByteLevel`` without one) and the others its docstring
+lists, with BPE or Unigram models (``models/pretokenize.py``,
+``models/unigram.py``).
 ``NavTokenizer.from_pretrained`` reads such a directory through
 ``HFTokenizer``, and a directory with a sentencepiece ``tokenizer.model``
 and no ``tokenizer.json`` as transformers converts it for a
@@ -35,11 +38,14 @@ import heapq
 import json
 import os
 import re
-import unicodedata
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from . import pretokenize as PT
+from .pretokenize import bytes_to_unicode, gpt2_split  # noqa: F401
+from .unigram import UnigramModel
 
 SPECIAL_TOKENS = ["<cand>", "<hist>", "<obj>", "<cls_1>", "<cls_2>"]
 
@@ -117,163 +123,20 @@ class ByteTokenizer:
         return self._special[tok]
 
 
-def bytes_to_unicode() -> Dict[int, str]:
-    """GPT-2's byte -> printable character table (the ByteLevel alphabet):
-    printable Latin-1 bytes map to themselves, the other 68 to U+0100..."""
-    bs = (list(range(ord("!"), ord("~") + 1))
-          + list(range(ord("¡"), ord("¬") + 1))
-          + list(range(ord("®"), ord("ÿ") + 1)))
-    cs = list(bs)
-    n = 0
-    for b in range(256):
-        if b not in bs:
-            bs.append(b)
-            cs.append(256 + n)
-            n += 1
-    return dict(zip(bs, map(chr, cs)))
+class BPEModel:
+    """The ``BPE`` model of a ``tokenizer.json`` without dropout or subword
+    affixes: ``byte_fallback`` (``<0x00>``..``<0xFF>`` vocabulary entries),
+    ``fuse_unk``, ``unk_token`` and ``ignore_merges``. ``tokenize(word)``
+    merges the word's symbols by rank, lowest first and leftmost on a tie,
+    as the library's priority queue does."""
 
-
-# what the split regex's \s matches: Unicode White_Space. str.isspace also
-# takes U+001C..U+001F (bidi class B/S), which the regex reads as
-# punctuation
-_NOT_WS = frozenset("\x1c\x1d\x1e\x1f")
-_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
-
-
-@functools.lru_cache(maxsize=65536)
-def _char_class(c: str) -> str:
-    """'s' (whitespace), 'L' (letter), 'N' (number) or 'P' (anything else),
-    as the split regex's \\s, \\p{L} and \\p{N} read it."""
-    if c.isspace() and c not in _NOT_WS:
-        return "s"
-    cat = unicodedata.category(c)[0]
-    return cat if cat in "LN" else "P"
-
-
-def gpt2_split(text: str) -> List[str]:
-    """The ByteLevel pre-tokenizer's split (use_regex, no prefix space):
-    the pieces the pattern
-      's|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+| ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+
-    matches, left to right, its alternatives tried in order."""
-    n = len(text)
-    cls = [_char_class(c) for c in text]
-    out = []
-    i = 0
-    while i < n:
-        c = text[i]
-        if c == "'":
-            hit = next((w for w in _CONTRACTIONS
-                        if text.startswith(w, i + 1)), None)
-            if hit is not None:
-                out.append(text[i:i + 1 + len(hit)])
-                i += 1 + len(hit)
-                continue
-        # ` ?X+` for X in letters, numbers, other: an optional U+0020, then a
-        # run of one class
-        j = i + 1 if c == " " and i + 1 < n and cls[i + 1] != "s" else i
-        k = cls[j] if j < n else "s"
-        if k != "s":
-            e = j + 1
-            while e < n and cls[e] == k:
-                e += 1
-            out.append(text[i:e])
-            i = e
-            continue
-        # whitespace: \s+(?!\S) keeps the run's last character for the next
-        # piece when a non-space follows; a lone one falls to \s+
-        e = i + 1
-        while e < n and cls[e] == "s":
-            e += 1
-        if e < n and e - i > 1:
-            e -= 1
-        out.append(text[i:e])
-        i = e
-    return out
-
-
-def _whitespace_split(text: str) -> List[str]:
-    """The Whitespace pre-tokenizer's split: the matches of
-    ``\\w+|[^\\w\\s]+``, where \\w is a letter, a mark, a decimal digit or
-    a connector (Oniguruma's Unicode word class) and \\s White_Space."""
-    out, run, kind = [], [], None
-    for c in text:
-        if c.isspace() and c not in _NOT_WS:
-            k = None
-        else:
-            cat = unicodedata.category(c)
-            k = "w" if cat[0] in "LM" or cat in ("Nd", "Pc") else "p"
-        if k != kind and run:
-            out.append("".join(run))
-            run = []
-        if k is not None:
-            run.append(c)
-        kind = k
-    if run:
-        out.append("".join(run))
-    return out
-
-
-def _metaspace_split(text: str, rep: str) -> List[str]:
-    """Split before every ``rep`` (the delimiter merged with what follows)."""
-    out, start = [], 0
-    for i, c in enumerate(text):
-        if c == rep and i > start:
-            out.append(text[start:i])
-            start = i
-    if start < len(text):
-        out.append(text[start:])
-    return out
-
-
-def _string_pattern(spec: dict, where: str) -> str:
-    pat = spec["pattern"]
-    if "String" not in pat:
-        raise ValueError(f"{where}: only string patterns are read, got {pat}")
-    return pat["String"]
-
-
-class TokenizerFile:
-    """A fast-tokenizer file (``tokenizer.json``) with a BPE model, read and
-    run in plain Python, as the ``tokenizers`` package runs it.
-
-    The parts it reads (anything else raises ValueError):
-      - normalizer: none, or ``Prepend`` / ``Replace`` (string pattern) /
-        a ``Sequence`` of them (the legacy Llama layout);
-      - pre-tokenizer: none, ``ByteLevel`` (GPT-2 split, no prefix space),
-        ``Whitespace``, or ``Metaspace`` (``prepend_scheme`` always /
-        first / never, ``split``);
-      - model: ``BPE`` without dropout or subword affixes, with
-        ``byte_fallback`` (``<0x00>``..``<0xFF>`` vocabulary entries),
-        ``fuse_unk``, ``unk_token`` and ``ignore_merges``;
-      - decoder: none (tokens joined by a space), ``ByteLevel``, or
-        ``Replace`` / ``ByteFallback`` / ``Fuse`` / ``Strip`` / a
-        ``Sequence`` of them.
-
-    Encoding: the added tokens are split out of the raw text first
-    (leftmost-longest); each other segment is normalized, pre-tokenized
-    (``Metaspace`` with ``first`` prepends only to a segment at the start of
-    the text) and every piece merged by rank, lowest first and leftmost on a
-    tie, as the library's priority queue does. Decoding drops the added
-    tokens flagged special when asked, then runs the decoder.
-    """
-
-    def __init__(self, source: Union[str, os.PathLike, dict],
-                 where: Optional[str] = None):
-        """``source``: a ``tokenizer.json`` path, or its content as a dict
-        (``where`` then names it in errors)."""
-        if isinstance(source, dict):
-            spec, where = source, where or "<tokenizer spec>"
-        else:
-            with open(source, encoding="utf-8") as f:
-                spec = json.load(f)
-            where = str(source)
-        model = spec["model"]
-        if model.get("type") != "BPE" or model.get("dropout") \
-                or model.get("continuing_subword_prefix") \
+    def __init__(self, model: dict, where: str):
+        if model.get("dropout") or model.get("continuing_subword_prefix") \
                 or model.get("end_of_word_suffix"):
             raise ValueError(f"{where}: not a BPE model this reader runs "
                              f"(no dropout, no subword affixes)")
         self.vocab: Dict[str, int] = dict(model["vocab"])
+        self.id_to_token = {i: t for t, i in self.vocab.items()}
         self.ranks = {}
         for r, m in enumerate(model["merges"]):
             pair = tuple(m.split(" ", 1) if isinstance(m, str) else m)
@@ -282,143 +145,7 @@ class TokenizerFile:
         self.byte_fallback = bool(model.get("byte_fallback"))
         self.fuse_unk = bool(model.get("fuse_unk"))
         self.ignore_merges = bool(model.get("ignore_merges"))
-        self._normalize = self._normalizer(spec.get("normalizer"), where)
-        self._pre = self._pre_tokenizer(spec.get("pre_tokenizer"), where)
-        self._decoders = self._decoder(spec.get("decoder"), where)
-        # added tokens: content -> (id, special, normalized)
-        self.added: Dict[str, Tuple[int, bool, bool]] = {}
-        for t in spec.get("added_tokens", []):
-            if t.get("lstrip") or t.get("rstrip") or t.get("single_word"):
-                raise ValueError(f"{where}: added token {t['content']!r} "
-                                 f"strips or matches single words, which "
-                                 f"this reader does not do")
-            self.added[t["content"]] = (t["id"], bool(t.get("special")),
-                                        bool(t.get("normalized")))
-        self._byte_enc = bytes_to_unicode()
-        self._byte_dec = {c: b for b, c in self._byte_enc.items()}
-        self._piece_ids = functools.lru_cache(maxsize=65536)(self._bpe)
-        self._refresh()
 
-    # ------------------------------------------------------------ parts
-    @staticmethod
-    def _normalizer(spec, where):
-        if spec is None:
-            return None
-        parts = spec["normalizers"] if spec["type"] == "Sequence" else [spec]
-        steps = []
-        for p in parts:
-            if p["type"] == "Prepend":
-                pre = p["prepend"]
-                steps.append(lambda s, pre=pre: pre + s if s else s)
-            elif p["type"] == "Replace":
-                old = _string_pattern(p, where)
-                steps.append(lambda s, old=old, new=p["content"]:
-                             s.replace(old, new))
-            else:
-                raise ValueError(f"{where}: normalizer {p['type']} is not "
-                                 f"read (Prepend, Replace, Sequence)")
-
-        def normalize(s):
-            for step in steps:
-                s = step(s)
-            return s
-        return normalize
-
-    def _pre_tokenizer(self, spec, where):
-        if spec is None:
-            return lambda s, at_start: [s]
-        kind = spec["type"]
-        if kind == "ByteLevel":
-            if spec.get("add_prefix_space") or not spec.get("use_regex",
-                                                            True):
-                raise ValueError(f"{where}: ByteLevel is read with the "
-                                 f"GPT-2 split and no prefix space only")
-            return lambda s, at_start: [
-                "".join(self._byte_enc[b] for b in piece.encode("utf-8"))
-                for piece in gpt2_split(s)]
-        if kind == "Whitespace":
-            return lambda s, at_start: _whitespace_split(s)
-        if kind == "Metaspace":
-            rep = spec.get("replacement", "▁")
-            scheme = spec.get("prepend_scheme") or (
-                "always" if spec.get("add_prefix_space", True) else "never")
-            split = spec.get("split", True)
-
-            def metaspace(s, at_start):
-                s = s.replace(" ", rep)
-                if not s.startswith(rep) and (
-                        scheme == "always" or (scheme == "first"
-                                               and at_start)):
-                    s = rep + s
-                return _metaspace_split(s, rep) if split else [s]
-            return metaspace
-        raise ValueError(f"{where}: pre-tokenizer {kind} is not read "
-                         f"(ByteLevel, Whitespace, Metaspace)")
-
-    def _decoder(self, spec, where):
-        """The decoder as a chain of steps over the token strings."""
-        if spec is None:
-            return None
-        parts = spec["decoders"] if spec["type"] == "Sequence" else [spec]
-        steps = []
-        for p in parts:
-            kind = p["type"]
-            if kind == "ByteLevel":
-                steps.append(self._byte_level_decode)
-            elif kind == "Replace":
-                old = _string_pattern(p, where)
-                steps.append(lambda toks, old=old, new=p["content"]:
-                             [t.replace(old, new) for t in toks])
-            elif kind == "ByteFallback":
-                steps.append(_byte_fallback_decode)
-            elif kind == "Fuse":
-                steps.append(lambda toks: ["".join(toks)])
-            elif kind == "Strip":
-                steps.append(lambda toks, c=p["content"], a=p["start"],
-                             b=p["stop"]: [_strip(t, c, a, b) for t in toks])
-            else:
-                raise ValueError(f"{where}: decoder {kind} is not read "
-                                 f"(ByteLevel, Replace, ByteFallback, Fuse, "
-                                 f"Strip, Sequence)")
-        return steps
-
-    # --------------------------------------------------------- vocabulary
-    def _refresh(self):
-        self._id_to_token = {i: t for t, i in self.vocab.items()}
-        self._id_to_token.update({i: t for t, (i, _, _) in
-                                  self.added.items()})
-        self._special_ids = {i for i, s, _ in self.added.values() if s}
-
-        def matcher(normalized):
-            toks = sorted((t for t, (_, _, n) in self.added.items()
-                           if n == normalized), key=len, reverse=True)
-            return re.compile("|".join(map(re.escape, toks))) if toks \
-                else None
-        self._raw_re, self._norm_re = matcher(False), matcher(True)
-
-    def __len__(self) -> int:
-        return len(set(self.vocab) | set(self.added))
-
-    def token_to_id(self, tok: str) -> Optional[int]:
-        if tok in self.added:
-            return self.added[tok][0]
-        return self.vocab.get(tok)
-
-    def add_special_tokens(self, tokens: Sequence[str]):
-        """Add ``tokens`` as special added tokens (never normalized or split),
-        as the library does: a token already known keeps its id, a new one
-        takes the next, which is the model's vocabulary size unless an added
-        id already reaches past it."""
-        for tok in tokens:
-            tid = self.token_to_id(tok)
-            if tid is None:
-                n = len(self.vocab)
-                top = max((i for i, _, _ in self.added.values()), default=None)
-                tid = n if top is None or (n and top < n) else top + 1
-            self.added[tok] = (tid, True, False)
-        self._refresh()
-
-    # ------------------------------------------------------------- encode
     def _symbols(self, word: str) -> List[str]:
         """The word's characters as vocabulary entries: a missing one is
         its UTF-8 bytes' ``<0xNN>`` entries (byte_fallback) or the unk
@@ -447,7 +174,7 @@ class TokenizerFile:
             out.append(self.unk_token)
         return out
 
-    def _bpe(self, word: str) -> Tuple[int, ...]:
+    def tokenize(self, word: str) -> Tuple[int, ...]:
         """Ids of one pre-token: its symbols merged by rank (lowest first,
         leftmost on a tie, as a priority queue of (rank, position))."""
         if not word:
@@ -490,39 +217,202 @@ class TokenizerFile:
         vocab = self.vocab
         return tuple(vocab[s] for s, a in zip(sym, alive) if a)
 
-    def _encode_segment(self, text: str, at_start: bool, out: List[int]):
+
+DECODERS = ("ByteLevel", "Replace", "ByteFallback", "Fuse", "Strip",
+            "Metaspace", "Sequence")
+
+
+class TokenizerFile:
+    """A fast-tokenizer file (``tokenizer.json``), read and run in plain
+    Python, as the ``tokenizers`` package runs it.
+
+    The parts it reads (anything else raises ValueError naming the part and
+    the file):
+      - normalizer: none, ``NFC`` / ``NFD`` / ``NFKC`` / ``NFKD``,
+        ``Lowercase``, ``Strip``, ``StripAccents``, ``Prepend``,
+        ``Replace`` (a string or an Oniguruma regex pattern), or a
+        ``Sequence`` of them;
+      - pre-tokenizer: none, ``ByteLevel`` (``add_prefix_space``,
+        ``use_regex``: the GPT-2 split, or bytes mapped without a split),
+        ``Split`` (a string or regex pattern, every behavior, ``invert``),
+        ``Whitespace``, ``WhitespaceSplit``, ``Metaspace``
+        (``prepend_scheme`` always / first / never, ``split``), ``Digits``,
+        ``Punctuation``, or a ``Sequence`` of them (the LLaMA-3 layout:
+        ``Split`` by its regex, then ``ByteLevel`` without one);
+      - model: ``BPE`` (``BPEModel``) or ``Unigram``
+        (``unigram.UnigramModel``);
+      - decoder: none (tokens joined by a space), ``ByteLevel``,
+        ``Replace`` (a string or regex pattern), ``ByteFallback``,
+        ``Fuse``, ``Strip``, ``Metaspace``, or a ``Sequence`` of them.
+    Regex patterns go through ``pretokenize.onig_to_re``.
+
+    Encoding: the added tokens that are not normalized are split out of the
+    raw text first (leftmost-longest); each other segment is normalized,
+    split on the normalized added tokens (found in their normalized form),
+    pre-tokenized and every piece run through the model (its ids cached per
+    piece). Decoding drops the added
+    tokens flagged special when asked, then runs the decoder.
+    """
+
+    def __init__(self, source: Union[str, os.PathLike, dict],
+                 where: Optional[str] = None):
+        """``source``: a ``tokenizer.json`` path, or its content as a dict
+        (``where`` then names it in errors)."""
+        if isinstance(source, dict):
+            spec, where = source, where or "<tokenizer spec>"
+        else:
+            with open(source, encoding="utf-8") as f:
+                spec = json.load(f)
+            where = str(source)
+        model = spec["model"]
+        kind = model.get("type", "BPE")
+        if kind == "BPE":
+            self.model = BPEModel(model, where)
+        elif kind == "Unigram":
+            self.model = UnigramModel(model, where)
+        else:
+            raise ValueError(f"{where}: model {kind} is not read (BPE, "
+                             f"Unigram)")
+        self.vocab = self.model.vocab
+        self._normalize = PT.normalizer(spec.get("normalizer"), where)
+        self._offsets = PT.reads_offsets(spec.get("pre_tokenizer"))
+        self._pre = PT.pre_tokenizer(spec.get("pre_tokenizer"), where)
+        self._decoders = self._decoder(spec.get("decoder"), where)
+        # added tokens: content -> (id, special, normalized)
+        self.added: Dict[str, Tuple[int, bool, bool]] = {}
+        for t in spec.get("added_tokens", []):
+            if t.get("lstrip") or t.get("rstrip") or t.get("single_word"):
+                raise ValueError(f"{where}: added token {t['content']!r} "
+                                 f"strips or matches single words, which "
+                                 f"this reader does not do")
+            self.added[t["content"]] = (t["id"], bool(t.get("special")),
+                                        bool(t.get("normalized")))
+        self._byte_enc = bytes_to_unicode()
+        self._byte_dec = {c: b for b, c in self._byte_enc.items()}
+        self._piece_ids = functools.lru_cache(maxsize=65536)(
+            self.model.tokenize)
+        self._refresh()
+
+    # ------------------------------------------------------------ parts
+    def _decoder(self, spec, where):
+        """The decoder as a chain of steps over the token strings."""
+        if spec is None:
+            return None
+        parts = spec["decoders"] if spec["type"] == "Sequence" else [spec]
+        steps = []
+        for p in parts:
+            kind = p["type"]
+            if kind == "ByteLevel":
+                steps.append(self._byte_level_decode)
+            elif kind == "Replace":
+                rep = PT.replacer(PT.pattern_regex(p, where), p["content"])
+                steps.append(lambda toks, rep=rep: [rep(t) for t in toks])
+            elif kind == "ByteFallback":
+                steps.append(_byte_fallback_decode)
+            elif kind == "Fuse":
+                steps.append(lambda toks: ["".join(toks)])
+            elif kind == "Strip":
+                steps.append(lambda toks, c=p["content"], a=p["start"],
+                             b=p["stop"]: [_strip(t, c, a, b) for t in toks])
+            elif kind == "Metaspace":
+                steps.append(PT.metaspace_decode(
+                    p.get("replacement", "▁"), p.get("prepend_scheme") or (
+                        "always" if p.get("add_prefix_space", True)
+                        else "never")))
+            else:
+                raise ValueError(f"{where}: decoder {kind} is not read "
+                                 f"({', '.join(DECODERS)})")
+        return steps
+
+    # --------------------------------------------------------- vocabulary
+    def _refresh(self):
+        self._id_to_token = dict(self.model.id_to_token)
+        self._id_to_token.update({i: t for t, (i, _, _) in
+                                  self.added.items()})
+        self._special_ids = {i for i, s, _ in self.added.values() if s}
+
+        # the normalized added tokens are found in the normalized text in
+        # their normalized form, as the library's trie holds them
+        self._norm_ids = {}
+        for t, (i, _, n) in self.added.items():
+            if n:
+                form = t if self._normalize is None else \
+                    self._normalize(t, 0, None)[0]
+                if form:
+                    self._norm_ids[form] = i
+
+        def matcher(toks):
+            toks = sorted(toks, key=len, reverse=True)
+            return re.compile("|".join(map(re.escape, toks))) if toks \
+                else None
+        self._raw_re = matcher(t for t, (_, _, n) in self.added.items()
+                               if not n)
+        self._norm_re = matcher(self._norm_ids)
+
+    def __len__(self) -> int:
+        return len(set(self.vocab) | set(self.added))
+
+    def token_to_id(self, tok: str) -> Optional[int]:
+        if tok in self.added:
+            return self.added[tok][0]
+        return self.vocab.get(tok)
+
+    def add_special_tokens(self, tokens: Sequence[str]):
+        """Add ``tokens`` as special added tokens (never normalized or split),
+        as the library does: a token already known keeps its id, a new one
+        takes the next, which is the model's vocabulary size unless an added
+        id already reaches past it."""
+        for tok in tokens:
+            tid = self.token_to_id(tok)
+            if tid is None:
+                n = len(self.vocab)
+                top = max((i for i, _, _ in self.added.values()), default=None)
+                tid = n if top is None or (n and top < n) else top + 1
+            self.added[tok] = (tid, True, False)
+        self._refresh()
+
+    # ------------------------------------------------------------- encode
+    def _encode_segment(self, text: str, shift: int, out: List[int]):
+        """A segment between raw added tokens, ``shift`` its offset in the
+        text: normalized (with each character's original offset when the
+        pre-tokenizer reads them), split on the normalized added tokens,
+        each part pre-tokenized on its own (its offset: its first
+        character's) and run through the model."""
+        orig = list(range(shift, shift + len(text))) if self._offsets \
+            else None
         if self._normalize is not None:
-            text = self._normalize(text)
-        for seg, added in self._split(self._norm_re, text):
+            text, orig = self._normalize(text, shift, orig)
+        for a, b, added in self._spans(self._norm_re, text):
             if added:
-                out.append(self.added[seg][0])
+                out.append(self._norm_ids[text[a:b]])
                 continue
-            for piece in self._pre(seg, at_start):
-                out.extend(self._piece_ids(piece))
+            piece = (text[a:b], 0, None) if orig is None else \
+                (text[a:b], orig[a], orig[a:b])
+            for p in self._pre([piece]):
+                out.extend(self._piece_ids(p[0]))
 
     @staticmethod
-    def _split(pattern, text: str):
-        """(segment, is an added token) over ``text``, split on the added
-        tokens ``pattern`` matches (longest first at each position)."""
+    def _spans(pattern, text: str):
+        """(start, end, is an added token) over ``text``, split on the
+        added tokens ``pattern`` matches (longest first at each
+        position)."""
         pos = 0
         if pattern is not None:
             for m in pattern.finditer(text):
                 if m.start() > pos:
-                    yield text[pos:m.start()], False
-                yield m.group(), True
+                    yield pos, m.start(), False
+                yield m.start(), m.end(), True
                 pos = m.end()
         if pos < len(text):
-            yield text[pos:], False
+            yield pos, len(text), False
 
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
-        pos = 0
-        for seg, added in self._split(self._raw_re, text):
+        for a, b, added in self._spans(self._raw_re, text):
             if added:
-                ids.append(self.added[seg][0])
+                ids.append(self.added[text[a:b]][0])
             else:
-                self._encode_segment(seg, pos == 0, ids)
-            pos += len(seg)
+                self._encode_segment(text[a:b], a, ids)
         return ids
 
     # ------------------------------------------------------------- decode

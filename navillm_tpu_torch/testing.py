@@ -15,6 +15,11 @@ disk-backed store with ``ImageFeaturesDB``'s reads and cache, without
 h5py; ``hold_off_prefetch`` keeps an agent from prefetching.
 ``spawn_gloo`` runs a function in N processes joined by a gloo process
 group (the multi-process tests and rehearsals on the CPU).
+``spm_pieces`` and ``write_sentencepiece_model`` write seeded
+sentencepiece models; ``llama3_tokenizer_spec`` grows a LLaMA-3-layout
+``tokenizer.json`` to LLaMA-3's 128000 entries and
+``write_llama3_checkpoint`` writes a Meta-Llama-3-8B-shaped directory
+without weights around it.
 """
 from __future__ import annotations
 
@@ -275,10 +280,11 @@ def _pb_field(num: int, value) -> bytes:
     return _pb_varint(num << 3 | 2) + _pb_varint(len(value)) + value
 
 
-def write_sentencepiece_model(path, pieces) -> bytes:
+def write_sentencepiece_model(path, pieces, model_type: int = 2) -> bytes:
     """Write ``pieces`` ((piece, score, type) or ``sentencepiece.Piece``) as
-    a sentencepiece ``tokenizer.model`` in LLaMA's layout: a BPE trainer
-    spec with byte fallback, unk/bos/eos ids 0-2 and pad id -1, and an
+    a sentencepiece ``tokenizer.model`` in LLaMA's layout: a trainer spec
+    of ``model_type`` (2 BPE, as LLaMA's; 1 Unigram) with byte fallback,
+    unk/bos/eos ids 0-2 and pad id -1, and an
     identity normalizer, as protobuf serializes a ``ModelProto`` (fields
     in number order, defaults written out where LLaMA's file has them,
     and fields this package does not read: the trainer's input file,
@@ -293,7 +299,7 @@ def write_sentencepiece_model(path, pieces) -> bytes:
             body += _pb_field(3, kind)
         out += _pb_field(1, body)
     trainer = b"".join(_pb_field(n, v) for n, v in (
-        (1, "corpus.txt"), (2, "tokenizer"), (3, 2),
+        (1, "corpus.txt"), (2, "tokenizer"), (3, model_type),
         (4, len(pieces)), (10, 0.99995), (11, 2000000),
         (20, 16), (35, True), (40, 0), (41, 1), (42, 2),
         (43, -1), (45, "<unk>"), (46, "<s>"), (47, "</s>"),
@@ -387,6 +393,109 @@ def spm_pieces(n: int, seed: int = 0, user_defined=()) -> list:
     tail = [Piece(c, -float(n_merges + k), NORMAL)
             for k, c in enumerate(SPM_ALPHABET)]
     return head + body + tail
+
+
+# ------------------------------------------- LLaMA-3-layout directories --- #
+LLAMA3_BOS, LLAMA3_EOS = "<|begin_of_text|>", "<|end_of_text|>"
+# the BPE entries of Meta-Llama-3-8B's tokenizer.json (its special tokens
+# follow at 128000-128255)
+LLAMA3_VOCAB = 128000
+LLAMA3_MAX_PIECE = 16
+# Meta-Llama-3-8B's config.json (its Hugging Face repository's)
+LLAMA3_8B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 8192, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+    "rope_scaling": None, "rope_theta": 500000.0,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.40.0.dev0", "use_cache": True,
+    "vocab_size": 128256}
+
+
+def llama3_specials() -> list:
+    """LLaMA-3's 256 special tokens in id order."""
+    head = [LLAMA3_BOS, LLAMA3_EOS]
+    head += [f"<|reserved_special_token_{i}|>" for i in range(4)]
+    head += ["<|start_header_id|>", "<|end_header_id|>",
+             "<|reserved_special_token_4|>", "<|eot_id|>"]
+    return head + [f"<|reserved_special_token_{i}|>"
+                   for i in range(5, 256 - 5)]
+
+
+def llama3_tokenizer_config(first_id: int) -> dict:
+    """LLaMA-3's tokenizer_config.json, its special tokens at ``first_id``
+    on (a PreTrainedTokenizerFast with no unk or pad token)."""
+    added = {str(first_id + k): {
+        "content": t, "lstrip": False, "normalized": False, "rstrip": False,
+        "single_word": False, "special": True}
+        for k, t in enumerate(llama3_specials())}
+    return {"added_tokens_decoder": added, "bos_token": LLAMA3_BOS,
+            "clean_up_tokenization_spaces": True, "eos_token": LLAMA3_EOS,
+            "model_input_names": ["input_ids", "attention_mask"],
+            "model_max_length": 1000000000000000019884624838656,
+            "tokenizer_class": "PreTrainedTokenizerFast"}
+
+
+def llama3_tokenizer_spec(base: dict, n_vocab: int = LLAMA3_VOCAB,
+                          seed: int = 0) -> dict:
+    """``base`` (a LLaMA-3-layout ``tokenizer.json`` as a dict, such as
+    tests/fixtures/llama3_bpe's, its special tokens right after its
+    vocabulary) grown to exactly ``n_vocab`` BPE entries: after its trained
+    merges, joins of two earlier entries of at most LLAMA3_MAX_PIECE / 2
+    characters drawn from ``random.Random(seed)`` (the second not starting
+    a word, the join not known), each with its merge. The special tokens move to
+    ``n_vocab`` on, the post-processor's ``<|begin_of_text|>`` with them."""
+    spec = json.loads(json.dumps(base))
+    model = spec["model"]
+    vocab = dict(model["vocab"])
+    if len(vocab) > n_vocab:
+        raise ValueError(f"{len(vocab)} entries do not fit in {n_vocab}")
+    merges = [list(m.split(" ", 1)) if isinstance(m, str) else list(m)
+              for m in model["merges"]]
+    half = LLAMA3_MAX_PIECE // 2
+    pool = [t for t in sorted(vocab, key=vocab.get) if len(t) <= half]
+    rng = random.Random(seed)
+    while len(vocab) < n_vocab:
+        a, b = rng.choice(pool), rng.choice(pool)
+        new = a + b
+        if b.startswith("\u0120") or new in vocab:
+            continue
+        vocab[new] = len(vocab)
+        merges.append([a, b])
+        if len(new) <= half:
+            pool.append(new)
+    model["vocab"], model["merges"] = vocab, merges
+    moved = {}
+    for k, t in enumerate(spec["added_tokens"]):
+        t["id"] = moved[t["content"]] = n_vocab + k
+
+    def renumber(proc):
+        if proc is None:
+            return
+        for p in proc.get("processors", []):
+            renumber(p)
+        for name, st in (proc.get("special_tokens") or {}).items():
+            st["ids"] = [moved.get(t, i) for t, i in zip(st["tokens"],
+                                                          st["ids"])]
+    renumber(spec.get("post_processor"))
+    return spec
+
+
+def write_llama3_checkpoint(path, base: dict):
+    """A Meta-Llama-3-8B-shaped checkpoint directory without weights (for
+    --from_scratch): ``config.json`` (LLAMA3_8B_CONFIG), ``tokenizer.json``
+    (``llama3_tokenizer_spec(base)``) and ``tokenizer_config.json``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(LLAMA3_8B_CONFIG, indent=2))
+    (path / "tokenizer.json").write_text(json.dumps(
+        llama3_tokenizer_spec(base), ensure_ascii=False), encoding="utf-8")
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        llama3_tokenizer_config(LLAMA3_VOCAB), indent=2))
 
 
 def _plain_instruction(rng: random.Random) -> str:

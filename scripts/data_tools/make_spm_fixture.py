@@ -1,7 +1,8 @@
-"""Write the sentencepiece fixture: a LLaMA-layout ``tokenizer.model`` and
-the ``tokenizer.json`` transformers converts from it.
+"""Write the sentencepiece fixtures: a LLaMA-layout ``tokenizer.model`` and
+the ``tokenizer.json`` transformers converts from it, for a BPE model and
+for a Unigram one.
 
-The fixture (``tests/fixtures/spm_llama/``) holds:
+The BPE fixture (``tests/fixtures/spm_llama/``) holds:
   - ``tokenizer.model``: ``navillm_tpu_torch.testing.spm_pieces(1016)``
     (the seeded BPE pieces, as many as the BPE vocabulary chip_smoke.py's
     7B-width checkpoint has) written by
@@ -12,16 +13,23 @@ The fixture (``tests/fixtures/spm_llama/``) holds:
   - ``tokenizer_config.json``: a slow ``LlamaTokenizer``'s, as a Vicuna
     directory has it.
 
+The Unigram fixture (``tests/fixtures/spm_unigram/``) holds the same
+pieces in a Unigram model (trainer ``model_type`` 1), the ``tokenizer.json``
+``LlamaConverter`` makes of it (a ``Unigram`` model, through
+``SpmConverter.tokenizer``) and the same config.
+
 ``navillm_tpu_torch.models.sentencepiece`` reads ``tokenizer.model`` by
 hand, and chip_smoke.py holds the ids it gives against the
 ``tokenizer.json`` twin on a machine that has neither ``transformers`` nor
-``tokenizers``. ``tests/test_torch_sentencepiece.py`` rewrites the fixture
-in a temporary directory and asserts it is byte for byte the committed one.
+``tokenizers``. ``tests/test_torch_sentencepiece.py`` rewrites both
+fixtures in a temporary directory and asserts they are byte for byte the
+committed ones.
 
 ``convert`` needs ``transformers`` and ``protobuf`` (not ``sentencepiece``:
 see ``ProtoExtractor``).
 
 Usage: python scripts/data_tools/make_spm_fixture.py [--out DIR]
+           [--unigram-out DIR]
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 FIXTURE = ROOT / "tests" / "fixtures" / "spm_llama"
+UNIGRAM_FIXTURE = ROOT / "tests" / "fixtures" / "spm_unigram"
 N_PIECES = 1016
 TOKENIZER_CONFIG = {
     "add_bos_token": True, "add_eos_token": False,
@@ -95,12 +104,13 @@ def convert(model_path, legacy=True, add_prefix_space=True):
                                        add_prefix_space)).converted()
 
 
-def write_fixture(out: Path = FIXTURE) -> Path:
+def write_fixture(out: Path = FIXTURE, model_type: int = 2) -> Path:
+    """The fixture of a BPE (``model_type`` 2) or Unigram (1) model."""
     from navillm_tpu_torch import testing as T
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     T.write_sentencepiece_model(out / "tokenizer.model",
-                                T.spm_pieces(N_PIECES))
+                                T.spm_pieces(N_PIECES), model_type)
     convert(out / "tokenizer.model").save(str(out / "tokenizer.json"))
     (out / "tokenizer_config.json").write_text(
         json.dumps(TOKENIZER_CONFIG, indent=2) + "\n")
@@ -110,7 +120,10 @@ def write_fixture(out: Path = FIXTURE) -> Path:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=FIXTURE)
-    print(write_fixture(ap.parse_args().out))
+    ap.add_argument("--unigram-out", type=Path, default=UNIGRAM_FIXTURE)
+    args = ap.parse_args()
+    print(write_fixture(args.out))
+    print(write_fixture(args.unigram_out, model_type=1))
 
 
 if __name__ == "__main__":

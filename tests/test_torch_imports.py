@@ -34,7 +34,7 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 BANNED = ("jax", "jaxlib", "yaml", "ml_dtypes", "tokenizers", "transformers",
           "safetensors", "h5py", "google.protobuf", "sentencepiece",
-          "huggingface_hub")
+          "huggingface_hub", "regex")
 
 SLICE = """
 import sys, tempfile
@@ -512,6 +512,16 @@ with tempfile.TemporaryDirectory() as tmp:
     res = TTL.run_training(a, ycfg, feat_dbs=feats)
     assert "sr" in res["R2R"] and built[-1].tok.true_vocab_size == 1022, res
     print("tokenizer.model", res["R2R"])
+    # a LLaMA-3-layout tokenizer.json (its Split regex translated for re)
+    os.remove(vic + "/tokenizer.model")
+    for f in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy("tests/fixtures/llama3_bpe/" + f, vic + "/" + f)
+    a = TrainArgs(output_dir=run + "/llama3", mode="test", **common)
+    a.sync_from_config(ycfg)
+    res = TTL.run_training(a, ycfg, feat_dbs=feats)
+    assert "sr" in res["R2R"] and \
+        built[-1].tok.bos_token == T.LLAMA3_BOS, res
+    print("llama3", res["R2R"])
 print("loaded", sorted(m for m in sys.modules if m in %r
                        or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
 """ % (BANNED,)
@@ -781,7 +791,8 @@ def test_port_runs_the_task_mix_without_jax():
 
 def test_port_runs_the_pretrained_path_without_jax():
     out = _fresh(PRETRAINED)
-    assert "pretrained" in out and "tokenizer.model" in out
+    assert "pretrained" in out and "tokenizer.model" in out \
+        and "llama3" in out
 
 
 def test_port_runs_the_per_step_paths_without_jax():
@@ -822,6 +833,8 @@ def _port_sources():
             "navillm_tpu_torch/data/scanqa.py",
             "navillm_tpu_torch/data/prefetch.py",
             "navillm_tpu_torch/models/sentencepiece.py",
+            "navillm_tpu_torch/models/pretokenize.py",
+            "navillm_tpu_torch/models/unigram.py",
             "navillm_tpu_torch/eval/captioning.py",
             "navillm_tpu_torch/agents/llava_agent.py"} <= names
     return files
@@ -835,10 +848,10 @@ def test_port_sources_never_import_jax():
 
 def test_port_sources_never_import_hf_packages():
     """The pretrained path reads HF's layouts itself: the card's machine has
-    neither transformers, safetensors nor tokenizers."""
+    neither transformers, safetensors, tokenizers nor regex."""
     pat = re.compile(r"^\s*(import|from)\s+(transformers|safetensors|"
                      r"tokenizers|google\.protobuf|sentencepiece|"
-                     r"huggingface_hub)\b", re.M)
+                     r"huggingface_hub|regex)\b", re.M)
     files = _port_sources()
     assert ROOT / "navillm_tpu_torch/models/convert.py" in files
     hits = [str(f) for f in files if pat.search(f.read_text())]
@@ -848,7 +861,9 @@ def test_port_sources_never_import_hf_packages():
         and pat.search("from google.protobuf import message") \
         and pat.search("import sentencepiece as spm") \
         and pat.search("from huggingface_hub import constants") \
-        and not pat.search("from .sentencepiece import load_model")
+        and pat.search("import regex\n") \
+        and not pat.search("from .sentencepiece import load_model") \
+        and not pat.search("from . import pretokenize as PT")
 
 
 def test_port_sources_never_import_navillm_tpu():

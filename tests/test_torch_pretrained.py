@@ -15,6 +15,7 @@ import dataclasses
 import json
 import os
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +38,8 @@ from navillm_tpu.sim import WorldModel as JWorld  # noqa: E402
 from navillm_tpu.testing import synthetic_nav_batch  # noqa: E402
 from navillm_tpu.training import train_loop as JTL  # noqa: E402
 from navillm_tpu.utils import config as JCFG  # noqa: E402
+from navillm_tpu_torch import testing as T  # noqa: E402
+from navillm_tpu_torch.agents import prompts as P  # noqa: E402
 from navillm_tpu_torch.agents.runner import (NavModelRunner,  # noqa: E402
                                              RolloutDims)
 from navillm_tpu_torch.convert import flatten_tree, params_from_jax  # noqa
@@ -297,6 +300,18 @@ CORPUS = [
 ]
 
 
+TEMPLATES = [
+    *(P.navigation_prompt(t, "Walk past the sofa, then stop. Isn't it "
+                          "the café's door?", h, c, cls)
+      for t in ("r2r", "reverie", "cvdn", "eqa")
+      for h, c, cls in ((0, 1, "<cls_1>"), (4, 13, "<cls_2>"))),
+    P.summarization_prompt("reverie", "", 3, 4),
+    P.embodied_qa_prompt("eqa", "what color is the sofa?", 2, 5),
+    P.object_grounding_prompt("reverie", "Find the lamp.", 2, 6, "<cls_1>"),
+]
+LLAMA3_FIXTURE = Path(__file__).resolve().parent / "fixtures" / "llama3_bpe"
+
+
 def _whitespace_layout(d):
     """tests/test_hf_tokenizer.py:20-44's tokenizer."""
     from tokenizers import Tokenizer, models, pre_tokenizers, trainers
@@ -353,6 +368,32 @@ def _llama_layout(d, metaspace):
         "model_max_length": 4096}))
 
 
+def _llama3_layout(d):
+    """LLaMA-3's layout (tests/fixtures/llama3_bpe): the Split regex then
+    ByteLevel without one, ignore_merges, 256 special tokens after the
+    vocabulary, no unk or pad token."""
+    for f in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(LLAMA3_FIXTURE / f, d / f)
+
+
+def _unigram_layout(d):
+    """A Unigram model trained by tokenizers' UnigramTrainer, with the
+    Metaspace pre-tokenizer and decoder."""
+    from tokenizers import (Tokenizer, decoders, models, pre_tokenizers,
+                            trainers)
+    tok = Tokenizer(models.Unigram())
+    tok.pre_tokenizer = pre_tokenizers.Metaspace()
+    tok.decoder = decoders.Metaspace()
+    tok.train_from_iterator(TRAIN_TEXT, trainers.UnigramTrainer(
+        vocab_size=120, special_tokens=["<unk>", "<s>", "</s>"],
+        unk_token="<unk>", show_progress=False))
+    tok.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast",
+        "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+        "clean_up_tokenization_spaces": False}))
+
+
 @pytest.fixture(scope="module")
 def tok_dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("tokenizers")
@@ -362,7 +403,9 @@ def tok_dirs(tmp_path_factory):
                        ("metaspace", lambda d: _llama_layout(d, True)),
                        ("bpe_nav", _tokenizer_files),
                        ("bpe_nav_no_pad",
-                        lambda d: _tokenizer_files(d, pad=False))):
+                        lambda d: _tokenizer_files(d, pad=False)),
+                       ("llama3", _llama3_layout),
+                       ("unigram", _unigram_layout)):
         d = root / name
         d.mkdir()
         make(d)
@@ -376,17 +419,19 @@ TOK_ATTRS = ("bos_id", "eos_id", "pad_id", "unk_id", "vocab_size",
 
 
 @pytest.mark.parametrize("layout", ["whitespace", "llama", "metaspace",
-                                    "bpe_nav", "bpe_nav_no_pad"])
+                                    "bpe_nav", "bpe_nav_no_pad", "llama3",
+                                    "unigram"])
 def test_tokenizer_matches_hf(tok_dirs, layout):
     """NavTokenizer.from_pretrained on both sides (JAX's through
     transformers.AutoTokenizer): the ids, the specials and the vocabulary
-    sizes, every text of CORPUS, the batches and decoding."""
+    sizes, every text of CORPUS and every R2R, REVERIE, CVDN and EQA
+    prompt template, the batches and decoding."""
     d = str(tok_dirs[layout])
     kw = dict(max_length=24, pad_to_multiple=16)
     jt, tt = JTok.from_pretrained(d, **kw), TTok.from_pretrained(d, **kw)
     for a in TOK_ATTRS:
         assert getattr(tt, a) == getattr(jt, a), a
-    for text in CORPUS:
+    for text in CORPUS + TEMPLATES:
         ids = jt.encode(text, add_bos=False)
         assert tt.encode(text, add_bos=False) == ids, text
         for skip in (True, False):
@@ -693,3 +738,121 @@ def test_from_scratch_train_then_resume_eval(ckpt, data_dir, tmp_path):
     for n, p in trained.items():
         assert torch.equal(restored[n], p), n
     assert TC.checkpoint_exists(tmp_path / "epoch_0")
+
+
+# ------------------------------------------- a LLaMA-3-layout directory --- #
+@pytest.fixture(scope="module")
+def llama3_ckpt(tmp_path_factory):
+    """A tiny LLaMA-3-layout GQA checkpoint: LlamaForCausalLM (3 layers,
+    hidden 64, 4 heads over 2 KV heads, rope_theta 500000, rms_norm_eps
+    1e-5, untied) over the llama3 fixture's vocabulary and its 256 special
+    tokens, saved with the fixture's tokenizer files."""
+    from transformers import LlamaConfig as HFConfig
+    from transformers import LlamaForCausalLM
+    spec = json.loads((LLAMA3_FIXTURE / "tokenizer.json").read_text())
+    vocab = len(spec["model"]["vocab"]) + len(spec["added_tokens"])
+    torch.manual_seed(3)
+    hf = LlamaForCausalLM(HFConfig(
+        vocab_size=vocab, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=8192, rms_norm_eps=1e-5, rope_theta=500000.0,
+        bos_token_id=vocab - 256, eos_token_id=vocab - 255,
+        tie_word_embeddings=False)).eval()
+    d = tmp_path_factory.mktemp("llama3_tiny")
+    hf.save_pretrained(d, safe_serialization=True)
+    _llama3_layout(d)
+    return d
+
+
+STOP_BIAS = -1.5
+
+
+def _stream(runner, root, prefix_cache, port: bool):
+    """Greedy R2R streaming evaluation of root's val episodes in slots of
+    2 through one package's runner: ({instr_id: trajectory}, every step's
+    candidate logits as numpy, in order)."""
+    logits = []
+    for name in ("eval_step", "eval_step_cached"):
+        orig = getattr(runner, name)
+
+        def rec(*a, _orig=orig, **kw):
+            out = _orig(*a, **kw)
+            logits.append(_np(out[-1]))
+            return out
+        setattr(runner, name, rec)
+    feat = runner.cfg.pano.image_feat_size
+    split = "annotations/val.json"
+    if port:
+        from navillm_tpu_torch.agents.mp3d_agent import EvalArgs, R2RAgent
+        from navillm_tpu_torch.data.loaders import Dataloader
+        from navillm_tpu_torch.data.r2r import R2RDataset
+        from navillm_tpu_torch.testing import eval_config
+        world = WorldModel(str(root / "connectivity"))
+        ds = R2RDataset(root / "R2R" / split, world)
+        ds.init_feat_db(SyntheticImageFeaturesDB(feat))
+        args = EvalArgs(seed=0, val_batch_size=2, image_feat_size=feat,
+                        prefix_cache=prefix_cache)
+        preds = R2RAgent(args, world, runner).validate_streaming(
+            "R2R", args, eval_config(5), Dataloader(ds, 2, False),
+            dataset=ds)
+    else:
+        from navillm_tpu.agents import load_agent
+        from navillm_tpu.data.datasets import load_dataset
+        from navillm_tpu.data.loaders import Dataloader as JLoader
+        from navillm_tpu.utils.config import ConfigDict
+        cfg = ConfigDict({
+            "Feature": {"image_feat_size": feat, "angle_feat_size": 4},
+            "R2R": {"DIR": "R2R", "SPLIT": {"val_unseen": split}}})
+        args = JCFG.TrainArgs(data_dir=str(root), val_batch_size=2, seed=0)
+        args.image_feat_size = feat
+        args.prefix_cache = prefix_cache
+        world = JWorld(str(root / "connectivity"))
+        ds = load_dataset("r2r", args, cfg, training=False, source="R2R",
+                          world=world)
+        ds.init_feat_db(JFeatures(feat))
+        preds = load_agent("r2r", args, world, runner).validate_streaming(
+            "R2R", args, ConfigDict({"Optim": {
+                "val_max_action_len": {"R2R": 5}}}),
+            JLoader(ds, 2, False), dataset=ds)
+    for name in ("eval_step", "eval_step_cached"):
+        delattr(runner, name)
+    return {p["instr_id"]: p["trajectory"] for p in preds}, logits
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True],
+                         ids=["uncached", "cached"])
+def test_llama3_layout_slice_matches_jax(llama3_ckpt, tmp_path,
+                                         prefix_cache):
+    """The slice on a LLaMA-3-layout directory: both build_runners read its
+    config.json (GQA 4/2, rope_theta 500000) and its tokenizer (the Split
+    regex and ByteLevel, 256 special tokens, <PAD> added), the LLM loaded
+    equal bit for bit and the rest carried by params_from_jax (the stop
+    logit's bias set to -1.5, so that episodes stop at mixed steps, 1 to 5);
+    then greedy R2R streaming
+    evaluation, uncached or prefix-cached, on both: the same trajectories,
+    and every step's candidate logits within TOL (f32, this file's bound
+    for one navigation step's logits)."""
+    T.make_r2r_world(tmp_path, n_episodes=6, rows=4, cols=4, seed=3)
+    jrun, trun = _twin_runners(
+        _run_args(JCFG.TrainArgs, ".", ".", llama3_ckpt, mode="test"),
+        _run_args(TCFG.TrainArgs, ".", ".", llama3_ckpt, device="cpu",
+                  mode="test"))
+    llm = trun.cfg.llm
+    assert (llm.num_heads, llm.num_kv_heads, llm.rope_theta,
+            llm.rms_norm_eps) == (4, 2, 500000.0, 1e-5)
+    assert trun.tok.bos_token == T.LLAMA3_BOS and \
+        trun.tok.pad_id == trun.tok.unk_id == trun.tok.true_vocab_size - 1
+    jrun.params["out_head"]["b"] = jrun.params["out_head"]["b"].at[0].set(
+        STOP_BIAS)
+    with torch.no_grad():
+        trun.model.out_head.b[0] = STOP_BIAS
+    want, want_logits = _stream(jrun, tmp_path, prefix_cache, port=False)
+    got, got_logits = _stream(trun, tmp_path, prefix_cache, port=True)
+    if prefix_cache:
+        assert trun.cached_steps > 0 and trun.prefill_calls > 0 and \
+            trun.eval_steps == 0
+    assert len(got) == 6 and got == want
+    assert len({len(t) for t in got.values()}) > 1        # mixed lengths
+    assert len(got_logits) == len(want_logits) > 0
+    for g, w in zip(got_logits, want_logits):
+        np.testing.assert_allclose(g, w, **TOL)

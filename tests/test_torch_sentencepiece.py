@@ -267,15 +267,20 @@ def test_fixture_is_regenerated_byte_for_byte(tmp_path):
 
 
 def test_unigram_and_other_classes_raise(tmp_path, pieces):
-    """A Unigram model raises naming its file, through the spec and through
-    from_pretrained; so does a tokenizer.model of another tokenizer class
-    (a T5 one), and a file that is no sentencepiece model."""
+    """A word model raises naming its file, through the spec and through
+    from_pretrained, where a Unigram model (ROADMAP A14, closed) now
+    converts; so does a tokenizer.model of another tokenizer class (a T5
+    one), and a file that is no sentencepiece model."""
     d = tmp_path / "unigram"
     d.mkdir()
     (d / "tokenizer.model").write_bytes(_proto_model(pieces, model_type=1))
-    with pytest.raises(ValueError, match="Unigram"):
+    assert S.llama_tokenizer_spec(S.load_model(d / "tokenizer.model"))[
+        "model"]["type"] == "Unigram"
+    assert TTok.from_pretrained(str(d)).true_vocab_size == N_PIECES + 6
+    (d / "tokenizer.model").write_bytes(_proto_model(pieces, model_type=3))
+    with pytest.raises(ValueError, match="word"):
         S.llama_tokenizer_spec(S.load_model(d / "tokenizer.model"))
-    with pytest.raises(ValueError, match=f"{d}.*Unigram"):
+    with pytest.raises(ValueError, match=f"{d}.*word"):
         TTok.from_pretrained(str(d))
     d = tmp_path / "t5"
     d.mkdir()
@@ -289,3 +294,71 @@ def test_unigram_and_other_classes_raise(tmp_path, pieces):
     (d / "tokenizer.model").write_bytes(b"\x0a\xff")
     with pytest.raises(ValueError, match="not a sentencepiece model"):
         TTok.from_pretrained(str(d))
+
+
+# ------------------------------------------------- Unigram (ROADMAP A14) --- #
+@pytest.fixture(scope="module")
+def unigram_file(tmp_path_factory, pieces):
+    path = tmp_path_factory.mktemp("spm_unigram") / "tokenizer.model"
+    T.write_sentencepiece_model(path, pieces, model_type=1)
+    return path
+
+
+@pytest.mark.parametrize("legacy,add_prefix_space", LAYOUTS)
+def test_unigram_spec_matches_llama_converter(unigram_file, legacy,
+                                              add_prefix_space):
+    """A Unigram tokenizer.model: llama_tokenizer_spec is LlamaConverter's
+    tokenizer.json field by field (SpmConverter.tokenizer's Unigram model:
+    the scored pieces, unk_id 0, byte fallback; the same normalizer,
+    pre-tokenizer, decoder and added tokens as for BPE)."""
+    want = json.loads(MK.convert(unigram_file, legacy,
+                                 add_prefix_space).to_str())
+    got = S.llama_tokenizer_spec(S.load_model(unigram_file), legacy,
+                                 add_prefix_space)
+    assert want["model"]["type"] == "Unigram"
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("legacy,add_prefix_space", LAYOUTS)
+def test_unigram_from_pretrained_matches_jax(tmp_path, unigram_file, legacy,
+                                            add_prefix_space):
+    """NavTokenizer.from_pretrained on the Unigram tokenizer.model directory
+    equals JAX's on the converted tokenizer.json (tokenizers runs its
+    Unigram model): the special ids and sizes, the ids of every prompt (the
+    byte pieces taken for characters the pieces lack), and decoding."""
+    port, jax_dir = _directories(tmp_path, unigram_file, legacy,
+                                 add_prefix_space)
+    kw = dict(max_length=96, pad_to_multiple=32)
+    tt, jt = TTok.from_pretrained(str(port), **kw), \
+        JTok.from_pretrained(str(jax_dir), **kw)
+    for a in TOK_ATTRS:
+        assert getattr(tt, a) == getattr(jt, a), a
+    byte_ids = set(range(3 + len(USER_DEFINED), 259 + len(USER_DEFINED)))
+    fell_back = False
+    for text in PROMPTS:
+        ids = jt.encode(text, add_bos=False)
+        assert tt.encode(text, add_bos=False) == ids, text
+        fell_back |= bool(byte_ids & set(ids))
+        for skip in (True, False):
+            assert tt.decode(ids, skip_special_tokens=skip) == \
+                jt.decode(ids, skip_special_tokens=skip), (text, skip)
+    assert fell_back
+
+
+def test_unigram_fixture_is_regenerated_byte_for_byte(tmp_path):
+    """make_spm_fixture.py writes the committed Unigram fixture (the seeded
+    pieces in a Unigram tokenizer.model, transformers' conversion of it and
+    the config) byte for byte; the port's spec of its model is the
+    converted file."""
+    out = MK.write_fixture(tmp_path / "unigram", model_type=1)
+    names = sorted(p.name for p in MK.UNIGRAM_FIXTURE.iterdir())
+    assert names == sorted(p.name for p in out.iterdir()) == [
+        "tokenizer.json", "tokenizer.model", "tokenizer_config.json"]
+    for name in names:
+        assert (out / name).read_bytes() == \
+            (MK.UNIGRAM_FIXTURE / name).read_bytes(), name
+    spec = S.llama_tokenizer_spec(S.load_model(out / "tokenizer.model"))
+    assert spec == json.loads((out / "tokenizer.json").read_text(
+        encoding="utf-8"))

@@ -932,6 +932,100 @@ def attn_excess(got, want, rows) -> float:
     return (d / tol).max().item()
 
 
+# Gradient parity against the JAX package, element by element:
+#   |got - want| <= atol + rtol * max(|want|, GRAD_ROW_C * rms(want's row))
+# where a row is the leaf's last axis (a vector leaf is one row, a scalar
+# its own row). The f32 error of a sum scales with the size of its terms,
+# not of its result: an element that cancels down to a small fraction of
+# its row carries the rounding of terms the size of the row's large
+# elements, and two correct implementations that sum in other orders (XLA
+# and ATen, or one library on two instruction sets) part there by more
+# than rtol of the element itself. The row's RMS stands in for the size
+# of those terms. GRAD_ROW_C = 1e-2, the reason: across the port's
+# parity tests under eight instruction-set settings of XLA and ATen
+# (scripts/parity_sweep.sh, scripts/parity_isa_probe.py), the worst
+# element needed 2.79e-3 (a fused DAgger OG batch's llm.embed element of
+# 0.055, 2.6e-4 off in a row of RMS 43, under XLA's SSE4_2 with ATen's
+# default), and the JAX package against itself, SSE4_2 against default
+# XLA on the same weights, needed 8.5e-3 (an element of 0.021, 6.4e-5
+# off in a row of RMS 2.56): a rule the reference fails against itself
+# is too tight. At 1e-2 the worst |got - want| / bound the sweep saw is
+# 0.63 for the port against JAX and 0.89 for JAX against itself. The
+# planted faults of tests/test_torch_parity_rules.py (a leaf scaled by
+# 1.01, a row zeroed, a sign flipped, another batch's leaf, one element
+# moved) fail it by 5x to 3700x.
+GRAD_ROW_C = 1e-2
+
+
+def grad_bound(want, rtol: float, atol: float):
+    """The per-element bound on |got - want| (see GRAD_ROW_C above)."""
+    w = np.abs(np.asarray(want, np.float64))
+    rows = w.reshape(-1, w.shape[-1]) if w.ndim else w.reshape(1, 1)
+    rms = np.sqrt(np.mean(np.square(rows), -1, keepdims=True))
+    return (atol + rtol * np.maximum(rows, GRAD_ROW_C * rms)).reshape(w.shape)
+
+
+def grad_ratio(got, want, rtol: float, atol: float):
+    """|got - want| / grad_bound per element, as float64: at most 1
+    passes. 0 where the two are equal (NaN against NaN included), inf
+    where a NaN meets a number."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ratio = np.abs(g - w) / grad_bound(w, rtol, atol)
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    return np.where(same, 0.0, np.nan_to_num(ratio, nan=np.inf))
+
+
+def assert_grads_close(got, want, rtol: float, atol: float, *,
+                       err_msg: str = ""):
+    """Hold the port's gradient ``got`` to JAX's ``want`` under
+    grad_bound: two arrays, or two dicts of leaves by name (every leaf of
+    ``want``; ``got`` must hold each). On failure, names the leaf, the
+    count of elements over the bound and the worst one."""
+    if not isinstance(want, dict):
+        got, want = {err_msg: got}, {err_msg: want}
+    for name, w in want.items():
+        assert name in got, f"{err_msg} {name}: no such gradient leaf"
+        ratio = grad_ratio(got[name], w, rtol, atol)
+        if not ratio.size or ratio.max() <= 1.0:
+            continue
+        g, w = np.asarray(got[name]), np.asarray(w, np.float64)
+        i = np.unravel_index(np.argmax(ratio), ratio.shape)
+        row = w[i[:-1]] if w.ndim else w
+        raise AssertionError(
+            f"{err_msg} {name}: {int((ratio > 1).sum())} of {w.size} "
+            f"elements over atol {atol} + rtol {rtol} * max(|want|, "
+            f"{GRAD_ROW_C} * row RMS); worst at "
+            f"{tuple(int(k) for k in i)}: got {g[i]!r}, want {w[i]!r}, "
+            f"{ratio[i]:.3g} x its bound {grad_bound(w, rtol, atol)[i]!r}, "
+            f"row RMS {np.sqrt(np.mean(np.square(row))):.6g}")
+
+
+# int8 K/V codes (kv_quantize: round(x / s), s = amax / 127 per token and
+# head) quantized from two packages' own K/V, which differ by float
+# rounding (other summation orders, ~1e-6 relative): an element whose
+# x / s sits within KV_BOUNDARY of a .5 boundary of its grid may land one
+# code apart; any other element must give the same code. A 1e-6 relative
+# move of x and of s shifts x / s by at most ~2.6e-4 (|x / s| <= 127).
+KV_BOUNDARY = 1e-3
+
+
+def assert_codes_near(q, sc, src, jq, jsc):
+    """q, sc: int8 codes and f32 scales of the K/V ``src`` (numpy, the
+    port's); jq, jsc: the reference's codes and scales of its own K/V.
+    Scales agree to rtol 2e-6; codes are equal except one code apart at
+    elements within KV_BOUNDARY of a rounding boundary."""
+    sc, jsc = np.asarray(sc), np.asarray(jsc)
+    np.testing.assert_allclose(sc, jsc, rtol=2e-6, atol=0)
+    ratio = np.abs(np.asarray(src) / np.where(sc > 0, sc, 1.0))
+    boundary = np.abs(ratio - np.floor(ratio) - 0.5) < KV_BOUNDARY
+    diff = np.asarray(q, np.int32) - np.asarray(jq, np.int32)
+    assert np.abs(diff).max() <= 1
+    assert not diff[~boundary].any(), np.argwhere(diff & ~boundary)
+
+
 def synthetic_nav_batch(cfg, b: int = 2, g: int = 12, v: int = 8, c: int = 8,
                         hh: int = 4, tlen: int = 64, seed: int = 0
                         ) -> Dict[str, np.ndarray]:

@@ -13,8 +13,8 @@ Both sides read testing.make_r2r_world's annotations (the augmented sets'
 objects, converted f32 weights, dropout off; the fused trainer's candidate
 permutation is the identity where a test calls it, and each side's run
 starts from the same seed of Python's global random, from which ScanQA
-draws its frames. Losses agree to rtol 1e-4 and gradients to rtol 2e-3
-(tests/test_torch_train.py).
+draws its frames. Losses agree to rtol 1e-4 and gradients under
+testing.assert_grads_close at rtol 2e-3 (tests/test_torch_train.py).
 """
 import json
 import random
@@ -398,9 +398,7 @@ def test_fused_teacher_aug_matches_jax(models, world, task):
     assert paths == wpaths
     assert loss == pytest.approx(wloss, rel=LOSS_REL)
     assert sorted(grads) == sorted(wgrads)
-    for name, w in wgrads.items():
-        np.testing.assert_allclose(grads[name], w, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(grads, wgrads, GRAD_RTOL, GRAD_ATOL)
     assert runner.gen_grad_calls == 1 and runner.og_grad_calls == 0
 
 

@@ -9,8 +9,8 @@ by the dataset) on a 6x6 grid with synthetic features, under dims that
 hold 30 steps and every node of the grid (max_cands = max_gmap_nodes - 1),
 with converted f32 weights, dropout off and the identity candidate
 permutation. Trajectories are identical; step logits agree to rtol 1e-4,
-atol 1e-4 (the prefix cache's test), losses to rtol 1e-4 and gradients to
-rtol 2e-3 (tests/test_torch_train.py).
+atol 1e-4 (the prefix cache's test), losses to rtol 1e-4 and gradients
+under testing.assert_grads_close at rtol 2e-3 (tests/test_torch_train.py).
 """
 import numpy as np
 import pytest
@@ -229,9 +229,7 @@ def test_fused_teacher_cvdn_matches_jax(models, world):
     assert paths == wpaths
     assert loss == pytest.approx(wloss, rel=LOSS_REL)
     assert sorted(grads) == sorted(wgrads)
-    for name, w in wgrads.items():
-        np.testing.assert_allclose(grads[name], w, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(grads, wgrads, GRAD_RTOL, GRAD_ATOL)
     assert np.abs(grads["llm.layers.wq"]).sum() > 0
     assert runner.gen_grad_calls == runner.og_grad_calls == 0
     assert runner.grad_calls > 0

@@ -6,7 +6,8 @@ and the identity candidate permutation, and follow the same trajectory:
 the actions a JAX per-step sample-feedback rollout takes with a
 deterministic "sampler" (recorded as tests/test_fused_dagger.py does),
 forced on both sides through ``forced_actions``. The two then compute the same function,
-so trajectories, loss and every accumulated gradient leaf must agree. The
+so trajectories, loss and every accumulated gradient leaf must agree
+(testing.assert_grads_close). The
 sampled actions themselves cannot match (torch cannot replay
 jax.random): the sampler is held to its distribution instead.
 """
@@ -186,9 +187,7 @@ def _assert_same(got, want):
     assert max(len(p) for p in paths) > 1
     assert loss == pytest.approx(wloss, rel=LOSS_REL)
     assert sorted(grads) == sorted(wgrads)
-    for name in wgrads:
-        np.testing.assert_allclose(grads[name], wgrads[name], rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(grads, wgrads, GRAD_RTOL, GRAD_ATOL)
     for name in ("llm.layers.wq", "out_head.w", "pano.mapper.w"):
         assert np.abs(grads[name]).sum() > 0, name
 

@@ -36,6 +36,7 @@ from navillm_tpu.models import nav_model as JNM  # noqa: E402
 from navillm_tpu.models.decoding import generate as j_generate  # noqa: E402
 from navillm_tpu.models.tokenization import NavTokenizer  # noqa: E402
 from navillm_tpu.models.trie import DenseTrie as JTrie  # noqa: E402
+from navillm_tpu_torch import testing as T  # noqa: E402
 from navillm_tpu_torch.agents import device_memory as TDM  # noqa: E402
 from navillm_tpu_torch.convert import params_from_jax  # noqa: E402
 from navillm_tpu_torch.models import decoding as TD  # noqa: E402
@@ -75,18 +76,12 @@ def _assert_written(q, sc, src, jq=None, jsc=None):
     """q, sc: the codes and scales the port wrote for the K/V ``src`` (f32
     numpy, computed by the port). Exact against JAX's kv_quantize of src;
     against JAX's codes and scales from its own K/V (jq, jsc), as the
-    module docstring says."""
+    module docstring says (testing.assert_codes_near)."""
     wq, ws = JL.kv_quantize(jnp.asarray(src))
     np.testing.assert_array_equal(q, np.asarray(wq))
     np.testing.assert_array_equal(sc, np.asarray(ws))
-    if jq is None:
-        return
-    np.testing.assert_allclose(sc, jsc, rtol=2e-6, atol=0)
-    ratio = np.abs(src / np.where(sc > 0, sc, 1.0))
-    boundary = np.abs(ratio - np.floor(ratio) - 0.5) < 1e-3
-    diff = q.astype(np.int32) - np.asarray(jq, np.int32)
-    assert np.abs(diff).max() <= 1
-    assert not diff[~boundary].any(), np.argwhere(diff & ~boundary)
+    if jq is not None:
+        T.assert_codes_near(q, sc, src, jq, jsc)
 
 
 def _kv_data(seed, shape=(2, 5, 3, 128)):

@@ -5,7 +5,8 @@ panorama's object branch, object_grounding).
 
 Weights: params_from_jax of the JAX init_nav_params tree (the object
 leaves come across as every other leaf); f32; activations and losses at
-rtol 1e-4, atol 1e-5, gradients at rtol 2e-3 (tests/test_torch_train.py).
+rtol 1e-4, atol 1e-5, gradients under testing.assert_grads_close at rtol
+2e-3 (tests/test_torch_train.py).
 """
 import dataclasses
 
@@ -24,6 +25,7 @@ from navillm_tpu.models.pano_encoder import \
     forward_panorama as j_panorama  # noqa: E402
 from navillm_tpu.models.pano_encoder import init_pano_params as j_init  # noqa
 from navillm_tpu.models.tokenization import NavTokenizer as JTok  # noqa
+from navillm_tpu_torch import testing as T  # noqa: E402
 from navillm_tpu_torch.agents.runner import (NavModelRunner,  # noqa: E402
                                              RolloutDims)
 from navillm_tpu_torch.convert import (flatten_tree, grads_to_numpy,  # noqa
@@ -140,9 +142,8 @@ def test_pano_object_branch_matches_jax(models):
     np.testing.assert_allclose(loss.item(), float(jl), **TOL)
     jgrads = flatten_tree(jax.tree.map(np.asarray, jg))
     assert sorted(jgrads) == sorted(leaves)
-    for k, g in jgrads.items():
-        np.testing.assert_allclose(leaves[k].grad.numpy(), g,
-                                   rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=k)
+    T.assert_grads_close({k: v.grad.numpy() for k, v in leaves.items()},
+                         jgrads, GRAD_RTOL, GRAD_ATOL)
     assert np.abs(leaves["obj_projector.w"].grad.numpy()).sum() > 0
     if jcfg.pano.fuse_obj:
         assert np.abs(leaves["obj_linear.w"].grad.numpy()).sum() > 0
@@ -221,13 +222,11 @@ def test_forward_object_grounding_matches_jax(models):
     assert (out.detach().numpy()[~valid] == NEG_INF).all()
     assert (want[~valid] == NEG_INF).all()
     np.testing.assert_allclose(loss.item(), float(jl), **TOL)
-    np.testing.assert_allclose(tb["obj_embeds"].grad.numpy(),
-                               np.asarray(jgo), rtol=GRAD_RTOL,
-                               atol=GRAD_ATOL)
+    T.assert_grads_close(tb["obj_embeds"].grad.numpy(), np.asarray(jgo),
+                         GRAD_RTOL, GRAD_ATOL, err_msg="obj_embeds")
     grads = grads_to_numpy(model)
-    for k, g in flatten_tree(jax.tree.map(np.asarray, jg)).items():
-        np.testing.assert_allclose(grads[k], g, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=k)
+    T.assert_grads_close(grads, flatten_tree(jax.tree.map(np.asarray, jg)),
+                         GRAD_RTOL, GRAD_ATOL)
     assert np.abs(grads["obj_pos.w"]).sum() > 0
 
 
@@ -273,9 +272,8 @@ def test_pano_og_train_matches_jax(models):
     jgrads = flatten_tree(jax.tree.map(np.asarray, jr.take_grads()))
     assert sorted(grads) == sorted(jgrads)
     # the third call (need_logits=False) accumulated once more: 3/2 of JAX's
-    for k, g in jgrads.items():
-        np.testing.assert_allclose(grads[k], 1.5 * g, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=k)
+    T.assert_grads_close(grads, {k: 1.5 * g for k, g in jgrads.items()},
+                         GRAD_RTOL, GRAD_ATOL)
     assert np.abs(grads["pano.obj_projector.w"]).sum() > 0
     assert np.abs(grads["llm.layers.wq"]).sum() > 0
 
@@ -301,8 +299,6 @@ def test_object_grounding_calls_match_jax(models):
                                   train=True)
     np.testing.assert_allclose(loss, jl, **TOL)
     grads = {k: v.detach().numpy() for k, v in tr.take_grads().items()}
-    for k, g in flatten_tree(jax.tree.map(np.asarray,
-                                          jr.take_grads())).items():
-        np.testing.assert_allclose(grads[k], g, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=k)
+    T.assert_grads_close(grads, flatten_tree(jax.tree.map(
+        np.asarray, jr.take_grads())), GRAD_RTOL, GRAD_ATOL)
     assert np.abs(grads["pano.obj_projector.w"]).sum() == 0

@@ -8,8 +8,9 @@ Both sides get the same world (testing.make_r2r_world's annotations),
 synthetic features, converted f32 weights with dropout off, BPE prompts
 and a RandomState of the same seed for the candidate permutations and the
 draws, so they compute the same function: trajectories must be equal,
-losses agree to rtol 1e-4 and every accumulated gradient leaf to rtol
-2e-3, atol 2e-5 (tests/test_torch_train.py). The timers must hold the
+losses agree to rtol 1e-4 and every accumulated gradient leaf under
+testing.assert_grads_close at rtol 2e-3, atol 2e-5
+(tests/test_torch_train.py). The timers must hold the
 same stage names with the same counts.
 """
 import types
@@ -185,9 +186,7 @@ def assert_same(got, want, stages=True):
     assert max(len(p[0]) for p in got.paths) > 2
     assert got.loss == pytest.approx(want.loss, rel=LOSS_REL)
     assert sorted(got.grads) == sorted(want.grads)
-    for name, w in want.grads.items():
-        np.testing.assert_allclose(got.grads[name], w, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(got.grads, want.grads, GRAD_RTOL, GRAD_ATOL)
     if stages:
         assert got.stages == want.stages
 
@@ -436,9 +435,7 @@ def test_runner_memory_api_matches_jax(models, worlds):
     got, want = out[True], out[False]
     for k in want:
         if k == "grads":
-            for name, w in want[k].items():
-                np.testing.assert_allclose(got[k][name], w, rtol=GRAD_RTOL,
-                                           atol=GRAD_ATOL, err_msg=name)
+            T.assert_grads_close(got[k], want[k], GRAD_RTOL, GRAD_ATOL)
             continue
         g = got[k].detach().cpu().numpy() if torch.is_tensor(got[k]) \
             else np.asarray(got[k])
@@ -484,8 +481,6 @@ def test_runner_generation_matches_jax(models, worlds):
     assert p == pytest.approx(jp, rel=LOSS_REL)
     assert tr == pytest.approx(jtr, rel=LOSS_REL) and tr == \
         pytest.approx(0.5 * p, rel=1e-5)
-    for name, w in jgrads.items():
-        np.testing.assert_allclose(grads[name], w, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(grads, jgrads, GRAD_RTOL, GRAD_ATOL)
     assert np.abs(grads["llm.lm_head"]).sum() > 0
     assert s.runner.gen_grad_calls == 1 and s.runner.forward_calls == 1

@@ -5,7 +5,8 @@ The policy only changes which actions are sampled; the loss pass runs on
 the live weights. So with the trajectory forced (the actions a JAX
 per-step rollout takes, as tests/test_torch_dagger.py records them), the
 on and off cases give the same trajectories, loss (rel 1e-4) and gradients
-(rtol 2e-3, atol 2e-5): the tolerances of tests/test_fused_dagger.py's
+(testing.assert_grads_close at rtol 2e-3, atol 2e-5): the tolerances of
+tests/test_fused_dagger.py's
 test_quant_sampling_policy. The JAX package's forced run with the policy on
 agrees at the same tolerances. Port-only, because the port's optimizers
 update the parameters in place (JAX's build a new tree): the int8 copy is
@@ -38,10 +39,7 @@ def _assert_same(got, want):
     assert paths == want[2] and max(len(p) for p in paths) > 1
     assert loss == pytest.approx(want[0], rel=LOSS_REL)
     assert sorted(grads) == sorted(want[1])
-    for name in want[1]:
-        np.testing.assert_allclose(grads[name], want[1][name],
-                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
-                                   err_msg=name)
+    T.assert_grads_close(grads, want[1], GRAD_RTOL, GRAD_ATOL)
 
 
 class _PolicySpy:

@@ -5,7 +5,7 @@ Both sides get the same world, features and converted weights (f32), with
 dropout off and the identity candidate permutation, as
 tests/test_torch_train.py: one teacher batch with enable_summarize and one
 with enable_fgr2r must give the same trajectories, loss (rtol 1e-4) and
-every accumulated gradient leaf (rtol 2e-3).
+every accumulated gradient leaf (testing.assert_grads_close, rtol 2e-3).
 """
 import json
 
@@ -188,9 +188,7 @@ def test_fused_teacher_head_matches_jax(models, world_root, flag):
     assert loss > base                       # the head's loss came in
     np.testing.assert_allclose(loss, jloss, rtol=1e-4, atol=1e-5)
     assert sorted(grads) == sorted(jgrads)
-    for name, want in jgrads.items():
-        np.testing.assert_allclose(grads[name], want, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(grads, jgrads, GRAD_RTOL, GRAD_ATOL)
     # the head trains the LM head and the generation-only path (vp_pos,
     # token type 0), which navigation alone does not move the same way
     assert np.abs(grads["llm.lm_head"]).max() > 0

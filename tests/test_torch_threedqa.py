@@ -8,7 +8,8 @@ questions of 40-48 frames and LLaVA conversations) through the same
 synthetic frame stores, with converted f32 weights and dropout off.
 ScanQA draws its 36 frames from Python's global random, so each side's
 loader runs after the same random.seed. Losses agree to rtol 1e-4 and
-gradients to rtol 2e-3 (tests/test_torch_train.py); generated tokens are
+gradients under testing.assert_grads_close at rtol 2e-3
+(tests/test_torch_train.py); generated tokens are
 identical, on JAX logits whose top-2 margin exceeds 1e-3 at every compared
 pick (tests/test_torch_generation.py).
 """
@@ -156,9 +157,7 @@ def test_train_loss_and_grads_match_jax(models, world, task):
     assert np.isfinite(loss) and loss > 0
     assert loss == pytest.approx(wloss, rel=LOSS_REL)
     assert sorted(grads) == sorted(wgrads)
-    for name, w in wgrads.items():
-        np.testing.assert_allclose(grads[name], w, rtol=GRAD_RTOL,
-                                   atol=GRAD_ATOL, err_msg=name)
+    T.assert_grads_close(grads, wgrads, GRAD_RTOL, GRAD_ATOL)
     for name in ("pano.img_linear.w", "token_type_emb", "llm.layers.wq"):
         assert np.abs(grads[name]).sum() > 0, name
 

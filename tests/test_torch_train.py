@@ -4,8 +4,8 @@ Both sides get the same world, features, converted weights and dropout
 off (feature dropout and the pano encoder's hidden dropout), and the
 identity candidate permutation, as tests/test_fused_teacher.py does: the
 two then compute the same function, so the loss and every accumulated
-gradient leaf must agree, and one optimizer step must give the same
-parameters.
+gradient leaf must agree (testing.assert_grads_close), and one optimizer
+step must give the same parameters.
 """
 import dataclasses
 
@@ -51,7 +51,10 @@ torch.set_num_threads(1)
 MAX_ACTION_LEN = 4
 ROWS_PER_CALL = 3      # several grad chunks per batch, the last one padded
 # f32 on both sides: matmul sums differ in order only (JAX's own fused-vs-
-# per-step test holds gradients to rtol 2e-3)
+# per-step test holds gradients to rtol 2e-3). Every port test holds its
+# gradients to JAX's under testing.assert_grads_close at these values: the
+# bound scales with the element's row where the element cancels (see
+# testing.GRAD_ROW_C)
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-5
 
 
@@ -140,7 +143,8 @@ def test_fused_teacher_batch_matches_jax(models, data_dir, task_config,
     assert runner.grad_calls > 1              # several chunks were run
     assert torch.is_tensor(loss) and loss.dim() == 0
     assert float(loss) == pytest.approx(float(jloss), rel=1e-4)
-    _assert_trees_close(grads, jgrads, GRAD_RTOL, GRAD_ATOL, "grad")
+    assert sorted(grads) == sorted(jgrads), (sorted(grads), sorted(jgrads))
+    T.assert_grads_close(grads, jgrads, GRAD_RTOL, GRAD_ATOL, err_msg="grad")
     # the navigation loss reaches the LLM, the heads and the pano encoder
     for name in ("llm.layers.wq", "llm.embed", "out_head.w", "pano.mapper.w",
                  "pano.encoder.qkv.w", "gmap_pos.w"):

@@ -23,9 +23,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      version printed beside it) timed with CUDA events at the eval and
      training shapes, on full masks and on PR 1-3's left-padded masks;
   3. the eval slice: greedy R2R streaming evaluation (validate_streaming)
-     of the navigation model at Vicuna-7B width (bf16, random weights from
-     a seed) on a synthetic 8x8 grid world; every LLM layer of every step
-     must go through the kernel;
+     of the navigation model at Vicuna-7B width, LLM_LAYERS (16) of its 32
+     layers (bf16, random weights from a seed) on a synthetic 8x8 grid
+     world; every LLM layer of every step must go through the kernel;
   4. model-level A/B: one forward_navigation step through the kernel and
      through the eager attention path on the same inputs;
   5. backward kernels vs plain: the dQ kernel (K3), which also writes
@@ -76,7 +76,7 @@ after phase 10 (int4):
      x, and the mean prompt width of phase 3's prompts, byte against BPE;
  13. phase 3 on BPE prompts (NavTokenizer.bpe(max_length=1024,
      pad_to_multiple=64), RolloutDims(48, 44, 12, 16, max_prefix=192)),
-     uncached: 32 K1 launches per step;
+     uncached: one K1 launch per layer of every step;
  14. the same run with args.prefix_cache: it must take the cached step
      only (prefills and eval_step_cached, no whole-prompt step); K1
      launches once per layer of every prefill call and never in a cached
@@ -148,8 +148,8 @@ after phase 21, phase 25 on the int4 tree after phase 11:
      (the heads' included), one head call's gradient through the kernels
      against eager attention within MIN_GRAD_COSINE; per teacher batch the
      navigation and head ms, head calls, trained tokens/s, peak memory;
- 25. phase 23 uncached on the int4 tree (K4 = 7 x 32 per LLM pass, decode
-     steps included), K4 against its plain version at the decode shape
+ 25. phase 23 uncached on the int4 tree (K4 = 7 per layer of every LLM pass,
+     decode steps included), K4 against its plain version at the decode shape
      m = 4, and one decode step's logits through K4 against q4_impl="plain"
      within the CACHED_LOGIT_* bound; ms per decode token beside phase 23's.
 Object grounding at 7B width on BPE prompts, phases 26-28 on the bf16 model
@@ -202,10 +202,10 @@ LLaVA sections and its stage sources; image_feat_size 1024, obj_feat_size
      eval_scanqa.sh's generation: 36 frames per question, 20 tokens, no
      trie) of 16 questions in batches of 4: one batch's prefill through K1
      against the eager attention (first-token logits within the
-     CACHED_LOGIT_* bound, every row finite), K1 = 32 per generate call,
-     every answer a string, the scores finite; ms per generate call and per
-     decode token, device events per decode step, BLEU-4, CIDEr, exact
-     match;
+     CACHED_LOGIT_* bound, every row finite), K1 = one per layer of every
+     generate call, every answer a string, the scores finite; ms per generate
+     call and per decode token, device events per decode step, BLEU-4, CIDEr,
+     exact match;
  31. run_training at stage multi over configs/multi.yaml's six sources at
      its ratios with --enable_og --enable_summarize --enable_fgr2r: 4
      batches of 8 (at MIX_SEED a CVDN teacher batch, a CVDN DAgger batch at
@@ -242,9 +242,9 @@ phases 34 and 35 after phase 25 (the bf16 model freed):
      and 8 R2R episodes of streaming evaluation from it against the same
      model with the tokenizer.json transformers converted from that model:
      every prompt's ids, the trajectories and every step's logits equal bit
-     for bit, K1 32 per uncached step; both routes' load seconds and encode
-     ms per prompt, and a seeded 32000-piece model's (Vicuna's size) on the
-     host;
+     for bit, K1 once per layer of every uncached step; both routes' load
+     seconds and encode ms per prompt, and a seeded 32000-piece model's
+     (Vicuna's size) on the host;
  34. main() from that directory at stage multi, bf16, --adam_8bit: 4
      batches of 8 over phase 32's R2R world (gradient accumulation 2: 2
      optimizer steps), validation of 4 episodes, epoch_0 (torch backend);
@@ -256,8 +256,8 @@ phases 34 and 35 after phase 25 (the bf16 model freed):
      resumed tree equal to the trained one bit for bit, K1 once per layer
      of every step;
  35. --mode test --quantize_llm --quant_bits 4 from that directory
-     (quantize_host_llama on the card): K4 = 7 x 32 per LLM pass, the int4
-     tree equal to phase 9's byte for byte on the checkpoint's vocabulary,
+     (quantize_host_llama on the card): K4 = 7 per layer of every LLM pass, the
+     int4 tree equal to phase 9's byte for byte on the checkpoint's vocabulary,
      and phase 9's evaluation replayed on it (phase 9's tokenizer,
      panorama and heads) giving phase 9's trajectories.
 The per-step paths, bf16 at 7B width, after phase 32 (each prints the
@@ -265,16 +265,16 @@ agent's per-stage host timer, agent.timer.report()):
  36. train_one_epoch at stage multi through the per-step rollouts
      (--no-fused_teacher --no-fused_dagger --dagger_streams 1): a warm-up
      epoch, then 4 batches of 8 (AdamW, 2 optimizer steps); K1 64 and K2,
-     K3 32 per grad call; then one teacher batch, dropout off, per-step
-     against the fused teacher (trajectories, loss within
+     K3 once per layer of every grad call; then one teacher batch, dropout off,
+     per-step against the fused teacher (trajectories, loss within
      DAGGER_AB_LOSS_REL, whole-gradient cosine >= 0.999);
  37. the per-step DAgger half with --dagger_pipeline, 2 streams
      interleaved against the same streams drained in sequence (dropout
      off; whole-gradient cosine >= 0.999), both wall times and the
      timer's nav_dispatch / nav_sync;
  38. run_training --mode test --no-streaming_eval: batched validation of
-     32 R2R and 16 EQA episodes (trie, oracle pass), K1 32 per navigation
-     forward and generate call, the trajectories against
+     32 R2R and 16 EQA episodes (trie, oracle pass), K1 once per layer of every
+     navigation forward and generate call, the trajectories against
      validate_streaming's under the near-tie rule (where they part, the
      reference's top-2 margin within logit_tol's bound);
  39. a runner with device_memory=False against the device-memory runner:
@@ -302,9 +302,10 @@ The rest of quantization, at 7B width on BPE prompts:
      CVDN (INT4_CVDN_EPISODES dialogs, prefix cache with the int8 K/V,
      every cached step replayed through eval_step, then timed) on the int4
      tree, with phases 27's and 29's gates and K4 224 per LLM pass;
- 41. int8 weights: the model drawn quantized on the card
-     (init_nav_params(quantize_llm=True)) equal bit for bit to quantizing
-     the bf16 init, each path's peak memory; then R2R streaming evaluation
+ 41. int8 weights, at all 32 of Vicuna-7B's layers: the model drawn
+     quantized on the card (init_nav_params(quantize_llm=True)) equal bit
+     for bit to quantizing the bf16 init, each path's peak memory; then R2R
+     streaming evaluation
      of W8A8_EPISODES: weight-only int8 with a bf16 prefix cache (reference),
      W8A8 uncached, W8A8 with the prefix cache and the int8 K/V, all with
      the candidates in graph order (where a kv8 trajectory parts from the
@@ -350,9 +351,9 @@ After phase 40 (bf16 model live):
      FeaturePrefetcher) on the fused trainers: 2 teacher and 2 DAgger
      batches of 8 through agent.train at stage multi (remat, BPE, cached
      sampling, no optimizer step) over a disk-backed store of one .npy
-     file per viewpoint at 1024 wide (testing.NpyFeaturesDB: the card's
-     machine has no h5py), run with the prefetcher, held off
-     (testing.hold_off_prefetch), held off and with it; the losses equal
+     file per viewpoint at 1024 wide (testing.NpyFeaturesDB, with
+     ImageFeaturesDB's reads), run with the prefetcher and held off
+     (testing.hold_off_prefetch); the losses equal
      bit for bit in every run, gradients finite, K1-K3 launches as phase
      18 counts them; ms per batch, pano_assemble and get_obs ms per call
      both ways, keys prefetched and the hit share of get_obs reads, beside
@@ -361,6 +362,27 @@ After phase 40 (bf16 model live):
      (whose reads the pool throws away), each with and without the
      prefetcher: the same trajectories in every run, ms per step both
      ways. launches_by_phase gains 48 and 48_eval.
+After phase 48 (bf16 model live):
+ 50. the HDF5 feature files, read and written by the port's own reader
+     and writer (utils/hdf5.py; no h5py module may load): (a) the
+     committed h5py-made fixture (tests/fixtures/hdf5/) read bit for bit
+     against its .npz twins; (b) the eval world's viewpoints written by
+     testing.write_hdf5_features (SyntheticImageFeaturesDB's values,
+     [36, 1024] f32, the extractors' gzip chunks), then phase 13's
+     streaming evaluation (BPE, the prefetcher on) over
+     create_feature_db's ImageFeaturesDB on that file and over the
+     synthetic store: trajectories and every step's logits equal bit for
+     bit, K1 once per layer of every step; the host's open and index ms (and
+     for an index of 10,567 keys), ms per [36, 1024] read, write MB/s, get_obs
+     and pano_assemble ms and ms per step both ways, beside nvidia-smi's
+     name and power limit; (c) phase 21's entry point with its
+     feature_database written as an HDF5 file and create_feature_db left
+     as it is: the file opened once, losses, gradient norms, metrics and
+     K1-K3 launches equal to phase 21's; (d) the EVA02 tower encodes 2
+     viewpoints x 36 views, written by the extractors' writer and read
+     back bit for bit, then extract_features_mp3d over 2 x 36 PNG
+     renders, its file within VIT_REL of encode_images.
+     launches_by_phase gains 50 and 50_cli.
 After phase 47 (nothing else on the card):
  49. a Meta-Llama-3-8B-shaped directory through read_args -> build_runner
      (--pretrained_model_name_or_path DIR --from_scratch --precision
@@ -395,6 +417,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -403,6 +426,7 @@ import random
 import resource
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -421,7 +445,9 @@ from navillm_tpu_torch.agents.mp3d_agent import R2RAgent, TrainArgs
 from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
 from navillm_tpu_torch.convert import flatten_tree, init_nav_params
 from navillm_tpu_torch.data import aug as AUG
-from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
+from navillm_tpu_torch.data.feature_db import (NUM_VIEWS, ImageFeaturesDB,
+                                               SyntheticImageFeaturesDB,
+                                               create_feature_db,
                                                synthetic_object_db)
 from navillm_tpu_torch.data.loaders import Dataloader, MetaLoader
 from navillm_tpu_torch.data.r2r import R2RDataset
@@ -454,8 +480,9 @@ from navillm_tpu_torch.training.checkpoints import load_checkpoint
 from navillm_tpu_torch.training.optim import AdamQ8, make_optimizer
 from navillm_tpu_torch.training.train_loop import (make_opt_step,
                                                    train_one_epoch)
+from navillm_tpu_torch.utils import hdf5
 from navillm_tpu_torch.utils.config import load_yaml_text, read_args
-from navillm_tpu_torch.vision.extract import FeatureExtractor
+from navillm_tpu_torch.vision.extract import FeatureExtractor, write_features
 from navillm_tpu_torch.vision.vit import (ViTConfig, init_vit_params,
                                           vit_forward_features)
 
@@ -527,6 +554,11 @@ LSE_ATOL = 1e-4
 EAGER_GRAD_ATOL = 0.125
 # the 7B gradient through the kernels vs through eager attention
 MIN_GRAD_COSINE = 0.999
+# the 7B-width model's depth: 16 of Vicuna-7B's 32 layers (every width, the
+# vocabulary and the heads as published). A step's host time (launches per
+# layer) and device time both follow the depth, and the whole run has to fit
+# the chip check's 1200 s on its slowest hosts with room to spare
+LLM_LAYERS = 16
 N_EPISODES = 32
 N_SLOTS = 4
 MAX_ACTION_LEN = 10
@@ -561,6 +593,9 @@ CACHED_LOGIT_ROW = 2 ** -3
 # faults move the logits 0.87 (the last cached token hidden) and 0.40
 # (that token's K scaled to zero): that path, new, gets its own limit.
 # The bf16 one sits at 1.5x the worst honest step, 3/4 of CACHED_LOGIT_ROW.
+# Those are 32-layer figures. At 16 layers the kv8 step deviates 0.097 and
+# its faults move the logits 0.237 and 0.119: too close to the honest step
+# to gate, so phase 41 draws its int8 tree at all 32 layers.
 CACHED_LOGIT_SPREAD = 3 / 32
 CACHED_LOGIT_SPREAD_A8KV8 = 0.3125
 # phase 15 snapshots the 3rd step with every slot appending history, from
@@ -1125,7 +1160,7 @@ def phase_kernel():
 def model_7b(tag=3, quiet: bool = False):
     tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
     llm = LlamaConfig.vicuna_7b(vocab_size=32128, max_seq_len=1024,
-                                dtype=torch.bfloat16)
+                                num_layers=LLM_LAYERS, dtype=torch.bfloat16)
     cfg = NavModelConfig(llm=llm, pano=PanoConfig(output_size=llm.hidden_size,
                                                   dtype=torch.bfloat16,
                                                   use_obj=True))
@@ -1135,9 +1170,9 @@ def model_7b(tag=3, quiet: bool = False):
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
     if not quiet:
-        print(f"[{tag}] Vicuna-7B-width nav model: {n / 1e9:.3f} B params "
-              f"(bf16), random init on the card in "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"[{tag}] Vicuna-7B-width nav model, {llm.num_layers} "
+              f"layers: {n / 1e9:.3f} B params (bf16), random init on the "
+              f"card in {time.perf_counter() - t0:.1f} s")
     return tok, cfg, model
 
 
@@ -2714,13 +2749,15 @@ def phase_run_training(bpe, cfg, model, tmp):
     return launches
 
 
-def cli_main(argv, losses=None):
+def cli_main(argv, losses=None, feature_files: bool = False):
     """The entry point's main(argv) on the card, its runner, epoch result
     and trained tasks recorded (and each batch's loss appended to
-    ``losses``, a list, when given); the YAML's feature_database and
-    object_database resolve to synthetic stores where run_training builds
-    them (the card's machine has neither h5py nor lmdb). Returns (results,
-    runner, (average loss, gradient norms), tasks trained, seconds)."""
+    ``losses``, a list, when given); the YAML's object_database resolves to
+    synthetic stores where run_training builds them (the card's machine
+    has no lmdb), and so does its feature_database unless
+    ``feature_files``: then create_feature_db is left as it is and reads
+    the YAML's HDF5 files (phase 50). Returns (results, runner, (average
+    loss, gradient norms), tasks trained, seconds)."""
     from navillm_tpu_torch.agents.llava_agent import LLaVAAgent
     built, epochs, names = [], [], []
     saved = (TTL.build_runner, TTL.create_feature_db,
@@ -2755,8 +2792,8 @@ def cli_main(argv, losses=None):
         fn.launches = 0
     TTL.build_runner, TTL.create_feature_db, TTL.create_object_feature_db, \
         TTL.train_one_epoch, R2RAgent.train, LLaVAAgent.train = \
-        build_runner, feature_dbs, object_dbs, train_one_epoch, \
-        named(saved[4]), named(saved[5])
+        build_runner, saved[1] if feature_files else feature_dbs, \
+        object_dbs, train_one_epoch, named(saved[4]), named(saved[5])
     try:
         t0 = time.perf_counter()
         res = TRAIN.main(argv)
@@ -2769,16 +2806,24 @@ def cli_main(argv, losses=None):
     return res, built[0], epochs[0] if epochs else None, names, dt
 
 
-def phase_cli(tmp):
+def phase_cli(tmp, ref=None):
     """Phase 21: the entry point's main() (python -m navillm_tpu_torch.train)
     on its defaults: the card, stage multi, the JAX DAgger defaults, no
     pretrained path, so build_runner's model (2 layers, hidden 256 over 4
     heads of 64, bf16: what the attention kernels take) with random
     weights from --seed. 1 epoch of 4 batches of CLI_BATCH (2 teacher, 2
     DAgger), streaming validation, max_saved_checkpoints=1 (an npz
-    checkpoint). The card's machine has no h5py, so the YAML's
-    feature_database resolves to SyntheticImageFeaturesDB where
-    run_training builds it. Returns the run's kernel launches."""
+    checkpoint). The YAML's feature_database resolves to
+    SyntheticImageFeaturesDB where run_training builds it.
+
+    With ``ref`` (phase 21's result), phase 50 (c): the same run, but the
+    world's views are first written to the YAML's feature_database
+    (features.hdf5, SyntheticImageFeaturesDB's values) by
+    testing.write_hdf5_features and run_training reads them through an
+    unpatched create_feature_db and the port's HDF5 reader; its losses,
+    gradient norms, metrics and launches must be phase 21's. Returns (the
+    run's kernel launches, its loss, norms and R2R metrics)."""
+    tag = 21 if ref is None else 50
     root = f"{tmp}/cli"
     T.make_r2r_world(root, n_episodes=4 * CLI_BATCH, seed=6, split="train")
     T.make_r2r_world(root, n_episodes=CLI_VAL_EPISODES, seed=7, split="val")
@@ -2786,47 +2831,92 @@ def phase_cli(tmp):
     yaml_path.write_text(run_yaml('{image_feat_size: 32, angle_feat_size: '
                                   '4, feature_database: {"mp3d": '
                                   '"features.hdf5"}}'))
+    features = Path(root) / "features.hdf5"
+    opened = []
+    if ref is not None:
+        T.write_hdf5_features(features, f"{root}/connectivity", 32)
     out = Path(root) / "out"
-    res, runner, (avg_loss, norms), _, dt = cli_main([
-        "--cfg_file", str(yaml_path), "--data_dir", root, "--output_dir",
-        str(out), "--num_epochs", "1", "--num_steps_per_epoch", "4",
-        "--batch_size", str(CLI_BATCH), "--val_batch_size", str(N_SLOTS),
-        "--max_saved_checkpoints", "1"])
+    with hdf5_opens(opened):
+        res, runner, (avg_loss, norms), _, dt = cli_main([
+            "--cfg_file", str(yaml_path), "--data_dir", root,
+            "--output_dir", str(out), "--num_epochs", "1",
+            "--num_steps_per_epoch", "4", "--batch_size", str(CLI_BATCH),
+            "--val_batch_size", str(N_SLOTS), "--max_saved_checkpoints",
+            "1"], feature_files=ref is not None)
     llm = runner.cfg.llm
     if runner.device.type != "cuda" or llm.dtype != torch.bfloat16 \
             or llm.head_dim not in (64, 128):
-        raise RuntimeError(f"[21] build_runner built {llm} on "
+        raise RuntimeError(f"[{tag}] build_runner built {llm} on "
                            f"{runner.device}")
-    launches = check_launches(21, runner, llm.num_layers)
+    launches = check_launches(tag, runner, llm.num_layers)
     if not (runner.grad_calls and runner.cached_steps and runner.eval_steps):
-        raise RuntimeError(f"[21] {runner.grad_calls} grad calls, "
+        raise RuntimeError(f"[{tag}] {runner.grad_calls} grad calls, "
                            f"{runner.cached_steps} cached sampling steps, "
                            f"{runner.eval_steps} validation steps")
     norms = [float(n) for n in norms]
     if not (math.isfinite(avg_loss) and 0 < avg_loss < MAX_LOSS) or \
             len(norms) != 2 or not all(math.isfinite(n) and n > 0
                                        for n in norms):
-        raise RuntimeError(f"[21] loss {avg_loss}, gradient norms {norms}")
+        raise RuntimeError(f"[{tag}] loss {avg_loss}, gradient norms "
+                           f"{norms}")
     r2r = res["R2R"]
     if not all(math.isfinite(r2r[k]) for k in ("sr", "spl")):
-        raise RuntimeError(f"[21] SR/SPL not finite: {r2r}")
+        raise RuntimeError(f"[{tag}] SR/SPL not finite: {r2r}")
     header = json.loads((out / "epoch_0.json").read_text())
+    # train.log: the process's first main() only (its logger is made once
+    # per process, as in JAX)
     if header.get("backend") != "npz" or not (out / "epoch_0.npz").exists() \
-            or not (out / "train.log").exists():
-        raise RuntimeError(f"[21] expected epoch_0.npz and train.log in "
+            or (ref is None and not (out / "train.log").exists()):
+        raise RuntimeError(f"[{tag}] expected epoch_0.npz and train.log in "
                            f"{sorted(p.name for p in out.iterdir())}")
+    result = {"loss": float(avg_loss), "norms": norms,
+              "r2r": {k: float(v) for k, v in r2r.items()}}
     n = sum(p.numel() for p in runner.model.parameters())
-    print(f"[21] python -m navillm_tpu_torch.train's main() on its defaults "
-          f"(the card, stage multi): {n / 1e6:.2f} M params ({llm.num_layers}"
-          f" layers, {llm.num_heads} heads of {llm.head_dim}, bf16) in "
-          f"{dt:.3f} s: loss {avg_loss:.4f}, grad norms "
-          f"{[round(x, 4) for x in norms]}; R2R "
-          f"{({k: round(float(v), 2) for k, v in r2r.items()})}; "
+    print(f"[{tag}] python -m navillm_tpu_torch.train's main() on its "
+          f"defaults (the card, stage multi): {n / 1e6:.2f} M params "
+          f"({llm.num_layers} layers, {llm.num_heads} heads of "
+          f"{llm.head_dim}, bf16) in {dt:.3f} s: loss {avg_loss:.4f}, grad "
+          f"norms {[round(x, 4) for x in norms]}; R2R "
+          f"{({k: round(v, 2) for k, v in result['r2r'].items()})}; "
           f"{runner.grad_calls} grad calls, {runner.cached_steps} cached "
           f"sampling steps, {runner.prefill_calls} prefills, "
           f"{runner.eval_steps} validation steps; launches {launches}; "
           f"epoch_0.npz {(out / 'epoch_0.npz').stat().st_size} bytes")
-    return launches
+    if ref is None:
+        if opened:
+            raise RuntimeError(f"[21] HDF5 files opened: {opened}")
+        return launches, result
+    if not opened or set(opened) != {str(features)}:
+        raise RuntimeError(f"[50] the HDF5 files the run opened: {opened}, "
+                           f"not {features}")
+    if launches != ref["launches"] or any(
+            result[k] != ref[k] for k in ("loss", "norms", "r2r")):
+        raise RuntimeError(f"[50] over the HDF5 file: launches {launches}, "
+                           f"{result}; phase 21 over the synthetic store: "
+                           f"{ref}")
+    print(f"[50] the entry point over its feature_database "
+          f"({features.stat().st_size} bytes, opened {len(opened)} time(s) "
+          f"by the port's reader, create_feature_db unpatched): loss, "
+          f"gradient norms, "
+          f"R2R metrics and launches equal to phase 21's bit for bit")
+    return launches, result
+
+
+@contextlib.contextmanager
+def hdf5_opens(sink):
+    """Appends to ``sink`` the path of every HDF5 file the port opens for
+    reading inside the block."""
+    init = hdf5.FileReader.__init__
+
+    def recorded(self, path):
+        sink.append(os.fspath(path))
+        init(self, path)
+
+    hdf5.FileReader.__init__ = recorded
+    try:
+        yield sink
+    finally:
+        hdf5.FileReader.__init__ = init
 
 
 def gen_inputs(bpe, cfg, model, tmp):
@@ -3641,9 +3731,9 @@ def phase_cli_og(tmp):
     --do_sample --temperature 0.01 (validation sampled) and --test_datasets
     R2R REVERIE SOON, on build_runner's model (2 layers, 4 heads of 64,
     bf16, the object branch fused into the panorama encoder): 1 epoch of 4
-    batches of CLI_BATCH. The card's machine has neither h5py nor lmdb, so
-    the YAML's feature_database and object_database resolve to the
-    synthetic stores where run_training builds them. Gates: the loss and
+    batches of CLI_BATCH. The YAML's feature_database and object_database
+    resolve to the synthetic stores where run_training builds them (the
+    card's machine has no lmdb; phase 50 reads an HDF5 feature_database). Gates: the loss and
     gradient norms finite, the OG head trained, every task validated, K1-K3
     as the path implies. Returns the run's kernel launches."""
     root = f"{tmp}/cli_og"
@@ -4173,7 +4263,7 @@ def phase_cli_mix(tmp, stage):
     bf16 model: 1 epoch of 4 batches of CLI_BATCH. The YAML's
     feature_database (mp3d, scan_qa, coco) and object_database resolve to
     the synthetic stores where run_training builds them (the card's machine
-    has neither h5py nor lmdb). Gates: the loss and gradient norms finite,
+    has no lmdb; phase 50 reads an HDF5 feature_database). Gates: the loss and gradient norms finite,
     CVDN and ScanQA validated, K1-K3 as the path implies. Returns the run's
     kernel launches."""
     root = f"{tmp}/cli_{stage}"
@@ -4380,8 +4470,8 @@ def phase_perstep_train(bpe, cfg, model, tmp):
     epoch, then 4 batches of TRAIN_BATCH (2 teacher, 2 DAgger; AdamW, 2
     optimizer steps). Gates: losses finite and below MAX_LOSS, gradient
     norms finite and above 0, no eval step (the per-step path's DAgger
-    draws on the host), K1 64 and K2, K3 32 per grad call. Then
-    phase_perstep_ab. Returns the measured run's launches."""
+    draws on the host), K1 twice and K2, K3 once per layer of every grad call.
+    Then phase_perstep_ab. Returns the measured run's launches."""
     args = perstep_args(cfg, fused_teacher=False, fused_dagger=False,
                         dagger_streams=1)
     runner = perstep_runner(bpe, cfg, model, args)
@@ -4903,8 +4993,8 @@ def phase_eqa_train(bpe, cfg, model, tmp):
     fused teacher, one through the per-step teacher rollout and one through
     the fused DAgger. Gates: each runs the answer head at its final step (a
     generation-loss grad call), the loss finite and below MAX_LOSS, K1-K3
-    as the path implies (K2 and K3 32 per grad call, the head's included).
-    Returns the launches summed over the three."""
+    as the path implies (K2 and K3 once per layer of every grad call, the
+    head's included). Returns the launches summed over the three."""
     from navillm_tpu_torch.agents import load_agent
     from navillm_tpu_torch.data.datasets import load_dataset
     from navillm_tpu_torch.sim import WorldModel
@@ -5147,10 +5237,10 @@ def phase_spm(cfg, vic, tmp):
     tokenizer.json transformers converted from that model (the fixture's
     twin). Gates: the two tokenizers' special ids and sizes equal; every
     prompt of the run encoded to the same ids by both; trajectories and
-    every step's logits equal bit for bit; K1 32 per uncached step (phase
-    3's gate). Prints both routes' load seconds and encode ms per prompt,
-    and a seeded SPM_VICUNA_PIECES-piece model's (Vicuna's size), read on
-    the host. Returns (K1-K3 launches of the tokenizer.model run, its
+    every step's logits equal bit for bit; K1 once per layer of every uncached
+    step (phase 3's gate). Prints both routes' load seconds and encode ms per
+    prompt, and a seeded SPM_VICUNA_PIECES-piece model's (Vicuna's size), read
+    on the host. Returns (K1-K3 launches of the tokenizer.model run, its
     numbers)."""
     dirs = {"model": spm_dir(vic, f"{tmp}/spm_model", (
                 "tokenizer.model", "tokenizer_config.json")),
@@ -5413,8 +5503,8 @@ def phase_pretrained_train(vic, tmp):
 def phase_pretrained_int4(vic, tmp, tok, cfg, qmodel, w4):
     """Phase 35: --mode test --quantize_llm --quant_bits 4 from the
     pretrained directory (load_vicuna quantizes the loaded tree on the card
-    with quantize_host_llama): K4 = 7 x 32 per LLM pass and K1 once per
-    layer of it. The loaded int4 tree equals phase 9's (quantize_nav_params
+    with quantize_host_llama): K4 = 7 per layer of every LLM pass and K1 once
+    per layer of it. The loaded int4 tree equals phase 9's (quantize_nav_params
     of the same weights, the CPU tests hold the two quantizers equal) byte
     for byte, on every row of the checkpoint's vocabulary; so phase 9's
     evaluation replayed on it (phase 9's tokenizer, panorama and heads)
@@ -5805,9 +5895,11 @@ PEAK_FP32 = 67e12
 # since phase 49 joined the run: a rank's step takes 1.1-1.5 s there,
 # and 8 episodes left the whole run within 56 s of its 1200 s limit
 TP_EPISODES = 4
-# phase 47: dp=2 x tp=2 training at full width and 8 layers (four ranks
-# of the full depth would not fit the card)
-DP_TP_LAYERS = 8
+# phase 47: dp=2 x tp=2 training at full width and 4 layers (four ranks
+# of the full depth would not fit the card; 8 layers until phase 50 joined
+# the run: its staged collectives grow with the depth, and on a slow host
+# the whole run reached 1199.7 s of its 1200 s limit)
+DP_TP_LAYERS = 4
 DP_TP_EPISODES = 16
 # the data group's mean loss against one card's on the concatenated batch:
 # the split batch and the split heads regroup bf16 sums (each rounding
@@ -6030,7 +6122,7 @@ def phase_tp_eval(tmp):
     return res, ref
 
 
-def model_8l(seed: int = 47):
+def model_dp_tp(seed: int = 47):
     """phase 47's model: 7B width, DP_TP_LAYERS layers, bf16, dropout off,
     from a seed; BPE prompts."""
     tok = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
@@ -6083,7 +6175,7 @@ def _train_epoch(tok, cfg, runner, root, batch, rank=0, world=1, tx=None):
 
 def _dp_tp_rank(rank, tmp):
     plan = _join(rank, 2, 2)
-    tok, cfg, model = model_8l()
+    tok, cfg, model = model_dp_tp()
     runner = NavModelRunner(cfg, model, tok, feat_dropout=0.0,
                             seed=plan.dp_rank, mesh_plan=plan)
     del model
@@ -6118,9 +6210,10 @@ def _dp_tp_rank(rank, tmp):
 
 
 def phase_dp_tp_train(tmp):
-    """dp=2 x tp=2 training (ZeRO-1, AdamW) at full width and 8 layers, two
+    """dp=2 x tp=2 training (ZeRO-1, AdamW) at full width and DP_TP_LAYERS
+    layers, two
     optimizer steps, against one card's steps on the same batches."""
-    tok, cfg, model = model_8l()
+    tok, cfg, model = model_dp_tp()
     runner = NavModelRunner(cfg, model, tok, feat_dropout=0.0, seed=0)
     tx = make_optimizer(dict(model.named_parameters()), lr=1e-5,
                         grad_clip_norm=40.0)
@@ -6166,7 +6259,12 @@ def phase_dp_tp_train(tmp):
 
 # Phase 48: the feature prefetcher (data/prefetch.py) on the fused teacher
 # and DAgger, over a disk-backed store: with it, held off, held off, with it
-PREFETCH_BATCHES = 4        # stage multi: teacher, DAgger, teacher, DAgger
+# (the repeat in reverse cancels the host's drift). Depth cut since phase 50
+# joined the run, whose first whole run took 1199.7 s of the 1200 s limit
+# on a slow host: one teacher and one DAgger batch per run (were two of
+# each) and 16 eval episodes per run (were N_EPISODES)
+PREFETCH_BATCHES = 2        # stage multi: teacher, DAgger
+PREFETCH_EVAL_EPISODES = 16
 PREFETCH_RUNS = (True, False, False, True)
 
 
@@ -6231,8 +6329,8 @@ def phase_prefetch(bpe, cfg, model, tmp, smi):
                      **{k: stages[k]["mean_ms"] for k in ("pano_assemble",
                                                           "get_obs")}})
         print(f"[48] prefetch {'on' if prefetch else 'held off'}: batches "
-              f"{[round(x, 1) for x in batch_ms]} ms (teacher, DAgger, "
-              f"teacher, DAgger); pano_assemble "
+              f"{[round(x, 1) for x in batch_ms]} ms (teacher, DAgger); "
+              f"pano_assemble "
               f"{stages['pano_assemble']['mean_ms']:.3f} ms x "
               f"{stages['pano_assemble']['count']}, get_obs "
               f"{stages['get_obs']['mean_ms']:.3f} ms x "
@@ -6286,14 +6384,14 @@ def phase_prefetch(bpe, cfg, model, tmp, smi):
 
 
 def prefetch_evals(bpe, cfg, model, tmp, root, smi):
-    """Phase 48's streaming evaluation: N_EPISODES greedy R2R episodes on
-    BPE prompts (phase 13's path) over the .npy store and over the
-    synthetic store (no cache: the pool's reads are thrown away), each in
-    PREFETCH_RUNS' order. Gates: the same trajectories in every run (the
+    """Phase 48's streaming evaluation: PREFETCH_EVAL_EPISODES greedy R2R
+    episodes on BPE prompts (phase 13's path) over the .npy store and over
+    the synthetic store (no cache: the pool's reads are thrown away), each
+    in PREFETCH_RUNS' order. Gates: the same trajectories in every run (the
     two stores hold the same values), K1 once per layer of every step,
     cache hits only where the prefetcher ran on the .npy store. Returns the
     first run's K1 launches."""
-    anno = T.make_r2r_world(f"{tmp}/eval", n_episodes=N_EPISODES)
+    anno = T.make_r2r_world(f"{tmp}/eval", n_episodes=PREFETCH_EVAL_EPISODES)
     feat = cfg.pano.image_feat_size
     layers = cfg.llm.num_layers
     runs = []
@@ -6359,6 +6457,252 @@ def prefetch_evals(bpe, cfg, model, tmp, root, smi):
               f"{ms(store, True, 'pano_assemble')} against "
               f"{ms(store, False, 'pano_assemble')} ms per call")
     return runs[0]["launches"]
+
+
+# ---------------------------------------- slice 19: the HDF5 feature files --- #
+HDF5_FIXTURE = Path(__file__).resolve().parent / "tests/fixtures/hdf5"
+# MP3D's viewpoints: the keys of one view-feature file
+MP3D_VIEWPOINTS = 10567
+HDF5_EVA_VIEWPOINTS = 2
+
+
+def same_bits(got, want) -> bool:
+    got, want = np.asarray(got), np.asarray(want)
+    return got.dtype == want.dtype and got.shape == want.shape \
+        and got.tobytes() == want.tobytes()
+
+
+def phase_hdf5_fixture():
+    """Phase 50 (a): the committed files h5py made
+    (scripts/data_tools/make_hdf5_fixture.py) read by the port's reader:
+    every dataset equal to its .npz twin bit for bit."""
+    for name in ("extractor", "layouts", "many_keys"):
+        t0 = time.perf_counter()
+        with hdf5.File(HDF5_FIXTURE / f"{name}.h5") as f, \
+                np.load(HDF5_FIXTURE / f"{name}.npz") as z:
+            open_ms = 1e3 * (time.perf_counter() - t0)
+            bad = [k for k in z.files if not same_bits(f[k][...], z[k])]
+            if bad or not z.files:
+                raise RuntimeError(f"[50] {name}.h5: {bad} differ from "
+                                   f"{name}.npz")
+            print(f"[50] fixture {name}.h5: {len(z.files)} datasets equal "
+                  f"to {name}.npz bit for bit; {len(f.keys())} root keys "
+                  f"opened and indexed in {open_ms:.2f} ms")
+
+
+def phase_hdf5_io(tmp, feat, smi):
+    """Phase 50 (b)'s file: the eval world's viewpoints written by
+    testing.write_hdf5_features ([36, feat] f32, SyntheticImageFeaturesDB's
+    values, the extractors' layout), then the reader's and writer's times
+    on the host: open and index, one [36, feat] read, write MB/s, and the
+    index of a file of MP3D_VIEWPOINTS keys. Gates: every dataset reads
+    back bit for bit, in h5py's chunk shape. Returns (annotations, the
+    file's path)."""
+    anno = T.make_r2r_world(f"{tmp}/eval", n_episodes=N_EPISODES)
+    conn = f"{tmp}/eval/connectivity"
+    path = Path(f"{tmp}/eval/features.hdf5")
+    T.write_hdf5_features(path, conn, feat)
+    views = list(T.world_features(conn, feat))
+    t0 = time.perf_counter()
+    with hdf5.File(f"{tmp}/rewrite.hdf5", "w") as f:
+        for key, arr in views:
+            write_features(f, key, arr)
+    write_s = time.perf_counter() - t0
+    raw_mb = sum(a.nbytes for _, a in views) / 1e6
+    t0 = time.perf_counter()
+    f = hdf5.File(path)
+    open_ms = 1e3 * (time.perf_counter() - t0)
+    chunks = hdf5.guess_chunk((NUM_VIEWS, feat), 4)
+    t0 = time.perf_counter()
+    got = [(key, f[key]) for key, _ in views]
+    arrays = [d[...] for _, d in got]
+    read_ms = 1e3 * (time.perf_counter() - t0) / len(views)
+    f.close()
+    bad = [key for (key, want), a in zip(views, arrays)
+           if not same_bits(a, want)]
+    layouts = {(d.chunks, d.compression, d.compression_opts) for _, d in got}
+    if bad or layouts != {(chunks, "gzip", hdf5.DEFAULT_GZIP)}:
+        raise RuntimeError(f"[50] {bad} do not read back; layouts {layouts}")
+    n_chunks = math.prod(-(-s // c) for s, c in zip((NUM_VIEWS, feat),
+                                                     chunks))
+    with hdf5.File(f"{tmp}/mp3d_keys.hdf5", "w") as w:
+        for k in range(MP3D_VIEWPOINTS):
+            w[f"scan{k % 90:02d}_{k * 2654435761 % 2 ** 32:08x}{k:024x}"] = \
+                np.array([k], np.int32)
+    t0 = time.perf_counter()
+    with hdf5.File(f"{tmp}/mp3d_keys.hdf5") as big:
+        index_ms = 1e3 * (time.perf_counter() - t0)
+        if len(big.keys()) != MP3D_VIEWPOINTS:
+            raise RuntimeError(f"[50] {len(big.keys())} keys")
+    print(f"[50] {smi}, on the host: {len(views)} viewpoints [{NUM_VIEWS}, "
+          f"{feat}] f32 written in the extractors' layout (chunks {chunks}, "
+          f"{n_chunks} gzip chunks each, level {hdf5.DEFAULT_GZIP}) at "
+          f"{raw_mb / write_s:.1f} MB/s of features ({raw_mb:.2f} MB, "
+          f"{path.stat().st_size / 1e6:.2f} MB on disk); open and index "
+          f"{open_ms:.3f} ms; {read_ms:.3f} ms per [{NUM_VIEWS}, {feat}] "
+          f"read, every one bit for bit; an index of {MP3D_VIEWPOINTS} "
+          f"keys opened in {index_ms:.1f} ms")
+    return anno, path
+
+
+def phase_hdf5_eval(bpe, cfg, model, anno, path, smi):
+    """Phase 50 (b): phase 13's greedy streaming evaluation (N_EPISODES
+    R2R episodes, BPE, the prefetcher on) over create_feature_db's
+    ImageFeaturesDB on the HDF5 file, then over the synthetic store of the
+    same values, with the same weights. Gates: trajectories and every
+    step's logits equal bit for bit, K1 once per layer of every step, the
+    file's store filled by the prefetcher. Returns the HDF5 run's K1
+    launches."""
+    feat = cfg.pano.image_feat_size
+    layers = cfg.llm.num_layers
+    runs = {}
+    for store in ("hdf5", "synthetic"):
+        runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
+        agent, ds, args = T.r2r_eval(anno, runner, N_SLOTS, feat)
+        db = None
+        if store == "hdf5":
+            db = create_feature_db({"mp3d": path.name}, feat,
+                                   str(path.parent))["mp3d"]
+            ds.init_feat_db(db)
+        torch.cuda.synchronize()
+        zero_counters(runner)
+        with StepLogits(runner) as log:
+            t0 = time.perf_counter()
+            preds = run_eval(agent, ds, args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        steps = runner.eval_steps
+        if not steps or flash_attention_fwd.launches != steps * layers:
+            raise RuntimeError(f"[50] K1 launches "
+                               f"{flash_attention_fwd.launches} != {steps} "
+                               f"steps x {layers}")
+        agent._prefetcher.drain()
+        st = agent.timer.summary()
+        runs[store] = {
+            "trajs": {p["instr_id"]: p["trajectory"] for p in preds},
+            "logits": log.logits, "steps": steps, "ms": 1e3 * dt / steps,
+            "launches": flash_attention_fwd.launches,
+            "keys": len(db._store) if db is not None else 0,
+            "file": db is not None and isinstance(db._h5, hdf5.FileReader),
+            **{k: st[k]["mean_ms"] for k in ("get_obs", "pano_assemble")}}
+        r = runs[store]
+        print(f"[50] eval over the {store} store: {len(preds)} episodes, "
+              f"{steps} steps, {r['ms']:.2f} ms wall per step; get_obs "
+              f"{r['get_obs']:.3f} ms, pano_assemble "
+              f"{r['pano_assemble']:.3f} ms per call; {r['keys']} keys "
+              f"prefetched; K1 launches {r['launches']} = {steps} x "
+              f"{layers}")
+        del agent, ds, runner, db
+    h, s = runs["hdf5"], runs["synthetic"]
+    if h["trajs"] != s["trajs"] or h["steps"] != s["steps"]:
+        raise RuntimeError("[50] trajectories over the HDF5 file differ "
+                           "from the synthetic store's")
+    if h["logits"].keys() != s["logits"].keys() or not all(
+            torch.equal(h["logits"][k], s["logits"][k]) for k in h["logits"]):
+        raise RuntimeError("[50] step logits over the HDF5 file differ from "
+                           "the synthetic store's")
+    if not (h["file"] and h["keys"]):
+        raise RuntimeError(f"[50] the HDF5 store read nothing: file "
+                           f"{h['file']}, {h['keys']} keys")
+    print(f"[50] {smi}: eval over the HDF5 file against the synthetic "
+          f"store: {h['ms']:.2f} against {s['ms']:.2f} ms wall per step, "
+          f"get_obs {h['get_obs']:.3f} against {s['get_obs']:.3f} ms, "
+          f"pano_assemble {h['pano_assemble']:.3f} against "
+          f"{s['pano_assemble']:.3f} ms per call; trajectories and "
+          f"{len(h['logits'])} steps' logits equal bit for bit")
+    return h["launches"]
+
+
+def phase_hdf5_extract(tmp):
+    """Phase 50 (d): the EVA02-CLIP-L-14-336 tower (random f32 weights from
+    load_eva02's seed 0) encodes HDF5_EVA_VIEWPOINTS x 36 synthetic views,
+    written by the extractors' writer (vision.extract.write_features):
+    the file reads back through ImageFeaturesDB equal to encode's output
+    bit for bit. Then the entry point python -m
+    navillm_tpu_torch.vision.extract_features_mp3d (PIL decoding in
+    threads, FeatureExtractor.extract_to_hdf5's writer) over 36 PNG
+    renders of each of HDF5_EVA_VIEWPOINTS viewpoints: its file's
+    features within VIT_REL of FeatureExtractor.encode_images on the same
+    renders. (--workers 2, spawned decoders and the writer thread, took
+    11.5-12.8 s of the phase's 25-29 s; the CPU tests hold that writer.)"""
+    from PIL import Image
+
+    from navillm_tpu_torch.vision import extract_features_mp3d as EM
+    from navillm_tpu_torch.vision.extract import DirectoryImageSource
+    vcfg, params = EM.load_eva02(None, "cuda", 0)
+    fe = FeatureExtractor(params, vcfg, batch_size=VIT_VIEWS)
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    imgs = torch.randn((HDF5_EVA_VIEWPOINTS * VIT_VIEWS, vcfg.image_size,
+                        vcfg.image_size, 3), generator=gen, device="cuda")
+    path = f"{tmp}/eva02.hdf5"
+    feats = {}
+    t0 = time.perf_counter()
+    with hdf5.File(path, "w") as f:
+        for k in range(HDF5_EVA_VIEWPOINTS):
+            feats[f"vp{k}"] = fe.encode(imgs[k * VIT_VIEWS:
+                                             (k + 1) * VIT_VIEWS])
+            write_features(f, f"evascan_vp{k}", feats[f"vp{k}"])
+    dt = time.perf_counter() - t0
+    db = ImageFeaturesDB(path, vcfg.width)
+    bad = [vp for vp, want in feats.items()
+           if want.shape != (VIT_VIEWS, vcfg.width)
+           or not same_bits(db.get_image_feature("evascan", vp), want)]
+    if bad:
+        raise RuntimeError(f"[50] EVA02 features of {bad} do not read back")
+    print(f"[50] EVA02-CLIP-L-14-336: {HDF5_EVA_VIEWPOINTS} viewpoints x "
+          f"{VIT_VIEWS} views encoded and written in {dt:.3f} s "
+          f"({fe.forward_calls} forwards); read back through "
+          f"ImageFeaturesDB bit for bit")
+
+    conn, renders = Path(f"{tmp}/eva_conn"), Path(f"{tmp}/renders")
+    conn.mkdir()
+    T.make_grid_connectivity(conn, "evascan", rows=1,
+                             cols=HDF5_EVA_VIEWPOINTS)
+    rng = np.random.RandomState(50)
+    scanvps = [("evascan", f"vp_0_{c}") for c in range(HDF5_EVA_VIEWPOINTS)]
+    for scan, vp in scanvps:
+        (renders / scan).mkdir(parents=True, exist_ok=True)
+        for ix in range(VIT_VIEWS):
+            Image.fromarray(rng.randint(0, 256, (48, 64, 3), np.uint8)) \
+                .save(renders / scan / f"{vp}_{ix}.png")
+    out = f"{tmp}/mp3d_eva02.hdf5"
+    t0 = time.perf_counter()
+    EM.main(["--connectivity_dir", str(conn), "--image_dir", str(renders),
+             "--output_file", out])
+    dt = time.perf_counter() - t0
+    db, src = ImageFeaturesDB(out, vcfg.width), DirectoryImageSource(renders)
+    with hdf5.File(out) as f:
+        keys = sorted(f.keys())
+    rel = 0.0
+    for scan, vp in scanvps:
+        want = fe.encode_images(src.views(scan, vp, VIT_VIEWS))
+        got = db.get_image_feature(scan, vp)
+        rel = max(rel, float(np.abs(got - want).max() / np.abs(want).max()))
+    if keys != [f"{s}_{v}" for s, v in scanvps] or not rel <= VIT_REL:
+        raise RuntimeError(f"[50] extract_features_mp3d wrote {keys}; "
+                           f"max |d|/max|f| {rel:.3e} > {VIT_REL}")
+    print(f"[50] python -m navillm_tpu_torch.vision.extract_features_mp3d "
+          f"over {len(scanvps)} viewpoints x {VIT_VIEWS} PNG "
+          f"renders in {dt:.2f} s: {keys}, against encode_images max "
+          f"|d|/max|f| {rel:.3e}")
+    del params, fe, imgs
+    torch.cuda.empty_cache()
+
+
+def phase_hdf5(bpe, cfg, model, tmp, smi, cli_ref):
+    """Phase 50: the HDF5 feature files without h5py, (a)-(d) above and
+    phase_cli's (c). Gate: the run loaded no h5py module. Returns (the
+    eval's K1 launches, the entry point's launches)."""
+    t_phase = time.perf_counter()
+    phase_hdf5_fixture()
+    anno, path = phase_hdf5_io(tmp, cfg.pano.image_feat_size, smi)
+    eval_launches = phase_hdf5_eval(bpe, cfg, model, anno, path, smi)
+    cli_launches, _ = phase_cli(f"{tmp}/cli", ref=cli_ref)
+    phase_hdf5_extract(tmp)
+    if "h5py" in sys.modules:
+        raise RuntimeError("[50] the run loaded h5py")
+    print(f"[50] phase {time.perf_counter() - t_phase:.1f} s")
+    return eval_launches, cli_launches
 
 
 # ------------------------------------- slice 17: a LLaMA-3-layout directory --- #
@@ -6596,8 +6940,26 @@ def phase_llama3(tmp, smi):
             {"49_w4": w4_stats["q4_launches"]}, k1, q4)
 
 
+def time_phases():
+    """Wrap every top-level phase function so that each call prints its wall
+    seconds (nested calls print their own line): the budget of the whole
+    run is read from these lines."""
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_")
+                 or n in ("model_7b", "quantize_model")]:
+        def timed(*a, _fn=g[name], _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                print(f"[time] {_name} {time.perf_counter() - t:.1f} s",
+                      flush=True)
+        g[name] = functools.wraps(g[name])(timed)
+
+
 def main():
     t_main = time.perf_counter()
+    time_phases()
     smi = phase_device()
     phase_build()
     fwd_err, fwd_timed = phase_kernel()
@@ -6648,7 +7010,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         run_launches = phase_run_training(bpe, cfg, model, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        cli_launches = phase_cli(tmp)
+        cli_launches, cli_ref = phase_cli(tmp)
     # generation at 7B width: the EQA path and training with the heads
     with tempfile.TemporaryDirectory() as tmp:
         phase_gen_ab(bpe, cfg, model, tmp)
@@ -6705,6 +7067,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         prefetch_launches, prefetch_eval = phase_prefetch(bpe, cfg, model,
                                                           tmp, smi)
+    # the HDF5 feature files read and written without h5py: phase 13's
+    # eval over one, the entry point over its feature_database
+    with tempfile.TemporaryDirectory() as tmp:
+        hdf5_eval, hdf5_cli = phase_hdf5(bpe, cfg, model, tmp, smi,
+                                         {**cli_ref, "launches": cli_launches})
     # the pretrained path: the model's LLM written as an HF-layout
     # checkpoint and read back through build_runner; the directory serves
     # phases 34 and 35 too
@@ -6757,10 +7124,13 @@ def main():
         eqa_a8 = phase_eqa_w4a8(bpe, cfg, qmodel, tmp, eqa_w4)
     with tempfile.TemporaryDirectory() as tmp:
         int4_mix = phase_int4_og_cvdn(bpe, cfg, qmodel, tmp)
-    # int8 weights (drawn quantized), W8A8 and the int8 prefix cache
-    model8 = phase_quantized_init(cfg)
+    # int8 weights (drawn quantized), W8A8 and the int8 prefix cache, at
+    # Vicuna-7B's own depth (CACHED_LOGIT_SPREAD_A8KV8)
+    cfg41 = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_layers=LlamaConfig.vicuna_7b().num_layers))
+    model8 = phase_quantized_init(cfg41)
     with tempfile.TemporaryDirectory() as tmp:
-        w8a8 = phase_w8a8(bpe, cfg, model8, tmp)
+        w8a8 = phase_w8a8(bpe, cfg41, model8, tmp)
     del model8
     gc.collect()
     torch.cuda.empty_cache()
@@ -6816,6 +7186,8 @@ def main():
                 "39": perstep["39"][key], "40": perstep["40"][key],
                 "48": prefetch_launches[key],
                 "48_eval": prefetch_eval if key == "fwd" else 0,
+                "50": hdf5_eval if key == "fwd" else 0,
+                "50_cli": hdf5_cli[key],
                 "41": w8a8["launches"] if key == "fwd" else 0,
                 **{f"42{sfx}": st["launches"][key]
                    for sfx, st in zip(("", "_kv8"), eqa_a8)},
@@ -6883,7 +7255,7 @@ def main():
                      "max_abs_err", "ms", "plain_ms", "library_ms",
                      "bound_ms", "bound_by")}
                      for (m, h, o, _), r in l3_k4.items()}})
-    print(f"[run] phases 0-49 in {time.perf_counter() - t_main:.1f} s")
+    print(f"[run] phases 0-50 in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

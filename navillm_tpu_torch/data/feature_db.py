@@ -4,8 +4,8 @@ The port's copy of navillm_tpu/data/feature_db.py (reference
 tasks/feature_db.py), with the same names and numerics:
   - ImageFeaturesDB: HDF5 view features ([36, D] per viewpoint, or [N, D]
     frame features for ScanQA/COCO), lazy reads + optional cache
-    (feature_db.py:18-31); h5py is imported at first read, so the port
-    imports without it;
+    (feature_db.py:18-31), read through the port's own HDF5 reader
+    (utils/hdf5.py: no h5py);
   - SyntheticImageFeaturesDB: deterministic hash-seeded features for
     hermetic tests and the card's smoke run;
   - REVERIEObjectFeatureDB / SOONObjectFeatureDB: object crops with their
@@ -23,11 +23,13 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..sim.geometry import angle_feature, convert_elevation, convert_heading
+from ..utils import hdf5
 
 NUM_VIEWS = 36
 
@@ -42,11 +44,14 @@ class ImageFeaturesDB:
         self.cache = cache
         self._store: Dict[str, np.ndarray] = {}
         self._h5 = None
+        self._open_lock = threading.Lock()
 
     def _file(self):
+        # the prefetcher's threads may make the first read: open once
         if self._h5 is None:
-            import h5py
-            self._h5 = h5py.File(self.img_ft_file, "r")
+            with self._open_lock:
+                if self._h5 is None:
+                    self._h5 = hdf5.File(self.img_ft_file, "r")
         return self._h5
 
     def get_image_feature(self, scan: str, viewpoint: Optional[str] = None

@@ -133,7 +133,7 @@ def make_mesh(dp_size: int = -1, tp_size: int = 1,
               device=None) -> MeshPlan:
     """The grid over the initialized default process group (or over this
     process alone when none is initialized). ``device``: this rank's
-    device (default: the card of LOCAL_RANK, or the CPU without one).
+    device (default: the card of LOCAL_RANK; raises without CUDA).
     Every rank must call it: the groups are created collectively."""
     import os
     initialized = dist.is_available() and dist.is_initialized()
@@ -147,9 +147,11 @@ def make_mesh(dp_size: int = -1, tp_size: int = 1,
                          f"torchrun --nproc_per_node)")
     backend = dist.get_backend() if initialized else "none"
     if device is None:
-        device = torch.device(
-            f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
-            if torch.cuda.is_available() else "cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: make_mesh places this rank "
+                               "on the card of LOCAL_RANK; pass "
+                               "device='cpu' to build the grid on the CPU")
+        device = torch.device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
     data_groups = [[d * tp_size + t for d in range(dp_size)]
                    for t in range(tp_size)]
     model_groups = [[d * tp_size + t for t in range(tp_size)]

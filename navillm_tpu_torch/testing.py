@@ -10,9 +10,11 @@ ids that ``aug_decoder`` reads, and ``.json``); ``r2r_eval``,
 ``eqa_eval``, ``reverie_eval``, ``soon_eval``, ``cvdn_eval`` and
 ``scanqa_eval`` wire the port's evaluation over it, ``r2r_train`` its
 teacher-forcing training, and ``feature_dbs`` the synthetic stores of
-every task. ``write_npy_features`` and ``NpyFeaturesDB`` give a
-disk-backed store with ``ImageFeaturesDB``'s reads and cache, without
-h5py; ``hold_off_prefetch`` keeps an agent from prefetching.
+every task. ``write_hdf5_features`` writes a world's view features as the
+extractors write them (the port's HDF5 writer), for ``ImageFeaturesDB``;
+``write_npy_features`` and ``NpyFeaturesDB`` give a disk-backed store of
+one ``.npy`` per viewpoint with the same reads and cache;
+``hold_off_prefetch`` keeps an agent from prefetching.
 ``spawn_gloo`` runs a function in N processes joined by a gloo process
 group (the multi-process tests and rehearsals on the CPU).
 ``spm_pieces`` and ``write_sentencepiece_model`` write seeded
@@ -772,24 +774,47 @@ def feature_dbs(image_feat_size: int) -> Dict[str, SyntheticImageFeaturesDB]:
             "coco": SyntheticImageFeaturesDB(image_feat_size, num_views=1)}
 
 
+def world_features(connectivity_dir, image_feat_size: int):
+    """(key, [36, image_feat_size] f32) for every viewpoint of every scan
+    under ``connectivity_dir``: SyntheticImageFeaturesDB's values, keyed
+    ``<scan>_<viewpoint>``."""
+    synth = SyntheticImageFeaturesDB(image_feat_size)
+    for conn in sorted(Path(connectivity_dir).glob("*_connectivity.json")):
+        scan = conn.name[: -len("_connectivity.json")]
+        for node in json.loads(conn.read_text()):
+            vp = node["image_id"]
+            yield f"{scan}_{vp}", synth.get_image_feature(scan, vp)
+
+
 def write_npy_features(root, connectivity_dir, image_feat_size: int) -> Path:
     """One ``<scan>_<viewpoint>.npy`` file of [36, image_feat_size] f32
     features (SyntheticImageFeaturesDB's values) per viewpoint of every scan
     under ``connectivity_dir``. Returns ``root``."""
     root = Path(root)
     root.mkdir(parents=True, exist_ok=True)
-    synth = SyntheticImageFeaturesDB(image_feat_size)
-    for conn in sorted(Path(connectivity_dir).glob("*_connectivity.json")):
-        scan = conn.name[: -len("_connectivity.json")]
-        for node in json.loads(conn.read_text()):
-            vp = node["image_id"]
-            np.save(root / f"{scan}_{vp}.npy",
-                    synth.get_image_feature(scan, vp))
+    for key, feats in world_features(connectivity_dir, image_feat_size):
+        np.save(root / f"{key}.npy", feats)
     return root
 
 
+def write_hdf5_features(path, connectivity_dir, image_feat_size: int
+                        ) -> Path:
+    """The HDF5 twin of write_npy_features: one gzip'd [36,
+    image_feat_size] f32 dataset per viewpoint, SyntheticImageFeaturesDB's
+    values, written as the extractors write theirs
+    (``vision.extract.write_features``). Returns ``path``."""
+    from .utils import hdf5
+    from .vision.extract import write_features
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with hdf5.File(path, "w") as f:
+        for key, feats in world_features(connectivity_dir, image_feat_size):
+            write_features(f, key, feats)
+    return path
+
+
 class _NpyFiles:
-    """The h5py file's ``[key]`` read over a directory of .npy files."""
+    """An HDF5 file's ``[key]`` read over a directory of .npy files."""
 
     def __init__(self, root):
         self.root = Path(root)

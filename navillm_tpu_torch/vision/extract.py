@@ -4,7 +4,9 @@ Torch twin of navillm_tpu/vision/extract.py. Host threads (or spawned
 worker processes) decode and preprocess images while the ViT
 (vision/vit.py) runs fixed-size batches on the card; one writer streams
 gzip'd [36, D] (or [D]) datasets into HDF5 under the ``<scan>_<viewpoint>``
-keys the feature DBs read (data/feature_db.py).
+keys the feature DBs read (data/feature_db.py), through the port's own
+HDF5 writer (utils/hdf5.py, h5py's layout without h5py):
+``write_features`` is the one dataset call every writer makes.
 
 Image sources:
   - DirectoryImageSource: pre-rendered views on disk,
@@ -12,9 +14,9 @@ Image sources:
   - MatterSimImageSource: renders through the upstream C++ simulator
     when the ``MatterSim`` module is importable.
 
-PIL is imported where an image is decoded and h5py where a file is
-written, so the device half (``FeatureExtractor.encode`` on preprocessed
-[N, S, S, 3] f32 arrays) runs without either.
+PIL is imported where an image is decoded, so the device half
+(``FeatureExtractor.encode`` on preprocessed [N, S, S, 3] f32 arrays) and
+the writer run without it.
 """
 from __future__ import annotations
 
@@ -26,11 +28,21 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import hdf5
 from .vit import ViTConfig, vit_forward_features
 
 # CLIP normalization (EVA uses the same openai statistics)
 MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
 STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def write_features(f, key: str, feats) -> None:
+    """One dataset of the extractors' layout into ``f`` (an
+    ``hdf5.File(path, "w")``): ``feats`` as f32, gzip'd at h5py's default
+    level and chunk shape, as the JAX extractor's ``create_dataset(key,
+    data=..., compression="gzip")`` lays it out."""
+    f.create_dataset(key, data=np.asarray(feats, np.float32),
+                     compression="gzip")
 
 
 def preprocess_image(img, image_size: int) -> np.ndarray:
@@ -166,13 +178,11 @@ class FeatureExtractor(_Batched):
     def extract_to_hdf5(self, out_file: str | Path, source,
                         scanvp_list: Sequence[Tuple[str, str]],
                         num_views: int = 36, progress: bool = True):
-        import h5py
-        with h5py.File(str(out_file), "w") as f:
+        with hdf5.File(out_file, "w") as f:
             for i, (scan, vp) in enumerate(scanvp_list):
                 fts = self.encode_images(source.views(scan, vp, num_views))
                 key = f"{scan}_{vp}"
-                f.create_dataset(key, data=fts.astype(np.float32),
-                                 compression="gzip")
+                write_features(f, key, fts)
                 if progress and i % 50 == 0:
                     print(f"[{i}/{len(scanvp_list)}] {key}", flush=True)
 
@@ -188,8 +198,8 @@ class ParallelFeatureExtractor(_Batched):
 
     There is one card, so the forward stays in this process and the
     parallelism goes to decoding. Results flow through bounded queues to
-    keep memory flat; the writer thread alone holds the h5py handle (HDF5
-    is not safe under concurrent writers). A worker's error and the
+    keep memory flat; the writer thread alone holds the HDF5 file (one
+    writer appends to it). A worker's error and the
     writer's are raised here once the queues are drained."""
 
     def __init__(self, params, cfg: ViTConfig, batch_size: int = 36,
@@ -229,8 +239,6 @@ class ParallelFeatureExtractor(_Batched):
         import threading
         import time
 
-        import h5py
-
         # spawn, not fork: this process holds the CUDA context and live
         # threads, which a forked child must not inherit
         ctx = mp.get_context("spawn")
@@ -252,14 +260,12 @@ class ParallelFeatureExtractor(_Batched):
 
         def writer():
             try:
-                with h5py.File(str(out_file), "w") as f:
+                with hdf5.File(out_file, "w") as f:
                     while True:
                         item = write_q.get()
                         if item is None:
                             return
-                        key, feats = item
-                        f.create_dataset(key, data=feats,
-                                         compression="gzip")
+                        write_features(f, *item)
             except BaseException as e:
                 write_err.append(e)
                 # keep draining so the consumer never blocks on a full

@@ -28,17 +28,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
-    import h5py
-    import numpy as np
     from PIL import Image
 
-    from .extract import FeatureExtractor
+    from ..utils import hdf5
+    from .extract import FeatureExtractor, write_features
     from .extract_features_mp3d import load_eva02
 
     cfg, params = load_eva02(args.checkpoint, args.device, args.seed)
     fe = FeatureExtractor(params, cfg, args.batch_size)
     root = Path(args.image_dir)
-    with h5py.File(args.output_file, "w") as f:
+    with hdf5.File(args.output_file, "w") as f:
         if args.flat:
             items = [(p.stem, [p]) for p in sorted(root.glob("*.jpg"))]
         else:
@@ -47,12 +46,10 @@ def main(argv=None):
         for key, paths in items:
             fts = fe.encode_images([Image.open(p) for p in paths])
             if args.flat:
-                f.create_dataset(key, data=fts[0], compression="gzip")
+                write_features(f, key, fts[0])
             else:
                 for p, ft in zip(paths, fts):
-                    f.create_dataset(f"{key}_{p.stem}",
-                                     data=ft.astype(np.float32),
-                                     compression="gzip")
+                    write_features(f, f"{key}_{p.stem}", ft)
             print(key, flush=True)
 
 

@@ -17,7 +17,7 @@ def _gather(rank):
     local = [{"instr_id": f"r{rank}_{k}", "rank": rank,
               "blob": "x" * (50 + 400 * rank)} for k in range(rank + 1)]
     gathered = D.all_gather_objects(local)
-    plan = make_mesh(dp_size=1, tp_size=2)
+    plan = make_mesh(dp_size=1, tp_size=2, device="cpu")
     # the model group holds both ranks; a data group of one returns [obj]
     by_model = D.all_gather_objects(local, plan.model)
     by_data = D.all_gather_objects(local, plan.data)
@@ -42,3 +42,14 @@ def test_single_process_forms():
     assert D.merge_dist_results([[1, 2], [3]]) == [1, 2, 3]
     # no torchrun environment: nothing to join
     assert D.init_distributed() is False
+
+
+def test_make_mesh_without_a_device_needs_cuda(monkeypatch):
+    """No quiet fallback: without CUDA, make_mesh() raises and names
+    device='cpu'; given it, the grid is built on the CPU."""
+    from navillm_tpu_torch.parallel.mesh import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    plan = make_mesh(device="cpu")
+    assert (plan.dp_size, plan.tp_size, plan.world_size) == (1, 1, 1)

@@ -15,8 +15,9 @@ the per-step paths (the per-step teacher and the interleaved DAgger
 through run_training with batched validation, batched EQA validation, the
 host-memory runner, the stage timer and the profiler trace), the vision
 towers and the extraction entry points, run_training at tp=2 over two
-gloo ranks, and ``python -m navillm_tpu_torch.train --help`` run on the
-CPU.
+gloo ranks, the HDF5 feature files (streaming evaluation and run_training
+over a feature_database the port's writer made, read by its own reader),
+and ``python -m navillm_tpu_torch.train --help`` run on the CPU.
 
 The check runs in a subprocess, because tests/conftest.py imports jax into
 the pytest process.
@@ -163,6 +164,81 @@ print("loaded", sorted(m for m in sys.modules if m in %r
                        or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
 """ % (BANNED,)
 
+
+# the HDF5 feature files: write_hdf5_features writes the world's views as
+# the extractors do; streaming evaluation over create_feature_db's store on
+# that file walks as over the synthetic store of the same values, and
+# run_training reads the YAML's feature_database itself
+HDF5 = """
+import os, sys, tempfile
+import torch
+from navillm_tpu_torch import testing as T
+from navillm_tpu_torch.agents.runner import NavModelRunner, RolloutDims
+from navillm_tpu_torch.convert import init_nav_params
+from navillm_tpu_torch.data.feature_db import (SyntheticImageFeaturesDB,
+                                               create_feature_db)
+from navillm_tpu_torch.data.loaders import Dataloader
+from navillm_tpu_torch.models.nav_model import NavModel, NavModelConfig
+from navillm_tpu_torch.models.tokenization import NavTokenizer
+from navillm_tpu_torch.training.train_loop import run_training
+from navillm_tpu_torch.utils.config import TrainArgs, load_yaml_text
+
+torch.set_num_threads(1)
+tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
+cfg = NavModelConfig.tiny(vocab_size=tok.vocab_size, use_obj=False)
+model = NavModel(cfg, init_nav_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+size = cfg.pano.image_feat_size
+with tempfile.TemporaryDirectory() as tmp:
+    anno = T.make_r2r_world(tmp, n_episodes=4, rows=3, cols=3, split="val")
+    T.write_hdf5_features(tmp + "/feats/mp3d.hdf5", tmp + "/connectivity",
+                          size)
+    db = create_feature_db({"mp3d": "feats/mp3d.hdf5"}, size, tmp)["mp3d"]
+    walks = {}
+    for name, store in (("hdf5", db), ("synthetic",
+                                       SyntheticImageFeaturesDB(size))):
+        runner = NavModelRunner(cfg, model, tok, dims=RolloutDims.tiny())
+        agent, ds, args = T.r2r_eval(anno, runner, 2, size)
+        ds.init_feat_db(store)
+        preds = agent.validate_streaming("R2R", args, T.eval_config(4),
+                                         Dataloader(ds, 2, False),
+                                         dataset=ds)
+        walks[name] = {p["instr_id"]: p["trajectory"] for p in preds}
+    assert len(walks["hdf5"]) == 4 and walks["hdf5"] == walks["synthetic"]
+    assert db._h5 is not None and len(db._h5.keys()) == 9, db._h5
+    print("hdf5 streaming eval", sorted(walks["hdf5"]))
+
+    T.make_r2r_world(tmp, n_episodes=2, rows=3, cols=3, split="train")
+    ycfg = load_yaml_text(HDF5_CFG)
+    rargs = TrainArgs(data_dir=tmp, output_dir=tmp + "/out", device="cpu",
+                      num_epochs=1, num_steps_per_epoch=2, batch_size=2,
+                      fused_rows_per_call=4, max_saved_checkpoints=0)
+    rargs.sync_from_config(ycfg)
+    res = run_training(rargs, ycfg)
+    assert "sr" in res["R2R"], res
+    print("hdf5 run_training", res["R2R"])
+print("loaded", sorted(m for m in sys.modules if m in %r
+                       or m == "navillm_tpu" or m.startswith("navillm_tpu.")))
+""" % (BANNED,)
+HDF5_CFG = '''
+Feature:
+  image_feat_size: 32
+  angle_feat_size: 4
+  feature_database: {"mp3d": "feats/mp3d.hdf5"}
+Dataset:
+  R2R:
+    DIR: R2R
+    SPLIT: {"train": "annotations/train.json",
+            "val_unseen": "annotations/val.json"}
+Multi:
+  SOURCE: ['R2R']
+  Ratio: [1]
+  LOSS_COEF: {}
+Optim:
+  train_max_action_len: {"R2R": 4}
+  val_max_action_len: {"R2R": 4}
+'''
+HDF5 = "HDF5_CFG = %r\n" % HDF5_CFG + HDF5
 
 # the generation paths: EQA streaming evaluation (trie answers, oracle pass)
 # uncached and prefix-cached, then run_training at stage multi with the
@@ -774,6 +850,11 @@ def test_port_runs_its_slice_without_jax():
     _fresh(SLICE)
 
 
+def test_port_runs_the_hdf5_feature_files_without_h5py():
+    out = _fresh(HDF5)
+    assert "hdf5 streaming eval" in out and "hdf5 run_training" in out
+
+
 def test_port_runs_its_generation_paths_without_jax():
     _fresh(GEN)
 
@@ -835,6 +916,7 @@ def _port_sources():
             "navillm_tpu_torch/models/sentencepiece.py",
             "navillm_tpu_torch/models/pretokenize.py",
             "navillm_tpu_torch/models/unigram.py",
+            "navillm_tpu_torch/utils/hdf5.py",
             "navillm_tpu_torch/eval/captioning.py",
             "navillm_tpu_torch/agents/llava_agent.py"} <= names
     return files
@@ -864,6 +946,18 @@ def test_port_sources_never_import_hf_packages():
         and pat.search("import regex\n") \
         and not pat.search("from .sentencepiece import load_model") \
         and not pat.search("from . import pretokenize as PT")
+
+
+def test_port_sources_never_import_h5py():
+    """The feature files go through utils/hdf5.py: the card's machine has
+    no h5py. The word may stand in prose, never in an import."""
+    pat = re.compile(r"^\s*(import|from)\s+h5py\b", re.M)
+    files = _port_sources()
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert not hits, hits
+    assert pat.search("    import h5py\n") \
+        and pat.search("from h5py import File") \
+        and not pat.search("# read as h5py does")
 
 
 def test_port_sources_never_import_navillm_tpu():

@@ -40,7 +40,7 @@ from ..data.prefetch import FeaturePrefetcher
 from ..models.decoding import decode_to_text
 from ..models.trie import DenseTrie
 from ..utils.config import TrainArgs
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, span
 from ..utils.registry import AGENTS
 from . import prompts as P
 from .graph_map import GraphMap
@@ -197,12 +197,15 @@ class R2RAgent:
                 loc_fts[i, k, A:] = 1.0
                 k += 1
             view_lens[i] = k
-        ret = {"view_img_fts": self.runner.upload(view_img, self._feat_dtype),
+        with span("upload", "runner"):
+            view_dev = self.runner.upload(view_img, self._feat_dtype)
+            obj_dev = self.runner.upload(obj_img, self._feat_dtype) \
+                if has_obj else None
+        ret = {"view_img_fts": view_dev,
                "loc_fts": loc_fts, "nav_types": nav_types,
                "view_lens": view_lens, "cand_vpids": cand_vpids}
         if has_obj:
-            ret.update({"obj_img_fts": self.runner.upload(obj_img,
-                                                          self._feat_dtype),
+            ret.update({"obj_img_fts": obj_dev,
                         "obj_loc_fts": obj_loc, "obj_lens": obj_lens,
                         "obj_ids": obj_ids})
         return ret
@@ -998,11 +1001,13 @@ class R2RAgent:
             __slots__ = ("slots", "mem_state", "reset_rows", "pending",
                          "pano_inputs", "gmap_in", "nav_batch", "cur_ids",
                          "cand_ids", "real_mask", "a_t_override", "a_t",
-                         "fuse_embeds", "cache", "prefill_items")
+                         "fuse_embeds", "cache", "prefill_items", "index",
+                         "steps")
 
         streams: List[Stream] = []
-        for _ in range(n_streams):
+        for index in range(n_streams):
             st = Stream()
+            st.index, st.steps = index, 0
             st.slots = []
             for _ in range(num_slots):
                 sl = Slot()
@@ -1040,11 +1045,8 @@ class R2RAgent:
                 pad = batch + [batch[-1]] * (flush_width - len(batch))
                 self._streaming_generation(pad, len(batch), trie, results)
 
-        def _pre(st: Stream) -> bool:
-            """Host assembly of st's next step inputs. False once the
-            stream has no active slot (dataset drained)."""
-            if not any(sl.active for sl in st.slots):
-                return False
+        def _pre(st: Stream):
+            """Host assembly of st's next step inputs."""
             # fixed slot->row binding: inactive rows are stale and ignored
             active = st.slots
             n = len(active)
@@ -1152,7 +1154,6 @@ class R2RAgent:
                     st.a_t_override[i] = max(int(tgt), 0)
             st.pano_inputs = pano_inputs
             st.gmap_in = gmap_in
-            return True
 
         def _dispatch(st: Stream):
             # ONE device call: reset refills -> pano -> mem update -> nav
@@ -1195,6 +1196,15 @@ class R2RAgent:
                 st.a_t = np.where(st.a_t_override >= 0, st.a_t_override,
                                   a_t)
             st.pending = True
+            st.steps += 1
+
+        def _next(st: Stream):
+            """Assemble and dispatch st's next step, unless the stream has
+            no active slot (dataset drained)."""
+            if any(sl.active for sl in st.slots):
+                with span("assemble", "loop", (st.index, st.steps)):
+                    _pre(st)
+                    _dispatch(st)
 
         def _post(st: Stream):
             """Retire st's in-flight step: wait for a_t only, then run the
@@ -1260,17 +1270,16 @@ class R2RAgent:
         # prime the pipeline: each stream's first step is dispatched
         # before any result is awaited
         for st in streams:
-            if _pre(st):
-                _dispatch(st)
+            _next(st)
         while True:
             progressed = False
             for st in streams:
                 if not st.pending:
                     continue
                 progressed = True
-                _post(st)
-                if _pre(st):
-                    _dispatch(st)
+                with span("retire", "loop", (st.index, st.steps - 1)):
+                    _post(st)
+                _next(st)
             if not progressed:
                 break
             flush_og()

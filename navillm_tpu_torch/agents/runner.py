@@ -22,7 +22,10 @@ object grounding (REVERIE, SOON) ``object_grounding`` and
 ``sampling_params``, ``eval_step_q``, ``eval_step_cached_q`` and
 ``prefill_q``. Host arrays go up through pinned buffers with
 non-blocking copies, so uploading one slot group's step never waits for
-the other group's step running on the card.
+the other group's step running on the card. While a torch profiler
+records, an eval step's or prefill's uploads are one ``upload`` span, its
+device call alone a ``launch`` span, ``HostCopy``'s event wait a ``wait``
+span, and every upload is counted (``utils/profiling.py``).
 
 Randomness: jax.random keys become torch.Generators. The runner draws one
 seed per dropout-bearing call from its own host generator; a call seeded
@@ -58,6 +61,7 @@ from ..models.pano_encoder import dropout
 from ..models.quant import is_quantized, quantize_nav_params
 from ..models.tokenization import NavTokenizer
 from ..parallel.mesh import flat_specs, nav_param_specs, shard_params
+from ..utils.profiling import count, span
 from . import device_memory as DM
 
 # device graph-memory node capacity (ids beyond it are not memorized)
@@ -100,7 +104,8 @@ class HostCopy:
 
     def result(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
+            with span("wait", "runner"):
+                self.event.synchronize()
         return self.buf.numpy()
 
 
@@ -210,10 +215,13 @@ class NavModelRunner:
 
     def upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """Host array -> device tensor without a stream sync (pinned,
-        non-blocking on CUDA); ``dtype`` casts on the host first."""
+        non-blocking on CUDA); ``dtype`` casts on the host first. Counted
+        in the trace's ``uploads`` and ``h2d_bytes`` while a profiler
+        records."""
         t = torch.from_numpy(np.ascontiguousarray(x))
         if dtype is not None:
             t = t.to(dtype)
+        count(uploads=1, h2d_bytes=t.nbytes)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
@@ -596,11 +604,26 @@ class NavModelRunner:
         self.llm_token_units += float((np.asarray(mask) * v[:, None]).sum())
         self.prefill_calls += 1
         params, cfg = self._policy(quant)
-        with torch.inference_mode():
-            return DM.prefill_prefix(
-                params, cfg.llm, cache, self.upload(ids),
-                self.upload(mask), self.upload(np.asarray(rows, np.int32)),
-                self.upload(v))
+        with span("upload", "runner"):
+            up = (self.upload(ids), self.upload(mask),
+                  self.upload(np.asarray(rows, np.int32)), self.upload(v))
+        with span("launch", "runner"), torch.inference_mode():
+            return DM.prefill_prefix(params, cfg.llm, cache, *up)
+
+    def _step_uploads(self, pano_inputs, batch, reset_mask, cur_ids,
+                      cand_ids, active_mask, a_t_override):
+        """The device arguments of an eval step, uploaded in one span:
+        (panorama inputs, batch, (reset, cur_ids, cand_ids, active,
+        a_t_override))."""
+        if a_t_override is None:
+            a_t_override = np.full(len(cur_ids), -1, np.int32)
+        with span("upload", "runner"):
+            pano = self._pano_dev_inputs(pano_inputs)
+            dev = {k: self.upload(v) for k, v in batch.items()}
+            ids = tuple(self.upload(x) for x in (
+                reset_mask, cur_ids, cand_ids, active_mask,
+                np.asarray(a_t_override, np.int32)))
+        return pano, dev, ids
 
     def _sampling(self, do_sample: bool, temperature: float):
         """device_memory's action-selection arguments: with do_sample a
@@ -619,23 +642,20 @@ class NavModelRunner:
         Counts the active rows' window tokens in llm_token_units. Returns
         (state', cache, a_t, logits). quant: through the W8A8 sampling
         policy (eval_step_cached_q)."""
-        if a_t_override is None:
-            a_t_override = np.full(len(cur_ids), -1, np.int32)
-        pano = self._pano_dev_inputs(pano_inputs)
-        dev = {k: self.upload(v) for k, v in batch.items()}
+        pano, dev, ids = self._step_uploads(pano_inputs, batch, reset_mask,
+                                            cur_ids, cand_ids, active_mask,
+                                            a_t_override)
         act = np.asarray(active_mask)[:, None]
         self.llm_token_units += float(
             (np.asarray(batch["app_mask"]) * act).sum()
             + (np.asarray(batch["suf_mask"]) * act).sum())
         self.cached_steps += 1
+        count(steps=1)
         params, cfg = self._policy(quant)
-        with torch.inference_mode():
+        sampling = self._sampling(do_sample, temperature)
+        with span("launch", "runner"), torch.inference_mode():
             state, cache, a_t, logits = DM.eval_step_cached(
-                params, cfg, state, cache, pano, dev,
-                self.upload(reset_mask), self.upload(cur_ids),
-                self.upload(cand_ids), self.upload(active_mask),
-                self.upload(np.asarray(a_t_override, np.int32)),
-                **self._sampling(do_sample, temperature))
+                params, cfg, state, cache, pano, dev, *ids, **sampling)
         return state, cache, (HostCopy(a_t).result() if sync else a_t), logits
 
     def eval_step(self, state, pano_inputs: Dict, batch: Dict, reset_mask,
@@ -650,20 +670,17 @@ class NavModelRunner:
         sync=False the device tensor, so the caller can overlap host work
         with the step and download a_t later (HostCopy). quant: through
         the W8A8 sampling policy (eval_step_q)."""
-        if a_t_override is None:
-            a_t_override = np.full(len(cur_ids), -1, np.int32)
-        pano = self._pano_dev_inputs(pano_inputs)
-        dev = {k: self.upload(v) for k, v in batch.items()}
+        pano, dev, ids = self._step_uploads(pano_inputs, batch, reset_mask,
+                                            cur_ids, cand_ids, active_mask,
+                                            a_t_override)
         self.llm_token_units += float(np.asarray(batch["attention_mask"]).sum())
         self.eval_steps += 1
+        count(steps=1)
         params, cfg = self._policy(quant)
-        with torch.inference_mode():
+        sampling = self._sampling(do_sample, temperature)
+        with span("launch", "runner"), torch.inference_mode():
             state, a_t, logits = DM.eval_step(
-                params, cfg, state, pano, dev,
-                self.upload(reset_mask), self.upload(cur_ids),
-                self.upload(cand_ids), self.upload(active_mask),
-                self.upload(np.asarray(a_t_override, np.int32)),
-                **self._sampling(do_sample, temperature))
+                params, cfg, state, pano, dev, *ids, **sampling)
         return state, (HostCopy(a_t).result() if sync else a_t), logits
 
     # ------------------- the per-step and host-memory paths ------------ #

@@ -41,6 +41,7 @@ from ..ops.masking import NEG_INF
 from ..ops.matmul_q4 import matmul_q4, matmul_q4_reference
 from ..parallel.mesh import (copy_to_model, gather_from_model,
                              reduce_from_model)
+from ..utils.profiling import span
 from .params import ParamTree
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
@@ -496,8 +497,9 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
             pv = kv_dequantize(pv, prefix_kv["vs"][i], v.dtype)
         keys = torch.cat([pk.to(k.dtype), k], dim=1)
         vals = torch.cat([pv.to(v.dtype), v], dim=1)
-        attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
-                                    causal=False, impl="eager")
+        with span("window_attn", "model", timed=q):
+            attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
+                                        causal=False, impl="eager")
         x = _post_attn(cfg, x, lp, attn, tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), prefix_kv
 

@@ -20,14 +20,18 @@ busy share (the union of their spans over the wall time), the device time
 and launches by kernel group, largest first, and the SM clock and power
 draw nvidia-smi read every 200 ms during the run. The cached step's window
 attention (the eager path: einsums, mask and softmax) is a group of its
-own: its kernels are the ones launched inside the "eager window attention"
-range this script wraps around each eager attention call. The profiler
-adds host work per launch, so the wall times here are a little above
-chip_smoke.py's.
+own: its kernels are the ones launched inside the program's
+``nav.window_attn`` ranges (``llama.chunk_forward_cached``). The card's
+idle gaps are named by the innermost of the program's ``nav.*`` ranges
+(``utils/profiling.py``: the loop's stages, ``assemble``, ``retire``, the
+runner's ``upload``, ``launch``, ``wait``) the host was in at each gap's
+middle, ``outside`` where it was in none. The profiler adds host work per
+launch, so the wall times here are a little above chip_smoke.py's.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import gc
@@ -43,10 +47,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as C  # noqa: E402
-from navillm_tpu_torch.models import llama as L  # noqa: E402
 from navillm_tpu_torch.models.tokenization import NavTokenizer  # noqa: E402
+from navillm_tpu_torch.utils.profiling import SPAN_PREFIX  # noqa: E402
 
-WINDOW = "eager window attention"
+WINDOW = SPAN_PREFIX + "window_attn"
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
@@ -62,26 +66,34 @@ GROUPS = (
 )
 
 
-def annotate_window_attention():
-    """Wrap every eager attention call of the LLM (the cached step's
-    window) in a profiler range named WINDOW."""
-    mha = L.multi_head_attention
-
-    def wrapped(q, k, v, *, impl="auto", **kw):
-        if impl != "eager":
-            return mha(q, k, v, impl=impl, **kw)
-        with torch.profiler.record_function(WINDOW):
-            return mha(q, k, v, impl=impl, **kw)
-
-    L.multi_head_attention = wrapped
-
-
 def launched_under(event):
     """(name, device us) of every kernel launched inside a CPU event."""
     out = [(k.name, k.duration) for k in event.kernels]
     for child in event.cpu_children:
         out += launched_under(child)
     return out
+
+
+def idle_gaps(spans, host):
+    """Idle seconds between the device spans (sorted (start, end, name),
+    us), by the innermost host range of ``host`` (sorted (start, end,
+    name)) that holds each gap's middle, "outside" where none does."""
+    gaps, reach = {}, None
+    starts = [h[0] for h in host]
+    longest = max((h1 - h0 for h0, h1, _ in host), default=0)
+    for start, end, _ in spans:
+        if reach is not None and start > reach:
+            mid = 0.5 * (reach + start)
+            name, k = "outside", bisect.bisect_right(starts, mid) - 1
+            # the latest-starting range that holds mid is the innermost
+            while k >= 0 and host[k][0] >= mid - longest:
+                if host[k][1] >= mid:
+                    name = host[k][2][len(SPAN_PREFIX):]
+                    break
+                k -= 1
+            gaps[name] = gaps.get(name, 0.0) + (start - reach) / 1e6
+        reach = end if reach is None else max(reach, end)
+    return gaps
 
 
 def group_of(name: str) -> str:
@@ -131,7 +143,7 @@ def traced(cell: str):
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in events if e.device_type == cuda
-                   and e.name != WINDOW
+                   and not e.name.startswith(SPAN_PREFIX)
                    and not getattr(e, "is_user_annotation", False))
     if not spans:
         raise RuntimeError(f"{cell}: the trace holds no device time")
@@ -157,6 +169,13 @@ def traced(cell: str):
     print(f"[profile] {cell}: wall {wall:.3f} s, device {total / 1e6:.3f} s "
           f"in {len(spans)} device events, busy {100 * busy / 1e6 / wall:.1f}%"
           f" of the wall time")
+    host = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events if e.device_type != cuda
+                  and e.name.startswith(SPAN_PREFIX))
+    gaps = idle_gaps(spans, host)
+    print(f"[profile]   idle {sum(gaps.values()):.3f} s: " + ", ".join(
+        f"in {k} {v:.3f}" for k, v in sorted(gaps.items(),
+                                              key=lambda kv: -kv[1])))
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         if not count[group]:
             continue
@@ -172,7 +191,6 @@ def main():
     opts = ap.parse_args()
     smi = C.phase_device()
     C.phase_build()
-    annotate_window_attention()
     tok, cfg, model = C.model_7b()
     bpe = NavTokenizer.bpe(max_length=1024, pad_to_multiple=64)
     if opts.tokenizer == "bpe":

@@ -314,8 +314,9 @@ The rest of quantization, at 7B width on BPE prompts:
      product exact against f64 at the model's shapes);
      ms per step, padded int8 products per step,
      cache bytes per slot group (bf16 against int8), LLM bytes, peak; one
-     kv8 cached step against the uncached W8A8 step (phase 15's A/B, whose
-     planted faults add the last cached token's K scaled to zero).
+     kv8 cached step against the uncached W8A8 step (phase 15's A/B), and
+     one kv8 cached step against the uncached step on bf16 activations,
+     whose planted faults add the last cached token's K scaled to zero.
 Slice 14, after phase 44 (the int4 and int8 trees freed):
  45. the feature-extraction towers, EVA02-CLIP-L-14-336 and CLIP
      ViT-L/14-336, at full width (24 layers, width 1024, 577 tokens),
@@ -467,7 +468,8 @@ from navillm_tpu_torch.ops.attention import (
     FlashAttention, attention_delta, attention_eager, flash_attention_bwd_dkv,
     flash_attention_bwd_dkv_reference, flash_attention_bwd_dq,
     flash_attention_bwd_dq_reference, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_fwd_reference)
+    flash_attention_fwd, flash_attention_fwd_reference, window_attention,
+    window_attention_reference, window_mask)
 from navillm_tpu_torch.ops.masking import NEG_INF
 from navillm_tpu_torch.ops.matmul_q4 import (matmul_q4, matmul_q4_reference,
                                              unpack_q4)
@@ -499,11 +501,16 @@ KERNELS = {
     "q4": {"name": "matmul_q4", "route": "cuda",
            "source": "navillm_tpu_torch/csrc/matmul_q4.cu",
            "replaces": "navillm_tpu/ops/matmul_q4.py:60"},
+    "window": {"name": "flash_attn_window_fwd", "route": "cuda",
+               "source": "navillm_tpu_torch/csrc/flash_attn_window_fwd.cu",
+               "replaces": "none: JAX runs the prefix-cached window "
+                           "attention through XLA (navillm_tpu/models/"
+                           "llama.py chunk_forward_cached)"},
 }
 COUNTERS = {"fwd": flash_attention_fwd, "dkv": flash_attention_bwd_dkv,
             "dq": flash_attention_bwd_dq}
 SOURCES = ["flash_attn_fwd", "flash_attn_bwd", "flash_attn_bwd_dq",
-           "matmul_q4"]
+           "matmul_q4", "flash_attn_window_fwd"]
 # the H100 SXM's published peaks (bf16 dense tensor cores; HBM3)
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -942,6 +949,18 @@ def fwd_bound(b, t, s, nh, nkv, d, causal):
     return bound(4 * d * b * nh * attn_pairs(t, s, causal), nbytes)
 
 
+def window_bound(prefix_mask, win_mask, nh, nkv, d):
+    """The window kernel: 2 products of 2 D FLOP per (query, visible key)
+    pair and head; Q read and O written once, the K/V of each row's valid
+    prefix keys and of its whole window read once, both masks read once."""
+    b, s = win_mask.shape
+    pairs = int(window_mask(prefix_mask, win_mask).sum())
+    kv_rows = int(prefix_mask.sum()) + b * s
+    nbytes = 2 * d * (2 * b * s * nh + 2 * kv_rows * nkv) \
+        + prefix_mask.numel() + win_mask.numel()
+    return bound(4 * d * nh * pairs, nbytes)
+
+
 def bwd_bounds(b, t, nh, d):
     """(K2, K3), causal with T == S and NKV == NH. K2 does 4 products per
     pair, reads Q, K, V, dO, lse, delta and the mask and writes dK and dV;
@@ -1010,10 +1029,11 @@ def gate(what: str, got, want, rows, faults=(), long_rows=None) -> float:
 
 def sdpa_call(q, k, v, mask, causal: bool, scale: float):
     """K1's function as one F.scaled_dot_product_attention call on the
-    [B, NH, T, D] views with the same boolean mask (the library yardstick;
-    the port never calls it)."""
+    [B, NH, T, D] views with the same boolean mask, a [B, S] key mask or a
+    [B, T, S] one (the window attention's); the library yardstick, which
+    the port never calls."""
     t, s = q.shape[1], k.shape[1]
-    am = mask[:, None, None, :]
+    am = mask[:, None, None, :] if mask.dim() == 2 else mask[:, None]
     if causal:
         am = am & torch.ones(t, s, dtype=torch.bool,
                              device=mask.device).tril(s - t)
@@ -1157,6 +1177,106 @@ def phase_kernel():
     return top, timed
 
 
+def window_inputs(gen, b, nh, nkv, d, app_w, suf_w, plens):
+    """The prefix-cached step's window attention at the benchmark cell's
+    layout: q, the cache's [B, MAX_PREFIX] K/V with row b's first plens[b]
+    slots valid, an [append app_w | suffix suf_w] window with 0..app_w
+    append and suf_w - 26..suf_w suffix tokens valid (padding inside the
+    window), from ``gen``."""
+    s, p = app_w + suf_w, MAX_PREFIX
+    q = randn(gen, b, s, nh, d)
+    kp, vp = randn(gen, b, p, nkv, d), randn(gen, b, p, nkv, d)
+    kw, vw = randn(gen, b, s, nkv, d), randn(gen, b, s, nkv, d)
+    ar = torch.arange(max(p, s), device="cuda")
+    app = torch.randint(0, app_w + 1, (b,), generator=gen, device="cuda")
+    suf = torch.randint(suf_w - 26, suf_w + 1, (b,), generator=gen,
+                        device="cuda")
+    pm = ar[None, :p] < plens[:, None]
+    wm = torch.cat([ar[None, :app_w] < app[:, None],
+                    ar[None, :suf_w] < suf[:, None]], dim=1)
+    return q, kp, vp, pm, kw, vw, wm
+
+
+def phase_window_kernel(tag=51):
+    """The window kernel (csrc/flash_attn_window_fwd.cu) against its plain
+    version at the prefix-cached cell's shapes (16 slots, 192-slot cache
+    holding 45-115 tokens, [append 24 | suffix 49 or 75] windows, 32 query
+    heads over 8 KV heads of 128) and at deepseek's MHA, by phase 2's gate;
+    a prefix key and a window key hidden must each fail it on the rows
+    that lose the key. Then timed at the cell's shape beside its plain
+    version (the eager path the step ran before) and masked SDPA over the
+    concatenated K/V with the [B, S, P+S] mask (the library yardstick).
+    Returns the timed row."""
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    out = {"max_abs_err": 0.0, "gate_excess": 0.0}
+    with torch.inference_mode():
+        for nh, nkv, suf_w in ((32, 8, 49), (32, 8, 75), (32, 32, 75)):
+            b, d, app_w = 16, 128, 24
+            plens = torch.randint(45, 116, (b,), generator=gen,
+                                  device="cuda")
+            args = window_inputs(gen, b, nh, nkv, d, app_w, suf_w, plens)
+            q, kp, vp, pm, kw, vw, wm = args
+            scale = d ** -0.5
+            o = window_attention(*args, scale=scale)
+            ro = window_attention_reference(*args, scale=scale)
+            torch.cuda.synchronize()
+            what = (f"[{tag}] window B={b} S={app_w + suf_w} P={MAX_PREFIX} "
+                    f"NH={nh} NKV={nkv} D={d}")
+            if not torch.isfinite(o).all():
+                raise RuntimeError(f"{what}: kernel output is not finite")
+            vis = window_mask(pm, wm)
+            rows = vis.any(-1)
+            err = (o.float() - ro.float()).abs()[rows].max().item()
+            shown = []
+            hid_p, hid_w = pm.clone(), wm.clone()
+            hid_p[:, 30] = False
+            hid_w[:, app_w + 10] = False
+            for name, (pmf, wmf) in (("a prefix key hidden", (hid_p, wm)),
+                                     ("a window key hidden", (pm, hid_w))):
+                bad = window_attention_reference(q, kp, vp, pmf, kw, vw, wmf,
+                                                 scale=scale)
+                lost = (vis & ~window_mask(pmf, wmf)).any(-1)
+                r = T.attn_excess(bad, ro, lost)
+                shown.append(f"{name} {r:.1f}")
+                if r <= 1:
+                    raise RuntimeError(f"{what}: the gate passes a planted "
+                                       f"fault ({name}, excess {r:.3f})")
+            excess = T.attn_excess(o, ro, rows)
+            print(f"{what}: max|dO|={err:.3e}, excess {excess:.3f} of the "
+                  f"limit; planted faults fail it: {', '.join(shown)}")
+            if not excess <= 1:
+                raise RuntimeError(f"{what}: kernel disagrees with its plain "
+                                   f"version")
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["gate_excess"] = max(out["gate_excess"], excess)
+        # timed at the cell's widest window: GQA 32/8, S = 99
+        b, nh, nkv, d, app_w, suf_w = 16, 32, 8, 128, 24, 75
+        plens = torch.randint(45, 116, (b,), generator=gen, device="cuda")
+        args = window_inputs(gen, b, nh, nkv, d, app_w, suf_w, plens)
+        q, kp, vp, pm, kw, vw, wm = args
+        scale = d ** -0.5
+        ms = cuda_ms(lambda: window_attention(*args, scale=scale), iters=200)
+        plain_ms = cuda_ms(lambda: window_attention_reference(
+            *args, scale=scale), iters=50)
+        keys, vals = torch.cat([kp, kw], 1), torch.cat([vp, vw], 1)
+        library = sdpa_call(q, keys, vals, window_mask(pm, wm), False,
+                            scale)
+        library_ms = cuda_ms(library, iters=200)
+        ro = window_attention_reference(*args, scale=scale)
+        lib_err = (library().transpose(1, 2).float()
+                   - ro.float()).abs()[window_mask(pm, wm).any(-1)].max() \
+            .item()
+    bound_ms, by = window_bound(pm, wm, nh, nkv, d)
+    print(f"[{tag}] window B={b} S={app_w + suf_w} P={MAX_PREFIX} GQA "
+          f"{nh}/{nkv}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, masked "
+          f"SDPA {library_ms:.4f} ms (max|d| {lib_err:.3e} from the plain "
+          f"version), bound {bound_ms:.4f} ms ({by}); x32 layers: kernel "
+          f"{32 * ms:.3f} ms, plain {32 * plain_ms:.3f} ms a step")
+    return {**out, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+            "bound_by": by}
+
+
 def model_7b(tag=3, quiet: bool = False):
     tok = NavTokenizer(max_length=1024, pad_to_multiple=128)
     llm = LlamaConfig.vicuna_7b(vocab_size=32128, max_seq_len=1024,
@@ -1245,7 +1365,7 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches = window_attention.launches = 0
     matmul_q4.launches = matmul_q4.int8_launches = 0
     L.int_mm.padded_calls = L.int_mm.padded_rows = 0
     runner.eval_steps = runner.cached_steps = runner.prefill_calls = 0
@@ -1282,12 +1402,19 @@ def phase_slice(tag, tok, cfg, model, tmp, warm_up: bool = True,
     if launches != want:
         raise RuntimeError(f"kernel launches {launches} != "
                            f"{want // layers} {per} x {layers} layers")
+    # the window kernel: once per layer of every cached step (bf16, D 128)
+    if window_attention.launches != counts["cached_steps"] * layers:
+        raise RuntimeError(f"window kernel launches "
+                           f"{window_attention.launches} != "
+                           f"{counts['cached_steps']} cached steps x "
+                           f"{layers} layers")
     stats = {**counts, "steps": steps, "seconds": dt,
              "episodes_per_s": len(preds) / dt, "ms_per_step": 1e3 * dt / steps,
              "token_units": runner.llm_token_units,
              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
              "int_mm_padded": (L.int_mm.padded_calls, L.int_mm.padded_rows),
-             "launches": launches, "q4_launches": matmul_q4.launches}
+             "launches": launches, "q4_launches": matmul_q4.launches,
+             "window_launches": window_attention.launches}
     kind = "cached" if prefix_cache else "eval"
     widths_note = (f"[append | suffix] window widths {sorted(set(widths))}"
                    if prefix_cache else f"prompt widths {sorted(set(widths))}")
@@ -1935,11 +2062,15 @@ def phase_cached_ab(bpe, cfg, model, tmp, tag=15, kv_int8=False):
     per element (cached_logit_tol; CACHED_LOGIT_SPREAD_A8KV8 on an int8
     cache under int8 activations); the same cached step with the last
     cached token hidden from the prefix (plen - 1) must fail the gate, and
-    on an int8 cache (kv_int8, phase 41) so must the step with that token's
-    K scaled to zero (its K scales set to 0). Returns {name: excess} of the
-    honest step and the faults."""
+    on an int8 cache under bf16 activations (kv_int8, phase 41's
+    weight-only run) so must the step with that token's K scaled to zero
+    (its K scales set to 0). Under W8A8 that fault is not planted: it moves
+    the logits ~0.2 row spreads, the size of the noise by which two exact
+    attentions part there (PERF.md §6). Returns {name: excess} of
+    the honest step and the faults."""
     spread = CACHED_LOGIT_SPREAD_A8KV8 if kv_int8 and cfg.llm.act_int8 \
         else CACHED_LOGIT_SPREAD
+    zero_k_fault = kv_int8 and not cfg.llm.act_int8
     runner = NavModelRunner(cfg, model, bpe, dims=slice_dims())
     feat = cfg.pano.image_feat_size
     anno = T.make_r2r_world(f"{tmp}/ab", n_episodes=2 * N_SLOTS, seed=2)
@@ -1993,7 +2124,7 @@ def phase_cached_ab(bpe, cfg, model, tmp, tag=15, kv_int8=False):
 
         got = cached()
         faults = {"last cached token hidden": cached(hide=1)}
-        if kv_int8:
+        if zero_k_fault:
             faults["last cached token's K scaled to zero"] = \
                 cached(zero_k=True)
         toks, cand_pos, hist_pos, cls_pos = runner.tokenize_with_positions(
@@ -2021,7 +2152,8 @@ def phase_cached_ab(bpe, cfg, model, tmp, tag=15, kv_int8=False):
         notes.append(f"{name}: excess {out[name]:.2f} (spread "
                      f"{spread_need(bad, want):.4f}; the RMS limit's excess "
                      f"{logit_excess(bad, want):.2f})")
-    kind = "W8A8 on an int8 cache" if kv_int8 else "bf16 cache"
+    kind = ("W8A8" if cfg.llm.act_int8 else "bf16 activations") \
+        + (" on an int8 cache" if kv_int8 else ", bf16 cache")
     print(f"[{tag}] cached step ({kind}) vs uncached step ({N_SLOTS} slots, "
           f"each appending >= {n_hist} history tokens, at the slots' step "
           f"{AB_SNAPSHOT} or later; prompts of {toks.input_ids.shape[1]} "
@@ -5714,7 +5846,8 @@ def phase_w8a8(bpe, cfg, model8, tmp):
     K/V (_cached_kv8). Gates: the int8 product exact (check_w8a8_mm);
     phase 13's and 14's (starts, metrics, K1 launches, cached path only);
     no K4 launch; the kv8 cached step against the uncached W8A8 step on
-    one snapshot (phase_cached_ab, with its planted faults); and the
+    one snapshot, and again on bf16 activations (phase_cached_ab, with its
+    planted faults: K scaled to zero on bf16 activations only); and the
     near-tie rule with the int8 noise: every episode's first step sees
     the same state in both runs, so the largest logit deviation there (E0)
     is what the int8 noise does to a logit; where a kv8 trajectory parts
@@ -5756,6 +5889,7 @@ def phase_w8a8(bpe, cfg, model8, tmp):
            "both": ("kv8", "ref")}.items()}
     parted = near_tie_parts(41, kv_trajs, ref, logs["ref"], strict=False)
     ab = phase_cached_ab(bpe, a8, model8, tmp, tag=41, kv_int8=True)
+    ab_kv8 = phase_cached_ab(bpe, cfg, model8, tmp, tag=41, kv_int8=True)
     beyond = [p for p in parted if p[2] > 2 * e0["both"] + p[3]]
     bf16_b = runner.prefix_cache_bytes(N_SLOTS, MAX_PREFIX)
     kv8_b = runner.prefix_cache_bytes(N_SLOTS, MAX_PREFIX, kv_int8=True)
@@ -5786,7 +5920,8 @@ def phase_w8a8(bpe, cfg, model8, tmp):
     if beyond:
         raise RuntimeError(f"[41] kv8 trajectories part on top-2 margins "
                            f"beyond 2 E0: {beyond}")
-    return {"ref": ref_st, "a8": a8_st, "kv8": kv_st, "ab": ab, "e0": e0,
+    return {"ref": ref_st, "a8": a8_st, "kv8": kv_st, "ab": ab,
+            "ab_kv8": ab_kv8, "e0": e0,
             "same": (same_a8, same_kv), "cache_bytes": (bf16_b, kv8_b),
             "launches": sum(st["launches"] for st in (ref_st, a8_st, kv_st))}
 
@@ -6963,6 +7098,7 @@ def main():
     smi = phase_device()
     phase_build()
     fwd_err, fwd_timed = phase_kernel()
+    window_row = phase_window_kernel()
     tok, cfg, model = model_7b()
     prompts = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -7213,6 +7349,12 @@ def main():
              "gqa_32_8": {shape: {k: r[k] for k in (
                  "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_by")} for shape, r in l3_k1.items()}}]
+    rows.append({**KERNELS["window"], **window_row,
+                 "launches": cached_stats["window_launches"],
+                 "launches_by_phase": {"14": cached_stats["window_launches"]},
+                 "shape": f"B=16 S=99 P={MAX_PREFIX} NH=32 NKV=8 D=128",
+                 "library": "masked F.scaled_dot_product_attention over the "
+                            "concatenated K/V, [B, S, P+S] mask"})
     for key in ("dkv", "dq"):
         rows.append({**KERNELS[key], "launches": launches[key],
                      "launches_by_phase": by_phase(key),

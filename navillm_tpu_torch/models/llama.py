@@ -30,13 +30,14 @@ reduce_from_model after a row split).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import multi_head_attention
+from ..ops.attention import multi_head_attention, window_attention
 from ..ops.masking import NEG_INF
 from ..ops.matmul_q4 import matmul_q4, matmul_q4_reference
 from ..parallel.mesh import (copy_to_model, gather_from_model,
@@ -423,10 +424,13 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
     (``kv_quantize``); prefix_mask [B, P] validity; suffix_mask [B, S]
     validity (right-padded); positions [B, S] absolute rope positions.
     Each window token sees the row's valid prefix and the window tokens up
-    to itself: a [B, S, P+S] mask, so attention runs the eager path (the
-    flash kernel takes [B, S] key masks only), as JAX runs impl="xla"
-    here. An int8 cache is dequantized per layer at read (f32, then one
-    rounding to the compute dtype).
+    to itself (ops/attention.py:window_mask). Each layer's attention is
+    ops/attention.py:window_attention over the cache's layer view and the
+    window's K/V: on CUDA tensors the window kernel, which reads the two
+    as separate sources; on CPU tensors the eager path over their
+    concatenation under the [B, S, P+S] mask, as JAX runs impl="xla" here.
+    An int8 cache is dequantized per layer at read (f32, then one rounding
+    to the compute dtype).
 
     write_offsets [B] (optional): also write the window's post-rope K/V
     into the cache at write_offsets[b] + j for the tokens of write_mask
@@ -446,9 +450,7 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
     p = prefix_kv["k"].shape[2]
     dev = inputs_embeds.device
     cos, sin = rope_tables(cfg, positions)
-    qi = torch.arange(s, device=dev)[:, None]
-    sm = (qi >= qi.T)[None] & suffix_mask[:, None, :]
-    kv_mask = torch.cat([prefix_mask[:, None, :].expand(b, s, p), sm], dim=-1)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
 
     x = inputs_embeds.to(cfg.dtype)
     tp = tp_group(params)
@@ -495,11 +497,9 @@ def chunk_forward_cached(params, cfg: LlamaConfig, inputs_embeds, prefix_kv,
         if quant:
             pk = kv_dequantize(pk, prefix_kv["ks"][i], k.dtype)
             pv = kv_dequantize(pv, prefix_kv["vs"][i], v.dtype)
-        keys = torch.cat([pk.to(k.dtype), k], dim=1)
-        vals = torch.cat([pv.to(v.dtype), v], dim=1)
         with span("window_attn", "model", timed=q):
-            attn = multi_head_attention(q, keys, vals, kv_mask=kv_mask,
-                                        causal=False, impl="eager")
+            attn = window_attention(q, pk, pv, prefix_mask, k, v,
+                                    suffix_mask, scale=scale)
         x = _post_attn(cfg, x, lp, attn, tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), prefix_kv
 

@@ -15,6 +15,11 @@ package's: q [B, T, NH, D]; k, v [B, S, NKV, D]; kv_mask [B, S] bool
   ``csrc/flash_attn_bwd.cu`` (the port of ``_flash_bwd_dkv_kernel``) on
   that delta; on CPU tensors they run their plain versions
   (``attention_delta`` for delta).
+- ``window_attention`` launches ``csrc/flash_attn_window_fwd.cu``, the
+  prefix-cached step's window over its two K/V sources (no TPU kernel:
+  JAX runs it through XLA); on CPU tensors it runs
+  ``window_attention_reference``, the eager path over the concatenated
+  sources.
 - ``FlashAttention`` is the twin of ``_flash_differentiable``: the forward
   kernel, saving (q, k, v, mask, O, lse), and the backward kernels.
 - ``multi_head_attention`` dispatches: CUDA tensors go to the kernels at
@@ -29,6 +34,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.profiling import count
 from . import _build
 from .masking import NEG_INF
 
@@ -100,17 +106,23 @@ def _flash_lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_tma_operand(what, name, x, q):
+    """x is a 4-d bf16 tensor on q's device that TMA can read: a dense
+    last dim, strides in multiples of 8 elements, 16-byte aligned."""
+    st = x.stride()
+    if x.dtype != torch.bfloat16 or len(st) != 4 or x.device != q.device:
+        raise ValueError(f"{what}: {name} must be a 4-d bf16 tensor on "
+                         f"{q.device}, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    if st[3] != 1 or (st[0] | st[1] | st[2]) % 8 or x.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} needs a dense last dim, strides "
+                         f"in multiples of 8 and 16-byte alignment, got "
+                         f"strides {st}")
+
+
 def _check_kernel_inputs(q, k, v, kv_mask, causal):
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device or x.dtype != torch.bfloat16 or x.dim() != 4:
-            raise ValueError(f"flash kernel: {name} must be a 4-d bf16 "
-                             f"tensor on {q.device}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
-        if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:3]) \
-                or x.data_ptr() % 16:
-            raise ValueError(f"flash kernel: {name} needs a dense last dim, "
-                             f"strides in multiples of 8 and 16-byte "
-                             f"alignment, got strides {x.stride()}")
+        _check_tma_operand("flash kernel", name, x, q)
     b, t, nh, d = q.shape
     s, nkv = k.shape[1], k.shape[2]
     if k.shape != (b, s, nkv, d) or v.shape != k.shape:
@@ -216,7 +228,7 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, o, lse, do, causal,
     return dq, dk, dv
 
 
-def _bwd_lib(source: str, entry: str, argtypes) -> ctypes.CDLL:
+def _entry_lib(source: str, entry: str, argtypes) -> ctypes.CDLL:
     """csrc/<source>.cu, with its C entry point ``entry`` bound."""
     lib = _build.load(source).lib
     fn = getattr(lib, entry)
@@ -289,7 +301,8 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do, *,
                                                  do, causal, scale)
     dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, do, causal)
     _check_rows_f32(q, "delta", delta)
-    lib = _bwd_lib("flash_attn_bwd", "navillm_flash_attn_bwd_dkv", _DKV_ARGS)
+    lib = _entry_lib("flash_attn_bwd", "navillm_flash_attn_bwd_dkv",
+                     _DKV_ARGS)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = lib.navillm_flash_attn_bwd_dkv(
@@ -315,7 +328,8 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, lse, o, do, *, causal: bool,
         return flash_attention_bwd_dq_reference(
             q, k, v, kv_mask, lse, delta, do, causal, scale), delta
     dims, strides = _bwd_launch_args(q, k, v, kv_mask, lse, do, causal, o)
-    lib = _bwd_lib("flash_attn_bwd_dq", "navillm_flash_attn_bwd_dq", _DQ_ARGS)
+    lib = _entry_lib("flash_attn_bwd_dq", "navillm_flash_attn_bwd_dq",
+                     _DQ_ARGS)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     err = lib.navillm_flash_attn_bwd_dq(
@@ -344,6 +358,100 @@ def flash_attention_bwd(q, k, v, kv_mask, o, lse, do, *, causal: bool,
     dk, dv = flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do,
                                      causal=causal, scale=scale)
     return dq, dk, dv
+
+
+# ---------------------------------------------- prefix-cached window --- #
+def window_mask(prefix_mask, win_mask) -> torch.Tensor:
+    """[B, S, P+S] visibility of a prefix-cached window: each window query
+    sees every valid prefix key and the valid window keys up to itself."""
+    b, p = prefix_mask.shape
+    s = win_mask.shape[1]
+    qi = torch.arange(s, device=win_mask.device)[:, None]
+    sm = (qi >= qi.T)[None] & win_mask[:, None, :]
+    return torch.cat([prefix_mask[:, None, :].expand(b, s, p), sm], dim=-1)
+
+
+def window_attention_reference(q, k_prefix, v_prefix, prefix_mask, k_win,
+                               v_win, win_mask, *, scale: float):
+    """Plain version of the window kernel: the two K/V sources
+    concatenated, then attention_eager under window_mask."""
+    keys = torch.cat([k_prefix.to(k_win.dtype), k_win], dim=1)
+    vals = torch.cat([v_prefix.to(v_win.dtype), v_win], dim=1)
+    return attention_eager(q, keys, vals, window_mask(prefix_mask, win_mask),
+                           False, scale)
+
+
+# eight pointers (q, k_prefix, v_prefix, prefix_mask, k_win, v_win,
+# win_mask, o), B S P NH NKV D, the strides, scale, stream
+_WINDOW_ARGS = [_PTR] * 8 + [_I32] * 6 + [_I64] * 20 + [ctypes.c_float, _PTR]
+
+
+def _check_window_inputs(q, k_prefix, v_prefix, prefix_mask, k_win, v_win,
+                         win_mask):
+    what = "window kernel"
+    for name, x in (("q", q), ("k_prefix", k_prefix), ("v_prefix", v_prefix),
+                    ("k_win", k_win), ("v_win", v_win)):
+        _check_tma_operand(what, name, x, q)
+    b, s, nh, d = q.shape
+    p, nkv = k_prefix.shape[1], k_prefix.shape[2]
+    if k_win.shape != (b, s, nkv, d) or v_win.shape != k_win.shape \
+            or k_prefix.shape != (b, p, nkv, d) \
+            or v_prefix.shape != k_prefix.shape:
+        raise ValueError(f"{what}: K/V shapes {tuple(k_prefix.shape)} "
+                         f"{tuple(v_prefix.shape)} (prefix), "
+                         f"{tuple(k_win.shape)} {tuple(v_win.shape)} (window) "
+                         f"do not match q {tuple(q.shape)}")
+    if d not in (64, 128) or nh % nkv:
+        raise ValueError(f"{what}: head_dim {d} (needs 64 or 128), {nh} "
+                         f"heads over {nkv} kv heads")
+    for name, m, n in (("prefix_mask", prefix_mask, p),
+                       ("win_mask", win_mask, s)):
+        if m.dtype != torch.bool or m.shape != (b, n) or m.stride(1) != 1 \
+                or m.device != q.device:
+            raise ValueError(f"{what}: {name} must be a dense [B, {n}] bool "
+                             f"tensor on {q.device}, got {m.dtype} "
+                             f"{tuple(m.shape)} on {m.device}")
+
+
+def window_attention(q, k_prefix, v_prefix, prefix_mask, k_win, v_win,
+                     win_mask, *, scale: float) -> torch.Tensor:
+    """Attention of an S-token window over a row's cached prefix and
+    itself: O [B, S, NH, D].
+
+    q [B, S, NH, D]; k_prefix, v_prefix [B, P, NKV, D] with prefix_mask
+    [B, P]; k_win, v_win [B, S, NKV, D] with win_mask [B, S]. Each query
+    sees the valid prefix keys and the valid window keys up to itself
+    (window_mask). CUDA tensors launch csrc/flash_attn_window_fwd.cu on the
+    current stream (counted in ``window_attention.launches``); it takes
+    bf16 with head_dim 64 or 128 and raises on anything else. CPU tensors
+    run window_attention_reference. While a profiler records, each call
+    adds one to the trace's counter ``window_kernel`` or ``window_eager``
+    (utils/profiling.count)."""
+    if not q.is_cuda:
+        count(window_eager=1)
+        return window_attention_reference(q, k_prefix, v_prefix, prefix_mask,
+                                          k_win, v_win, win_mask, scale=scale)
+    _check_window_inputs(q, k_prefix, v_prefix, prefix_mask, k_win, v_win,
+                         win_mask)
+    lib = _entry_lib("flash_attn_window_fwd", "navillm_flash_attn_window_fwd",
+                     _WINDOW_ARGS)
+    b, s, nh, d = q.shape
+    o = torch.empty((b, s, nh, d), dtype=q.dtype, device=q.device)
+    err = lib.navillm_flash_attn_window_fwd(
+        *(x.data_ptr() for x in (q, k_prefix, v_prefix, prefix_mask, k_win,
+                                 v_win, win_mask, o)),
+        b, s, k_prefix.shape[1], nh, k_win.shape[2], d,
+        *q.stride()[:3], *k_prefix.stride()[:3], *v_prefix.stride()[:3],
+        prefix_mask.stride(0), *k_win.stride()[:3], *v_win.stride()[:3],
+        win_mask.stride(0), *o.stride()[:3], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on_error(lib, err, "window attention kernel")
+    window_attention.launches += 1
+    count(window_kernel=1)
+    return o
+
+
+window_attention.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
